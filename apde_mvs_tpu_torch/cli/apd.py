@@ -71,7 +71,7 @@ _NOT_PORTED = {
     "profile_dir": "profiler traces",
     "fuse_shard": "sharded fusion",
     "merge_fusion": "fusion shard merging",
-    "export_anchor": "anchor exports (APD slice)",
+    "export_anchor": "anchor / nearest-strong / fit-normal debug exports",
     "export_curve": "reliable-curve exports",
 }
 

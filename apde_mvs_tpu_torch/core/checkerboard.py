@@ -43,8 +43,9 @@ def scatter_color(arr: torch.Tensor, vals: torch.Tensor,
     return out.reshape(arr.shape)
 
 
-def color_coords(height: int, width: int, color: int, device="cpu"):
-    """Pixel coordinates (x, y) int32 of the compacted (H, W//2) cells."""
+def color_coords(height: int, width: int, color: int, *, device):
+    """Pixel coordinates (x, y) int32 of the compacted (H, W//2) cells, on
+    ``device``."""
     ys = torch.arange(height, dtype=torch.int32,
                       device=device)[:, None].expand(height, width // 2)
     js = torch.arange(width // 2, dtype=torch.int32,

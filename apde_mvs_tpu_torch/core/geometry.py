@@ -97,8 +97,9 @@ class CameraArrays:
         return self.K[..., 1, 2]
 
     @staticmethod
-    def from_cameras(cams, device="cpu") -> "CameraArrays":
-        """Stack a list of io.cameras.Camera into float32 tensors."""
+    def from_cameras(cams, *, device) -> "CameraArrays":
+        """Stack a list of io.cameras.Camera into float32 tensors on
+        ``device``."""
         def stack(vals):
             return torch.as_tensor(np.stack(vals).astype(np.float32),
                                    device=device)

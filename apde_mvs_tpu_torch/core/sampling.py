@@ -63,16 +63,18 @@ def lerp_quad_rows(rows: torch.Tensor, fx, fy):
     return top * (1.0 - fy) + bot * fy
 
 
-def bilinear_sample_packed(quad: torch.Tensor, width: int, height: int, x, y):
+def bilinear_sample_packed(quad: torch.Tensor, width: int, height: int, x, y,
+                           site: str = "other"):
     """Bilinear sample from a pack_bilinear[_u8]() layout.
 
     ``quad`` is one (N, 4) table with x, y of any shape, or S tables
-    (S, N, 4) with x, y (S, ...) — sample s of the batch reads table s."""
+    (S, N, 4) with x, y (S, ...) — sample s of the batch reads table s.
+    ``site`` names the call site in K1's per-site launch counts."""
     from ..ops.cuda import sampler
     if quad.ndim == 2:
         return sampler.sample_packed(quad[None], width, height, x[None],
-                                     y[None])[0]
-    return sampler.sample_packed(quad, width, height, x, y)
+                                     y[None], site=site)[0]
+    return sampler.sample_packed(quad, width, height, x, y, site=site)
 
 
 def bilinear_sample(img: torch.Tensor, x, y):

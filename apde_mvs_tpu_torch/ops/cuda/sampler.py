@@ -27,7 +27,10 @@ Forms:
   f32 image, coordinates of any shape.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback. ``launches`` counts kernel launches.
+raises — there is no fallback. ``launches`` counts kernel launches, and
+``site_launches`` splits the packed form's launches by the call site that
+asked for them ("strong": the square/star-window NCC; "weak_centre" and
+"weak_anchor": the deformable NCC's centre window and anchor windows).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ...core.sampling import lerp_quad_rows, pack_bilinear, quad_coords
 from . import build as _build
 
 launches = 0      # kernel launches since the last reset (plain runs excluded)
+site_launches: dict = {}   # packed-form launches by call site, same rule
 
 _SOURCES = ("sampler.cu",)
 
@@ -48,6 +52,7 @@ _SOURCES = ("sampler.cu",)
 def reset_launches() -> None:
     global launches
     launches = 0
+    site_launches.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,8 +112,10 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def sample_packed(quads: torch.Tensor, width: int, height: int, x, y):
-    """Bilinear sample of S quad tables at (S, ...) coordinates."""
+def sample_packed(quads: torch.Tensor, width: int, height: int, x, y,
+                  site: str = "other"):
+    """Bilinear sample of S quad tables at (S, ...) coordinates; ``site``
+    names the caller in ``site_launches``."""
     if quads.ndim != 3 or quads.shape[-1] != 4 \
             or quads.shape[1] != width * height:
         raise ValueError(f"quads must be (S, {height}*{width}, 4), got "
@@ -137,6 +144,7 @@ def sample_packed(quads: torch.Tensor, width: int, height: int, x, y):
     fn = getattr(library().lib, fn_name)
     global launches
     launches += 1
+    site_launches[site] = site_launches.get(site, 0) + 1
     _raise_on(fn(quads.data_ptr(), x.data_ptr(), y.data_ptr(),
                  out.data_ptr(), per_view, total, width, height,
                  torch.cuda.current_stream(quads.device).cuda_stream),

@@ -29,8 +29,9 @@ class PMState:
     valid: torch.Tensor         # (H, W) bool — real (non-padding) pixels
 
     @staticmethod
-    def create(height: int, width: int, num_src: int, valid=None,
-               device="cpu") -> "PMState":
+    def create(height: int, width: int, num_src: int, valid=None, *,
+               device) -> "PMState":
+        """Initial state on ``device`` (``valid``'s device when given)."""
         if valid is None:
             valid = torch.ones((height, width), dtype=torch.bool,
                                device=device)

@@ -2,10 +2,8 @@
 (reference: main.cpp:44-411 + APD::InuputInitialization, APD.cpp:501-685).
 
 `run_scan` is the `APD --dense_folder ...` equivalent: it builds the problem
-list from pair.txt, runs the pass schedule over all views, one view at a
-time, on one device, and finishes with fusion. Only schedules without APD
-passes run (round 0: images whose largest side is at most the pyramid
-base); a schedule with APD passes raises before any pass runs.
+list from pair.txt, runs the coarse-to-fine pass schedule over all views,
+one view at a time, on one device, and finishes with fusion.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from ..config import PYRAMID_BASE_MAX_DIM, UNKNOWN
+from ..config import PYRAMID_BASE_MAX_DIM, UNKNOWN, WEAK
 from ..core import geometry as geo
 from ..io import MemoryCache, read_bin_mat, write_bin_mat
 from ..io.cameras import read_camera, read_pair
@@ -114,7 +112,8 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
     results (reference: ProcessProblem, main.cpp:148-208)."""
     params = spec.params
     t0 = time.time()
-    geom = params.geom_consistency
+    use_apd = params.use_apd and params.state != "first_init"
+    geom_or_apd = params.geom_consistency or params.use_apd
 
     ref_img, ref_cam = _load_scaled_view(problem, problem.ref_image_id,
                                          spec.scale_size, cache)
@@ -142,7 +141,7 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
         return torch.as_tensor(a, device=device)
 
     src_depths = None
-    if geom:
+    if geom_or_apd:
         neigh = [_load_resized_bin(
             problem.dense_folder / "APD" / format_index(sid) / "depths.bin")
             for sid in problem.src_image_ids]
@@ -151,7 +150,15 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
                              mode="constant") for d in neigh])
             if neigh else np.zeros((0, ph, pw), np.float32))
 
-    prior_depth = prior_normal = None
+    sa_mask = None
+    if use_apd and params.use_sa:
+        sa_path = problem.dense_folder / "sa_masks" / \
+            (format_index(problem.ref_image_id) + ".bin")
+        if sa_path.exists():
+            sa = _load_resized_bin(sa_path).astype(np.int32)
+            sa_mask = dev(pad_to_multiple(sa, PAD_H, PAD_W, mode="constant"))
+
+    prior_depth = prior_normal = prior_weak = prior_conf = None
     if params.state != "first_init":
         depth = _load_resized_bin(problem.result_folder / "depths.bin")
         normal = _load_resized_bin(problem.result_folder / "normals.bin")
@@ -159,6 +166,16 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
                                       mode="constant")
         prior_normal = pad_to_multiple(normal.astype(np.float32), PAD_H, PAD_W,
                                        mode="constant")
+    if use_apd:
+        weak = _load_resized_bin(problem.result_folder / "weak.bin")
+        conf = _load_resized_bin(problem.result_folder / "confidence.bin")
+        n_weak = int((weak == WEAK).sum())
+        print(f"Weak count: {n_weak} / {weak.size} = "
+              f"{n_weak / weak.size * 100:.1f}%", flush=True)
+        prior_weak = pad_to_multiple(weak.astype(np.int32), PAD_H, PAD_W,
+                                     mode="constant")
+        prior_conf = pad_to_multiple(conf.astype(np.float32), PAD_H, PAD_W,
+                                     mode="constant")
 
     cams = geo.CameraArrays.from_cameras([ref_cam] + [c for _, c in src],
                                          device=device)
@@ -166,12 +183,13 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
         cams.view(0), cams.map(lambda a: a[1:]),
         dev(ref_p.astype(np.float32)), dev(src_imgs.astype(np.float32)),
         src_depths=src_depths, real_width=w, real_height=h,
-        sampler_u8=params.sampler_u8)
+        sampler_u8=params.sampler_u8, sa_mask=sa_mask)
 
     pass_seed = (seed * 1000003 + problem.ref_image_id * 131 + spec.iteration)
     t_pm = time.time()
     out = run_patchmatch(
         data, params, prior_depth=prior_depth, prior_normal=prior_normal,
+        prior_weak=prior_weak, prior_confidence=prior_conf,
         valid=dev(valid), depth_min=depth_min, depth_max=depth_max,
         seed=pass_seed)
     pm_ms = (time.time() - t_pm) * 1000
@@ -180,7 +198,7 @@ def process_problem(problem: Problem, spec: cfg.PassSpec,
     persist_view_results(
         problem, spec, out.depth[:h, :w], out.normal[:h, :w],
         out.weak[:h, :w], out.confidence[:h, :w], depth_min, depth_max,
-        geom, cache, show_medium_result=spec.show_medium_result)
+        geom_or_apd, cache, show_medium_result=spec.show_medium_result)
 
     total_ms = (time.time() - t0) * 1000
     print(f"Processed view {format_index(problem.ref_image_id)} "
@@ -270,13 +288,6 @@ def run_scan(dense_folder, dataset: str = "General", *,
     schedule = cfg.build_schedule(max(img0.shape), dataset, use_sa=use_sa,
                                   use_impetus=use_impetus, base=pyramid_base,
                                   sampler_u8=sampler_u8)
-    apd = [s.iteration for s in schedule if s.params.use_apd]
-    if apd:
-        raise NotImplementedError(
-            f"the schedule has {round_num} rounds; passes {apd} are APD "
-            "passes, which belong to the APD slice of the port (not ported "
-            f"yet). Raise --pyramid_base to at least {max(img0.shape)} for "
-            "a single-round run")
 
     t0 = time.time()
     for spec in schedule:

@@ -1,14 +1,27 @@
 """Where one view's PatchMatch pass spends its device time.
 
-Runs one FIRST_INIT and one REFINE_ITER pass of view 0 of a synthetic scan
-(the shape chip_smoke.py uses) under torch.profiler, after one warm-up
-pass each, and prints per pass: host wall, device busy time (sum of kernel
-and copy time) and idle share, the device time of K1, and the torch ops
-that hold the most device time. The REFINE_ITER pass gets the ground-truth
-depth/normal maps as its priors and source depths, so it does the work of a
-real geometric pass without running the whole scan first.
+Two passes of view 0 of a synthetic 600x800 scan can be profiled, each
+after one warm-up run, under torch.profiler:
 
-    python -m apde_mvs_tpu_torch.tools.profile_pass [--views 11] [--top 15]
+- ``--pass round0`` (default): one FIRST_INIT and one REFINE_ITER pass on
+  the round-0 scan chip_smoke.py runs. The REFINE_ITER pass gets the
+  ground-truth depth/normal maps as its priors and source depths, so it
+  does the work of a real geometric pass without running the whole scan.
+- ``--pass apd``: one APD REFINE_INIT pass (round 1's parameters) on the
+  APD scan chip_smoke.py runs (a nearly textureless plane, its SA mask).
+  Its priors come from a FIRST_INIT pass of the same view at full size, run
+  once beforehand, as benchmarks/fullres_stress.py takes them; source
+  depths are the ground truth.
+
+Per pass it prints host wall, device busy time (sum of kernel and copy
+time) and idle share, the wall of the same pass run without the profiler
+(just before), K1's device time (CUDA events) and launches by call site,
+the device and host time of the pass's stages (anchors, fit planes, the
+weak sweep, the deformable NCC, ...), and the torch ops that hold the most
+device time.
+
+    python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
+        [--views 11] [--top 15]
 
 The scan is 600x800; only the number of views may be cut, and a cut is
 printed.
@@ -19,6 +32,8 @@ Needs a CUDA device. The last line is one JSON object with the numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import time
 
@@ -28,45 +43,119 @@ import torch
 from .. import config as cfg
 from ..core import geometry as geo
 from ..core.platform import card_line
+from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
 from ..ops.cuda import sampler
-from ..pipeline.patchmatch import run_patchmatch
+from ..pipeline import patchmatch
 from ..testing import synthetic
 
 HEIGHT, WIDTH = 600, 800
 FULL_VIEWS = 11
+# the APD scan of chip_smoke.py: the scene benchmarks/fullres_stress.py
+# measures the APD pass on, and the pyramid base that makes 600x800 round 1
+APD_BASE = 400
+WEAK_REGION = (-0.3, 0.3, -0.2, 0.2)
+
+# (module, attribute, label): the stages whose device time is reported,
+# each wrapped in a profiler range while this tool runs
+_STAGES = (
+    (anchors, "nearest_strong_jfa", "nearest_strong_jfa"),
+    (anchors, "gen_anchors", "gen_anchors"),
+    (anchors, "ransac_fit_planes", "ransac_fit_planes"),
+    (init, "initial_cost", "initial_cost"),
+    (patchmatch, "propagate_strong", "propagate_strong"),
+    (patchmatch, "propagate_weak", "propagate_weak"),
+    (propagation, "ncc_weak", "ncc_weak"),
+    (init, "ncc_weak", "ncc_weak"),
+    (filters, "depth_to_weak", "depth_to_weak"),
+    (filters, "local_refine", "local_refine"),
+)
 
 
-def _device_time_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_time_us(evt, inclusive: bool = False) -> float:
+    names = ("device_time_total", "cuda_time_total") if inclusive else (
+        "self_device_time_total", "self_cuda_time_total")
+    for name in names:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
 
 
+def _labelled(fn, label):
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*a, **kw)
+    return run
+
+
+def _k1_timed(fn, events: dict):
+    """K1's packed form with a pair of CUDA events around each launch, kept
+    by call site: the profiler does not tie a kernel launched through ctypes
+    to the range it was launched in."""
+    @functools.wraps(fn)
+    def run(*a, site="other", **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, site=site, **kw)
+        end.record()
+        events.setdefault(site, []).append((start, end))
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def stage_ranges(k1_events: dict):
+    """Wrap every stage of `_STAGES` in a named profiler range, and time
+    K1 by call site into ``k1_events``; restore the plain functions
+    afterwards."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES]
+    saved.append((sampler, "sample_packed", sampler.sample_packed))
+    try:
+        for m, a, label in _STAGES:
+            setattr(m, a, _labelled(getattr(m, a), label))
+        sampler.sample_packed = _k1_timed(sampler.sample_packed, k1_events)
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
 def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     def run():
-        out = run_patchmatch(data, params, prior_depth=prior[0],
-                             prior_normal=prior[1], depth_min=dmin,
-                             depth_max=dmax, seed=1)
+        out = run_patchmatch_with(data, params, prior, dmin, dmax)
         torch.cuda.synchronize()
         return out
 
     run()                                                  # warm-up
+    t0 = time.perf_counter()
+    run()
+    plain_wall = time.perf_counter() - t0
     sampler.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-    wall = time.perf_counter() - t0
+    labels = {label for _, _, label in _STAGES}
+    k1_events = {}
+    with stage_ranges(k1_events):
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+        wall = time.perf_counter() - t0
     launches = sampler.launches
-    kernels, ops = {}, {}
+    sites = dict(sampler.site_launches)
+    kernels, ops, stages, stages_host = {}, {}, {}, {}
     for evt in prof.key_averages():
+        on_device = evt.device_type == torch.autograd.DeviceType.CUDA
+        if evt.key in labels:
+            if not on_device:
+                stages[evt.key] = _device_time_us(evt, inclusive=True) / 1e6
+                stages_host[evt.key] = evt.cpu_time_total / 1e6
+            continue
         t = _device_time_us(evt)
         if t <= 0:
             continue
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if on_device:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + t
         elif evt.key.startswith("aten::"):
             ops[evt.key] = ops.get(evt.key, 0.0) + t
@@ -74,14 +163,49 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     k1 = sum(t for k, t in kernels.items() if "sample_" in k
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
-    return dict(state=params.state, wall_s=wall, device_busy_s=busy,
-                idle_share=max(0.0, 1.0 - busy / wall), k1_s=k1,
-                k1_launches=launches,
+    k1_sites = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
+                for site, ev in k1_events.items()}
+    return dict(state=params.state, use_apd=bool(params.use_apd),
+                wall_s=wall, device_busy_s=busy,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                unprofiled_wall_s=plain_wall,
+                unprofiled_idle_share=max(0.0, 1.0 - busy / plain_wall),
+                k1_s=k1,
+                k1_launches=launches, k1_site_launches=sites,
+                k1_site_device_s={k: round(v, 6)
+                                  for k, v in k1_sites.items()},
+                stage_device_s={k: round(v, 6) for k, v in sorted(
+                    stages.items(), key=lambda kv: -kv[1])},
+                stage_host_s={k: round(v, 6) for k, v in stages_host.items()},
                 top_ops=[(k, round(t / 1e6, 6)) for k, t in top_ops])
+
+
+def run_patchmatch_with(data, params, prior, dmin, dmax):
+    return patchmatch.run_patchmatch(data, params, depth_min=dmin,
+                                     depth_max=dmax, seed=1, **prior)
+
+
+def _report(r, card):
+    print(f"{r['state']}{' (APD)' if r['use_apd'] else ''}: wall "
+          f"{r['wall_s']:.3f} s, device busy {r['device_busy_s']:.3f} s "
+          f"(idle {r['idle_share']:.1%}), K1 {r['k1_s']:.3f} s over "
+          f"{r['k1_launches']} launches [{card}]", flush=True)
+    for site, t in r["k1_site_device_s"].items():
+        print(f"  K1    {t:9.4f} s  {site}: {r['k1_site_launches'][site]} "
+              "launches (CUDA events)")
+    print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "
+          f"{r['unprofiled_idle_share']:.1%} against the same device busy")
+    for k, t in r["stage_device_s"].items():
+        print(f"  stage {t:9.4f} s device, {r['stage_host_s'][k]:9.4f} s "
+              f"host  {k}")
+    for k, t in r["top_ops"]:
+        print(f"  op    {t:9.4f} s  {k}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pass", dest="which", choices=("round0", "apd"),
+                    default="round0")
     ap.add_argument("--views", type=int, default=FULL_VIEWS)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -93,32 +217,46 @@ def main(argv=None) -> int:
     if args.views < FULL_VIEWS:
         print(f"REDUCED: {args.views} views instead of {FULL_VIEWS}; width "
               "and height kept", flush=True)
-    scene = synthetic.make_scene(num_views=args.views, height=HEIGHT,
-                                 width=WIDTH, baseline=0.12)
+    apd = args.which == "apd"
+    scene = synthetic.make_scene(
+        num_views=args.views, height=HEIGHT, width=WIDTH, baseline=0.12,
+        **(dict(focal=1.25 * WIDTH, weak_region=WEAK_REGION) if apd else {}))
     cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
     imgs = torch.as_tensor(scene.images, device=dev)
+    region = scene.depths[0] < scene.depths[0].mean() * 0.95
     data = CostData.build(
         cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
         src_depths=torch.as_tensor(scene.depths[1:], device=dev),
-        sampler_u8=True)
-    schedule = cfg.build_schedule(max(HEIGHT, WIDTH), "General")
+        sampler_u8=True,
+        sa_mask=torch.as_tensor(region, device=dev) if apd else None)
+    schedule = cfg.build_schedule(max(HEIGHT, WIDTH), "General",
+                                  base=APD_BASE if apd
+                                  else cfg.PYRAMID_BASE_MAX_DIM)
     dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
     dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
     card = card_line()
     print(f"card: {card}", flush=True)
+    if apd:
+        first = run_patchmatch_with(data, schedule[0].params, {}, dmin, dmax)
+        prior = dict(prior_depth=first.depth, prior_normal=first.normal,
+                     prior_weak=first.weak.astype(np.int32),
+                     prior_confidence=first.confidence.astype(np.float32))
+        n_weak = int((first.weak == cfg.WEAK).sum())
+        print(f"prior weak (FIRST_INIT): {n_weak} / {first.weak.size} = "
+              f"{n_weak / first.weak.size:.1%}", flush=True)
+        runs = [(next(s for s in schedule
+                      if s.params.state == "refine_init"), prior)]
+    else:
+        runs = [(schedule[0], {}),
+                (schedule[1], dict(prior_depth=scene.depths[0],
+                                   prior_normal=scene.normals[0]))]
     results = []
-    for spec, prior in ((schedule[0], (None, None)),
-                        (schedule[1], (scene.depths[0], scene.normals[0]))):
+    for spec, prior in runs:
         r = profile_pass(data, spec.params, prior, dmin, dmax, args.top)
         results.append(r)
-        print(f"{r['state']}: wall {r['wall_s']:.3f} s, device busy "
-              f"{r['device_busy_s']:.3f} s (idle {r['idle_share']:.1%}), K1 "
-              f"{r['k1_s']:.3f} s over {r['k1_launches']} launches [{card}]")
-        for k, t in r["top_ops"]:
-            print(f"  {t:9.4f} s  {k}")
-    print(json.dumps({"card": card, "views": args.views,
-                      "shape": [HEIGHT, WIDTH],
-                      "passes": results}))
+        _report(r, card)
+    print(json.dumps({"card": card, "views": args.views, "pass": args.which,
+                      "shape": [HEIGHT, WIDTH], "passes": results}))
     return 0
 
 

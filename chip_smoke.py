@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from this checkout, holds each against
-its plain PyTorch version at main-path shapes, then drives the port's main
-path — the engine CLI on a synthetic scan (round 0: FIRST_INIT + 3
-REFINE_ITER passes over every view, then fusion) — and checks the result
-against ground truth.
+its plain PyTorch version at the shapes its call sites give it (the strong
+NCC's window, the deformable NCC's centre and anchor windows), then drives
+the port's two main paths through the engine CLI and checks each result
+against ground truth:
 
-    python3 chip_smoke.py [--views 11] [--seed 0]
+- the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
+  textured synthetic scan, then fusion;
+- the APD scan: a scan with a nearly textureless plane and SA masks, run
+  with ``--pyramid_base 400`` — round 0 at 300x400, then round 1 at
+  600x800 with the APD weak path (anchors, fit-plane RANSAC, deformable
+  NCC, weak sweeps, SA windows) in all four passes — then fusion.
 
-The scan is 600x800, the shape bench.py times; only the number of views
+    python3 chip_smoke.py [--views 11] [--apd_views 11] [--seed 0]
+
+Both scans are 600x800, the shape bench.py times; only the number of views
 may be cut, and a cut is printed.
 
 Every phase raises on failure; the exit code is non-zero on any failure,
@@ -31,6 +38,11 @@ from pathlib import Path
 # the scan: bench.py's shape, each view's 10 others as sources
 HEIGHT, WIDTH = 600, 800
 FULL_VIEWS = 11
+# the APD scan: the scene benchmarks/fullres_stress.py measures the APD pass
+# on (focal 1.25 W, a weak plane in the middle); its round 1 runs at full
+# size, round 0 at half
+APD_BASE = 400
+WEAK_REGION = (-0.3, 0.3, -0.2, 0.2)
 
 # H100 SXM peaks (NVIDIA data sheet): device memory rate, and the float32
 # rate outside the tensor cores (the sampler's arithmetic is plain f32).
@@ -109,6 +121,52 @@ def touched_rows(quads, width: int, height: int, x, y) -> int:
     return int(hit.sum())
 
 
+def time_packed(q, width: int, height: int, x, y, what: str,
+                card: str) -> dict:
+    """K1's and the plain version's mean time on one set of samples, and
+    the least time the card could take for them."""
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    n = x.numel()
+    ms = cuda_ms(lambda: sampler.sample_packed(q, width, height, x, y), 20)
+    plain_ms = cuda_ms(
+        lambda: sampler.sample_packed_plain(q, width, height, x, y), 5, 1)
+    nbytes = 12 * n + touched_rows(q, width, height, x, y) * 4 \
+        * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = K1_OPS_PER_SAMPLE * n / F32_FLOPS_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    log(f"  {what}: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e9:.4f} GB, {n} samples) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def grid_sample_ms(q_u8, width: int, height: int, x, y, card: str) -> float:
+    """The yardstick: grid_sample computes the same bilinear, border-clamped
+    function on the u8-rounded images; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    s = q_u8.shape[0]
+    img = q_u8[..., 0].reshape(s, 1, height, width).float()
+    grid = torch.stack([x * (2.0 / (width - 1)) - 1.0,
+                        y * (2.0 / (height - 1)) - 1.0],
+                       -1).reshape(s, -1, x.shape[-1], 2)
+
+    def lib_call():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+    lib = lib_call()[:, 0].reshape(x.shape)
+    ref = sampler.sample_packed_plain(q_u8, width, height, x, y)
+    ok = torch.isfinite(ref)
+    log(f"  grid_sample vs plain (u8 images): max abs diff "
+        f"{float((lib - ref)[ok].abs().max()):.3g} over finite samples")
+    ms = cuda_ms(lib_call, 10)
+    log(f"  grid_sample, same samples: {ms:.4f} ms [{card}]")
+    return ms
+
+
 def kernel_phase(scene, seed: int, device, card: str) -> dict:
     """K1 against its plain version at main-path shapes; timings."""
     import torch
@@ -162,36 +220,9 @@ def kernel_phase(scene, seed: int, device, card: str) -> dict:
         errs.append(compare(sampler.sample_packed(q, W, H, sx, sy),
                             sampler.sample_packed_plain(q, W, H, sx, sy),
                             f"packed {tag}, NaN/inf/far-out block"))
-        ms = cuda_ms(lambda: sampler.sample_packed(q, W, H, wx, wy), 20)
-        plain_ms = cuda_ms(
-            lambda: sampler.sample_packed_plain(q, W, H, wx, wy), 5, 1)
-        nbytes = 12 * n + touched_rows(q, W, H, wx, wy) * 4 * q.element_size()
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = K1_OPS_PER_SAMPLE * n / F32_FLOPS_PER_S
-        bound = max(t_bytes, t_ops) * 1e3
-        res[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"  packed {tag}: K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB) [{card}]")
-
-    # the yardstick: grid_sample computes the same bilinear, border-clamped
-    # function on the (u8-rounded) images; the port never calls it
-    img_u8 = data[True].src_quads[..., 0].reshape(S, 1, H, W).float()
-    grid = torch.stack([wx * (2.0 / (W - 1)) - 1.0,
-                        wy * (2.0 / (H - 1)) - 1.0], -1)   # (S, B, 36, 2)
-
-    def lib_call():
-        return F.grid_sample(img_u8, grid, mode="bilinear",
-                             padding_mode="border", align_corners=True)
-    lib = lib_call()[:, 0]
-    ref = sampler.sample_packed_plain(data[True].src_quads, W, H, wx, wy)
-    ok = torch.isfinite(ref)
-    log(f"  grid_sample vs plain (u8 images): max abs diff "
-        f"{float((lib - ref)[ok].abs().max()):.3g} over finite samples")
-    res["u8"]["library_ms"] = cuda_ms(lib_call, 10)
-    log(f"  grid_sample, same samples: {res['u8']['library_ms']:.4f} ms "
-        f"[{card}]")
-    del grid, lib, ref
+        res[tag] = time_packed(q, W, H, wx, wy, f"packed {tag}", card)
+    res["u8"]["library_ms"] = grid_sample_ms(data[True].src_quads, W, H, wx,
+                                             wy, card)
 
     # the image form (the Pallas entry's own contract) at (600, 800)
     img = imgs[1].contiguous()
@@ -223,9 +254,108 @@ def kernel_phase(scene, seed: int, device, card: str) -> dict:
     return res
 
 
-def main_path_phase(args, scene, root: Path, card: str) -> dict:
-    """The port's CLI on the card over the written scan; checks depth error
-    against ground truth, the fused PLY, and that K1 carried the sampling."""
+def weak_region(depth):
+    """The scene's weak (nearly textureless) plane: nearer than 95% of the
+    mean depth. It is segment 1 of the scan's SA masks."""
+    return depth < depth.mean() * 0.95
+
+
+def weak_kernel_phase(scene, seed: int, device, card: str) -> dict:
+    """K1 against its plain version at the deformable NCC's two call sites,
+    on one weak-sweep hypothesis of the APD scan's round 1: the weak plane's
+    pixels (one sweep chunk), anchors generated on the card from the
+    ground-truth weak map and depths, and each pixel's ground-truth plane
+    warped into every source view."""
+    import torch
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops.cost import CostData
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.ops.deformable import WeakRefData, weak_taps
+    from apde_mvs_tpu_torch.ops.propagation import WEAK_SWEEP_CHUNK
+    from apde_mvs_tpu_torch.ops.state import PMState
+
+    S = scene.num_views - 1
+    H, W = scene.images.shape[1:]
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    imgs = torch.as_tensor(scene.images, device=device)
+    region = torch.as_tensor(weak_region(scene.depths[0]), device=device)
+    data = {u8: CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
+                               imgs[0], imgs[1:], sampler_u8=u8,
+                               sa_mask=region.to(torch.int32))
+            for u8 in (True, False)}
+    params = next(s.params for s in cfg.build_schedule(
+        max(H, W), base=APD_BASE) if s.params.state == "refine_init")
+    depth = torch.as_tensor(scene.depths[0], device=device)
+    normal = torch.as_tensor(scene.normals[0], device=device)
+    state = PMState.create(H, W, S, device=device).replace(
+        planes=torch.cat([normal, depth[..., None]], -1),
+        weak=torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32),
+        confidence=torch.where(region, 40.0, 200.0))
+    dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
+    dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
+    wy, wx = torch.nonzero(region, as_tuple=True)
+    wx = wx.to(torch.int32)
+    wy = wy.to(torch.int32)
+    t0 = time.perf_counter()
+    ns = anc.nearest_strong_jfa(state.weak, state.confidence, state.valid)
+    res = anc.gen_anchors(
+        data[True], state, wx, wy, params.rotate_time,
+        params.ransac_threshold, dmin, dmax, ns,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    # the weak sweep runs over the reliable pixels, one chunk at a time:
+    # take its first (largest) chunk
+    keep = torch.nonzero(res.reliable, as_tuple=True)[0][:WEAK_SWEEP_CHUNK]
+    wx, wy, anchors = wx[keep], wy[keep], res.anchors[keep]
+    have = (anchors[:, 1:, 0] >= 0).sum(-1)
+    log(f"weak sites: {int(region.sum())} weak pixels, anchors in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{float(res.reliable.float().mean()):.3f} reliable; the sweep "
+        f"chunk holds {wx.numel()} of them, "
+        f"{float(have.float().mean()):.2f} anchors a pixel")
+    if wx.numel() == 0:
+        raise AssertionError("no weak pixel found anchors")
+    xf, yf = wx.float(), wy.float()
+    plane = geo.make_plane(
+        cams.view(0), xf, yf, depth[wy.long(), wx.long()],
+        geo.normal_world_to_cam(
+            cams.view(0).R, torch.cat([normal[wy.long(), wx.long()],
+                                       torch.zeros_like(xf)[:, None]],
+                                      -1))[:, :3])
+    wref = WeakRefData.build(data[True], xf, yf, anchors, state.selected,
+                             params)
+    taps = weak_taps(data[True], wref, plane, params)
+    del ns, state, wref
+    sites = {"weak_centre": (taps.cwx, taps.cwy),
+             "weak_anchor": (taps.awx, taps.awy)}
+    out = {}
+    for site, (x, y) in sites.items():
+        log(f"K1 at {site}: {tuple(x.shape)} samples per launch")
+        errs = []
+        r = {}
+        for u8 in (True, False):
+            q = data[u8].src_quads
+            tag = "u8" if u8 else "f32"
+            errs.append(compare(sampler.sample_packed(q, W, H, x, y),
+                                sampler.sample_packed_plain(q, W, H, x, y),
+                                f"{site} {tag}", tol=0.0))
+            r[tag] = time_packed(q, W, H, x, y, f"{site} {tag}", card)
+        r["u8"]["library_ms"] = grid_sample_ms(data[True].src_quads, W, H,
+                                               x, y, card)
+        r["max_abs_err"] = max(errs)
+        r["shape"] = tuple(x.shape)
+        out[site] = r
+    return out
+
+
+def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
+               card: str) -> dict:
+    """The port's CLI on the card over the written scan; checks the pass
+    count, depth error against ground truth, the fused PLY, and that K1
+    carried the sampling. Launch counts are read per call site."""
     import numpy as np
     import torch
 
@@ -246,22 +376,24 @@ def main_path_phase(args, scene, root: Path, card: str) -> dict:
             sys.__stdout__.flush()
 
     tee = Tee()
+    log(f"==== {label} ====")
     torch.cuda.synchronize()
     sampler.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        rc = apd.main(["--dense_folder", str(root), "--dataset", "General",
-                       "--seed", str(args.seed)])
+        rc = apd.main(["--dense_folder", str(root), "--dataset", "General"]
+                      + list(cli_args))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sampler.launches
+    sites = dict(sampler.site_launches)
     if rc != 0:
         raise RuntimeError(f"apd.main returned {rc}")
     text = tee.buf.getvalue()
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
-    if len(passes) != 4:
-        raise AssertionError(f"expected 4 passes, saw {passes}")
+    if len(passes) != n_passes:
+        raise AssertionError(f"expected {n_passes} passes, saw {passes}")
     errs = []
     for v in range(scene.num_views):
         d = binmat.read_bin_mat(root / "APD" / f"{v:08d}" / "depths.bin")
@@ -278,24 +410,63 @@ def main_path_phase(args, scene, root: Path, card: str) -> dict:
         f"{'yes' if cols is not None else 'no'}")
     if len(pts) <= 1000 or cols is None or len(cols) != len(pts):
         raise AssertionError("fused PLY has too few coloured points")
-    if launches <= 0:
-        raise AssertionError("K1 was not launched on the main path")
-    log(f"main path: {wall:.3f} s wall, K1 launches {launches} [{card}]")
+    if launches <= 0 or sum(sites.values()) != launches:
+        raise AssertionError(f"K1 launches {launches}, by site {sites}")
+    log(f"{label}: {wall:.3f} s wall, K1 launches {launches}, by site "
+        f"{json.dumps(sites, sort_keys=True)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
-    return dict(launches=launches, wall_s=wall, errors=errs,
-                points=len(pts), passes=passes, fusion=fusion)
+    return dict(launches=launches, sites=sites, wall_s=wall, errors=errs,
+                points=len(pts), passes=passes, fusion=fusion, text=text)
+
+
+def write_sa_masks(scene, root: Path) -> None:
+    """One segment mask per view: the weak plane is segment 1, the rest 0."""
+    import numpy as np
+
+    from apde_mvs_tpu_torch.io import binmat
+    (root / "sa_masks").mkdir()
+    for v in range(scene.num_views):
+        binmat.write_bin_mat(root / "sa_masks" / f"{v:08d}.bin",
+                             weak_region(scene.depths[v]).astype(np.uint8))
+
+
+def apd_checks(scan: dict, root: Path, num_views: int, card: str) -> float:
+    """What the APD scan must show beyond a scan's checks: weak pixels in
+    round 1, K1 launched at both weak sites. Returns the final weak
+    fraction over all views."""
+    import numpy as np
+
+    from apde_mvs_tpu_torch.config import WEAK
+    from apde_mvs_tpu_torch.io import binmat
+    counts = [int(ln.split()[2]) for ln in scan["text"].splitlines()
+              if ln.startswith("Weak count:")]
+    if len(counts) != 4 * num_views or min(counts[:num_views]) <= 0:
+        raise AssertionError(f"round-1 weak counts {counts}")
+    for site in ("weak_centre", "weak_anchor"):
+        if scan["sites"].get(site, 0) <= 0:
+            raise AssertionError(f"K1 never launched at {site}")
+    weak = [binmat.read_bin_mat(root / "APD" / f"{v:08d}" / "weak.bin")
+            for v in range(num_views)]
+    frac = float(np.mean([np.mean(w == WEAK) for w in weak]))
+    log(f"APD scan: weak count at REFINE_INIT per view "
+        f"{counts[:num_views]}, final weak fraction {frac:.4f} [{card}]")
+    return frac
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=FULL_VIEWS,
-                    help=f"views of the scan (2..{FULL_VIEWS}); fewer than "
-                         f"{FULL_VIEWS} is a reduction and is printed")
+                    help=f"views of the round-0 scan (2..{FULL_VIEWS}); "
+                         f"fewer than {FULL_VIEWS} is a reduction and is "
+                         "printed")
+    ap.add_argument("--apd_views", type=int, default=FULL_VIEWS,
+                    help="views of the APD scan, as --views")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not 2 <= args.views <= FULL_VIEWS:
-        ap.error(f"--views must be in 2..{FULL_VIEWS}")
+    for name in ("views", "apd_views"):
+        if not 2 <= getattr(args, name) <= FULL_VIEWS:
+            ap.error(f"--{name} must be in 2..{FULL_VIEWS}")
 
     import torch
     if not torch.cuda.is_available():
@@ -332,38 +503,51 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     scene = synthetic.make_scene(num_views=args.views, height=HEIGHT,
                                  width=WIDTH, baseline=0.12)
-    log(f"scene: {args.views} views {HEIGHT}x{WIDTH} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    if args.views < FULL_VIEWS:
-        log(f"REDUCED: {args.views} views instead of {FULL_VIEWS}; width "
-            "and height kept")
+    apd_scene = synthetic.make_scene(
+        num_views=args.apd_views, height=HEIGHT, width=WIDTH, baseline=0.12,
+        focal=1.25 * WIDTH, weak_region=WEAK_REGION)
+    log(f"scenes: {args.views} and {args.apd_views} views {HEIGHT}x{WIDTH} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for name, n in (("round-0 scan", args.views),
+                    ("APD scan", args.apd_views)):
+        if n < FULL_VIEWS:
+            log(f"REDUCED: {name} has {n} views instead of {FULL_VIEWS}; "
+                "width and height kept")
 
-    # ---- kernel check ------------------------------------------------------
+    # ---- kernel checks -----------------------------------------------------
     k = kernel_phase(scene, args.seed, device, card)
+    kw = weak_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # ---- main path ---------------------------------------------------------
+    # ---- main paths: the round-0 scan, then the APD scan -------------------
+    seed_args = ["--seed", str(args.seed)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp) / "scan"
         synthetic.write_scene_to_disk(scene, root)
-        mp = main_path_phase(args, scene, root, card)
+        r0 = scan_phase("round-0 scan", seed_args, scene, root, 4, card)
+        root = Path(tmp) / "apd_scan"
+        synthetic.write_scene_to_disk(apd_scene, root)
+        write_sa_masks(apd_scene, root)
+        ap = scan_phase("APD scan", seed_args + [
+            "--pyramid_base", str(APD_BASE)], apd_scene, root, 8, card)
+        apd_checks(ap, root, apd_scene.num_views, card)
     torch.cuda.synchronize()
 
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
-    u8 = k["u8"]
-    print(json.dumps({"kernels": [{
-        "name": "K1 bilinear sampler (packed u8 quads)",
-        "route": "cuda",
-        "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
-        "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38",
-        "launches": mp["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": u8["ms"],
-        "plain_ms": u8["plain_ms"],
-        "bound_ms": u8["bound_ms"],
-        "bound_by": u8["bound_by"],
-        "library_ms": u8["library_ms"],
-    }]}), flush=True)
+    k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
+          "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
+    rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
+                 launches=r0["launches"] + ap["sites"].get("strong", 0),
+                 max_abs_err=k["max_abs_err"], **k["u8"])]
+    for site, what in (("weak_centre", "weak centre windows"),
+                       ("weak_anchor", "weak anchor windows")):
+        r = kw[site]
+        rows.append(dict(name=f"K1 bilinear sampler, {what} (packed u8 "
+                              "quads)", **k1,
+                         launches=ap["sites"][site],
+                         max_abs_err=r["max_abs_err"], **r["u8"]))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Parity of the port's cost module (ops/cost.py, ops/init.py) with the JAX
 package on a 24x32 synthetic scene with S=4 source views (the fixture
 pattern of tests/test_prop_oracle.py). Costs to atol 1e-4 (float32 window
-sums taken in another order), selections exactly."""
+sums taken in another order), selections exactly; the SA star window's
+offsets, weights and sums exactly."""
 
 import jax
 import jax.numpy as jnp
@@ -33,26 +34,41 @@ def _np(a):
         else np.asarray(a)
 
 
-def _port(jd):
+def _port(jd, sa_mask=None):
     return convert.cost_data(
         ref_cam=tuple(jd.ref_cam), src_cams=tuple(jd.src_cams),
         ref_image=jd.ref_image, src_quads=jd.src_quads,
         src_depths=jd.src_depths, width=jd.width, height=jd.height,
-        real_width=jd.real_width, real_height=jd.real_height, device="cpu")
+        real_width=jd.real_width, real_height=jd.real_height,
+        sa_mask=sa_mask, device="cpu")
 
 
-def _scene_data(u8, geom=True, real=(0, 0)):
+def _sa_mask(depth, seed):
+    """Seeded segment ids: segment 1 where the slanted scene is nearer than
+    its mean (a diagonal edge), a random block of segment 2 across it, a
+    few single-pixel specks of segment 3, 0 (no segment) elsewhere."""
+    rng = np.random.default_rng(seed)
+    m = np.where(depth < depth.mean(), 1, 0).astype(np.int32)
+    y0, x0 = rng.integers(3, H // 2), rng.integers(3, W // 2)
+    m[y0:y0 + 8, x0:x0 + 11] = 2
+    m[rng.random(m.shape) < 0.03] = 3
+    return m
+
+
+def _scene_data(u8, geom=True, real=(0, 0), sa_seed=None):
     scene = synthetic.make_scene(num_views=V, height=H, width=W)
     cams = jgeo.CameraArrays.from_cameras(scene.cameras)
     src = np.arange(1, V)
     depths = np.stack([scene.depths[s] for s in src]).astype(np.float32)
     depths[:, ::7, ::5] = 0.0                   # missing source depth
+    mask = None if sa_seed is None else _sa_mask(scene.depths[0], sa_seed)
     jd = jcost.CostData.build(
         cams.view(0), jgeo.CameraArrays(*[a[src] for a in cams]),
         jnp.asarray(scene.images[0]), jnp.asarray(scene.images[src]),
         src_depths=jnp.asarray(depths) if geom else None,
-        real_width=real[0], real_height=real[1], sampler_u8=u8)
-    return scene, jd, _port(jd)
+        real_width=real[0], real_height=real[1], sampler_u8=u8,
+        sa_mask=None if mask is None else jnp.asarray(mask))
+    return scene, jd, _port(jd, mask)
 
 
 def _planes(scene, jd, seed):
@@ -77,7 +93,7 @@ def _planes(scene, jd, seed):
 @pytest.mark.parametrize("u8", [True, False])
 def test_cost_data_build(u8):
     scene, jd, _ = _scene_data(u8)
-    cams = tgeo.CameraArrays.from_cameras(scene.cameras)
+    cams = tgeo.CameraArrays.from_cameras(scene.cameras, device="cpu")
     src = torch.arange(1, V)
     td = tcost.CostData.build(
         cams.view(0), cams.map(lambda a: a[src]),
@@ -111,6 +127,55 @@ def test_precompute_ref_window():
     np.testing.assert_array_equal(np.asarray(jsa.sum_rr), _np(tw.sum_rr))
     np.testing.assert_array_equal(np.asarray(jsa.wsum),
                                   np.full(H * W, tw.wsum, np.float32))
+
+
+@pytest.mark.parametrize("seed,real", [(0, (0, 0)), (1, (29, 21))])
+def test_precompute_ref_window_sa_star(seed, real):
+    """The SA star window on a seeded segment mask: per-pixel star offsets
+    inside a segment, square outside; per-quadrant truncation at the first
+    in-image tap in another segment; out-of-image taps skipped."""
+    scene, jd, td = _scene_data(True, real=real, sa_seed=seed)
+    x, y, _ = _planes(scene, jd, 0)
+    jw = jcost.precompute_ref_window(jd, jnp.asarray(x), jnp.asarray(y), 5, 2,
+                                     True)
+    tw = tcost.precompute_ref_window(td, torch.as_tensor(x),
+                                     torch.as_tensor(y), 5, 2, use_sa=True)
+    for name in ("tap_dx", "tap_dy", "tap_val", "tap_w", "sum_ref", "sum_rr",
+                 "wsum"):
+        np.testing.assert_array_equal(_np(getattr(tw, name)),
+                                      np.asarray(getattr(jw, name)),
+                                      err_msg=name)
+    np.testing.assert_array_equal(tcost.star_taps(), jcost.star_taps())
+    wsum = _np(tw.wsum)
+    in_seg = _np(td.sa_mask)[y.astype(int), x.astype(int)] > 0
+    assert (wsum[~in_seg] == 36).all()
+    # truncation and skipping both happen, and (without the tighter real
+    # bounds) some star windows stay whole
+    assert (wsum[in_seg] < 36).sum() > 20
+    assert real != (0, 0) or (wsum[in_seg] == 36).sum() >= 5
+    assert (wsum == 0).sum() < (wsum < 36).sum()
+
+
+@pytest.mark.parametrize("u8", [True, False])
+def test_ncc_strong_sa_star(u8):
+    scene, jd, td = _scene_data(u8, sa_seed=2)
+    x, y, planes = _planes(scene, jd, 5)
+    jw = jcost.precompute_ref_window(jd, jnp.asarray(x), jnp.asarray(y), 5, 2,
+                                     True)
+    want = np.asarray(jcost.ncc_strong(jd, jnp.asarray(x), jnp.asarray(y),
+                                       jnp.asarray(planes), jw))
+    tx, ty = torch.as_tensor(x), torch.as_tensor(y)
+    tw = tcost.precompute_ref_window(td, tx, ty, 5, 2, use_sa=True)
+    got = _np(tcost.ncc_strong(td, tx, ty, torch.as_tensor(planes), tw))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert (want < 0.3).sum() > 100
+    # a mask changes the costs of segment pixels only
+    plain = _np(tcost.ncc_strong(td, tx, ty, torch.as_tensor(planes),
+                                 tcost.precompute_ref_window(td, tx, ty, 5,
+                                                             2)))
+    in_seg = _np(td.sa_mask).reshape(-1) > 0
+    np.testing.assert_array_equal(plain[~in_seg], got[~in_seg])
+    assert (plain[in_seg] != got[in_seg]).any(-1).mean() > 0.5
 
 
 @pytest.mark.parametrize("u8,real", [(True, (0, 0)), (False, (0, 0)),

@@ -4,7 +4,8 @@ package, and of DepthToWeak / LocalRefine with the NumPy oracles
 24x32, S=4 fixture of tests/test_prop_oracle.py.
 
 Classes exactly (both sides use the same strict-minimum tie rules); depths
-to 1e-5 relative; median and confidence exactly."""
+to 1e-5 relative; median and confidence exactly. With SA (the APD passes'
+window) the same holds on a seeded segment mask."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,17 @@ FIELDS = ("planes", "costs", "selected", "view_weights", "weak",
           "confidence", "valid")
 
 
-def _setup(seed=11, geom=False):
+def _sa_mask(depth, seed):
+    """Seeded segment ids: 1 where the slanted scene is nearer than its
+    mean, a random block of 2 across that edge, 0 elsewhere."""
+    rng = np.random.default_rng(seed)
+    m = np.where(depth < depth.mean(), 1, 0).astype(np.int32)
+    y0, x0 = rng.integers(3, H // 2), rng.integers(3, W // 2)
+    m[y0:y0 + 8, x0:x0 + 11] = 2
+    return m
+
+
+def _setup(seed=11, geom=False, sa=False):
     """(world normal, depth) planes with mildly noisy GT depths, ~30% badly
     off, a few zero; random selections and weights (tests/test_prop_oracle
     `_classify_setup`)."""
@@ -44,10 +55,11 @@ def _setup(seed=11, geom=False):
     if geom:
         kwargs["src_depths"] = jnp.asarray(
             np.stack([scene.depths[s] for s in src]).astype(np.float32))
+    mask = _sa_mask(scene.depths[0], seed) if sa else None
     jd = JCostData.build(
         cams.view(0), jgeo.CameraArrays(*[a[src] for a in cams]),
         jnp.asarray(scene.images[0]), jnp.asarray(scene.images[src]),
-        **kwargs)
+        sa_mask=None if mask is None else jnp.asarray(mask), **kwargs)
     dmin = float(scene.cameras[0].depth_min * 0.6)
     dmax = float(scene.cameras[0].depth_max * 1.2)
     rng = np.random.RandomState(seed)
@@ -70,7 +82,8 @@ def _setup(seed=11, geom=False):
     td = convert.cost_data(
         ref_cam=tuple(jd.ref_cam), src_cams=tuple(jd.src_cams),
         ref_image=jd.ref_image, src_quads=jd.src_quads,
-        src_depths=jd.src_depths, width=W, height=H, device="cpu")
+        src_depths=jd.src_depths, width=W, height=H, sa_mask=mask,
+        device="cpu")
     ts = convert.pm_state(**{k: getattr(js, k) for k in FIELDS},
                           device="cpu")
     return jd, js, td, ts, dmin, dmax
@@ -189,3 +202,34 @@ def test_local_refine_matches_jax_and_oracle(geom):
     np.testing.assert_allclose(tdep, oracle["depth"], rtol=1e-5, atol=0)
     assert oracle["refined"].sum() > 20
     assert (~oracle["refined"] & oracle["ok"]).sum() > 20
+
+
+@pytest.mark.parametrize("geom", [False, True])
+def test_depth_to_weak_and_local_refine_with_sa_match_jax(geom):
+    """The APD passes classify and refine with the SA star window."""
+    jd, js, td, ts, dmin, dmax = _setup(seed=17, geom=geom, sa=True)
+    xs, ys = _pixels()
+    gf = 0.2
+    jw, jcurve = jax.jit(lambda d, s: jf.depth_to_weak(
+        d, s, jnp.asarray(xs), jnp.asarray(ys), 2, True, geom,
+        jnp.float32(gf), jnp.float32(dmin), jnp.float32(dmax),
+        return_curve=True))(jd, js)
+    tx, ty = torch.as_tensor(xs), torch.as_tensor(ys)
+    tw, tcurve = tf.depth_to_weak(td, ts, tx, ty, 2, geom, gf, dmin, dmax,
+                                  return_curve=True, use_sa=True)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    # a truncated star window can keep a handful of taps, whose small
+    # variance amplifies float-order noise in the sums: curve atol 1e-3
+    np.testing.assert_allclose(tcurve.numpy(), np.asarray(jcurve), rtol=0,
+                               atol=1e-3)
+    plain = tf.depth_to_weak(td, ts, tx, ty, 2, geom, gf, dmin, dmax,
+                             return_curve=True)[1].numpy()
+    in_seg = td.sa_mask.numpy()[ys, xs] > 0
+    assert (plain[in_seg] != tcurve.numpy()[in_seg]).any(-1).mean() > 0.5
+    jdep = jax.jit(lambda d, s: jf.local_refine(
+        d, s, jnp.asarray(xs), jnp.asarray(ys), True, geom,
+        jnp.float32(gf), jnp.float32(dmin), jnp.float32(dmax)))(jd, js)
+    tdep = tf.local_refine(td, ts, tx, ty, geom, gf, dmin, dmax,
+                           use_sa=True).numpy()
+    np.testing.assert_allclose(tdep, np.asarray(jdep), rtol=1e-5, atol=0)
+    assert (tdep != ts.planes.numpy()[ys, xs, 3]).sum() > 20

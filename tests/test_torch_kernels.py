@@ -92,6 +92,37 @@ def test_k1_packed_matches_plain_on_card(cuda_device, u8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("u8", [True, False])
+def test_k1_weak_anchor_shape_matches_plain_on_card(cuda_device, u8):
+    """The deformable NCC's anchor site: (S, B, 8, 9) samples, each anchor's
+    9 taps clustered around a point far from the others, NaN / inf and
+    off-image anchors included; bitwise equal to the plain version."""
+    rng = np.random.default_rng(11)
+    S, H, W, B = 10, 120, 160, 700
+    imgs = torch.as_tensor(rng.uniform(0, 255, (S, H, W)).astype(np.float32),
+                           device=cuda_device)
+    quads = (tsamp.pack_bilinear_u8 if u8 else tsamp.pack_bilinear)(imgs)
+    ax = rng.uniform(-20, W + 20, (S, B, 8, 1)).astype(np.float32)
+    ay = rng.uniform(-20, H + 20, (S, B, 8, 1)).astype(np.float32)
+    taps = np.arange(-5, 6, 5, dtype=np.float32)
+    x = ax + np.tile(taps, 3) * rng.uniform(0.8, 1.2, (S, B, 8, 1))
+    y = ay + np.repeat(taps, 3) * rng.uniform(0.8, 1.2, (S, B, 8, 1))
+    x[:, ::50, 3] = np.nan                     # degenerate plane hypotheses
+    y[:, 7::61, :, 4] = np.inf
+    x, y = torch.as_tensor(x.astype(np.float32), device=cuda_device), \
+        torch.as_tensor(y.astype(np.float32), device=cuda_device)
+    before = k1.launches
+    got = k1.sample_packed(quads, W, H, x, y, site="weak_anchor")
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    assert k1.site_launches.get("weak_anchor", 0) >= 1
+    assert got.shape == (S, B, 8, 9)
+    want = k1.sample_packed_plain(quads, W, H, x, y)
+    assert int(torch.isnan(want).sum()) > 0
+    _assert_same(got, want, atol=0)
+
+
+@pytest.mark.cuda
 def test_k1_image_matches_plain_on_card(cuda_device):
     rng = np.random.default_rng(8)
     H, W = 120, 160

@@ -1,9 +1,11 @@
-"""The port's round-0 slice end to end on the CPU: its CLI reconstructs a
-48x64x3 synthetic scan (FIRST_INIT + 3 REFINE_ITER passes, then fusion),
-and on one view its `run_patchmatch` lands as close to ground truth as the
-JAX package's. The two draw different random numbers, so their parity is
-statistical: both under 1% median relative depth error, and within 1% of
-each other in median."""
+"""The port's scans end to end on the CPU: its CLI reconstructs a 48x64x3
+synthetic scan in one round (FIRST_INIT + 3 REFINE_ITER passes, then
+fusion) and in two (`--pyramid_base 32`: round 1 adds REFINE_INIT and 3
+REFINE_ITER passes with the APD weak path), and on one view its round-0
+`run_patchmatch` lands as close to ground truth as the JAX package's. The
+two draw different random numbers, so their parity is statistical: both
+under 1% median relative depth error, and within 1% of each other in
+median."""
 
 import contextlib
 import io
@@ -67,13 +69,48 @@ def test_cli_reconstructs_scan_on_cpu(tmp_path, scene):
     assert len(pts) > 1000 and cols is not None and len(cols) == len(pts)
 
 
+def run_two_round_scan(root, scene):
+    """The 2-round verify recipe through the port's CLI on the CPU; checks
+    eight passes, weak pixels on round 1, depth error, the fused PLY, and
+    that no kernel launched. Returns the log."""
+    before = sampler.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = apd.main(["--dense_folder", str(root), "--dataset", "General",
+                       "--device", "cpu", "--pyramid_base", "32"])
+    assert rc == 0
+    assert sampler.launches == before
+    log = out.getvalue()
+    assert log.count("Pass ") == 8 and "refine_init" in log
+    weak = [int(ln.split()[2]) for ln in log.splitlines()
+            if ln.startswith("Weak count:")]
+    assert len(weak) == 4 * scene.num_views and max(weak) > 0, weak
+    for v in range(scene.num_views):
+        depth = binmat.read_bin_mat(root / "APD" / f"{v:08d}" / "depths.bin")
+        assert depth.shape == scene.depths[v].shape
+        err, cover = _median_rel(depth, scene.depths[v])
+        assert err < 0.01, f"view {v}: median relative error {err}"
+        assert cover > 0.8
+    pts, cols = read_ply(root / "APD" / "APD.ply")
+    assert len(pts) > 1000 and cols is not None and len(cols) == len(pts)
+    return log
+
+
+def test_cli_two_round_scan_on_cpu(tmp_path):
+    scene = synthetic.make_scene(num_views=V, height=H, width=W,
+                                 weak_region=(-0.3, 0.3, -0.2, 0.2))
+    root = tmp_path / "scan"
+    synthetic.write_scene_to_disk(scene, root)
+    run_two_round_scan(root, scene)
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path, scene):
     root = tmp_path / "scan"
     synthetic.write_scene_to_disk(scene, root)
     with contextlib.redirect_stdout(io.StringIO()):
-        with pytest.raises(NotImplementedError, match="APD"):
+        with pytest.raises(NotImplementedError, match="export_anchor"):
             apd.main(["--dense_folder", str(root), "--device", "cpu",
-                      "--pyramid_base", "32"])
+                      "--export_anchor", "true"])
         with pytest.raises(NotImplementedError, match="views_parallel"):
             apd.main(["--dense_folder", str(root), "--device", "cpu",
                       "--views_parallel", "true"])
@@ -91,7 +128,7 @@ def test_run_patchmatch_matches_jax_statistically(scene):
                          real_height=H, sampler_u8=True)
     jout = j_run(jd, params, depth_min=dmin, depth_max=dmax, seed=0)
 
-    tc = tgeo.CameraArrays.from_cameras(scene.cameras)
+    tc = tgeo.CameraArrays.from_cameras(scene.cameras, device="cpu")
     td = TCostData.build(tc.view(0), tc.map(lambda a: a[1:]),
                          torch.as_tensor(scene.images[0]),
                          torch.as_tensor(scene.images[1:]), real_width=W,
