@@ -5,14 +5,15 @@ Usage:
     python -m apde_mvs_tpu_torch.cli.apd --dense_folder <scan> \
         [--dataset General] [--device cuda|cpu] [--gpu_index 0] ...
 
-``--views_parallel``, ``--profile_dir``, ``--fuse_shard`` and
-``--merge_fusion`` are accepted for flag parity but raise when used: the
-port runs one view at a time on one card and has no sharded fusion yet.
+``--views_parallel true`` raises (the port runs one view at a time on one
+card; view-parallel passes are not ported), and ``--view_batch`` is
+accepted and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 
@@ -49,14 +50,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "true", "false"],
                    help="not ported: only auto/false (serial views) run")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="not ported")
+                   help="write a torch.profiler trace of the run (CPU and "
+                        "CUDA activities, Chrome/Perfetto JSON) into this "
+                        "directory")
     p.add_argument("--view_batch", type=int, default=None,
                    help="view-parallel batch cap (ignored: views run "
                         "serially)")
     p.add_argument("--fuse_shard", type=str, default=None,
-                   help="not ported")
+                   help="distributed fusion: 'i,n' fuses ref views i mod n "
+                        "into a partial PLY")
     p.add_argument("--merge_fusion", type=int, default=None,
-                   help="not ported")
+                   help="merge N partial fusion PLYs into APD.ply and exit")
     p.add_argument("--start_iteration", type=int, default=0,
                    help="skip schedule passes below this iteration index")
     p.add_argument("--sampler", type=str, default="u8",
@@ -66,41 +70,52 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED = {
-    "views_parallel": "view-parallel passes",
-    "profile_dir": "profiler traces",
-    "fuse_shard": "sharded fusion",
-    "merge_fusion": "fusion shard merging",
-    "export_anchor": "anchor / nearest-strong / fit-normal debug exports",
-    "export_curve": "reliable-curve exports",
-}
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        val = getattr(args, flag)
-        if val not in (None, False, "auto", "false"):
-            raise NotImplementedError(f"--{flag}: {what} not ported yet")
+    if args.views_parallel == "true":
+        raise NotImplementedError(
+            "--views_parallel: view-parallel passes not ported yet")
     only_fuse = args.only_fuse
     print("========================== Config ==========================")
     for k, v in sorted(vars(args).items()):
         print(f"{k:14s}: {v}")
     print("============================================================")
 
-    from ..core.platform import bind_device
+    if args.view_batch is not None:
+        print(f"--view_batch {args.view_batch} ignored: the port runs views "
+              "one at a time", flush=True)
+
+    from ..core.platform import bind_device, profile_trace
     from ..pipeline.driver import run_scan
 
     device = bind_device(args.gpu_index, args.device)
-    run_scan(
-        args.dense_folder, dataset=args.dataset, device=device,
-        only_fuse=only_fuse, no_fuse=args.no_fuse,
-        use_memory_cache=args.memory_cache and not only_fuse,
-        use_sa=args.use_sa, use_impetus=args.use_impetus,
-        weak_filter=args.weak_filter, flush=args.flush or args.no_fuse,
-        export_color=args.export_color, seed=args.seed,
-        pyramid_base=args.pyramid_base, sampler_u8=(args.sampler == "u8"),
-        start_iteration=args.start_iteration)
+
+    if args.merge_fusion:
+        from ..pipeline.fusion import merge_fusion_shards
+        merge_fusion_shards(args.dense_folder, "APD.ply", args.merge_fusion,
+                            export_color=args.export_color)
+        return 0
+
+    fuse_shard = None
+    if args.fuse_shard:
+        i, n = (int(v) for v in args.fuse_shard.split(","))
+        fuse_shard = (i, n)
+
+    prof = contextlib.nullcontext()
+    if args.profile_dir:
+        prof = profile_trace(args.profile_dir, device)
+    with prof:
+        run_scan(
+            args.dense_folder, dataset=args.dataset, device=device,
+            only_fuse=only_fuse, no_fuse=args.no_fuse,
+            use_memory_cache=args.memory_cache and not only_fuse,
+            use_sa=args.use_sa, use_impetus=args.use_impetus,
+            weak_filter=args.weak_filter, flush=args.flush or args.no_fuse,
+            export_anchor=args.export_anchor,
+            export_curve=args.export_curve, export_color=args.export_color,
+            seed=args.seed, pyramid_base=args.pyramid_base,
+            fuse_shard=fuse_shard, sampler_u8=(args.sampler == "u8"),
+            start_iteration=args.start_iteration)
     return 0
 
 

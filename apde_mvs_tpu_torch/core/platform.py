@@ -3,7 +3,10 @@
 
 from __future__ import annotations
 
+import contextlib
+import os
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -38,3 +41,25 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir, device="cuda"):
+    """Context manager: a torch.profiler trace of the enclosed work, CPU
+    activities plus, on a CUDA ``device``, the card's kernels and copies,
+    written as a Chrome / Perfetto trace (``apd_<pid>.pt.trace.json``) into
+    ``out_dir`` (reference: wall-clock-only tracing, main.cpp:151-161; view
+    the file in ui.perfetto.dev or chrome://tracing). Yields the path the
+    trace is written to on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(os.path.expanduser(str(out_dir)))
+    path.mkdir(parents=True, exist_ok=True)
+    trace = path / f"apd_{os.getpid()}.pt.trace.json"
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield trace
+    prof.export_chrome_trace(str(trace))
+    print(f"profiler trace -> {trace}", flush=True)

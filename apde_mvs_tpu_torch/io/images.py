@@ -139,6 +139,20 @@ def write_png(path, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) of an image file without decoding its pixels: from
+    the IHDR chunk of a PNG, through PIL otherwise."""
+    if _is_png(path):
+        with open(path, "rb") as f:
+            head = f.read(24)
+        if head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
+            raise ValueError(f"{path}: not a PNG file")
+        return struct.unpack(">II", head[16:24])
+    image = _require_pil(path)
+    with image.open(path) as im:
+        return im.size
+
+
 def _read_rgb(path) -> np.ndarray:
     """(H, W, 3) uint8 RGB, as PIL's convert("RGB") gives it."""
     if _is_png(path):

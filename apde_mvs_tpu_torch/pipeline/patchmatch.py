@@ -17,6 +17,12 @@ One pass:
 
 The weak set is fixed for the pass (as in the reference), so the weak list
 is compacted once, on the device.
+
+Debug outputs (the reference's exporters): ``export_curve`` classifies
+every pixel (the extra ones come out UNKNOWN) and returns the 61-sample
+reliability curves; ``export_debug`` returns the anchors of the whole weak
+list and its map, the final nearest-strong map, and one more fit-plane
+RANSAC over the weak list on the final planes.
 """
 
 from __future__ import annotations
@@ -51,6 +57,11 @@ class PatchMatchOutputs(NamedTuple):
     weak: np.ndarray         # (H, W) uint8
     confidence: np.ndarray   # (H, W) uint8
     cost: np.ndarray         # (H, W) f32
+    anchors: Optional[np.ndarray] = None          # (Nw, 9, 2) int32 (APD)
+    anchors_map: Optional[np.ndarray] = None      # (H, W) int32, -1 off list
+    reliable_curve: Optional[np.ndarray] = None   # (H, W, 61) f32
+    nearest_strong: Optional[np.ndarray] = None   # (H, W, 2) int32 debug
+    fit_normal: Optional[np.ndarray] = None       # (Nw, 4) debug
 
 
 # pixels per classify / refine evaluation (the JAX engine's classify chunk):
@@ -83,13 +94,16 @@ def run_patchmatch(
     depth_min: float,
     depth_max: float,
     seed: int = 0,
+    export_curve: bool = False,
+    export_debug: bool = False,
 ) -> PatchMatchOutputs:
     """Run one full PatchMatch pass for one reference view.
 
     `data` carries the (padded) images/cameras/depths; priors are the loaded
     previous-iteration maps at the same padded resolution (the weak map and
     confidence feed the APD setup). The pass's random draws come from a
-    torch.Generator seeded with ``seed`` on data's device.
+    torch.Generator seeded with ``seed`` on data's device; the debug fit of
+    ``export_debug`` draws from one seeded with ``seed ^ 0x5F17``.
     """
     first_init = params.state == "first_init"
     use_apd = bool(params.use_apd) and not first_init
@@ -126,9 +140,13 @@ def run_patchmatch(
 
     # ---- APD setup: weak list, anchors, demotion --------------------------
     weak = None
+    anchors_map = None
     if use_apd:
         wy, wx = torch.nonzero(state.weak == WEAK, as_tuple=True)
         if wx.numel() > 0:
+            anchors_map = np.full((h, w), -1, np.int32)
+            anchors_map[wy.cpu().numpy(), wx.cpu().numpy()] = np.arange(
+                wx.numel(), dtype=np.int32)
             wx = wx.to(torch.int32)
             wy = wy.to(torch.int32)
             ns = anchor_ops.nearest_strong_jfa(state.weak, state.confidence,
@@ -181,13 +199,24 @@ def run_patchmatch(
         return filters.depth_to_weak(
             data, state, cx, cy, params.weak_peak_radius,
             cfg.geom_consistency, gf, dmin, dmax, cfg.strong_radius,
-            cfg.strong_increment, use_sa=cfg.use_sa)[0]
+            cfg.strong_increment, return_curve=export_curve,
+            use_sa=cfg.use_sa)
 
+    # curve export is a debug mode: sweep every pixel so the exported curve
+    # covers the whole image, as the reference's exporter does
+    cls_mask = torch.ones((h, w), dtype=torch.bool, device=dev) \
+        if export_curve else (sweepable & ~margin)
     weak_map = torch.full((h, w), UNKNOWN, dtype=torch.int32, device=dev)
-    res = _chunked(classify, sweepable & ~margin)
+    reliable_curve = None
+    res = _chunked(classify, cls_mask)
     if res is not None:
         cy_, cx_, outs = res
-        weak_map[cy_, cx_] = torch.cat(outs)
+        weak_map[cy_, cx_] = torch.cat([o[0] for o in outs])
+        if export_curve:
+            curve = torch.zeros((h, w, outs[0][1].shape[-1]),
+                                dtype=torch.float32, device=dev)
+            curve[cy_, cx_] = torch.cat([o[1] for o in outs])
+            reliable_curve = curve.cpu().numpy()
     state = state.replace(weak=weak_map)
 
     # ---- confidence + local refine ----------------------------------------
@@ -207,6 +236,20 @@ def run_patchmatch(
         state = state.replace(planes=torch.cat(
             [state.planes[..., :3], depth_map[..., None]], -1))
 
+    nearest_strong = fit_normal = None
+    if export_debug and weak is not None:
+        # the reference's (unused) exporters ExportNearestStrong /
+        # ExportFitNormal (APD.cu:2600-2649), over the whole weak list
+        nearest_strong = anchor_ops.nearest_strong_jfa(
+            state.weak, state.confidence, state.valid).cpu().numpy()
+        cam_planes = filters.depth_normal_to_planes(
+            data, state.planes[..., 3], state.planes[..., :3])
+        debug_gen = torch.Generator(device=dev)
+        debug_gen.manual_seed(seed ^ 0x5F17)
+        fit_normal = anchor_ops.ransac_fit_planes(
+            data, state.replace(planes=cam_planes), *weak,
+            generator=debug_gen).cpu().numpy()
+
     planes_np = state.planes.cpu().numpy()
     return PatchMatchOutputs(
         depth=planes_np[..., 3].copy(),
@@ -215,4 +258,9 @@ def run_patchmatch(
         confidence=np.clip(state.confidence.cpu().numpy(), 0, 255
                            ).astype(np.uint8),
         cost=state.costs.cpu().numpy(),
+        anchors=None if weak is None else weak[2].cpu().numpy(),
+        anchors_map=anchors_map,
+        reliable_curve=reliable_curve,
+        nearest_strong=nearest_strong,
+        fit_normal=fit_normal,
     )

@@ -2,21 +2,34 @@
 """Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from this checkout, holds each against
 its plain PyTorch version at the shapes its call sites give it (the strong
-NCC's window, the deformable NCC's centre and anchor windows), then drives
-the port's two main paths through the engine CLI and checks each result
-against ground truth:
+NCC's window and one pixel's, the deformable NCC's centre and anchor
+windows), then drives the port's paths through its entry points and checks
+each result:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
 - the APD scan: a scan with a nearly textureless plane and SA masks, run
   with ``--pyramid_base 400`` — round 0 at 300x400, then round 1 at
   600x800 with the APD weak path (anchors, fit-plane RANSAC, deformable
-  NCC, weak sweeps, SA windows) in all four passes — then fusion.
+  NCC, weak sweeps, SA windows) in all four passes — then fusion;
+- fusion variants on the APD scan's bins: General, TaT_i and TaT_a
+  (``--only_fuse``), two fusion shards (one under ``--profile_dir``, whose
+  trace must hold CUDA kernels) and their merge, within 5% of General;
+- debug exports: the APD scan's last pass again with ``--export_anchor``
+  and ``--export_curve``, then ``tools.anchor_vis`` and
+  ``tools.debug_point --device cuda --geom`` on one weak pixel;
+- the batch path: an ETH3D-layout scan (COLMAP model, 11 views 600x800)
+  through ``tools.eth3d_train`` in a subprocess (conversion, ``cli.run``,
+  the port's engine CLI on the card), then ``tools.collect``.
 
-    python3 chip_smoke.py [--views 11] [--apd_views 11] [--seed 0]
+    python3 chip_smoke.py [--views 6] [--apd_views 11] [--seed 0]
 
-Both scans are 600x800, the shape bench.py times; only the number of views
-may be cut, and a cut is printed.
+Every scan is 600x800, the shape bench.py times; only the number of views
+of the round-0 and APD scans may be cut, and a cut is printed. The round-0
+scan runs 6 of the 11 views by default: the batch path's engine runs the
+same round-0 schedule on all 11 views of the same scene, so the earlier
+path is the one cut in depth to keep the script well inside its time
+limit. The kernel checks and the batch scan always use all 11 views.
 
 Every phase raises on failure; the exit code is non-zero on any failure,
 and without a CUDA device the script stops before printing any result.
@@ -30,14 +43,20 @@ import argparse
 import contextlib
 import io
 import json
+import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
+REPO = Path(__file__).resolve().parent
+
 # the scan: bench.py's shape, each view's 10 others as sources
 HEIGHT, WIDTH = 600, 800
 FULL_VIEWS = 11
+ROUND0_VIEWS = 6
 # the APD scan: the scene benchmarks/fullres_stress.py measures the APD pass
 # on (focal 1.25 W, a weak plane in the middle); its round 1 runs at full
 # size, round 0 at half
@@ -250,6 +269,14 @@ def kernel_phase(scene, seed: int, device, card: str) -> dict:
     log(f"  image form ({H}x{W}, {m} samples): K1 {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, grid_sample {r['library_ms']:.4f} ms, "
         f"bound {r['bound_ms']:.4f} ms [{card}]")
+    # one pixel's window, the shape tools.debug_point samples at
+    for u8 in (True, False):
+        q = data[u8].src_quads
+        px, py = wx[:, :1].contiguous(), wy[:, :1].contiguous()
+        errs.append(compare(sampler.sample_packed(q, W, H, px, py),
+                            sampler.sample_packed_plain(q, W, H, px, py),
+                            f"packed {'u8' if u8 else 'f32'}, one pixel "
+                            f"{tuple(px.shape)}", tol=0.0))
     res["max_abs_err"] = max(errs)
     return res
 
@@ -351,65 +378,91 @@ def weak_kernel_phase(scene, seed: int, device, card: str) -> dict:
     return out
 
 
-def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
-               card: str) -> dict:
-    """The port's CLI on the card over the written scan; checks the pass
-    count, depth error against ground truth, the fused PLY, and that K1
-    carried the sampling. Launch counts are read per call site."""
-    import numpy as np
+class Tee(io.TextIOBase):
+    """Stdout that is also kept: what an entry point prints is shown as it
+    comes and parsed afterwards."""
+
+    def __init__(self):
+        self.buf = io.StringIO()
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_main(main, argv) -> str:
+    """Call an entry point's ``main(argv)`` in this process; raises unless
+    it returns 0. Returns what it printed."""
     import torch
-
-    from apde_mvs_tpu_torch.cli import apd
-    from apde_mvs_tpu_torch.io import binmat
-    from apde_mvs_tpu_torch.io.ply import read_ply
-    from apde_mvs_tpu_torch.ops.cuda import sampler
-
-    class Tee(io.TextIOBase):
-        def __init__(self):
-            self.buf = io.StringIO()
-
-        def write(self, s):
-            sys.__stdout__.write(s)
-            return self.buf.write(s)
-
-        def flush(self):
-            sys.__stdout__.flush()
-
     tee = Tee()
-    log(f"==== {label} ====")
-    torch.cuda.synchronize()
-    sampler.reset_launches()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        rc = apd.main(["--dense_folder", str(root), "--dataset", "General"]
-                      + list(cli_args))
+        rc = main([str(a) for a in argv])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = sampler.launches
-    sites = dict(sampler.site_launches)
     if rc != 0:
-        raise RuntimeError(f"apd.main returned {rc}")
-    text = tee.buf.getvalue()
-    passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
-    fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
-    if len(passes) != n_passes:
-        raise AssertionError(f"expected {n_passes} passes, saw {passes}")
+        raise RuntimeError(f"{main.__module__}.main returned {rc}")
+    return tee.buf.getvalue()
+
+
+def depth_errors(scene, root: Path) -> list:
+    """Median relative depth error of each view's depths.bin against the
+    scene's ground truth; raises at 1% or more."""
+    import numpy as np
+
+    from apde_mvs_tpu_torch.io import binmat
     errs = []
     for v in range(scene.num_views):
         d = binmat.read_bin_mat(root / "APD" / f"{v:08d}" / "depths.bin")
         gt = scene.depths[v]
         ok = (d > 0) & (gt > 0)
         errs.append(float(np.median(np.abs(d - gt)[ok] / gt[ok])))
-    worst = max(errs)
     log(f"median relative depth error per view: "
         f"{', '.join(f'{e:.5f}' for e in errs)}")
-    if not worst < 0.01:
-        raise AssertionError(f"median relative depth error {worst} >= 1%")
-    pts, cols = read_ply(root / "APD" / "APD.ply")
-    log(f"fused PLY: {len(pts)} points, colours "
+    if not max(errs) < 0.01:
+        raise AssertionError(f"median relative depth error {max(errs)} "
+                             ">= 1%")
+    return errs
+
+
+def coloured_points(ply: Path, what: str) -> int:
+    """Point count of a fused PLY; raises unless it has more than 1000
+    points, each with a colour."""
+    from apde_mvs_tpu_torch.io.ply import read_ply
+    pts, cols = read_ply(ply)
+    log(f"{what}: {len(pts)} points, colours "
         f"{'yes' if cols is not None else 'no'}")
     if len(pts) <= 1000 or cols is None or len(cols) != len(pts):
-        raise AssertionError("fused PLY has too few coloured points")
+        raise AssertionError(f"{what}: too few coloured points")
+    return len(pts)
+
+
+def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
+               card: str) -> dict:
+    """The port's CLI on the card over the written scan; checks the pass
+    count, depth error against ground truth, the fused PLY, and that K1
+    carried the sampling. Launch counts are read per call site."""
+    import torch
+
+    from apde_mvs_tpu_torch.cli import apd
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+
+    log(f"==== {label} ====")
+    torch.cuda.synchronize()
+    sampler.reset_launches()
+    t0 = time.perf_counter()
+    text = run_main(apd.main, ["--dense_folder", root, "--dataset",
+                               "General"] + list(cli_args))
+    wall = time.perf_counter() - t0
+    launches = sampler.launches
+    sites = dict(sampler.site_launches)
+    passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
+    fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
+    if len(passes) != n_passes:
+        raise AssertionError(f"expected {n_passes} passes, saw {passes}")
+    errs = depth_errors(scene, root)
+    points = coloured_points(root / "APD" / "APD.ply", "fused PLY")
     if launches <= 0 or sum(sites.values()) != launches:
         raise AssertionError(f"K1 launches {launches}, by site {sites}")
     log(f"{label}: {wall:.3f} s wall, K1 launches {launches}, by site "
@@ -417,7 +470,7 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
     return dict(launches=launches, sites=sites, wall_s=wall, errors=errs,
-                points=len(pts), passes=passes, fusion=fusion, text=text)
+                points=points, passes=passes, fusion=fusion, text=text)
 
 
 def write_sa_masks(scene, root: Path) -> None:
@@ -454,9 +507,212 @@ def apd_checks(scan: dict, root: Path, num_views: int, card: str) -> float:
     return frac
 
 
+def fusion_phase(root: Path, prof_dir: Path, card: str) -> dict:
+    """Fusion variants on the APD scan's bins through the CLI: General,
+    TaT_i, TaT_a, then shards 0 and 1 of 2 (shard 0 under --profile_dir)
+    and their merge. Checks the point counts, the merge against General
+    (within 5%, the JAX package's bar, tests/test_fusion.py:106) and that
+    the trace holds CUDA kernel events."""
+    from apde_mvs_tpu_torch.cli import apd
+    from apde_mvs_tpu_torch.io.ply import read_ply
+
+    log("==== fusion variants on the APD scan's bins ====")
+    base = ["--dense_folder", root, "--only_fuse", "true"]
+
+    def wall_of(text):
+        return float(next(ln for ln in text.splitlines()
+                          if ln.startswith("Fusion wall")).split()[2])
+    out = {}
+    for ds in ("General", "TaT_i", "TaT_a"):
+        text = run_main(apd.main, base + ["--dataset", ds])
+        n = coloured_points(root / "APD" / "APD.ply", f"{ds} fusion")
+        out[ds] = dict(points=n, wall_s=wall_of(text))
+        log(f"  {ds}: {n} points, Fusion wall {out[ds]['wall_s']:.3f} s "
+            f"[{card}]")
+    parts = []
+    for i in range(2):
+        extra = ["--profile_dir", prof_dir] if i == 0 else []
+        text = run_main(apd.main, base + ["--dataset", "General",
+                                          "--fuse_shard", f"{i},2"] + extra)
+        pts, _ = read_ply(root / "APD" / f"APD.ply.part{i}of2")
+        parts.append(dict(points=len(pts), wall_s=wall_of(text)))
+        log(f"  shard {i} of 2: {len(pts)} points, Fusion wall "
+            f"{parts[-1]['wall_s']:.3f} s{' (profiled)' if i == 0 else ''} "
+            f"[{card}]")
+    t0 = time.perf_counter()
+    run_main(apd.main, ["--dense_folder", root, "--merge_fusion", "2"])
+    merge_s = time.perf_counter() - t0
+    merged = coloured_points(root / "APD" / "APD.ply", "merged shards")
+    general = out["General"]["points"]
+    log(f"  merge: {merged} points in {merge_s:.3f} s, unsharded General "
+        f"{general} ({(merged - general) / general * 100:+.2f}%) [{card}]")
+    if not abs(merged - general) < 0.05 * general:
+        raise AssertionError(f"merged shards {merged} not within 5% of "
+                             f"General {general}")
+    traces = sorted(prof_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"expected one profiler trace, got {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"  profiler trace {traces[0].name}: "
+        f"{traces[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} CUDA kernel events")
+    if not kernels:
+        raise AssertionError("the profiler trace holds no CUDA kernel event")
+    traces[0].unlink()
+    return dict(variants=out, shards=parts, merged=merged, merge_s=merge_s,
+                kernel_events=len(kernels))
+
+
+EXPORTS = ("anchors.bin", "anchors_map.bin", "reliable_curve.bin",
+           "nearest_strong_7.png", "fit_normal_7.png")
+
+
+def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
+                  card: str) -> dict:
+    """The APD scan's last pass (iteration 7) again with both debug exports;
+    checks every view's five files and the curve's shape, deletes the
+    curves (117 MB a view), then renders one weak pixel's anchors with
+    tools.anchor_vis and inspects it with tools.debug_point on the card."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch.cli import apd
+    from apde_mvs_tpu_torch.io import binmat
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.tools import anchor_vis, debug_point
+
+    log("==== debug exports: the APD scan's last pass again ====")
+    torch.cuda.synchronize()
+    sampler.reset_launches()
+    t0 = time.perf_counter()
+    text = run_main(apd.main, [
+        "--dense_folder", root, "--dataset", "General", "--seed", seed,
+        "--pyramid_base", APD_BASE, "--start_iteration", 7,
+        "--export_anchor", "true", "--export_curve", "true",
+        "--no_fuse", "true"])
+    wall = time.perf_counter() - t0
+    launches, sites = sampler.launches, dict(sampler.site_launches)
+    passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
+    weak = [int(ln.split()[2]) for ln in text.splitlines()
+            if ln.startswith("Weak count:")]
+    if len(passes) != 1 or len(weak) != num_views:
+        raise AssertionError(f"exports pass: {passes}, weak counts {weak}")
+    if launches <= 0 or sum(sites.values()) != launches:
+        raise AssertionError(f"K1 launches {launches}, by site {sites}")
+    for v in range(num_views):
+        rf = root / "APD" / f"{v:08d}"
+        missing = [n for n in EXPORTS if not (rf / n).is_file()]
+        if missing:
+            raise AssertionError(f"view {v} (weak count {weak[v]}) lacks "
+                                 f"{missing}")
+        curve = rf / "reliable_curve.bin"
+        with open(curve, "rb") as f:
+            head = np.frombuffer(f.read(12), np.int32).tolist()
+        if head != [WIDTH, HEIGHT, 61] or curve.stat().st_size \
+                != 12 + WIDTH * HEIGHT * 61 * 4:
+            raise AssertionError(f"view {v}: curve header {head}, "
+                                 f"{curve.stat().st_size} bytes")
+        amap = binmat.read_bin_mat(rf / "anchors_map.bin")
+        if anchor_vis.read_anchors(rf / "anchors.bin").shape[0] != weak[v] \
+                or int((amap >= 0).sum()) != weak[v]:
+            raise AssertionError(f"view {v}: anchors do not match the "
+                                 f"weak count {weak[v]}")
+        curve.unlink()
+    log(f"exports pass: {passes[0]}, {wall:.3f} s wall, weak counts "
+        f"{weak}; K1 launches {launches}, by site "
+        f"{json.dumps(sites, sort_keys=True)}; all five files on every "
+        f"view, curves (H, W, 61) f32 checked and deleted [{card}]")
+
+    rf = root / "APD" / "00000000"
+    amap = binmat.read_bin_mat(rf / "anchors_map.bin")
+    anchors = anchor_vis.read_anchors(rf / "anchors.bin")
+    reliable = np.nonzero((anchors[:, 1:, 0] >= 0).any(-1))[0]
+    if len(reliable) == 0:
+        raise AssertionError("view 0 has no weak pixel with anchors")
+    y, x = (int(c[0]) for c in np.nonzero(amap == reliable[0]))
+    overlay = out_dir / "anchor_overlay.png"
+    run_main(anchor_vis.main, ["--result_folder", rf, "--point",
+                               f"{x},{y}", "--out", overlay])
+    if not overlay.is_file():
+        raise AssertionError("anchor_vis wrote no overlay")
+    sampler.reset_launches()
+    text = run_main(debug_point.main, [
+        "--dense_folder", root, "--view", 0, "--point", f"{x},{y}",
+        "--device", "cuda", "--geom"])
+    dp = dict(sampler.site_launches)
+    curve_line = text.splitlines()[[i for i, ln in enumerate(
+        text.splitlines()) if "reliability curve" in ln][0] + 1]
+    if len(curve_line.split()) != 61 or sampler.launches <= 0:
+        raise AssertionError(f"debug_point: curve {curve_line!r}, K1 "
+                             f"launches {sampler.launches}")
+    log(f"debug_point at ({x}, {y}) of view 0: K1 launches "
+        f"{json.dumps(dp, sort_keys=True)}")
+    return dict(wall_s=wall, pass_line=passes[0], launches=launches,
+                sites=sites, weak=weak, debug_point_sites=dp)
+
+
+def batch_phase(scene, tmp: Path, card: str) -> dict:
+    """An ETH3D-layout scan through tools.eth3d_train in a subprocess
+    (conversion, cli.run, whose pool worker starts the port's engine CLI on
+    the card), then tools.collect. cli.run does not report the engine's
+    exit status, so the engine's log, depths and cloud are checked."""
+    from apde_mvs_tpu_torch.testing import eth3d_fixture
+    from apde_mvs_tpu_torch.tools import collect
+
+    log("==== batch path: ETH3D layout -> eth3d_train -> cli.run -> "
+        "engine ====")
+    raw, work = tmp / "ETH3D_raw", tmp / "ETH3D_work"
+    t0 = time.perf_counter()
+    eth3d_fixture.write_eth3d_scan(scene, str(raw), "drill_scan")
+    log(f"fixture written in {time.perf_counter() - t0:.1f} s")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [v for v in [env.get("PYTHONPATH")] if v])
+    cmd = [sys.executable, "-m", "apde_mvs_tpu_torch.tools.eth3d_train",
+           "--eth3d_dir", str(raw), "--work_dir", str(work), "--skip_eval",
+           "--", "--no_sam"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines()[-12:]:
+        log(f"  | {ln}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"eth3d_train exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    scan = work / "drill_scan"
+    text = (scan / "APD" / "log.txt").read_text()
+    passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
+    fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
+    k1 = [ln for ln in text.splitlines()
+          if ln.startswith("Sampler kernel launches:")]
+    if len(passes) != 4 or len(fusion) != 1 or len(k1) != 1 \
+            or "dataset       : ETH3D" not in text:
+        raise AssertionError(f"engine log: passes {passes}, fusion {fusion}"
+                             f", launches {k1}\n{text[-3000:]}")
+    launches = int(k1[0].split()[3].rstrip(","))
+    sites = json.loads(k1[0].split("by site ", 1)[1])
+    if launches <= 0:
+        raise AssertionError("the batch engine launched no K1")
+    errs = depth_errors(scene, scan)
+    points = coloured_points(scan / "APD" / "APD.ply", "batch fused PLY")
+    out = tmp / "collected"
+    run_main(collect.main, ["eth", "--data_dir", work, "--out_dir", out])
+    if (out / "drill_scan.ply").read_bytes() \
+            != (scan / "APD" / "APD.ply").read_bytes():
+        raise AssertionError("collect did not copy the fused cloud")
+    log(f"batch path: {wall:.3f} s for the eth3d_train subprocess; engine "
+        f"K1 launches {launches}, by site {json.dumps(sites)} [{card}]")
+    for ln in passes + fusion:
+        log(f"  {ln} [{card}]")
+    return dict(wall_s=wall, passes=passes, fusion=fusion, errors=errs,
+                points=points, launches=launches, sites=sites)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--views", type=int, default=FULL_VIEWS,
+    ap.add_argument("--views", type=int, default=ROUND0_VIEWS,
                     help=f"views of the round-0 scan (2..{FULL_VIEWS}); "
                          f"fewer than {FULL_VIEWS} is a reduction and is "
                          "printed")
@@ -501,8 +757,11 @@ def main(argv=None) -> int:
             log(f"  ptxas: {ln.strip()}")
 
     t0 = time.perf_counter()
-    scene = synthetic.make_scene(num_views=args.views, height=HEIGHT,
-                                 width=WIDTH, baseline=0.12)
+    full_scene = synthetic.make_scene(num_views=FULL_VIEWS, height=HEIGHT,
+                                      width=WIDTH, baseline=0.12)
+    scene = full_scene if args.views == FULL_VIEWS else \
+        synthetic.make_scene(num_views=args.views, height=HEIGHT,
+                             width=WIDTH, baseline=0.12)
     apd_scene = synthetic.make_scene(
         num_views=args.apd_views, height=HEIGHT, width=WIDTH, baseline=0.12,
         focal=1.25 * WIDTH, weak_region=WEAK_REGION)
@@ -515,7 +774,7 @@ def main(argv=None) -> int:
                 "width and height kept")
 
     # ---- kernel checks -----------------------------------------------------
-    k = kernel_phase(scene, args.seed, device, card)
+    k = kernel_phase(full_scene, args.seed, device, card)
     kw = weak_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -532,20 +791,35 @@ def main(argv=None) -> int:
         ap = scan_phase("APD scan", seed_args + [
             "--pyramid_base", str(APD_BASE)], apd_scene, root, 8, card)
         apd_checks(ap, root, apd_scene.num_views, card)
+        fusion_phase(root, Path(tmp) / "profile", card)
+        ex = exports_phase(root, apd_scene.num_views, args.seed, Path(tmp),
+                           card)
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        bt = batch_phase(full_scene, Path(tmp), card)
     torch.cuda.synchronize()
 
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
+    log("phase walls: round-0 scan {:.1f} s, APD scan {:.1f} s, exports "
+        "pass {:.1f} s, batch path {:.1f} s [{}]".format(
+            r0["wall_s"], ap["wall_s"], ex["wall_s"], bt["wall_s"], card))
+    # K1's launches on every path, each read from its own counters (the
+    # batch engine's from its log)
+    launches = {site: sum(d.get(site, 0) for d in (
+        ap["sites"], ex["sites"], ex["debug_point_sites"], bt["sites"]))
+        for site in ("strong", "weak_centre", "weak_anchor")}
+    launches["strong"] += r0["launches"]
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
-                 launches=r0["launches"] + ap["sites"].get("strong", 0),
+                 launches=launches["strong"],
                  max_abs_err=k["max_abs_err"], **k["u8"])]
     for site, what in (("weak_centre", "weak centre windows"),
                        ("weak_anchor", "weak anchor windows")):
         r = kw[site]
         rows.append(dict(name=f"K1 bilinear sampler, {what} (packed u8 "
                               "quads)", **k1,
-                         launches=ap["sites"][site],
+                         launches=launches[site],
                          max_abs_err=r["max_abs_err"], **r["u8"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -16,9 +16,11 @@ import torch
 import apde_mvs_tpu_torch
 from apde_mvs_tpu_torch import convert
 from apde_mvs_tpu_torch.cli import apd
-from apde_mvs_tpu_torch.core.platform import bind_device
+from apde_mvs_tpu_torch.core.platform import bind_device, profile_trace
+from apde_mvs_tpu_torch.datasets.sam import SAMRunner
 from apde_mvs_tpu_torch.io import images
 from apde_mvs_tpu_torch.pipeline import driver, fusion
+from apde_mvs_tpu_torch.tools import debug_point
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -117,7 +119,8 @@ def test_bind_device(monkeypatch):
 @pytest.mark.parametrize("fn", [
     driver.run_scan, driver.process_problem, fusion.run_fusion,
     fusion.load_fusion_views, convert.camera_arrays, convert.cost_data,
-    convert.pm_state], ids=lambda f: f.__qualname__)
+    convert.pm_state, debug_point.inspect_point, SAMRunner, profile_trace],
+    ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 

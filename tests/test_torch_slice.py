@@ -108,12 +108,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path, scene):
     root = tmp_path / "scan"
     synthetic.write_scene_to_disk(scene, root)
     with contextlib.redirect_stdout(io.StringIO()):
-        with pytest.raises(NotImplementedError, match="export_anchor"):
-            apd.main(["--dense_folder", str(root), "--device", "cpu",
-                      "--export_anchor", "true"])
         with pytest.raises(NotImplementedError, match="views_parallel"):
             apd.main(["--dense_folder", str(root), "--device", "cpu",
                       "--views_parallel", "true"])
+        with pytest.raises(NotImplementedError, match="views_parallel"):
+            apd.main(["--dense_folder", str(root), "--device", "cpu",
+                      "--views_parallel", "true", "--only_fuse", "true"])
 
 
 def test_run_patchmatch_matches_jax_statistically(scene):
