@@ -5,15 +5,20 @@ Usage:
     python -m apde_mvs_tpu_torch.cli.apd --dense_folder <scan> \
         [--dataset General] [--device cuda|cpu] [--gpu_index 0] ...
 
-``--views_parallel true`` raises (the port runs one view at a time on one
-card; view-parallel passes are not ported), and ``--view_batch`` is
-accepted and ignored.
+Scale-out: under ``python -m torch.distributed.run --nproc_per_node N -m
+apde_mvs_tpu_torch.cli.apd ...`` each rank binds ``cuda:LOCAL_RANK``
+(modulo the card count), joins the process group (NCCL when every rank
+has a card of its own, gloo when ranks share one or run on the CPU) and
+``--views_parallel`` (auto = more than one rank) splits the scan's views
+over the ranks, ``--view_batch`` views a batch; rank 0 fuses after the
+last pass.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 
 
@@ -48,14 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pyramid_base", type=int, default=800)
     p.add_argument("--views_parallel", type=str, default="auto",
                    choices=["auto", "true", "false"],
-                   help="not ported: only auto/false (serial views) run")
+                   help="split each pass's views over the ranks of the "
+                        "process group (auto: when there is more than one "
+                        "rank); fewer views than ranks row-shards each view")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the run (CPU and "
                         "CUDA activities, Chrome/Perfetto JSON) into this "
                         "directory")
     p.add_argument("--view_batch", type=int, default=None,
-                   help="view-parallel batch cap (ignored: views run "
-                        "serially)")
+                   help="views per view-parallel batch (default: sized "
+                        "from the card's free memory; the whole scan on "
+                        "the CPU)")
     p.add_argument("--fuse_shard", type=str, default=None,
                    help="distributed fusion: 'i,n' fuses ref views i mod n "
                         "into a partial PLY")
@@ -72,29 +80,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.views_parallel == "true":
-        raise NotImplementedError(
-            "--views_parallel: view-parallel passes not ported yet")
-    only_fuse = args.only_fuse
     print("========================== Config ==========================")
     for k, v in sorted(vars(args).items()):
         print(f"{k:14s}: {v}")
     print("============================================================")
 
-    if args.view_batch is not None:
-        print(f"--view_batch {args.view_batch} ignored: the port runs views "
-              "one at a time", flush=True)
+    import torch.distributed as dist
 
-    from ..core.platform import bind_device, profile_trace
+    from ..core.platform import bind_device
+    from ..parallel import distributed as pdist
+
+    # under torchrun each rank binds its own local card
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    device = bind_device(args.gpu_index + local_rank, args.device)
+    rank, _ = pdist.initialize(device)
+    try:
+        if rank == 0 or not args.merge_fusion:
+            _run(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def _run(args, device) -> None:
+    from ..core.platform import profile_trace
     from ..pipeline.driver import run_scan
-
-    device = bind_device(args.gpu_index, args.device)
 
     if args.merge_fusion:
         from ..pipeline.fusion import merge_fusion_shards
         merge_fusion_shards(args.dense_folder, "APD.ply", args.merge_fusion,
                             export_color=args.export_color)
-        return 0
+        return
 
     fuse_shard = None
     if args.fuse_shard:
@@ -107,16 +124,18 @@ def main(argv=None) -> int:
     with prof:
         run_scan(
             args.dense_folder, dataset=args.dataset, device=device,
-            only_fuse=only_fuse, no_fuse=args.no_fuse,
-            use_memory_cache=args.memory_cache and not only_fuse,
+            only_fuse=args.only_fuse, no_fuse=args.no_fuse,
+            use_memory_cache=args.memory_cache and not args.only_fuse,
             use_sa=args.use_sa, use_impetus=args.use_impetus,
             weak_filter=args.weak_filter, flush=args.flush or args.no_fuse,
             export_anchor=args.export_anchor,
             export_curve=args.export_curve, export_color=args.export_color,
             seed=args.seed, pyramid_base=args.pyramid_base,
             fuse_shard=fuse_shard, sampler_u8=(args.sampler == "u8"),
-            start_iteration=args.start_iteration)
-    return 0
+            start_iteration=args.start_iteration,
+            views_parallel={"auto": None, "true": True,
+                            "false": False}[args.views_parallel],
+            view_batch=args.view_batch)
 
 
 if __name__ == "__main__":

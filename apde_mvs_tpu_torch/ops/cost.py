@@ -69,6 +69,10 @@ class CostData:
     # (H, W) int32 SA segment ids, 0 = no segment; None when no mask was
     # loaded (every pixel outside any segment)
     sa_mask: Optional[torch.Tensor] = None
+    # rows of the source quad tables when they differ from the reference
+    # block's (a halo-extended row block of a sharded sweep,
+    # parallel/tiles.py); 0 = ``height``
+    src_height: int = 0
 
     @property
     def img_w(self):
@@ -77,6 +81,14 @@ class CostData:
     @property
     def img_h(self):
         return self.real_height or self.height
+
+    @property
+    def quad_h(self):
+        """Rows of the source quad tables."""
+        return self.src_height or self.height
+
+    def replace(self, **changes) -> "CostData":
+        return dataclasses.replace(self, **changes)
 
     @property
     def device(self) -> torch.device:
@@ -219,7 +231,7 @@ def ncc_strong(data: CostData, x, y, plane, win: RefWindow) -> torch.Tensor:
     tx = x[:, None] + win.tap_dx                              # (B, T)
     ty = y[:, None] + win.tap_dy
     wx, wy = geo.warp(H[..., None, :, :], tx, ty)             # (S, B, T)
-    sv = bilinear_sample_packed(data.src_quads, data.width, data.height,
+    sv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
                                 wx.contiguous(), wy.contiguous(),
                                 site="strong")
     cost = ncc_from_sums(win.sum_ref, win.sum_rr,

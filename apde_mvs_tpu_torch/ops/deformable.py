@@ -171,14 +171,14 @@ def ncc_weak(data: CostData, wref: WeakRefData, plane, params
 
     # anchor 0 (the pixel) with the strong window: (S, B, T) taps
     win = wref.center_win
-    csv = bilinear_sample_packed(data.src_quads, data.width, data.height,
+    csv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
                                  t.cwx, t.cwy, site="weak_centre")
     center_cost = ncc_from_sums(win.sum_ref, win.sum_rr,
                                 *window_sums(win.tap_w, win.tap_val, csv),
                                 win.wsum)                       # (S, B)
 
     # anchors 1..8 with sparse windows: (S, B, 8, T') taps
-    sv = bilinear_sample_packed(data.src_quads, data.width, data.height,
+    sv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
                                 t.awx, t.awy, site="weak_anchor")
     a_cost = ncc_from_sums(wref.sum_ref, wref.sum_rr,
                            *window_sums(wref.tap_w, wref.tap_val, sv),

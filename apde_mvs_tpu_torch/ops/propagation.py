@@ -91,7 +91,7 @@ _REGIONS = [
 ]
 
 
-def checkerboard_candidates(costs: torch.Tensor, x, y
+def checkerboard_candidates(costs: torch.Tensor, x, y, row_bounds=None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Min-cost candidate position per region.
@@ -100,15 +100,18 @@ def checkerboard_candidates(costs: torch.Tensor, x, y
     flags (B, 8)). A region is valid iff its base offset is in-bounds; within
     a region the first position achieving the minimal cost wins (the
     reference's strict `<` scan order; torch.argmin returns the first
-    minimum)."""
+    minimum). ``row_bounds=(lo, hi)`` narrows the in-bounds rows to
+    lo..hi inclusive: a halo-extended row block whose outer rows lie
+    outside the image (parallel/tiles.py)."""
     h, w = costs.shape
+    lo, hi = (0, h - 1) if row_bounds is None else row_bounds
     cxs, cys, fls = [], [], []
     for r in range(8):
         offs = torch.as_tensor(np.asarray(_REGIONS[r], np.int32),
                                device=x.device)                 # (M, 2)
         px = x[None, :] + offs[:, 0:1]                          # (M, B)
         py = y[None, :] + offs[:, 1:2]
-        inb = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+        inb = (px >= 0) & (px < w) & (py >= lo) & (py <= hi)
         c = torch.where(inb, fetch(costs, px, py, fill=0.0), math.inf)
         best = torch.argmin(c, dim=0, keepdim=True)
         cxs.append(torch.gather(px, 0, best)[0])
@@ -193,7 +196,8 @@ WeakDraws = SweepDraws
 # ---------------------------------------------------------------------------
 
 def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
-                 draws: SweepDraws, x, y, depth_min, depth_max, geom_factor):
+                 draws: SweepDraws, x, y, depth_min, depth_max, geom_factor,
+                 row_bounds=None):
     """Candidate evaluation + view selection + refinement for one flat batch
     of same-color pixels. Returns (planes_out, costs_out, sel_new, vw).
     Each plane hypothesis (8 candidates, the current plane, 5 refinement
@@ -202,7 +206,8 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     yf = y.to(torch.float32)
     cam = data.ref_cam
 
-    cand_x, cand_y, flags = checkerboard_candidates(state.costs, x, y)
+    cand_x, cand_y, flags = checkerboard_candidates(state.costs, x, y,
+                                                    row_bounds)
     cand_planes = fetch(state.planes, cand_x, cand_y)          # (B, 8, 4)
     cur_plane = fetch(state.planes, x, y)
 
@@ -291,10 +296,16 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
 def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
                      iteration, color: int, depth_min, depth_max,
                      geom_factor, generator: Optional[torch.Generator] = None,
-                     draws: Optional[SweepDraws] = None) -> PMState:
+                     draws: Optional[SweepDraws] = None, shard=None,
+                     row_bounds=None) -> PMState:
     """One color's strong sweep over the whole image. ``draws`` are the
     sweep's random draws (pixels in `color_coords` raster order); without
-    them they are taken from ``generator``."""
+    them they are taken from ``generator``, all of them, on every rank.
+
+    ``shard`` (a `parallel.tile_pass.RowShard`) evaluates only its rank's
+    rows, with their slice of the draws, and all-gathers the outputs
+    before the commit, so every rank commits the serial sweep's result.
+    ``row_bounds`` as in `checkerboard_candidates`."""
     h, w = state.costs.shape
     dev = state.costs.device
     xs2, ys2 = cb.color_coords(h, w, color, device=dev)
@@ -310,9 +321,17 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
     valid_c = cb.gather_color(state.valid, color).reshape(-1)
     active = (weak_c != WEAK) & valid_c
 
-    planes_out, costs_out, sel_new, vw = _strong_body(
-        data, state, cfg, iteration, draws, x, y, depth_min, depth_max,
-        geom_factor)
+    if shard is None:
+        planes_out, costs_out, sel_new, vw = _strong_body(
+            data, state, cfg, iteration, draws, x, y, depth_min, depth_max,
+            geom_factor, row_bounds)
+    else:
+        sl, counts = shard.row_part(h, w // 2)
+        outs = _strong_body(data, state, cfg, iteration,
+                            _take_draws(draws, sl), x[sl], y[sl], depth_min,
+                            depth_max, geom_factor, row_bounds)
+        planes_out, costs_out, sel_new, vw = (shard.gather(o, counts)
+                                              for o in outs)
 
     # scatter back (only active pixels change)
     def put(full, vals_flat):
@@ -465,14 +484,15 @@ def propagate_weak(data: CostData, state: PMState, cfg: PropCfg, iteration,
                    weak_x, weak_y, anchors, fit_planes, depth_min, depth_max,
                    geom_factor, generator: Optional[torch.Generator] = None,
                    draws: Optional[WeakDraws] = None,
-                   chunk: int = WEAK_SWEEP_CHUNK) -> PMState:
+                   chunk: int = WEAK_SWEEP_CHUNK, shard=None) -> PMState:
     """One weak-pixel sweep.
 
     weak_x / weak_y: (Nw,) int32 coords; anchors: (Nw, 9, 2) int32;
     fit_planes: (Nw, 4) from the iteration's RANSAC fit (zeros when
     absent). ``draws`` are the sweep's random draws in weak-list order;
     without them they are taken from ``generator``. Only pixels still WEAK
-    in ``state`` are written."""
+    in ``state`` are written. ``shard`` evaluates only its rank's slice of
+    the list and all-gathers the outputs, as in `propagate_strong`."""
     h, w = state.costs.shape
     dev = state.costs.device
     nw = weak_x.shape[0]
@@ -483,13 +503,28 @@ def propagate_weak(data: CostData, state: PMState, cfg: PropCfg, iteration,
     depth_min = geo.f32_scalar(depth_min, dev)
     depth_max = geo.f32_scalar(depth_max, dev)
     geom_factor = geo.f32_scalar(geom_factor, dev)
-    outs = [_weak_body(data, state, cfg, iteration,
-                       _take_draws(draws, slice(lo, lo + chunk)),
-                       weak_x[lo:lo + chunk], weak_y[lo:lo + chunk],
-                       anchors[lo:lo + chunk], fit_planes[lo:lo + chunk],
-                       depth_min, depth_max, geom_factor)
-            for lo in range(0, nw, chunk)]
+    sl, counts = (slice(0, nw), None) if shard is None \
+        else shard.list_part(nw)
+
+    def part(lo, hi):
+        if lo == hi:        # a rank whose slice of a short list is empty
+            s = state.selected.shape[-1]
+            return (torch.zeros((0, 4), device=dev),
+                    torch.zeros((0,), device=dev),
+                    torch.zeros((0, s), dtype=torch.bool, device=dev),
+                    torch.zeros((0, s), device=dev))
+        return _weak_body(data, state, cfg, iteration,
+                          _take_draws(draws, slice(lo, hi)), weak_x[lo:hi],
+                          weak_y[lo:hi], anchors[lo:hi], fit_planes[lo:hi],
+                          depth_min, depth_max, geom_factor)
+    outs = [part(lo, min(lo + chunk, sl.stop))
+            for lo in range(sl.start, sl.stop, chunk)] \
+        or [part(sl.start, sl.start)]
     planes_out, costs_out, sel_new, vw = (torch.cat(o) for o in zip(*outs))
+    if shard is not None:
+        planes_out, costs_out, sel_new, vw = (
+            shard.gather(o, counts)
+            for o in (planes_out, costs_out, sel_new, vw))
 
     upd = fetch(state.weak, weak_x, weak_y) == WEAK
     flat_idx = weak_y.long() * w + weak_x.long()

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA
-GPU: builds the hand-written kernels from this checkout, holds each against
-its plain PyTorch version at the shapes its call sites give it (the strong
-NCC's window and one pixel's, the deformable NCC's centre and anchor
+GPU: builds the hand-written kernels from this checkout (two processes at
+once, as two ranks would), holds each against its plain PyTorch version at
+the shapes its call sites give it (the strong NCC's window, a tile-route
+row shard's and one pixel's, the deformable NCC's centre and anchor
 windows), then drives the port's paths through its entry points and checks
 each result:
 
@@ -18,23 +19,37 @@ each result:
 - debug exports: the APD scan's last pass again with ``--export_anchor``
   and ``--export_curve``, then ``tools.anchor_vis`` and
   ``tools.debug_point --device cuda --geom`` on one weak pixel;
+- the view-parallel scan: the round-0 schedule on all 11 views through
+  ``torch.distributed.run --nproc_per_node 2 -m apde_mvs_tpu_torch.cli.apd
+  --views_parallel true`` in a subprocess, two ranks sharing the card
+  (gloo), then fusion on rank 0; its pass walls are printed beside the
+  batch path's serial engine passes (same views, shape and schedule);
+- the tile route: view 0's last REFINE_ITER pass again, row-sharded over
+  two ranks on the card (torchrun subprocess), against the serial engine's
+  pass on the same priors;
+- engine agreement under NCCL: a process group of one rank on the card;
+  the view-parallel FIRST_INIT pass of a 3-view scan against the serial
+  engine's (bitwise), then one geometric pass through the NCCL exchange;
 - the batch path: an ETH3D-layout scan (COLMAP model, 11 views 600x800)
   through ``tools.eth3d_train`` in a subprocess (conversion, ``cli.run``,
   the port's engine CLI on the card), then ``tools.collect``.
 
-    python3 chip_smoke.py [--views 6] [--apd_views 11] [--seed 0]
+    python3 chip_smoke.py [--views 6] [--apd_views 6] [--seed 0]
 
 Every scan is 600x800, the shape bench.py times; only the number of views
-of the round-0 and APD scans may be cut, and a cut is printed. The round-0
-scan runs 6 of the 11 views by default: the batch path's engine runs the
-same round-0 schedule on all 11 views of the same scene, so the earlier
-path is the one cut in depth to keep the script well inside its time
-limit. The kernel checks and the batch scan always use all 11 views.
+of the round-0 and APD scans may be cut, and a cut is printed. Both run 6
+of the 11 views by default: the view-parallel scan and the batch path run
+the round-0 schedule on all 11 views of the same scene, and the earlier
+paths are the ones cut in depth to keep the script well inside its time
+limit (the exports pass follows the APD scan). The kernel checks, the
+view-parallel scan, the tile route and the batch scan always use all 11
+views.
 
-Every phase raises on failure; the exit code is non-zero on any failure,
-and without a CUDA device the script stops before printing any result.
-Output ends with: one JSON line of per-kernel numbers, the card's name and
-power limit as nvidia-smi gives them, and the final status JSON line.
+Every phase raises on failure, a subprocess's exit code included; the exit
+code is non-zero on any failure, and without a CUDA device the script stops
+before printing any result. Output ends with: one JSON line of per-kernel
+numbers, the card's name and power limit as nvidia-smi gives them, and the
+final status JSON line.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -57,6 +73,9 @@ REPO = Path(__file__).resolve().parent
 HEIGHT, WIDTH = 600, 800
 FULL_VIEWS = 11
 ROUND0_VIEWS = 6
+APD_VIEWS = 6
+# the view-parallel and tile routes: two ranks sharing the one card
+RANKS = 2
 # the APD scan: the scene benchmarks/fullres_stress.py measures the APD pass
 # on (focal 1.25 W, a weak plane in the middle); its round 1 runs at full
 # size, round 0 at half
@@ -269,6 +288,23 @@ def kernel_phase(scene, seed: int, device, card: str) -> dict:
     log(f"  image form ({H}x{W}, {m} samples): K1 {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, grid_sample {r['library_ms']:.4f} ms, "
         f"bound {r['bound_ms']:.4f} ms [{card}]")
+    # one tile-route rank's strong sweep: the black pixels of its row shard
+    # (rows 0 .. H / RANKS - 1), all sources, the 36 taps
+    nb = (H // RANKS) * (W // 2)
+    rx, ry = wx[:, :nb].contiguous(), wy[:, :nb].contiguous()
+    res["shard"] = {}
+    for u8 in (True, False):
+        q = data[u8].src_quads
+        tag = "u8" if u8 else "f32"
+        errs.append(compare(sampler.sample_packed(q, W, H, rx, ry),
+                            sampler.sample_packed_plain(q, W, H, rx, ry),
+                            f"packed {tag}, row shard {tuple(rx.shape)}",
+                            tol=0.0))
+        res["shard"][tag] = time_packed(q, W, H, rx, ry,
+                                        f"row shard {tag}", card)
+    res["shard"]["u8"]["library_ms"] = grid_sample_ms(
+        data[True].src_quads, W, H, rx, ry, card)
+    res["shard"]["shape"] = tuple(rx.shape)
     # one pixel's window, the shape tools.debug_point samples at
     for u8 in (True, False):
         q = data[u8].src_quads
@@ -710,13 +746,292 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
                 points=points, launches=launches, sites=sites)
 
 
+def build_race(card: str) -> list:
+    """Build K1 from this checkout in RANKS processes started together, as
+    the ranks of a fresh torchrun would (`ops/cuda/build.py` compiles to a
+    per-process temporary file, then renames it into place); each must
+    load the library. Returns each process's nvcc seconds."""
+    from apde_mvs_tpu_torch.ops.cuda import build as kbuild
+    code = ("from apde_mvs_tpu_torch.ops.cuda import sampler; "
+            "print(sampler.library().seconds)")
+    existing = sorted(kbuild.BUILD_DIR.glob("lib*.so")) \
+        if kbuild.BUILD_DIR.exists() else []
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                              env=repo_env(), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(RANKS)]
+    secs = []
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise RuntimeError(f"K1 build in a rank-like process exited "
+                               f"{p.returncode}:\n{err[-4000:]}")
+        secs.append(float(out.split()[-1]))
+    log(f"K1 built by {RANKS} processes at once: nvcc {secs} s "
+        f"({'a library existed' if existing else 'fresh build'}); "
+        f"{len(list(kbuild.BUILD_DIR.glob('lib*.so')))} library "
+        f"file(s), no temporary left: "
+        f"{not list(kbuild.BUILD_DIR.glob('*.tmp'))} [{card}]")
+    if list(kbuild.BUILD_DIR.glob("*.tmp")):
+        raise AssertionError("a build left its temporary file")
+    return secs
+
+
+def repo_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [v for v in [env.get("PYTHONPATH")] if v])
+    return env
+
+
+class Utilization:
+    """``nvidia-smi``'s utilization.gpu (the share of each sample period in
+    which a kernel ran) sampled twice a second while a phase runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "500"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        vals = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+        self.mean = sum(vals) / len(vals) if vals else float("nan")
+        self.samples = len(vals)
+        return False
+
+
+PASS_RE = re.compile(r"Pass (\d+) \((\w+)\) wall ([\d.]+) s, exchanged "
+                     r"(\d+) B, rank (\d+) of (\d+)")
+K1_RE = re.compile(r"Sampler kernel launches: (\d+), by site (\{[^}]*\}), "
+                   r"rank (\d+) of (\d+)")
+
+
+def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
+    """The port's engine CLI under ``torch.distributed.run`` with RANKS
+    ranks on the one card; raises on a non-zero exit (a dead rank).
+    Returns (stdout, wall seconds, per-rank pass walls, per-rank K1
+    launches by site)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(RANKS), "-m",
+           "apde_mvs_tpu_torch.cli.apd"] + [str(a) for a in cli_args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=repo_env(), capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what}: torchrun exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    text = proc.stdout
+    if text.count("process group backend gloo") != RANKS:
+        raise AssertionError(f"{what}: expected {RANKS} gloo ranks:\n"
+                             f"{text[-3000:]}")
+    passes = {r: [] for r in range(RANKS)}
+    for it, state, sec, sent, r, n in PASS_RE.findall(text):
+        passes[int(r)].append((int(it), state, float(sec), int(sent)))
+    sites = {}
+    for n, js, r, _ in K1_RE.findall(text):
+        sites[int(r)] = json.loads(js)
+    if sorted(sites) != list(range(RANKS)):
+        raise AssertionError(f"{what}: K1 launch lines of ranks "
+                             f"{sorted(sites)}")
+    return text, wall, passes, sites
+
+
+def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
+    """The round-0 schedule on every view, view-parallel over RANKS ranks
+    sharing the card, then fusion on rank 0."""
+    import torch
+    log("==== view-parallel scan: torchrun, 2 ranks on one card (gloo) ====")
+    torch.cuda.synchronize()
+    with Utilization() as util:
+        text, wall, passes, sites = torchrun(
+            ["--dense_folder", root, "--dataset", "General", "--seed", seed,
+             "--views_parallel", "true"], "view-parallel scan")
+    for r in range(RANKS):
+        if len(passes[r]) != 4:
+            raise AssertionError(f"rank {r}: passes {passes[r]}")
+        if sum(sites[r].values()) <= 0:
+            raise AssertionError(f"rank {r} launched no K1")
+    fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
+    if len(fusion) != 1:
+        raise AssertionError(f"fusion lines {fusion}")
+    errs = depth_errors(scene, root)
+    points = coloured_points(root / "APD" / "APD.ply", "view-parallel PLY")
+    launches = {site: sum(sites[r].get(site, 0) for r in range(RANKS))
+                for site in ("strong", "weak_centre", "weak_anchor")}
+    log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
+        f"utilization.gpu mean {util.mean:.1f}% over {util.samples} "
+        f"samples; K1 launches {launches} [{card}]")
+    for r in range(RANKS):
+        for it, state, sec, sent in passes[r]:
+            log(f"  rank {r}: Pass {it} ({state}) wall {sec:.3f} s, "
+                f"exchanged {sent} B [{card}]")
+    log(f"  {fusion[0]} [{card}]")
+    return dict(wall_s=wall, passes=passes, launches=launches, errors=errs,
+                points=points, util=util.mean, fusion=fusion)
+
+
+def keep_only_view0(root: Path) -> None:
+    """Rewrite pair.txt so the scan's problem list is view 0 alone (its
+    sources, their images and depths stay)."""
+    lines = (root / "pair.txt").read_text().split("\n")
+    (root / "pair.txt").write_text("\n".join(["1"] + lines[1:3]) + "\n")
+
+
+def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
+               card: str) -> dict:
+    """View 0's REFINE_ITER pass 3 again, on the view-parallel scan's
+    bins: row-sharded over RANKS ranks on the card (the tile route: fewer
+    views than ranks), and by the serial engine on a copy of the same
+    bins. Bitwise agreement is expected; differing pixels are printed and
+    each result must pass the verify bar (median relative depth error
+    under 1%)."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch.cli import apd
+    from apde_mvs_tpu_torch.io import binmat
+    log("==== tile route: view 0's pass 3 row-sharded over 2 ranks ====")
+    roots = {}
+    for name in ("tiled", "serial"):
+        roots[name] = tmp / f"tile_{name}"
+        shutil.copytree(vp_root, roots[name])
+        keep_only_view0(roots[name])
+    args = ["--dense_folder", None, "--dataset", "General", "--seed", seed,
+            "--start_iteration", 3, "--no_fuse", "true"]
+    text, wall, passes, sites = torchrun(
+        [roots["tiled"] if a is None else a for a in args]
+        + ["--views_parallel", "true"], "tile route")
+    if text.count("TILED over 2 rank(s)") != RANKS \
+            or "Scale-out: tile route over 2 rank(s)" not in text:
+        raise AssertionError(f"tile route not taken:\n{text[-3000:]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_main(apd.main, [roots["serial"] if a is None else a for a in args])
+    serial_s = time.perf_counter() - t0
+    diff = {}
+    errs = {}
+    for m in ("depths.bin", "normals.bin", "weak.bin", "confidence.bin"):
+        a = binmat.read_bin_mat(roots["tiled"] / "APD" / "00000000" / m)
+        b = binmat.read_bin_mat(roots["serial"] / "APD" / "00000000" / m)
+        d = a != b
+        diff[m] = int(d.any(-1).sum() if d.ndim == 3 else d.sum())
+    gt = scene.depths[0]
+    for name, root in roots.items():
+        dep = binmat.read_bin_mat(root / "APD" / "00000000" / "depths.bin")
+        ok = (dep > 0) & (gt > 0)
+        errs[name] = float(np.median(np.abs(dep - gt)[ok] / gt[ok]))
+    launches = sum(sites[r].get("strong", 0) for r in range(RANKS))
+    log(f"tile route: differing pixels against the serial pass {diff} of "
+        f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
+        f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
+        f"{[p[0][2] for p in passes.values()]} s, exchanged "
+        f"{[p[0][3] for p in passes.values()]} B, serial CLI "
+        f"{serial_s:.3f} s; K1 strong launches {launches} [{card}]")
+    if not max(errs.values()) < 0.01:
+        raise AssertionError(f"tile route above the verify bar: {errs}")
+    for root in roots.values():
+        shutil.rmtree(root)
+    return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
+                launches=launches, passes=passes)
+
+
+def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
+    """A process group of one rank on the card: NCCL by the placement
+    rule. The view-parallel FIRST_INIT pass of a 3-view 600x800 scan
+    against the serial engine's on a copy (bitwise), then one geometric
+    pass through the NCCL depth exchange (exchanged bytes and depth error
+    checked)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.io import MemoryCache, binmat
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.parallel import distributed as pdist
+    from apde_mvs_tpu_torch.pipeline import driver
+    from apde_mvs_tpu_torch.pipeline.scan_parallel import ViewParallelRunner
+    from apde_mvs_tpu_torch.testing import synthetic
+
+    log("==== engine agreement: NCCL, one rank on the card ====")
+    scene = synthetic.make_scene(num_views=3, height=HEIGHT, width=WIDTH,
+                                 baseline=0.12)
+    roots = {n: tmp / f"agree_{n}" for n in ("serial", "parallel")}
+    for root in roots.values():
+        synthetic.write_scene_to_disk(scene, root)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pdist.initialize(device, init_method=f"tcp://localhost:{port}", rank=0,
+                     world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        specs = cfg.build_schedule(max(HEIGHT, WIDTH), "General")
+        t0 = time.perf_counter()
+        for p in driver.generate_sample_list(roots["serial"]):
+            driver.process_problem(p, specs[0], cache=None, seed=seed,
+                                   device=device)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        runner = ViewParallelRunner(
+            driver.generate_sample_list(roots["parallel"]), MemoryCache(),
+            seed=seed, device=device)
+        sampler.reset_launches()
+        t0 = time.perf_counter()
+        runner.run_pass(specs[0])
+        torch.cuda.synchronize()
+        vp_s = time.perf_counter() - t0
+        diff = {}
+        for v in range(3):
+            for m in ("depths.bin", "normals.bin", "weak.bin"):
+                a, b = (binmat.read_bin_mat(r / "APD" / f"{v:08d}" / m)
+                        for r in roots.values())
+                d = a != b
+                diff[(v, m)] = int(d.any(-1).sum() if d.ndim == 3
+                                   else d.sum())
+        log(f"FIRST_INIT, 3 views: differing pixels view-parallel vs serial "
+            f"{sum(diff.values())} ({diff}); serial {serial_s:.3f} s, "
+            f"view-parallel {vp_s:.3f} s [{card}]")
+        if any(diff.values()):
+            raise AssertionError(f"view-parallel FIRST_INIT differs from "
+                                 f"the serial engine: {diff}")
+        sent = pdist.exchanged_bytes
+        t0 = time.perf_counter()
+        runner.run_pass(specs[1])
+        torch.cuda.synchronize()
+        geom_s = time.perf_counter() - t0
+        sent = pdist.exchanged_bytes - sent
+        launches = sampler.launches
+        want = 3 * HEIGHT * WIDTH * 4
+        log(f"geometric pass through NCCL: {sent} B exchanged (expected "
+            f"{want}), {geom_s:.3f} s; K1 launches over both passes "
+            f"{launches} [{card}]")
+        if sent != want:
+            raise AssertionError(f"exchanged {sent} B, expected {want}")
+        errs = depth_errors(scene, roots["parallel"])
+    finally:
+        dist.destroy_process_group()
+    for root in roots.values():
+        shutil.rmtree(root)
+    return dict(serial_s=serial_s, vp_s=vp_s, geom_s=geom_s,
+                launches=launches, errors=errs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=ROUND0_VIEWS,
                     help=f"views of the round-0 scan (2..{FULL_VIEWS}); "
                          f"fewer than {FULL_VIEWS} is a reduction and is "
                          "printed")
-    ap.add_argument("--apd_views", type=int, default=FULL_VIEWS,
+    ap.add_argument("--apd_views", type=int, default=APD_VIEWS,
                     help="views of the APD scan, as --views")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -748,10 +1063,10 @@ def main(argv=None) -> int:
         f"PIL {'imports' if pil_available() else 'missing'}")
 
     # ---- setup: build K1 from this checkout --------------------------------
+    build_race(card)
     t0 = time.perf_counter()
     built = sampler.library()
-    log(f"K1 build: {built.seconds:.2f} s nvcc "
-        f"({time.perf_counter() - t0:.2f} s incl. load) -> {built.path.name}")
+    log(f"K1 load: {time.perf_counter() - t0:.2f} s -> {built.path.name}")
     for ln in built.log.splitlines():
         if "registers" in ln or "spill" in ln or "error" in ln.lower():
             log(f"  ptxas: {ln.strip()}")
@@ -796,24 +1111,47 @@ def main(argv=None) -> int:
                            card)
         shutil.rmtree(root)
         torch.cuda.empty_cache()
-        bt = batch_phase(full_scene, Path(tmp), card)
+        root = Path(tmp) / "vp_scan"
+        synthetic.write_scene_to_disk(full_scene, root)
+        vp = vp_scan_phase(full_scene, root, args.seed, card)
+        tl = tile_phase(full_scene, root, Path(tmp), args.seed, card)
+        shutil.rmtree(root)
+        ag = nccl_phase(args.seed, Path(tmp), device, card)
+        torch.cuda.empty_cache()
+        with Utilization() as bu:
+            bt = batch_phase(full_scene, Path(tmp), card)
     torch.cuda.synchronize()
 
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
     log("phase walls: round-0 scan {:.1f} s, APD scan {:.1f} s, exports "
-        "pass {:.1f} s, batch path {:.1f} s [{}]".format(
-            r0["wall_s"], ap["wall_s"], ex["wall_s"], bt["wall_s"], card))
+        "pass {:.1f} s, view-parallel scan {:.1f} s, tile route {:.1f} s, "
+        "batch path {:.1f} s [{}]".format(
+            r0["wall_s"], ap["wall_s"], ex["wall_s"], vp["wall_s"],
+            tl["wall_s"], bt["wall_s"], card))
+    # the round-0 schedule on the same 11 views: two ranks sharing the card
+    # against the batch path's serial engine
+    serial = [float(ln.split()[4]) for ln in bt["passes"]]
+    for i, sec in enumerate(serial):
+        ranks = ", ".join(f"rank {r} {vp['passes'][r][i][2]:.3f} s"
+                          for r in range(RANKS))
+        log(f"pass {i}: view-parallel ({ranks}) vs serial batch engine "
+            f"{sec:.3f} s [{card}]")
+    log(f"utilization.gpu mean: view-parallel scan {vp['util']:.1f}%, "
+        f"batch path {bu.mean:.1f}% ({bu.samples} samples) [{card}]")
     # K1's launches on every path, each read from its own counters (the
-    # batch engine's from its log)
+    # subprocess engines' from their logs)
     launches = {site: sum(d.get(site, 0) for d in (
-        ap["sites"], ex["sites"], ex["debug_point_sites"], bt["sites"]))
-        for site in ("strong", "weak_centre", "weak_anchor")}
-    launches["strong"] += r0["launches"]
+        ap["sites"], ex["sites"], ex["debug_point_sites"], bt["sites"],
+        vp["launches"])) for site in ("strong", "weak_centre", "weak_anchor")}
+    launches["strong"] += r0["launches"] + ag["launches"]
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
                  launches=launches["strong"],
                  max_abs_err=k["max_abs_err"], **k["u8"])]
+    rows.append(dict(name="K1 bilinear sampler, tile-route row shard "
+                          "(packed u8 quads)", **k1, launches=tl["launches"],
+                     max_abs_err=k["max_abs_err"], **k["shard"]["u8"]))
     for site, what in (("weak_centre", "weak centre windows"),
                        ("weak_anchor", "weak anchor windows")):
         r = kw[site]

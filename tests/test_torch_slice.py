@@ -105,15 +105,20 @@ def test_cli_two_round_scan_on_cpu(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, scene):
+    """Nothing is refused any more: `--views_parallel true` (once refused
+    as not ported) takes the view-parallel route at one rank, with
+    `--view_batch` honoured; every pass is skipped here, the engines
+    themselves are tested in tests/test_torch_parallel.py."""
     root = tmp_path / "scan"
     synthetic.write_scene_to_disk(scene, root)
-    with contextlib.redirect_stdout(io.StringIO()):
-        with pytest.raises(NotImplementedError, match="views_parallel"):
-            apd.main(["--dense_folder", str(root), "--device", "cpu",
-                      "--views_parallel", "true"])
-        with pytest.raises(NotImplementedError, match="views_parallel"):
-            apd.main(["--dense_folder", str(root), "--device", "cpu",
-                      "--views_parallel", "true", "--only_fuse", "true"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert apd.main(["--dense_folder", str(root), "--device", "cpu",
+                         "--views_parallel", "true", "--view_batch", "2",
+                         "--start_iteration", "4", "--no_fuse", "true"]) == 0
+    log = out.getvalue()
+    assert "Scale-out: view-parallel over 1 rank(s)" in log
+    assert "view_batch    : 2" in log and "ignored" not in log
 
 
 def test_run_patchmatch_matches_jax_statistically(scene):
