@@ -2,16 +2,17 @@
 
 Costs are evaluated for a flat batch of pixels (a checkerboard color half, a
 chunk of a filter sweep, or the whole image) against all S source views at
-once: the per-view homographies, warps and samples carry a leading view
-dimension, so one plane hypothesis costs one launch of the sampler K1 for
-all views (reference: ComputeBilateralNCCOld, APD.cu:596-662;
-ComputeMultiViewCostVectorOld, APD.cu:820-829).
+once: one plane hypothesis costs one launch of the fused NCC kernel K2
+(ops/cuda/ncc.py) for all views, which warps, samples and sums the window
+taps without writing them to device memory (reference:
+ComputeBilateralNCCOld, APD.cu:596-662; ComputeMultiViewCostVectorOld,
+APD.cu:820-829).
 
 The reference-image window sums depend only on the pixel, so
-`precompute_ref_window` hoists them out of the candidate x view loops. The
-window is the plain square, or, with SA (segment masks, loaded for APD
-passes only) and the pixel inside a segment, the 36-tap star truncated at
-the segment's edge.
+`precompute_ref_window` hoists them out of the candidate x view loops: its
+`RefWindow` is K2's input. The window is the plain square, or, with SA
+(segment masks, loaded for APD passes only) and the pixel inside a segment,
+the 36-tap star truncated at the segment's edge.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ import numpy as np
 import torch
 
 from ..core import geometry as geo
-from ..core.sampling import bilinear_sample_packed, clamped_fetch, fetch, \
-    pack_bilinear, pack_bilinear_u8, texel_fetch
+from ..core.sampling import clamped_fetch, fetch, pack_bilinear, \
+    pack_bilinear_u8, texel_fetch
 
 COST_MAX = 2.0
 GEOM_COST_MAX = 3.0
@@ -223,20 +224,13 @@ def ncc_from_sums(sum_ref, sum_rr, sum_src, sum_ss, sum_rs, wsum):
 
 def ncc_strong(data: CostData, x, y, plane, win: RefWindow) -> torch.Tensor:
     """Multi-view NCC cost vector (B, S) of `plane` (B, 4) at pixels
-    (x, y) (B,) f32 against every source view. One K1 launch samples the
-    (S, B, T) warped taps of all views."""
-    H = geo.homography(data.ref_cam, data.src_views, plane)   # (S, B, 3, 3)
-    cx, cy = geo.warp(H, x, y)                                # (S, B)
-    oob = (cx < 0) | (cx >= data.img_w) | (cy < 0) | (cy >= data.img_h)
-    tx = x[:, None] + win.tap_dx                              # (B, T)
-    ty = y[:, None] + win.tap_dy
-    wx, wy = geo.warp(H[..., None, :, :], tx, ty)             # (S, B, T)
-    sv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
-                                wx.contiguous(), wy.contiguous(),
-                                site="strong")
-    cost = ncc_from_sums(win.sum_ref, win.sum_rr,
-                         *window_sums(win.tap_w, win.tap_val, sv), win.wsum)
-    return torch.where(oob, COST_MAX, cost).T
+    (x, y) (B,) f32 against every source view: one launch of the fused
+    NCC kernel K2 on CUDA tensors, its plain version on CPU tensors."""
+    from .cuda.ncc import ncc_strong_fused
+    win = RefWindow(*(v.contiguous() if isinstance(v, torch.Tensor) else v
+                      for v in win))
+    return ncc_strong_fused(data, x.contiguous(), y.contiguous(),
+                            plane.contiguous(), win)
 
 
 def geom_cost(data: CostData, x, y, plane) -> torch.Tensor:

@@ -1,0 +1,245 @@
+"""K2 — the fused strong multi-view NCC: CUDA kernel, its plain PyTorch
+version, and the wrapper that picks between them by the tensors' device.
+
+Replaces the strong NCC the JAX package leaves to XLA
+(``apde_mvs_tpu/ops/cost.py`` ``_per_view_ncc`` :248 and ``ncc_strong``
+:276): for each pixel of a batch, its plane hypothesis and every source
+view, the plane homography, the centre's out-of-image test, the T warped
+window taps sampled from the view's quad table (K1's bilinear sample), the
+three window sums and the NCC cost, COST_MAX where the centre leaves the
+image, a variance or the weight sum is degenerate, or the cost is not
+finite. ``cost.ncc_strong`` is one call of ``ncc_strong_fused``.
+
+The kernel (``csrc/ncc.cu``) runs one thread per (pixel, view) and keeps
+the (S, B, T) coordinates and samples in registers; only the (S, B) costs
+are written. What bounds it on the H100: operations (the function needs
+38 f32 operations a tap), not bytes: the window is read once, the quad
+tables stay in L2.
+
+The plain version fixes the operation order: the homography of
+``geometry.homography``, the warp of ``geometry.warp``, K1's plain sample,
+the window sums accumulated in tap order t = 0 .. T-1 from 0, compensated
+(Kahan, four elementwise ops a tap: one running f32 sum drifts past the
+1e-4 parity with the JAX package's sums), then ``cost.ncc_from_sums``.
+The kernel computes the same sequence with every operation rounded on its
+own, so the two agree bit for bit on the card.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises — there is no fallback. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import weakref
+
+import numpy as np
+import torch
+
+from ...core import geometry as geo
+from ..cost import COST_MAX, ncc_from_sums
+from . import build as _build
+from .sampler import sample_packed_plain
+
+launches = 0      # kernel launches since the last reset (plain runs excluded)
+
+MAX_VIEWS = 32    # csrc/ncc.cu kMaxViews: one warp a source view
+SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
+_SOURCES = ("ncc.cu",)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> _build.Built:
+    """Build (once per source hash) and load the kernel library, with its
+    entry points' ctypes signatures declared."""
+    built = _build.build("apde_ncc", _SOURCES)
+    lib = built.lib
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    lib.apde_ncc_strong.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_float, ptr, ctypes.c_int64, i32, i32, i32, i32, i32, i32,
+        ptr]
+    lib.apde_ncc_strong.restype = i32
+    lib.apde_ncc_max_views.argtypes = []
+    lib.apde_ncc_max_views.restype = i32
+    lib.apde_ncc_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.apde_ncc_smem_bytes.restype = ctypes.c_longlong
+    if lib.apde_ncc_max_views() != MAX_VIEWS:
+        raise RuntimeError(f"csrc/ncc.cu takes {lib.apde_ncc_max_views()} "
+                           f"views, the wrapper assumes {MAX_VIEWS}")
+    return built
+
+
+def camera_table(data) -> torch.Tensor:
+    """(S + 1, 16) f32 per-view constants of the kernel: R_rel (9, row
+    major), t_rel (3) of ``geometry.relative_pose`` and the source's fx,
+    fy, cx, cy; row S holds the reference camera's fx, fy, cx, cy in
+    columns 12-15."""
+    ref, src = data.ref_cam, data.src_cams
+    R_rel, t_rel = geo.relative_pose(ref, src)
+    s = R_rel.shape[0]
+
+    def intrinsics(cam):
+        return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy], -1)
+    views = torch.cat([R_rel.reshape(s, 9), t_rel, intrinsics(src)], -1)
+    ref_row = torch.cat([views.new_zeros(12), intrinsics(ref)])
+    return torch.cat([views, ref_row[None]]).to(torch.float32).contiguous()
+
+
+_tables: dict = {}    # id(CostData) -> (weak reference, camera table)
+
+
+def cached_camera_table(data) -> torch.Tensor:
+    """``camera_table(data)``, built once per CostData object and dropped
+    with it."""
+    key = id(data)
+    hit = _tables.get(key)
+    if hit is not None and hit[0]() is data:
+        return hit[1]
+    table = camera_table(data)
+    _tables[key] = (weakref.ref(data, lambda _: _tables.pop(key, None)),
+                    table)
+    return table
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def ncc_strong_plain(data, x, y, plane, win) -> torch.Tensor:
+    """The (B, S) strong NCC cost as torch ops on (S, B) tensors, in the
+    kernel's operation order."""
+    H = geo.homography(data.ref_cam, data.src_views, plane)   # (S, B, 3, 3)
+    cx, cy = geo.warp(H, x, y)                                # (S, B)
+    oob = (cx < 0) | (cx >= data.img_w) | (cy < 0) | (cy >= data.img_h)
+    tx = x[:, None] + win.tap_dx                              # (B, T)
+    ty = y[:, None] + win.tap_dy
+    wx, wy = geo.warp(H[..., None, :, :], tx, ty)             # (S, B, T)
+    sv = sample_packed_plain(data.src_quads, data.width, data.quad_h, wx, wy)
+    if win.tap_w is None:
+        terms = (sv, sv * sv, win.tap_val * sv)
+    else:
+        wsv = win.tap_w * sv
+        terms = (wsv, wsv * sv, (win.tap_w * win.tap_val) * sv)
+    # (T, 3, S, B): one contiguous (3, S, B) slab a tap
+    per_tap = torch.stack(terms).permute(3, 0, 1, 2).contiguous()
+    # compensated (Kahan) sums in tap order, as the kernel takes them
+    sums = torch.zeros_like(per_tap[0])
+    comp = torch.zeros_like(sums)
+    for t in range(per_tap.shape[0]):
+        term = per_tap[t] - comp
+        total = sums + term
+        comp = (total - sums) - term
+        sums = total
+    cost = ncc_from_sums(win.sum_ref, win.sum_rr, sums[0], sums[1], sums[2],
+                         win.wsum)
+    return torch.where(oob, COST_MAX, cost).T
+
+
+# ---------------------------------------------------------------------------
+# Wrapper
+# ---------------------------------------------------------------------------
+
+def _check_args(data, x, y, plane, win) -> tuple:
+    """Shapes, dtypes, devices and the view limit, on every device.
+    Returns (B, T, per-pixel offsets, {name: (tensor, shape)})."""
+    quads = data.src_quads
+    s = data.num_src
+    if s > MAX_VIEWS:
+        raise ValueError(f"{s} source views; the fused NCC kernel takes at "
+                         f"most {MAX_VIEWS}")
+    if quads.ndim != 3 or quads.shape[0] != s or quads.shape[-1] != 4 \
+            or quads.shape[1] != data.quad_h * data.width:
+        raise ValueError(f"quads must be ({s}, {data.quad_h}*{data.width}, "
+                         f"4), got {tuple(quads.shape)}")
+    if quads.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"quad table dtype {quads.dtype} (u8 or f32)")
+    b = x.shape[0] if x.ndim == 1 else -1
+    t = win.tap_val.shape[-1] if win.tap_val.ndim == 2 else 0
+    offsets = win.tap_dx.shape
+    want = {"x": (x, (b,)), "y": (y, (b,)), "plane": (plane, (b, 4)),
+            "tap_val": (win.tap_val, (b, t)),
+            "tap_dy": (win.tap_dy, offsets),
+            "sum_ref": (win.sum_ref, (b,)), "sum_rr": (win.sum_rr, (b,))}
+    if win.tap_w is not None:
+        want["tap_w"] = (win.tap_w, (b, t))
+    if isinstance(win.wsum, torch.Tensor):
+        want["wsum"] = (win.wsum, (b,))
+    if b < 0 or t < 1 or offsets not in ((t,), (b, t)):
+        raise ValueError(f"pixels x {tuple(x.shape)}, window values "
+                         f"{tuple(win.tap_val.shape)}, offsets "
+                         f"{tuple(offsets)}: need (B,), (B, T) and (T,) or "
+                         "(B, T)")
+    want["tap_dx"] = (win.tap_dx, offsets)
+    for name, (a, shape) in want.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} is {tuple(a.shape)}, expected {shape}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {a.dtype}, expected float32")
+        if a.device != quads.device:
+            raise ValueError(f"{name} is on {a.device}, the quad tables on "
+                             f"{quads.device}")
+    return b, t, len(offsets) == 2, want
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def ncc_strong_fused(data, x, y, plane, win) -> torch.Tensor:
+    """Multi-view NCC cost vector (B, S) of ``plane`` (B, 4) at pixels
+    (x, y) (B,) f32 against every source view of ``data`` (a
+    ``cost.CostData``), over the reference window ``win`` (a
+    ``cost.RefWindow``). Every tensor must be contiguous on CUDA."""
+    b, t, pixel_offsets, tensors = _check_args(data, x, y, plane, win)
+    quads = data.src_quads
+    if quads.device.type == "cpu":
+        return ncc_strong_plain(data, x, y, plane, win)
+    if quads.device.type != "cuda":
+        raise ValueError(f"unsupported device {quads.device}")
+    for name, (a, _) in tensors.items():
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not quads.is_contiguous():
+        raise ValueError("quads must be contiguous")
+    if quads.data_ptr() % (4 * quads.element_size()):
+        raise ValueError("quad table rows must be aligned to their size")
+    weighted = win.tap_w is not None
+    lib = library().lib
+    smem = lib.apde_ncc_smem_bytes(data.num_src, t, int(pixel_offsets),
+                                   int(weighted))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {t}-tap window needs {smem} B of shared memory "
+                         f"a block, more than {SMEM_LIMIT}")
+    cams = cached_camera_table(data)
+    if cams.device != quads.device:
+        raise ValueError(f"cameras on {cams.device}, the quad tables on "
+                         f"{quads.device}")
+    if isinstance(win.wsum, torch.Tensor):
+        wsum_ptr, inv = win.wsum.data_ptr(), 0.0
+    else:
+        wsum_ptr, inv = None, float(np.float32(1.0) / np.float32(win.wsum))
+    out = torch.empty((data.num_src, b), dtype=torch.float32,
+                      device=quads.device)
+    if b == 0:
+        return out.T
+    global launches
+    launches += 1
+    _raise_on(lib.apde_ncc_strong(
+        quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
+        x.data_ptr(), y.data_ptr(), plane.data_ptr(), win.tap_dx.data_ptr(),
+        win.tap_dy.data_ptr(), int(pixel_offsets), win.tap_val.data_ptr(),
+        win.tap_w.data_ptr() if weighted else None, win.sum_ref.data_ptr(),
+        win.sum_rr.data_ptr(), wsum_ptr, inv, out.data_ptr(), b,
+        data.num_src, t, data.width, data.quad_h, data.img_w, data.img_h,
+        torch.cuda.current_stream(quads.device).cuda_stream),
+        "apde_ncc_strong")
+    return out.T

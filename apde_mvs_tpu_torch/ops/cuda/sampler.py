@@ -21,16 +21,17 @@ Forms:
 
 - ``sample_packed(quads, width, height, x, y)``: quads (S, N, 4) u8 or f32
   in the ``pack_bilinear`` layout (N = height * width), x, y (S, ...) f32 ->
-  (S, ...) f32. The main-path form: one launch samples all S source views
-  of one plane hypothesis.
+  (S, ...) f32. The deformable NCC's form: one launch samples all S
+  source views of one plane hypothesis.
 - ``sample_blocks(img, xs, ys)``: the Pallas entry's own contract, one (H, W)
   f32 image, coordinates of any shape.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches, and
 ``site_launches`` splits the packed form's launches by the call site that
-asked for them ("strong": the square/star-window NCC; "weak_centre" and
-"weak_anchor": the deformable NCC's centre window and anchor windows).
+asked for them ("weak_centre" and "weak_anchor": the deformable NCC's
+centre window and anchor windows). The strong NCC samples inside the fused
+kernel K2 (ops/cuda/ncc.py), which repeats K1's sample bit for bit.
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ def library() -> _build.Built:
     lib.apde_sample_image_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
                                           ptr]
     lib.apde_sample_image_f32.restype = i32
+    lib.apde_sample_empty.argtypes = [i64, ptr]
+    lib.apde_sample_empty.restype = i32
     return built
 
 
@@ -175,3 +178,12 @@ def sample_blocks(img: torch.Tensor, xs, ys):
         torch.cuda.current_stream(img.device).cuda_stream),
         "apde_sample_image_f32")
     return out
+
+
+def launch_empty(total: int, device) -> None:
+    """One launch of an empty kernel on K1's grid for ``total`` samples:
+    the fixed cost under K1's time at that size. Not counted in
+    ``launches``."""
+    _raise_on(library().lib.apde_sample_empty(
+        total, torch.cuda.current_stream(device).cuda_stream),
+        "apde_sample_empty")

@@ -201,7 +201,7 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     """Candidate evaluation + view selection + refinement for one flat batch
     of same-color pixels. Returns (planes_out, costs_out, sel_new, vw).
     Each plane hypothesis (8 candidates, the current plane, 5 refinement
-    probes) is one all-views `ncc_strong`: 14 K1 launches."""
+    probes) is one all-views `ncc_strong`: 14 K2 launches."""
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
     cam = data.ref_cam

@@ -106,29 +106,18 @@ def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([z, t, z])
 
 
-def halo_tile_sweep(data: CostData, rows: PMState, cfg: PropCfg, iteration,
-                    depth_min, depth_max, geom_factor, shard: RowShard,
-                    generator: Optional[torch.Generator] = None,
-                    draws=None, halo: int = HALO_ROWS) -> PMState:
-    """One full (black + red) strong sweep with explicit halo exchange;
-    returns this rank's rows. ``data`` is the whole view's; ``draws`` /
-    ``generator`` as in `tile_sharded_sweep` (whole-image draws, this
-    rank takes its rows' slice). Requires shards of at least ``halo``
-    rows."""
+def halo_block(data: CostData, r0: int, r1: int, halo: int):
+    """The cost data of rows r0 .. r1 - 1 extended by ``halo`` rows on
+    each side: image rows edge-replicated past the image (the unsharded
+    sweep's clamp), the principal point shifted so block pixel (x, y) is
+    global pixel (x, y + row0); the source tables, window and warp bounds
+    stay global. Returns (block, row0, lo, hi): the global row of block row
+    0 and the block rows that lie in the image."""
     h, w = data.height, data.width
-    r0, r1 = row_split(h, shard.world)[shard.rank]
-    rl = r1 - r0
-    if rl < halo:
-        raise ValueError(f"shard height {rl} must be >= halo ({halo})")
-    row0 = r0 - halo                 # global row of block row 0
-    ext_h = rl + 2 * halo
-    lo = max(0, -row0)               # globally valid rows of the block
+    row0 = r0 - halo
+    ext_h = r1 - r0 + 2 * halo
+    lo = max(0, -row0)
     hi = min(ext_h - 1, h - 1 - row0)
-
-    # the block's reference side: image rows edge-replicated past the
-    # image (the unsharded sweep's clamp), principal point shifted so
-    # block pixel (x, y) is global pixel (x, y + row0); window and warp
-    # bounds stay global
     img = data.ref_image
     img = torch.cat([img[:1].expand(halo, w), img, img[-1:].expand(halo, w)])
     sa = data.sa_mask
@@ -143,6 +132,24 @@ def halo_tile_sweep(data: CostData, rows: PMState, cfg: PropCfg, iteration,
         ref_image=img[r0:r0 + ext_h], sa_mask=sa, height=ext_h,
         src_height=data.quad_h, real_width=data.img_w,
         real_height=data.img_h)
+    return block, row0, lo, hi
+
+
+def halo_tile_sweep(data: CostData, rows: PMState, cfg: PropCfg, iteration,
+                    depth_min, depth_max, geom_factor, shard: RowShard,
+                    generator: Optional[torch.Generator] = None,
+                    draws=None, halo: int = HALO_ROWS) -> PMState:
+    """One full (black + red) strong sweep with explicit halo exchange;
+    returns this rank's rows. ``data`` is the whole view's; ``draws`` /
+    ``generator`` as in `tile_sharded_sweep` (whole-image draws, this
+    rank takes its rows' slice). Requires shards of at least ``halo``
+    rows."""
+    h, w = data.height, data.width
+    r0, r1 = row_split(h, shard.world)[shard.rank]
+    rl = r1 - r0
+    if rl < halo:
+        raise ValueError(f"shard height {rl} must be >= halo ({halo})")
+    block, _, lo, hi = halo_block(data, r0, r1, halo)
 
     per_row = w // 2
     state = rows

@@ -29,7 +29,7 @@ from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
                          resize_bilinear, resize_nearest, scaled_size,
                          write_image)
 from ..ops.cost import CostData
-from ..ops.cuda import sampler
+from ..ops.cuda import ncc, sampler
 from ..tools import visualize
 from .patchmatch import pad_to_multiple, run_patchmatch
 
@@ -468,9 +468,10 @@ def run_scan(dense_folder, dataset: str = "General", *,
     print(f"Cost time: {(time.time() - t0) * 1000:.0f} ms", flush=True)
     avg = np.mean([p.used_time_ms for p in problems]) if problems else 0
     print(f"Average used time: {avg:.0f} ms", flush=True)
+    # one write with its newline: ranks sharing a pipe interleave writes
     print(f"Sampler kernel launches: {sampler.launches}, by site "
-          f"{json.dumps(sampler.site_launches, sort_keys=True)}{tag}",
-          flush=True)
+          f"{json.dumps(sampler.site_launches, sort_keys=True)}, NCC kernel "
+          f"launches: {ncc.launches}{tag}\n", end="", flush=True)
 
     if cache is not None and flush:
         cache.flush()

@@ -15,8 +15,9 @@ after one warm-up run, under torch.profiler:
 
 Per pass it prints host wall, device busy time (sum of kernel and copy
 time) and idle share, the wall of the same pass run without the profiler
-(just before), K1's device time (CUDA events) and launches by call site,
-the device and host time of the pass's stages (anchors, fit planes, the
+(just before), the device time (CUDA events around each launch) and
+launches of the fused strong NCC K2 and of K1 by call site, the device
+and host time of the pass's stages (anchors, fit planes, the
 weak sweep, the deformable NCC, ...), and the torch ops that hold the most
 device time.
 
@@ -45,8 +46,8 @@ from ..core import geometry as geo
 from ..core.platform import card_line
 from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
-from ..ops.cuda import sampler
-from ..pipeline import patchmatch
+from ..ops.cuda import ncc, sampler
+from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
 HEIGHT, WIDTH = 600, 800
@@ -63,8 +64,8 @@ _STAGES = (
     (anchors, "gen_anchors", "gen_anchors"),
     (anchors, "ransac_fit_planes", "ransac_fit_planes"),
     (init, "initial_cost", "initial_cost"),
-    (patchmatch, "propagate_strong", "propagate_strong"),
-    (patchmatch, "propagate_weak", "propagate_weak"),
+    (full_pass, "propagate_strong", "propagate_strong"),
+    (full_pass, "propagate_weak", "propagate_weak"),
     (propagation, "ncc_weak", "ncc_weak"),
     (init, "ncc_weak", "ncc_weak"),
     (filters, "depth_to_weak", "depth_to_weak"),
@@ -89,33 +90,39 @@ def _labelled(fn, label):
     return run
 
 
-def _k1_timed(fn, events: dict):
-    """K1's packed form with a pair of CUDA events around each launch, kept
-    by call site: the profiler does not tie a kernel launched through ctypes
-    to the range it was launched in."""
+def _event_timed(fn, events: dict, site=None):
+    """``fn`` with a pair of CUDA events around each call, kept by call
+    site (K1's ``site`` argument, or the fixed ``site``): the profiler does
+    not tie a kernel launched through ctypes to the range it was launched
+    in."""
     @functools.wraps(fn)
-    def run(*a, site="other", **kw):
+    def run(*a, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn(*a, site=site, **kw)
+        out = fn(*a, **kw)
         end.record()
-        events.setdefault(site, []).append((start, end))
+        events.setdefault(site or kw.get("site", "other"), []).append(
+            (start, end))
         return out
     return run
 
 
 @contextlib.contextmanager
-def stage_ranges(k1_events: dict):
+def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K1 by call site into ``k1_events``; restore the plain functions
-    afterwards."""
+    K2 and K1 (by call site) into ``kernel_events``; restore the plain
+    functions afterwards."""
     saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES]
     saved.append((sampler, "sample_packed", sampler.sample_packed))
+    saved.append((ncc, "ncc_strong_fused", ncc.ncc_strong_fused))
     try:
         for m, a, label in _STAGES:
             setattr(m, a, _labelled(getattr(m, a), label))
-        sampler.sample_packed = _k1_timed(sampler.sample_packed, k1_events)
+        sampler.sample_packed = _event_timed(sampler.sample_packed,
+                                             kernel_events)
+        ncc.ncc_strong_fused = _event_timed(ncc.ncc_strong_fused,
+                                            kernel_events, site="K2 strong")
         yield
     finally:
         for m, a, fn in saved:
@@ -133,17 +140,19 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     run()
     plain_wall = time.perf_counter() - t0
     sampler.reset_launches()
+    ncc.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     labels = {label for _, _, label in _STAGES}
-    k1_events = {}
-    with stage_ranges(k1_events):
+    kernel_events = {}
+    with stage_ranges(kernel_events):
         t0 = time.perf_counter()
         with torch.profiler.profile(activities=acts) as prof:
             run()
         wall = time.perf_counter() - t0
     launches = sampler.launches
     sites = dict(sampler.site_launches)
+    sites["K2 strong"] = ncc.launches
     kernels, ops, stages, stages_host = {}, {}, {}, {}
     for evt in prof.key_averages():
         on_device = evt.device_type == torch.autograd.DeviceType.CUDA
@@ -162,18 +171,18 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     busy = sum(kernels.values()) / 1e6
     k1 = sum(t for k, t in kernels.items() if "sample_" in k
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
+    k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k) / 1e6
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
-    k1_sites = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
-                for site, ev in k1_events.items()}
+    sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
+               for site, ev in kernel_events.items()}
     return dict(state=params.state, use_apd=bool(params.use_apd),
                 wall_s=wall, device_busy_s=busy,
                 idle_share=max(0.0, 1.0 - busy / wall),
                 unprofiled_wall_s=plain_wall,
                 unprofiled_idle_share=max(0.0, 1.0 - busy / plain_wall),
-                k1_s=k1,
-                k1_launches=launches, k1_site_launches=sites,
-                k1_site_device_s={k: round(v, 6)
-                                  for k, v in k1_sites.items()},
+                k1_s=k1, k2_s=k2, k2_launches=ncc.launches,
+                k1_launches=launches, site_launches=sites,
+                site_event_s={k: round(v, 6) for k, v in sites_s.items()},
                 stage_device_s={k: round(v, 6) for k, v in sorted(
                     stages.items(), key=lambda kv: -kv[1])},
                 stage_host_s={k: round(v, 6) for k, v in stages_host.items()},
@@ -188,11 +197,14 @@ def run_patchmatch_with(data, params, prior, dmin, dmax):
 def _report(r, card):
     print(f"{r['state']}{' (APD)' if r['use_apd'] else ''}: wall "
           f"{r['wall_s']:.3f} s, device busy {r['device_busy_s']:.3f} s "
-          f"(idle {r['idle_share']:.1%}), K1 {r['k1_s']:.3f} s over "
+          f"(idle {r['idle_share']:.1%}), K2 {r['k2_s']:.3f} s over "
+          f"{r['k2_launches']} launches, K1 {r['k1_s']:.3f} s over "
           f"{r['k1_launches']} launches [{card}]", flush=True)
-    for site, t in r["k1_site_device_s"].items():
-        print(f"  K1    {t:9.4f} s  {site}: {r['k1_site_launches'][site]} "
-              "launches (CUDA events)")
+    for site, t in r["site_event_s"].items():
+        calls = r["site_launches"].get(site, 0)
+        print(f"  {'K2' if site.startswith('K2') else 'K1'}    {t:9.4f} s  "
+              f"{site}: {calls} launches, "
+              f"{t / max(calls, 1) * 1e3:.4f} ms a launch (CUDA events)")
     print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "
           f"{r['unprofiled_idle_share']:.1%} against the same device busy")
     for k, t in r["stage_device_s"].items():

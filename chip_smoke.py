@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA
-GPU: builds the hand-written kernels from this checkout (two processes at
-once, as two ranks would), holds each against its plain PyTorch version at
-the shapes its call sites give it (the strong NCC's window, a tile-route
-row shard's and one pixel's, the deformable NCC's centre and anchor
-windows), then drives the port's paths through its entry points and checks
-each result:
+GPU: builds the hand-written kernels from this checkout (every library by
+two processes, all at once, as two ranks would), holds each against its
+plain PyTorch version at the shapes its call sites give it, then drives
+the port's paths through its entry points and checks each result. K1, the
+bilinear sampler, is held at the strong window's shape, a tile-route row
+shard's and one pixel's, and at the deformable NCC's centre and anchor
+windows (with the time of an empty launch of its grid there); K2, the
+fused strong NCC, bitwise at the strong sweep's black pixels (u8 and f32),
+the classify chunk, a tile-route rank's halo row block, one pixel, an SA
+star window and degenerate planes, and timed against the torch-op
+composition it replaced (homography, warp, K1, window sums, NCC). The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -45,6 +50,8 @@ limit (the exports pass follows the APD scan). The kernel checks, the
 view-parallel scan, the tile route and the batch scan always use all 11
 views.
 
+Every path must run its strong NCC through K2 (at least one launch, none
+of K1 at a strong site); K1 must carry the weak sites of the APD scan.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -89,6 +96,15 @@ F32_FLOPS_PER_S = 67e12
 # operations of one K1 sample: 2 clamps, 2 floors, 2 fractions, 2 (1 - f),
 # 6 multiplies, 3 adds
 K1_OPS_PER_SAMPLE = 17
+# operations of the strong NCC on a square window, as the function needs
+# them: a tap costs 2 offset adds, the 3-row warp (6 multiplies, 6 adds)
+# and its 2 divisions, one K1 sample (17), 2 products and 3 sums; an SA
+# tap 2 products more. A (pixel, view) pair costs ~90 more: the homography
+# (3 + 6 divisions, 27 multiplies, 21 adds), the centre warp and test (18)
+# and the NCC from the sums (~15). K2's merge of its partial sums (9 adds a
+# pair) is its own choice and not counted.
+K2_OPS_PER_TAP = 38
+K2_OPS_PER_PAIR = 90
 
 
 def log(msg: str) -> None:
@@ -317,6 +333,241 @@ def kernel_phase(scene, seed: int, device, card: str) -> dict:
     return res
 
 
+def composition(data, x, y, plane, win):
+    """The strong NCC as the port computed it before K2, from the
+    package's public pieces: the homography, an (S, B, 36) warp, K1,
+    ``window_sums`` and ``ncc_from_sums``."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import cost
+    from apde_mvs_tpu_torch.ops.cuda import sampler
+    hom = geo.homography(data.ref_cam, data.src_views, plane)
+    cx, cy = geo.warp(hom, x, y)
+    oob = (cx < 0) | (cx >= data.img_w) | (cy < 0) | (cy >= data.img_h)
+    wx, wy = geo.warp(hom[..., None, :, :], x[:, None] + win.tap_dx,
+                      y[:, None] + win.tap_dy)
+    sv = sampler.sample_packed(data.src_quads, data.width, data.quad_h,
+                               wx.contiguous(), wy.contiguous())
+    c = cost.ncc_from_sums(win.sum_ref, win.sum_rr,
+                           *cost.window_sums(win.tap_w, win.tap_val, sv),
+                           win.wsum)
+    return torch.where(oob, cost.COST_MAX, c).T
+
+
+def k2_bound(data, x, y, plane, win) -> tuple:
+    """The least time the card could take for one K2 call: the bytes its
+    inputs and output need (each read or written once; the quad-table rows
+    this call's taps touch, each once) over the memory rate, against its
+    f32 operations over the plain-f32 rate. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    from apde_mvs_tpu_torch.core import geometry as geo
+    s, b = data.num_src, x.numel()
+    t = win.tap_val.shape[1]
+    hom = geo.homography(data.ref_cam, data.src_views, plane)
+    wx, wy = geo.warp(hom[..., None, :, :], x[:, None] + win.tap_dx,
+                      y[:, None] + win.tap_dy)
+    rows = touched_rows(data.src_quads, data.width, data.quad_h, wx, wy)
+    del hom, wx, wy
+    per_pixel = 4 * (2 + 4 + t + 2)              # x, y, plane, values, sums
+    if win.tap_w is not None:
+        per_pixel += 4 * (1 + t)                 # weight sum, weights
+    nbytes = b * per_pixel + 4 * (win.tap_dx.numel() + win.tap_dy.numel()) \
+        + (s + 1) * 16 * 4 + rows * 4 * data.src_quads.element_size() \
+        + 4 * s * b
+    per_tap = K2_OPS_PER_TAP + (2 if win.tap_w is not None else 0)
+    ops = s * b * (t * per_tap + K2_OPS_PER_PAIR)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def k2_check(data, x, y, plane, win, what: str) -> float:
+    """K2 against its plain version on the card: bitwise, so the COST_MAX
+    placements too. Returns the max abs difference read from the two."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import ncc
+    got = ncc.ncc_strong_fused(data, x, y, plane, win)
+    want = ncc.ncc_strong_plain(data, x, y, plane, win)
+    torch.cuda.synchronize()
+    n_max = int((want == 2.0).sum())
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        err = float((got - want).abs().max()) if bad >= 0 else float("inf")
+        raise AssertionError(f"K2 {what}: {bad} costs differ from the plain "
+                             f"version, max abs {err}")
+    log(f"  K2 {what} {tuple(want.T.shape)}: bitwise equal to the plain "
+        f"version, {n_max} of {want.numel()} at COST_MAX")
+    return float((got - want).abs().max())
+
+
+def k2_times(data, x, y, plane, win, what: str, card: str) -> dict:
+    """K2's, the plain version's and the composition's mean times
+    (CUDA events, warm), the composition held to K2 within 1e-4, and the
+    bound."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import ncc
+    comp = composition(data, x, y, plane, win)
+    got = ncc.ncc_strong_fused(data, x, y, plane, win)
+    torch.cuda.synchronize()
+    same = (comp == 2.0) == (got == 2.0)
+    at_clamp = torch.minimum(comp, got) >= 2.0 - 1e-4
+    diff = float((comp - got).abs().max())
+    log(f"  K2 {what} against the composition: max abs {diff:.3g}, "
+        f"COST_MAX placed differently at {int((~same).sum())} costs, "
+        f"{int((~same & ~at_clamp).sum())} of them away from the clamp")
+    if not diff <= 1e-4 or not bool((same | at_clamp).all()):
+        raise AssertionError(f"K2 {what} disagrees with the composition")
+    del comp, got
+    ms = cuda_ms(lambda: ncc.ncc_strong_fused(data, x, y, plane, win), 20)
+    plain_ms = cuda_ms(lambda: ncc.ncc_strong_plain(data, x, y, plane, win),
+                       3, 1)
+    comp_ms = cuda_ms(lambda: composition(data, x, y, plane, win), 10)
+    bound, by, nbytes, ops = k2_bound(data, x, y, plane, win)
+    log(f"  K2 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"composition {comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                composition_ms=comp_ms, library_ms=None)
+
+
+def segment_masks(depth, seed: int):
+    """Synthetic SA segment ids on the card: the weak plane is segment 1,
+    seeded rectangles of segments 2-9 cut across it, 0 elsewhere."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    m = weak_region(depth).astype(np.int32)
+    h, w = m.shape
+    for k in range(2, 10):
+        y0, x0 = rng.integers(0, h - h // 10), rng.integers(0, w - w // 10)
+        m[y0:y0 + rng.integers(h // 30, h // 10),
+          x0:x0 + rng.integers(w // 40, w // 10)] = k
+    return torch.as_tensor(m)
+
+
+def k2_phase(scene, seed: int, device, card: str) -> dict:
+    """K2, the fused strong NCC, against its plain version on the card,
+    bitwise, at every shape the main path gives it (the strong sweep's
+    black pixels, u8 and f32; the classify chunk; one tile-route rank's
+    halo row block; one pixel; an SA star window; degenerate planes), and
+    its times against the plain version and the composition it replaced."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import checkerboard as cb
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops.cost import CostData, precompute_ref_window
+    from apde_mvs_tpu_torch.ops.cuda import ncc
+    from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
+    from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK
+
+    H, W = scene.images.shape[1:]
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    imgs = torch.as_tensor(scene.images, device=device)
+    sa = segment_masks(scene.depths[0], seed).to(device)
+    data = {u8: CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
+                               imgs[0], imgs[1:], sampler_u8=u8, sa_mask=sa)
+            for u8 in (True, False)}
+    depth = torch.as_tensor(scene.depths[0], device=device)
+    normal = torch.as_tensor(scene.normals[0], device=device)
+    ncam = geo.normal_world_to_cam(cams.view(0).R, torch.cat(
+        [normal, torch.zeros_like(depth)[..., None]], -1))[..., :3]
+
+    def black(rows=slice(None), cam=None, row0=0, scale=1.0):
+        """The black pixels of image rows ``rows`` and their ground-truth
+        planes (depth times ``scale``), in the coordinates of a block whose
+        row 0 is image row ``row0``."""
+        xs, ys = cb.color_coords(H, W, 0, device=device)
+        xs, ys = xs[rows].reshape(-1), ys[rows].reshape(-1)
+        xf, yf = xs.float(), (ys - row0).float()
+        plane = geo.make_plane(cam or cams.view(0), xf, yf,
+                               depth[ys.long(), xs.long()] * scale,
+                               ncam[ys.long(), xs.long()])
+        return xf.contiguous(), yf.contiguous(), plane.contiguous()
+
+    res, errs = {}, []
+    # the strong sweep's hypothesis: every black pixel, all 10 sources
+    x, y, plane = black()
+    log(f"K2 strong shape: {data[True].num_src} views x {x.numel()} pixels "
+        "x 36 taps in one launch")
+    for u8 in (True, False):
+        win = precompute_ref_window(data[u8], x, y, 5, 2)
+        errs.append(k2_check(data[u8], x, y, plane, win,
+                             f"strong {'u8' if u8 else 'f32'}"))
+    win = precompute_ref_window(data[True], x, y, 5, 2)
+    res["strong"] = k2_times(data[True], x, y, plane, win, "strong u8", card)
+    # the classify sweep's chunk at a probe depth off the truth
+    cx, cy, cplane = black(scale=1.02)
+    cx, cy, cplane = cx[:CHUNK], cy[:CHUNK], cplane[:CHUNK].contiguous()
+    cwin = precompute_ref_window(data[True], cx, cy, 5, 2)
+    errs.append(k2_check(data[True], cx, cy, cplane, cwin,
+                         "classify chunk u8"))
+    res["chunk_ms"] = cuda_ms(lambda: ncc.ncc_strong_fused(
+        data[True], cx, cy, cplane, cwin), 20)
+    log(f"  K2 classify chunk ({cx.numel()} pixels): {res['chunk_ms']:.4f} "
+        f"ms [{card}]")
+    # one tile-route rank: rows 0 .. H / RANKS - 1 with their halo, the
+    # source tables at full height
+    shard = {}
+    for u8 in (True, False):
+        block, row0, _, _ = halo_block(data[u8].replace(sa_mask=None), 0,
+                                       H // RANKS, HALO_ROWS)
+        bx, by, bplane = black(slice(0, H // RANKS), block.ref_cam, row0)
+        if not block.quad_h > block.height:
+            raise AssertionError("the row block has no halo table")
+        bwin = precompute_ref_window(block, bx, by, 5, 2)
+        errs.append(k2_check(
+            block, bx, by, bplane, bwin,
+            f"row shard {'u8' if u8 else 'f32'} (block {block.height} "
+            f"rows, tables {block.quad_h})"))
+        shard[u8] = (block, bx, by, bplane, bwin)
+    res["shard"] = k2_times(*shard[True], "row shard u8", card)
+    res["shard"]["shape"] = (data[True].num_src, shard[True][1].numel())
+    del shard
+    # one pixel, tools.debug_point's shape
+    errs.append(k2_check(
+        data[True], x[:1], y[:1], plane[:1],
+        precompute_ref_window(data[True], x[:1], y[:1], 5, 2),
+        "one pixel u8"))
+    # the SA star window on the segment masks
+    for u8 in (True, False):
+        swin = precompute_ref_window(data[u8], x, y, 5, 2, use_sa=True)
+        cut = int((swin.wsum < 36).sum())
+        if cut == 0:
+            raise AssertionError("no SA window was truncated")
+        errs.append(k2_check(
+            data[u8], x, y, plane, swin,
+            f"SA star {'u8' if u8 else 'f32'} ({cut} windows cut)"))
+    # degenerate planes: w = 0, NaN, +-inf, and centres off the image
+    n = CHUNK
+    sp = plane[:n].clone()
+    near = geo.make_plane(cams.view(0), x[:n], y[:n],
+                          torch.full_like(x[:n], 0.01), plane[:n, :3])
+    sp[0::7, 3] = 0.0
+    sp[1::7] = float("nan")
+    sp[2::7, 3] = float("inf")
+    sp[3::7, 3] = float("-inf")
+    sp[4::7, 0] = float("inf")
+    sp[5::7] = near[5::7]
+    sp[6::7, 2] = float("-inf")
+    swin = precompute_ref_window(data[True], x[:n], y[:n], 5, 2)
+    errs.append(k2_check(data[True], x[:n], y[:n], sp.contiguous(), swin,
+                         "degenerate planes u8"))
+    got = ncc.ncc_strong_fused(data[True], x[:n], y[:n], sp.contiguous(),
+                               swin)
+    for k, what in ((0, "w = 0"), (1, "NaN")):
+        if not bool((got[k::7] == 2.0).all()):
+            raise AssertionError(f"K2: {what} planes not all at COST_MAX")
+    near_max = float((got[5::7] == 2.0).float().mean())
+    log(f"  K2 degenerate planes: w = 0 and NaN all at COST_MAX, planes "
+        f"0.01 in front of the camera {near_max:.4f} at COST_MAX")
+    res["max_abs_err"] = max(errs)
+    return res
+
+
 def weak_region(depth):
     """The scene's weak (nearly textureless) plane: nearer than 95% of the
     mean depth. It is segment 1 of the scan's SA masks."""
@@ -408,6 +659,16 @@ def weak_kernel_phase(scene, seed: int, device, card: str) -> dict:
             r[tag] = time_packed(q, W, H, x, y, f"{site} {tag}", card)
         r["u8"]["library_ms"] = grid_sample_ms(data[True].src_quads, W, H,
                                                x, y, card)
+        if site == "weak_centre":
+            # K1a: the fixed cost of a launch of K1's grid at this size
+            total = x.numel()
+            r["u8"]["empty_launch_ms"] = cuda_ms(
+                lambda: sampler.launch_empty(total, device), 20)
+            log(f"  {site}: an empty launch of K1's grid "
+                f"({(total + 255) // 256} blocks of 256) takes "
+                f"{r['u8']['empty_launch_ms']:.4f} ms, K1 "
+                f"{r['u8']['ms']:.4f} ms, bound {r['u8']['bound_ms']:.4f} ms "
+                f"[{card}]")
         r["max_abs_err"] = max(errs)
         r["shape"] = tuple(x.shape)
         out[site] = r
@@ -474,39 +735,67 @@ def coloured_points(ply: Path, what: str) -> int:
     return len(pts)
 
 
+def reset_counts() -> None:
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
+    sampler.reset_launches()
+    ncc.reset_launches()
+
+
+# K1's call sites on the main paths: the deformable NCC's two windows
+WEAK_SITES = ("weak_centre", "weak_anchor")
+
+
+def k1_elsewhere(sites: dict) -> int:
+    """K1 launches at any site but the weak ones (the strong NCC is K2's)
+    in a by-site count; a K2 count under "K2" is not K1's."""
+    return sum(n for site, n in sites.items()
+               if site not in WEAK_SITES + ("K2",))
+
+
+def check_counts(what: str, k1: int, sites: dict, k2: int) -> None:
+    """The strong NCC went through K2 (at least one launch, and K1
+    launched only at the deformable NCC's weak sites); K1's launches add up
+    over its sites."""
+    if k2 <= 0 or sum(sites.values()) != k1 \
+            or not set(sites) <= set(WEAK_SITES):
+        raise AssertionError(f"{what}: K2 launches {k2}, K1 launches {k1} "
+                             f"by site {sites}")
+
+
 def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
                card: str) -> dict:
     """The port's CLI on the card over the written scan; checks the pass
-    count, depth error against ground truth, the fused PLY, and that K1
-    carried the sampling. Launch counts are read per call site."""
+    count, depth error against ground truth, the fused PLY, and that K2
+    carried the strong NCC. K1's launch counts are read per call site."""
     import torch
 
     from apde_mvs_tpu_torch.cli import apd
-    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
 
     log(f"==== {label} ====")
     torch.cuda.synchronize()
-    sampler.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     text = run_main(apd.main, ["--dense_folder", root, "--dataset",
                                "General"] + list(cli_args))
     wall = time.perf_counter() - t0
     launches = sampler.launches
     sites = dict(sampler.site_launches)
+    k2 = ncc.launches
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(passes) != n_passes:
         raise AssertionError(f"expected {n_passes} passes, saw {passes}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "fused PLY")
-    if launches <= 0 or sum(sites.values()) != launches:
-        raise AssertionError(f"K1 launches {launches}, by site {sites}")
-    log(f"{label}: {wall:.3f} s wall, K1 launches {launches}, by site "
-        f"{json.dumps(sites, sort_keys=True)} [{card}]")
+    check_counts(label, launches, sites, k2)
+    log(f"{label}: {wall:.3f} s wall, K2 launches {k2}, K1 launches "
+        f"{launches}, by site {json.dumps(sites, sort_keys=True)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
-    return dict(launches=launches, sites=sites, wall_s=wall, errors=errs,
-                points=points, passes=passes, fusion=fusion, text=text)
+    return dict(launches=launches, sites=sites, k2=k2, wall_s=wall,
+                errors=errs, points=points, passes=passes, fusion=fusion,
+                text=text)
 
 
 def write_sa_masks(scene, root: Path) -> None:
@@ -615,12 +904,12 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
 
     from apde_mvs_tpu_torch.cli import apd
     from apde_mvs_tpu_torch.io import binmat
-    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
     from apde_mvs_tpu_torch.tools import anchor_vis, debug_point
 
     log("==== debug exports: the APD scan's last pass again ====")
     torch.cuda.synchronize()
-    sampler.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     text = run_main(apd.main, [
         "--dense_folder", root, "--dataset", "General", "--seed", seed,
@@ -629,13 +918,13 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
         "--no_fuse", "true"])
     wall = time.perf_counter() - t0
     launches, sites = sampler.launches, dict(sampler.site_launches)
+    k2 = ncc.launches
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     weak = [int(ln.split()[2]) for ln in text.splitlines()
             if ln.startswith("Weak count:")]
     if len(passes) != 1 or len(weak) != num_views:
         raise AssertionError(f"exports pass: {passes}, weak counts {weak}")
-    if launches <= 0 or sum(sites.values()) != launches:
-        raise AssertionError(f"K1 launches {launches}, by site {sites}")
+    check_counts("exports pass", launches, sites, k2)
     for v in range(num_views):
         rf = root / "APD" / f"{v:08d}"
         missing = [n for n in EXPORTS if not (rf / n).is_file()]
@@ -656,7 +945,7 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
                                  f"weak count {weak[v]}")
         curve.unlink()
     log(f"exports pass: {passes[0]}, {wall:.3f} s wall, weak counts "
-        f"{weak}; K1 launches {launches}, by site "
+        f"{weak}; K2 launches {k2}, K1 launches {launches}, by site "
         f"{json.dumps(sites, sort_keys=True)}; all five files on every "
         f"view, curves (H, W, 61) f32 checked and deleted [{card}]")
 
@@ -672,20 +961,22 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
                                f"{x},{y}", "--out", overlay])
     if not overlay.is_file():
         raise AssertionError("anchor_vis wrote no overlay")
-    sampler.reset_launches()
+    reset_counts()
     text = run_main(debug_point.main, [
         "--dense_folder", root, "--view", 0, "--point", f"{x},{y}",
         "--device", "cuda", "--geom"])
     dp = dict(sampler.site_launches)
+    dp_k2 = ncc.launches
     curve_line = text.splitlines()[[i for i, ln in enumerate(
         text.splitlines()) if "reliability curve" in ln][0] + 1]
-    if len(curve_line.split()) != 61 or sampler.launches <= 0:
-        raise AssertionError(f"debug_point: curve {curve_line!r}, K1 "
-                             f"launches {sampler.launches}")
-    log(f"debug_point at ({x}, {y}) of view 0: K1 launches "
-        f"{json.dumps(dp, sort_keys=True)}")
+    if len(curve_line.split()) != 61:
+        raise AssertionError(f"debug_point: curve {curve_line!r}")
+    check_counts("debug_point", sampler.launches, dp, dp_k2)
+    log(f"debug_point at ({x}, {y}) of view 0: K2 launches {dp_k2}, K1 "
+        f"launches {json.dumps(dp, sort_keys=True)}")
     return dict(wall_s=wall, pass_line=passes[0], launches=launches,
-                sites=sites, weak=weak, debug_point_sites=dp)
+                sites=sites, k2=k2, weak=weak, debug_point_sites=dp,
+                debug_point_k2=dp_k2)
 
 
 def batch_phase(scene, tmp: Path, card: str) -> dict:
@@ -721,16 +1012,14 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
     text = (scan / "APD" / "log.txt").read_text()
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
-    k1 = [ln for ln in text.splitlines()
-          if ln.startswith("Sampler kernel launches:")]
-    if len(passes) != 4 or len(fusion) != 1 or len(k1) != 1 \
+    counts = LAUNCH_RE.findall(text)
+    if len(passes) != 4 or len(fusion) != 1 or len(counts) != 1 \
             or "dataset       : ETH3D" not in text:
         raise AssertionError(f"engine log: passes {passes}, fusion {fusion}"
-                             f", launches {k1}\n{text[-3000:]}")
-    launches = int(k1[0].split()[3].rstrip(","))
-    sites = json.loads(k1[0].split("by site ", 1)[1])
-    if launches <= 0:
-        raise AssertionError("the batch engine launched no K1")
+                             f", launches {counts}\n{text[-3000:]}")
+    launches, sites, k2 = int(counts[0][0]), json.loads(counts[0][1]), \
+        int(counts[0][2])
+    check_counts("batch engine", launches, sites, k2)
     errs = depth_errors(scene, scan)
     points = coloured_points(scan / "APD" / "APD.ply", "batch fused PLY")
     out = tmp / "collected"
@@ -739,35 +1028,41 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
             != (scan / "APD" / "APD.ply").read_bytes():
         raise AssertionError("collect did not copy the fused cloud")
     log(f"batch path: {wall:.3f} s for the eth3d_train subprocess; engine "
-        f"K1 launches {launches}, by site {json.dumps(sites)} [{card}]")
+        f"K2 launches {k2}, K1 launches {launches}, by site "
+        f"{json.dumps(sites)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
     return dict(wall_s=wall, passes=passes, fusion=fusion, errors=errs,
-                points=points, launches=launches, sites=sites)
+                points=points, launches=launches, sites=sites, k2=k2)
 
 
-def build_race(card: str) -> list:
-    """Build K1 from this checkout in RANKS processes started together, as
-    the ranks of a fresh torchrun would (`ops/cuda/build.py` compiles to a
+KERNEL_MODULES = {"K1": "sampler", "K2": "ncc"}
+
+
+def build_race(card: str) -> dict:
+    """Build each kernel library from this checkout in RANKS processes,
+    all started together (one nvcc a source in parallel, and two ranks of
+    a fresh torchrun racing for each: `ops/cuda/build.py` compiles to a
     per-process temporary file, then renames it into place); each must
-    load the library. Returns each process's nvcc seconds."""
+    load its library. Returns each process's nvcc seconds by kernel."""
     from apde_mvs_tpu_torch.ops.cuda import build as kbuild
-    code = ("from apde_mvs_tpu_torch.ops.cuda import sampler; "
-            "print(sampler.library().seconds)")
     existing = sorted(kbuild.BUILD_DIR.glob("lib*.so")) \
         if kbuild.BUILD_DIR.exists() else []
-    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
-                              env=repo_env(), stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for _ in range(RANKS)]
-    secs = []
-    for p in procs:
+    procs = [(k, subprocess.Popen(
+        [sys.executable, "-c", f"from apde_mvs_tpu_torch.ops.cuda import "
+         f"{mod}; print({mod}.library().seconds)"], cwd=REPO,
+        env=repo_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for k, mod in KERNEL_MODULES.items()
+        for _ in range(RANKS)]
+    secs = {k: [] for k in KERNEL_MODULES}
+    for k, p in procs:
         out, err = p.communicate(timeout=600)
         if p.returncode != 0:
-            raise RuntimeError(f"K1 build in a rank-like process exited "
+            raise RuntimeError(f"{k} build in a rank-like process exited "
                                f"{p.returncode}:\n{err[-4000:]}")
-        secs.append(float(out.split()[-1]))
-    log(f"K1 built by {RANKS} processes at once: nvcc {secs} s "
+        secs[k].append(float(out.split()[-1]))
+    log(f"K1 and K2 built by {RANKS} processes each, all at once: nvcc "
+        f"{secs} s "
         f"({'a library existed' if existing else 'fresh build'}); "
         f"{len(list(kbuild.BUILD_DIR.glob('lib*.so')))} library "
         f"file(s), no temporary left: "
@@ -806,15 +1101,16 @@ class Utilization:
 
 PASS_RE = re.compile(r"Pass (\d+) \((\w+)\) wall ([\d.]+) s, exchanged "
                      r"(\d+) B, rank (\d+) of (\d+)")
-K1_RE = re.compile(r"Sampler kernel launches: (\d+), by site (\{[^}]*\}), "
-                   r"rank (\d+) of (\d+)")
+LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
+                       r"(\{[^}]*\}), NCC kernel launches: (\d+)"
+                       r"(?:, rank (\d+) of (\d+))?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
     """The port's engine CLI under ``torch.distributed.run`` with RANKS
     ranks on the one card; raises on a non-zero exit (a dead rank).
-    Returns (stdout, wall seconds, per-rank pass walls, per-rank K1
-    launches by site)."""
+    Returns (stdout, wall seconds, per-rank pass walls, per-rank launches:
+    K1's by site and K2's as "K2")."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(RANKS), "-m",
            "apde_mvs_tpu_torch.cli.apd"] + [str(a) for a in cli_args]
@@ -833,10 +1129,11 @@ def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
     for it, state, sec, sent, r, n in PASS_RE.findall(text):
         passes[int(r)].append((int(it), state, float(sec), int(sent)))
     sites = {}
-    for n, js, r, _ in K1_RE.findall(text):
-        sites[int(r)] = json.loads(js)
+    for n, js, k2, r, _ in LAUNCH_RE.findall(text):
+        check_counts(f"{what}, rank {r}", int(n), json.loads(js), int(k2))
+        sites[int(r)] = dict(json.loads(js), K2=int(k2))
     if sorted(sites) != list(range(RANKS)):
-        raise AssertionError(f"{what}: K1 launch lines of ranks "
+        raise AssertionError(f"{what}: launch lines of ranks "
                              f"{sorted(sites)}")
     return text, wall, passes, sites
 
@@ -854,18 +1151,17 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
     for r in range(RANKS):
         if len(passes[r]) != 4:
             raise AssertionError(f"rank {r}: passes {passes[r]}")
-        if sum(sites[r].values()) <= 0:
-            raise AssertionError(f"rank {r} launched no K1")
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(fusion) != 1:
         raise AssertionError(f"fusion lines {fusion}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "view-parallel PLY")
     launches = {site: sum(sites[r].get(site, 0) for r in range(RANKS))
-                for site in ("strong", "weak_centre", "weak_anchor")}
+                for site in ("K2",) + WEAK_SITES}
+    launches["elsewhere"] = sum(k1_elsewhere(sites[r]) for r in range(RANKS))
     log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
         f"utilization.gpu mean {util.mean:.1f}% over {util.samples} "
-        f"samples; K1 launches {launches} [{card}]")
+        f"samples; launches {launches} [{card}]")
     for r in range(RANKS):
         for it, state, sec, sent in passes[r]:
             log(f"  rank {r}: Pass {it} ({state}) wall {sec:.3f} s, "
@@ -925,19 +1221,20 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
         dep = binmat.read_bin_mat(root / "APD" / "00000000" / "depths.bin")
         ok = (dep > 0) & (gt > 0)
         errs[name] = float(np.median(np.abs(dep - gt)[ok] / gt[ok]))
-    launches = sum(sites[r].get("strong", 0) for r in range(RANKS))
+    launches = sum(sites[r]["K2"] for r in range(RANKS))
+    k1_other = sum(k1_elsewhere(sites[r]) for r in range(RANKS))
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
         f"{[p[0][2] for p in passes.values()]} s, exchanged "
         f"{[p[0][3] for p in passes.values()]} B, serial CLI "
-        f"{serial_s:.3f} s; K1 strong launches {launches} [{card}]")
+        f"{serial_s:.3f} s; K2 launches {launches} [{card}]")
     if not max(errs.values()) < 0.01:
         raise AssertionError(f"tile route above the verify bar: {errs}")
     for root in roots.values():
         shutil.rmtree(root)
     return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
-                launches=launches, passes=passes)
+                launches=launches, k1_elsewhere=k1_other, passes=passes)
 
 
 def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
@@ -954,7 +1251,7 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
 
     from apde_mvs_tpu_torch import config as cfg
     from apde_mvs_tpu_torch.io import MemoryCache, binmat
-    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
     from apde_mvs_tpu_torch.parallel import distributed as pdist
     from apde_mvs_tpu_torch.pipeline import driver
     from apde_mvs_tpu_torch.pipeline.scan_parallel import ViewParallelRunner
@@ -984,7 +1281,7 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
         runner = ViewParallelRunner(
             driver.generate_sample_list(roots["parallel"]), MemoryCache(),
             seed=seed, device=device)
-        sampler.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         runner.run_pass(specs[0])
         torch.cuda.synchronize()
@@ -1009,10 +1306,12 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
         torch.cuda.synchronize()
         geom_s = time.perf_counter() - t0
         sent = pdist.exchanged_bytes - sent
-        launches = sampler.launches
+        launches = ncc.launches
+        check_counts("NCCL agreement", sampler.launches,
+                     dict(sampler.site_launches), launches)
         want = 3 * HEIGHT * WIDTH * 4
         log(f"geometric pass through NCCL: {sent} B exchanged (expected "
-            f"{want}), {geom_s:.3f} s; K1 launches over both passes "
+            f"{want}), {geom_s:.3f} s; K2 launches over both passes "
             f"{launches} [{card}]")
         if sent != want:
             raise AssertionError(f"exchanged {sent} B, expected {want}")
@@ -1051,7 +1350,7 @@ def main(argv=None) -> int:
 
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
-    from apde_mvs_tpu_torch.ops.cuda import sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
     from apde_mvs_tpu_torch.testing import synthetic
 
     t_all = time.perf_counter()
@@ -1062,14 +1361,16 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1 from this checkout --------------------------------
+    # ---- setup: build K1 and K2 from this checkout -------------------------
     build_race(card)
-    t0 = time.perf_counter()
-    built = sampler.library()
-    log(f"K1 load: {time.perf_counter() - t0:.2f} s -> {built.path.name}")
-    for ln in built.log.splitlines():
-        if "registers" in ln or "spill" in ln or "error" in ln.lower():
-            log(f"  ptxas: {ln.strip()}")
+    for name, mod in (("K1", sampler), ("K2", ncc)):
+        t0 = time.perf_counter()
+        built = mod.library()
+        log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
+            f"{built.path.name}")
+        for ln in built.log.splitlines():
+            if "registers" in ln or "spill" in ln or "error" in ln.lower():
+                log(f"  ptxas: {ln.strip()}")
 
     t0 = time.perf_counter()
     full_scene = synthetic.make_scene(num_views=FULL_VIEWS, height=HEIGHT,
@@ -1090,6 +1391,7 @@ def main(argv=None) -> int:
 
     # ---- kernel checks -----------------------------------------------------
     k = kernel_phase(full_scene, args.seed, device, card)
+    kk = k2_phase(full_scene, args.seed, device, card)
     kw = weak_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1138,19 +1440,29 @@ def main(argv=None) -> int:
             f"{sec:.3f} s [{card}]")
     log(f"utilization.gpu mean: view-parallel scan {vp['util']:.1f}%, "
         f"batch path {bu.mean:.1f}% ({bu.samples} samples) [{card}]")
-    # K1's launches on every path, each read from its own counters (the
-    # subprocess engines' from their logs)
-    launches = {site: sum(d.get(site, 0) for d in (
-        ap["sites"], ex["sites"], ex["debug_point_sites"], bt["sites"],
-        vp["launches"])) for site in ("strong", "weak_centre", "weak_anchor")}
-    launches["strong"] += r0["launches"] + ag["launches"]
+    # launches on every path, each read from its own counters (the
+    # subprocess engines' from their logs): K1's by site (the strong NCC
+    # is K2's now: K1's strong-shape rows count its launches at any other
+    # than the weak sites, which check_counts holds at 0), K2's
+    by_path = (r0["sites"], ap["sites"], ex["sites"], ex["debug_point_sites"],
+               bt["sites"], vp["launches"])
+    launches = {site: sum(d.get(site, 0) for d in by_path)
+                for site in WEAK_SITES}
+    launches["elsewhere"] = sum(k1_elsewhere(d) for d in by_path)
+    k2_paths = dict(round0=r0["k2"], apd=ap["k2"], exports=ex["k2"],
+                    debug_point=ex["debug_point_k2"],
+                    view_parallel=vp["launches"]["K2"], nccl=ag["launches"],
+                    batch=bt["k2"])
+    log(f"K2 launches by path: {json.dumps(k2_paths)}, tile route "
+        f"{tl['launches']} [{card}]")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
-                 launches=launches["strong"],
+                 launches=launches["elsewhere"],
                  max_abs_err=k["max_abs_err"], **k["u8"])]
     rows.append(dict(name="K1 bilinear sampler, tile-route row shard "
-                          "(packed u8 quads)", **k1, launches=tl["launches"],
+                          "(packed u8 quads)", **k1,
+                     launches=tl["k1_elsewhere"],
                      max_abs_err=k["max_abs_err"], **k["shard"]["u8"]))
     for site, what in (("weak_centre", "weak centre windows"),
                        ("weak_anchor", "weak anchor windows")):
@@ -1159,6 +1471,16 @@ def main(argv=None) -> int:
                               "quads)", **k1,
                          launches=launches[site],
                          max_abs_err=r["max_abs_err"], **r["u8"]))
+    k2 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/ncc.cu",
+          "replaces": "apde_mvs_tpu/ops/cost.py:248-297 (XLA-compiled jnp)"}
+    rows.append(dict(name="K2 fused strong NCC (u8 quads)", **k2,
+                     launches=sum(k2_paths.values()),
+                     max_abs_err=kk["max_abs_err"], **kk["strong"]))
+    rows.append(dict(name="K2 fused strong NCC, tile-route row shard "
+                          "(u8 quads)", **k2, launches=tl["launches"],
+                     max_abs_err=kk["max_abs_err"],
+                     **{k_: v for k_, v in kk["shard"].items()
+                        if k_ != "shape"}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,8 @@ def _submodules():
 
 def test_import_loads_no_jax_or_jax_package():
     mods = ["apde_mvs_tpu_torch"] + _submodules()
-    assert "apde_mvs_tpu_torch.ops.cuda.sampler" in mods
+    assert {"apde_mvs_tpu_torch.ops.cuda.sampler",
+            "apde_mvs_tpu_torch.ops.cuda.ncc"} <= set(mods)
     assert {"apde_mvs_tpu_torch.pipeline.full_pass",
             "apde_mvs_tpu_torch.pipeline.scan_parallel",
             "apde_mvs_tpu_torch.parallel.distributed",
