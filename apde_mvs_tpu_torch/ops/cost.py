@@ -10,7 +10,8 @@ APD.cu:820-829).
 
 The reference-image window sums depend only on the pixel, so
 `precompute_ref_window` hoists them out of the candidate x view loops: its
-`RefWindow` is K2's input. The window is the plain square, or, with SA
+`RefWindow` is K2's input (and K5's, the fused disparity sweep of
+ops/filters.py). The window is the plain square, or, with SA
 (segment masks, loaded for APD passes only) and the pixel inside a segment,
 the 36-tap star truncated at the segment's edge.
 """
@@ -222,15 +223,21 @@ def ncc_from_sums(sum_ref, sum_rr, sum_src, sum_ss, sum_rs, wsum):
     return torch.where(degenerate, COST_MAX, cost)
 
 
-def ncc_strong(data: CostData, x, y, plane, win: RefWindow) -> torch.Tensor:
+def ncc_strong(data: CostData, x, y, plane, win: RefWindow,
+               site: str = "other") -> torch.Tensor:
     """Multi-view NCC cost vector (B, S) of `plane` (B, 4) at pixels
     (x, y) (B,) f32 against every source view: one launch of the fused
-    NCC kernel K2 on CUDA tensors, its plain version on CPU tensors."""
+    NCC kernel K2 on CUDA tensors, its plain version on CPU tensors.
+    ``site`` names the caller in K2's per-site launch counts."""
     from .cuda.ncc import ncc_strong_fused
-    win = RefWindow(*(v.contiguous() if isinstance(v, torch.Tensor) else v
-                      for v in win))
     return ncc_strong_fused(data, x.contiguous(), y.contiguous(),
-                            plane.contiguous(), win)
+                            plane.contiguous(), contiguous_window(win), site)
+
+
+def contiguous_window(win: RefWindow) -> RefWindow:
+    """``win`` with every tensor contiguous, as the kernels take it."""
+    return RefWindow(*(v.contiguous() if isinstance(v, torch.Tensor) else v
+                       for v in win))
 
 
 def geom_cost(data: CostData, x, y, plane) -> torch.Tensor:

@@ -2,8 +2,10 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/kernels/`` at the repository root, on first use, under a name keyed
-by a hash of its sources and flags, and loaded with ``ctypes``. Nothing here
-runs at import time: the CPU-only test environment has no ``nvcc``.
+by a hash of its sources, the headers under ``csrc/`` (``*.cuh``, which the
+sources include and nvcc is not given) and the flags, and loaded with
+``ctypes``. Nothing here runs at import time: the CPU-only test environment
+has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,14 +43,21 @@ def find_nvcc() -> str:
                        "card")
 
 
+def source_hash(sources: Tuple[str, ...]) -> str:
+    """Hash of the flags, ``sources`` (file names under csrc/) and every
+    header under csrc/: an edited header rebuilds each library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str, sources: Tuple[str, ...]) -> Built:
     """Compile ``sources`` (file names under csrc/) into lib<name>-<hash>.so
     unless that file exists, then load it."""
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{source_hash(sources)}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

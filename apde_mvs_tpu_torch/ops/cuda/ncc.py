@@ -25,7 +25,13 @@ The kernel computes the same sequence with every operation rounded on its
 own, so the two agree bit for bit on the card.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback. ``launches`` counts kernel launches.
+raises — there is no fallback. ``launches`` counts kernel launches, and
+``site_launches`` splits them by the call site that asked for them
+("init": the initial cost, "strong": the strong sweep, "debug_point": the
+debug tool; "other" for any caller that names none). The disparity sweeps
+of DepthToWeak and LocalRefine run their NCC inside K5
+(``ops/cuda/sweep.py``), which shares K2's per-pixel code
+(``csrc/ncc_common.cuh``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from . import build as _build
 from .sampler import sample_packed_plain
 
 launches = 0      # kernel launches since the last reset (plain runs excluded)
+site_launches: dict = {}   # the same launches by call site
 
 MAX_VIEWS = 32    # csrc/ncc.cu kMaxViews: one warp a source view
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
@@ -52,6 +59,7 @@ _SOURCES = ("ncc.cu",)
 def reset_launches() -> None:
     global launches
     launches = 0
+    site_launches.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,17 +104,22 @@ def camera_table(data) -> torch.Tensor:
 _tables: dict = {}    # id(CostData) -> (weak reference, camera table)
 
 
+def cache_per_data(store: dict, data, make):
+    """``make(data)``, kept in ``store`` once per CostData object and dropped
+    with it."""
+    key = id(data)
+    hit = store.get(key)
+    if hit is not None and hit[0]() is data:
+        return hit[1]
+    value = make(data)
+    store[key] = (weakref.ref(data, lambda _: store.pop(key, None)), value)
+    return value
+
+
 def cached_camera_table(data) -> torch.Tensor:
     """``camera_table(data)``, built once per CostData object and dropped
     with it."""
-    key = id(data)
-    hit = _tables.get(key)
-    if hit is not None and hit[0]() is data:
-        return hit[1]
-    table = camera_table(data)
-    _tables[key] = (weakref.ref(data, lambda _: _tables.pop(key, None)),
-                    table)
-    return table
+    return cache_per_data(_tables, data, camera_table)
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +207,13 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def ncc_strong_fused(data, x, y, plane, win) -> torch.Tensor:
+def ncc_strong_fused(data, x, y, plane, win, site: str = "other"
+                     ) -> torch.Tensor:
     """Multi-view NCC cost vector (B, S) of ``plane`` (B, 4) at pixels
     (x, y) (B,) f32 against every source view of ``data`` (a
     ``cost.CostData``), over the reference window ``win`` (a
-    ``cost.RefWindow``). Every tensor must be contiguous on CUDA."""
+    ``cost.RefWindow``). Every tensor must be contiguous on CUDA. ``site``
+    names the caller in ``site_launches``."""
     b, t, pixel_offsets, tensors = _check_args(data, x, y, plane, win)
     quads = data.src_quads
     if quads.device.type == "cpu":
@@ -233,6 +248,7 @@ def ncc_strong_fused(data, x, y, plane, win) -> torch.Tensor:
         return out.T
     global launches
     launches += 1
+    site_launches[site] = site_launches.get(site, 0) + 1
     _raise_on(lib.apde_ncc_strong(
         quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
         x.data_ptr(), y.data_ptr(), plane.data_ptr(), win.tap_dx.data_ptr(),

@@ -3,7 +3,10 @@ classification, confidence, local refine (reference: APD.cu:1694-2432).
 
 DepthToWeak / LocalRefine evaluate NCC sweeps over all source views (the
 selection-gated view weights zero out the unselected ones) for flat pixel
-batches, so the pipeline can chunk full images.
+batches, so the pipeline can chunk full images. Each sweep of a batch is one
+launch of the fused sweep kernel K5 (ops/cuda/sweep.py) on CUDA tensors, its
+plain version on CPU tensors; the peak classification and the refine accept
+rule run on its output.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from ..config import RELIABLE_CURVE_SAMPLE_NUM, STRONG, UNKNOWN, WEAK
 from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch, texel_fetch
-from .cost import COST_MAX, CostData, RefWindow, geom_cost, ncc_strong, \
+from .cost import COST_MAX, CostData, contiguous_window, \
     precompute_ref_window
+from .cuda import sweep as k5
 from .state import PMState
 
 
@@ -161,26 +165,17 @@ def _sweep_scalars(data: CostData, state: PMState, x, y) -> _SweepScalars:
     return _SweepScalars(ok, plane_cam, depth, disp, base_line, wnorm, vw)
 
 
-def _sweep_cost(data: CostData, sc: _SweepScalars, win: RefWindow, xf, yf,
-                p_depth, geom: bool, geom_factor, depth_min, depth_max):
-    """Weighted sweep cost at a probe depth (keeps the current normal): the
-    selection-gated weighted mean over all S views (reference:
-    APD.cu:2173-2186)."""
-    n = sc.plane_cam[..., :3]
-    wdist = geo.plane_dist_to_origin(data.ref_cam, xf, yf, p_depth, n)
-    plane = torch.cat([n, wdist[..., None]], -1)
-    cv = ncc_strong(data, xf, yf, plane, win)
-    if geom:
-        cv = cv + geom_factor * geom_cost(data, xf, yf, plane)
-    cost = (sc.vw * cv).sum(-1) / torch.clamp(sc.wnorm, min=1e-20)
-    cost = torch.where(sc.wnorm > 0, cost, COST_MAX)
-    in_range = (p_depth >= depth_min) & (p_depth <= depth_max)
-    return torch.where(in_range, cost, COST_MAX)
-
-
-def _probe_depth(data: CostData, sc: _SweepScalars, p_disp: int):
-    d = sc.disp + float(p_disp)
-    return data.ref_cam.fx * sc.base_line / torch.where(d != 0, d, 1e-20)
+def _sweep(data: CostData, sc: _SweepScalars, xf, yf, win, *, refine: bool,
+           geom: bool, geom_factor, depth_min, depth_max) -> torch.Tensor:
+    """The batch's disparity sweep: one K5 call over every source view
+    (reference: APD.cu:2159-2186, 2403-2416)."""
+    px = k5.SweepPixels(xf.contiguous(), yf.contiguous(),
+                        sc.plane_cam.contiguous(), sc.disp.contiguous(),
+                        sc.base_line.contiguous(), sc.vw.contiguous(),
+                        sc.wnorm.contiguous())
+    return k5.sweep_fused(data, px, contiguous_window(win), refine=refine,
+                          geom=geom, geom_factor=geom_factor,
+                          depth_min=depth_min, depth_max=depth_max)
 
 
 def depth_to_weak(data: CostData, state: PMState, x, y, weak_peak_radius,
@@ -192,22 +187,14 @@ def depth_to_weak(data: CostData, state: PMState, x, y, weak_peak_radius,
     depth, find cost-curve local minima ("peaks"), classify STRONG/WEAK/
     UNKNOWN. ``use_sa`` selects the SA star window where the pixel lies in
     a segment. Returns (new_weak (B,), curve (B, 61) or None)."""
-    dev = x.device
-    geom_factor = geo.f32_scalar(geom_factor, dev)
-    depth_min = geo.f32_scalar(depth_min, dev)
-    depth_max = geo.f32_scalar(depth_max, dev)
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
     sc = _sweep_scalars(data, state, x, y)
     win = precompute_ref_window(data, xf, yf, strong_radius, strong_increment,
                                 use_sa)
-    radius = (RELIABLE_CURVE_SAMPLE_NUM - 1) // 2
-    curve = torch.stack([
-        torch.clamp(_sweep_cost(data, sc, win, xf, yf,
-                                _probe_depth(data, sc, i - radius), geom,
-                                geom_factor, depth_min, depth_max),
-                    max=COST_MAX)
-        for i in range(RELIABLE_CURVE_SAMPLE_NUM)], 1)          # (B, 61)
+    curve = _sweep(data, sc, xf, yf, win, refine=False, geom=geom,
+                   geom_factor=geom_factor, depth_min=depth_min,
+                   depth_max=depth_max)                       # (B, 61)
     new_weak = _classify_peaks(data, state, x, y, curve, weak_peak_radius,
                                sc.ok)
     return new_weak, (curve if return_curve else None)
@@ -263,26 +250,33 @@ def local_refine(data: CostData, state: PMState, x, y, geom: bool,
     depth when the cost improves by > 0.1 (reference: LocalRefine,
     APD.cu:2346-2432). ``use_sa`` as in `depth_to_weak`. Returns new depth
     values for the batch."""
-    dev = x.device
-    geom_factor = geo.f32_scalar(geom_factor, dev)
-    depth_min = geo.f32_scalar(depth_min, dev)
-    depth_max = geo.f32_scalar(depth_max, dev)
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
     sc = _sweep_scalars(data, state, x, y)
     win = precompute_ref_window(data, xf, yf, strong_radius, strong_increment,
                                 use_sa)
-    cost_now = _sweep_cost(data, sc, win, xf, yf, sc.depth, geom, geom_factor,
-                           -math.inf, math.inf)
-    min_cost = torch.full_like(cost_now, COST_MAX)
-    best_depth = sc.depth
-    for i in range(11):
-        p_depth = _probe_depth(data, sc, i - 5)
-        c = _sweep_cost(data, sc, win, xf, yf, p_depth, geom, geom_factor,
-                        depth_min, depth_max)
-        better = c < min_cost
-        min_cost = torch.where(better, c, min_cost)
-        best_depth = torch.where(better, p_depth, best_depth)
-    improve = (cost_now - min_cost) > 0.1
+    costs = _sweep(data, sc, xf, yf, win, refine=True, geom=geom,
+                   geom_factor=geom_factor, depth_min=depth_min,
+                   depth_max=depth_max)                       # (B, 12)
     ok = sc.ok & (sc.wnorm > 0) & fetch(state.valid, x, y)
-    return torch.where(improve & ok, best_depth, sc.depth)
+    return torch.where(ok, _refine_depths(data, sc, costs), sc.depth)
+
+
+def _refine_depths(data: CostData, sc: _SweepScalars, costs) -> torch.Tensor:
+    """LocalRefine's accept rule on K5's (B, 12) costs (the current depth's,
+    then the 11 probes'): the reference's loop starts at COST_MAX and takes
+    a probe only when strictly cheaper, so the first minimum wins and NaN
+    never does; the best probe's depth replaces the current one when it
+    improves the cost by > 0.1 (reference: APD.cu:2403-2430). Written as a
+    leading COST_MAX column and argmin's first minimum."""
+    cost_now = costs[:, 0]
+    p_depth = k5.probe_depths(data.ref_cam.fx, sc.disp, sc.base_line,
+                              k5.REFINE_OFFSETS)              # (B, 11)
+    sweep = costs[:, 1:]
+    sweep = torch.cat([torch.full_like(cost_now[:, None], COST_MAX),
+                       torch.where(torch.isnan(sweep), math.inf, sweep)], 1)
+    best = torch.argmin(sweep, 1, keepdim=True)
+    min_cost = torch.gather(sweep, 1, best)[:, 0]
+    best_depth = torch.gather(torch.cat([sc.depth[:, None], p_depth], 1), 1,
+                              best)[:, 0]
+    return torch.where((cost_now - min_cost) > 0.1, best_depth, sc.depth)

@@ -72,7 +72,7 @@ def initial_cost(data: CostData, state: PMState, params, weak_x=None,
                           precompute_ref_window(data, xf[lo:hi], yf[lo:hi],
                                                 params.strong_radius,
                                                 params.strong_increment,
-                                                use_sa))
+                                                use_sa), site="init")
     costs = torch.cat([strong(i, min(i + CHUNK, sl.stop))
                        for i in range(sl.start, sl.stop, CHUNK)])
     if shard is not None:

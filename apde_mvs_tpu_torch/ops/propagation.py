@@ -213,7 +213,8 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
 
     win = precompute_ref_window(data, xf, yf, cfg.strong_radius,
                                 cfg.strong_increment, cfg.use_sa)
-    cost_array = torch.stack([ncc_strong(data, xf, yf, cand_planes[:, c], win)
+    cost_array = torch.stack([ncc_strong(data, xf, yf, cand_planes[:, c], win,
+                                         site="strong")
                               for c in range(8)], dim=1)        # (B, 8, S)
     # invalid regions keep ~zero rows (C aggregate-init quirk, see module
     # doc) EXCEPT element [0][0]: `float cost_array[8][32] = {2.0f}`
@@ -240,7 +241,7 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     # Monte-Carlo-selected views only (APD.cu:1405-1412, 988-996): all views
     # are evaluated and unselected ones weigh 0
     def weighted_cost(plane):
-        cv = ncc_strong(data, xf, yf, plane, win)
+        cv = ncc_strong(data, xf, yf, plane, win, site="strong")
         if cfg.geom_consistency and cfg.use_impetus:
             cv = cv + geom_factor * geom_cost(data, xf, yf, plane)
         return (vw * cv).sum(-1) * inv_norm

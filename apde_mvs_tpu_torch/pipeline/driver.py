@@ -29,7 +29,7 @@ from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
                          resize_bilinear, resize_nearest, scaled_size,
                          write_image)
 from ..ops.cost import CostData
-from ..ops.cuda import ncc, sampler
+from ..ops.cuda import ncc, sampler, sweep
 from ..tools import visualize
 from .patchmatch import pad_to_multiple, run_patchmatch
 
@@ -471,7 +471,11 @@ def run_scan(dense_folder, dataset: str = "General", *,
     # one write with its newline: ranks sharing a pipe interleave writes
     print(f"Sampler kernel launches: {sampler.launches}, by site "
           f"{json.dumps(sampler.site_launches, sort_keys=True)}, NCC kernel "
-          f"launches: {ncc.launches}{tag}\n", end="", flush=True)
+          f"launches: {ncc.launches}, by site "
+          f"{json.dumps(ncc.site_launches, sort_keys=True)}, sweep kernel "
+          f"launches: {sweep.launches}, by mode "
+          f"{json.dumps(sweep.mode_launches, sort_keys=True)}{tag}\n", end="",
+          flush=True)
 
     if cache is not None and flush:
         cache.flush()

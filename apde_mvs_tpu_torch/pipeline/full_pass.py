@@ -229,6 +229,14 @@ def sweepable(data: CostData, state: PMState) -> torch.Tensor:
         & state.selected.any(-1)
 
 
+def _sweep_constants(params, dmin, dmax) -> tuple:
+    """The geometric factor and the depth bounds as Python floats (float32
+    values) for the sweep kernel K5's launches: read once a stage, not once
+    a chunk, so no chunk waits on the device."""
+    return tuple(float(geo.f32_scalar(v, "cpu"))
+                 for v in (params.geom_factor, dmin, dmax))
+
+
 def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
                   dmax, *, shard=None, export_curve: bool = False):
     """Stage 2: the reclassified (H, W) int32 weak map, and with
@@ -242,7 +250,7 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
     h, w = data.height, data.width
     dev = data.device
     params = cfg.params
-    gf = geo.f32_scalar(params.geom_factor, dev)
+    gf, dmin, dmax = _sweep_constants(params, dmin, dmax)
     xs, ys = geo.pixel_grid(h, w, dev)
     margin = (xs < MIN_MARGIN) | (ys < MIN_MARGIN) \
         | (xs >= data.img_w - MIN_MARGIN) | (ys >= data.img_h - MIN_MARGIN)
@@ -272,7 +280,7 @@ def pass_finish(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     """Stage 3: confidence + local refine. ``state.weak`` must already hold
     stage 2's reclassification."""
     params = cfg.params
-    gf = geo.f32_scalar(params.geom_factor, data.device)
+    gf, dmin, dmax = _sweep_constants(params, dmin, dmax)
     refine_mask = sweepable(data, state)
     if params.geom_consistency or cfg.use_apd:
         state = filters.compute_confidence(data, state)

@@ -81,7 +81,8 @@ def inspect_point(dense_folder, view: int, x: int, y: int, scale: int = 1,
     win = precompute_ref_window(data, xf, yf, 5, 2, False)
     out = dict(depth=float(depth[y, x]), normal=np.asarray(normal[y, x]),
                state=STATE_NAMES.get(int(weak[y, x]), "?"),
-               ncc=ncc_strong(data, xf, yf, plane, win)[0].cpu().numpy(),
+               ncc=ncc_strong(data, xf, yf, plane, win,
+                              site="debug_point")[0].cpu().numpy(),
                geom=None, src_ids=list(problem.src_image_ids))
     if geom:
         out["geom"] = geom_cost(data, xf, yf, plane)[0].cpu().numpy()

@@ -16,9 +16,11 @@ after one warm-up run, under torch.profiler:
 Per pass it prints host wall, device busy time (sum of kernel and copy
 time) and idle share, the wall of the same pass run without the profiler
 (just before), the device time (CUDA events around each launch) and
-launches of the fused strong NCC K2 and of K1 by call site, the device
-and host time of the pass's stages (anchors, fit planes, the
-weak sweep, the deformable NCC, ...), and the torch ops that hold the most
+launches of the fused strong NCC K2 by call site (init, strong sweep), of
+the fused disparity sweep K5 by mode (classify, refine) and of K1 by call
+site, each kernel's profiler time, the device and host time of the pass's
+stages (anchors, fit planes, the weak sweep, the deformable NCC, the
+classify and refine sweeps, ...), and the torch ops that hold the most
 device time.
 
     python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
@@ -46,7 +48,7 @@ from ..core import geometry as geo
 from ..core.platform import card_line
 from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
-from ..ops.cuda import ncc, sampler
+from ..ops.cuda import ncc, sampler, sweep
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
@@ -90,11 +92,11 @@ def _labelled(fn, label):
     return run
 
 
-def _event_timed(fn, events: dict, site=None):
-    """``fn`` with a pair of CUDA events around each call, kept by call
-    site (K1's ``site`` argument, or the fixed ``site``): the profiler does
-    not tie a kernel launched through ctypes to the range it was launched
-    in."""
+def _event_timed(fn, events: dict, name_of):
+    """``fn`` with a pair of CUDA events around each call, kept under
+    ``name_of(args, kwargs)`` (the kernel and its call site or mode): the
+    profiler does not tie a kernel launched through ctypes to the range it
+    was launched in."""
     @functools.wraps(fn)
     def run(*a, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -102,27 +104,38 @@ def _event_timed(fn, events: dict, site=None):
         start.record()
         out = fn(*a, **kw)
         end.record()
-        events.setdefault(site or kw.get("site", "other"), []).append(
-            (start, end))
+        events.setdefault(name_of(a, kw), []).append((start, end))
         return out
     return run
+
+
+def _k1_site(a, kw):
+    return kw.get("site", "other")
+
+
+def _k2_site(a, kw):
+    return "K2 " + (a[5] if len(a) > 5 else kw.get("site", "other"))
+
+
+def _k5_mode(a, kw):
+    return "K5 " + ("refine" if kw["refine"] else "classify")
 
 
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site) into ``kernel_events``; restore the plain
-    functions afterwards."""
-    saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES]
-    saved.append((sampler, "sample_packed", sampler.sample_packed))
-    saved.append((ncc, "ncc_strong_fused", ncc.ncc_strong_fused))
+    K2 and K1 (by call site) and K5 (by mode) into ``kernel_events``;
+    restore the plain functions afterwards."""
+    kernels = ((sampler, "sample_packed", _k1_site),
+               (ncc, "ncc_strong_fused", _k2_site),
+               (sweep, "sweep_fused", _k5_mode))
+    saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES + kernels]
     try:
         for m, a, label in _STAGES:
             setattr(m, a, _labelled(getattr(m, a), label))
-        sampler.sample_packed = _event_timed(sampler.sample_packed,
-                                             kernel_events)
-        ncc.ncc_strong_fused = _event_timed(ncc.ncc_strong_fused,
-                                            kernel_events, site="K2 strong")
+        for m, a, name_of in kernels:
+            setattr(m, a, _event_timed(getattr(m, a), kernel_events,
+                                       name_of))
         yield
     finally:
         for m, a, fn in saved:
@@ -141,6 +154,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     plain_wall = time.perf_counter() - t0
     sampler.reset_launches()
     ncc.reset_launches()
+    sweep.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     labels = {label for _, _, label in _STAGES}
@@ -151,8 +165,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
             run()
         wall = time.perf_counter() - t0
     launches = sampler.launches
-    sites = dict(sampler.site_launches)
-    sites["K2 strong"] = ncc.launches
+    sites = {site: len(ev) for site, ev in kernel_events.items()}
     kernels, ops, stages, stages_host = {}, {}, {}, {}
     for evt in prof.key_averages():
         on_device = evt.device_type == torch.autograd.DeviceType.CUDA
@@ -172,6 +185,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     k1 = sum(t for k, t in kernels.items() if "sample_" in k
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
     k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k) / 1e6
+    k5 = sum(t for k, t in kernels.items() if "sweep_kernel" in k) / 1e6
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
     sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
                for site, ev in kernel_events.items()}
@@ -180,8 +194,9 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 idle_share=max(0.0, 1.0 - busy / wall),
                 unprofiled_wall_s=plain_wall,
                 unprofiled_idle_share=max(0.0, 1.0 - busy / plain_wall),
-                k1_s=k1, k2_s=k2, k2_launches=ncc.launches,
-                k1_launches=launches, site_launches=sites,
+                k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k5_s=k5,
+                k5_launches=sweep.launches, k1_launches=launches,
+                site_launches=sites,
                 site_event_s={k: round(v, 6) for k, v in sites_s.items()},
                 stage_device_s={k: round(v, 6) for k, v in sorted(
                     stages.items(), key=lambda kv: -kv[1])},
@@ -198,13 +213,15 @@ def _report(r, card):
     print(f"{r['state']}{' (APD)' if r['use_apd'] else ''}: wall "
           f"{r['wall_s']:.3f} s, device busy {r['device_busy_s']:.3f} s "
           f"(idle {r['idle_share']:.1%}), K2 {r['k2_s']:.3f} s over "
-          f"{r['k2_launches']} launches, K1 {r['k1_s']:.3f} s over "
-          f"{r['k1_launches']} launches [{card}]", flush=True)
+          f"{r['k2_launches']} launches, K5 {r['k5_s']:.3f} s over "
+          f"{r['k5_launches']} launches, K1 {r['k1_s']:.3f} s over "
+          f"{r['k1_launches']} launches (profiler kernel time) [{card}]",
+          flush=True)
     for site, t in r["site_event_s"].items():
         calls = r["site_launches"].get(site, 0)
-        print(f"  {'K2' if site.startswith('K2') else 'K1'}    {t:9.4f} s  "
-              f"{site}: {calls} launches, "
-              f"{t / max(calls, 1) * 1e3:.4f} ms a launch (CUDA events)")
+        print(f"  {site[:2] if site[:2] in ('K2', 'K5') else 'K1'}    "
+              f"{t:9.4f} s  {site}: {calls} calls, "
+              f"{t / max(calls, 1) * 1e3:.4f} ms a call (CUDA events)")
     print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "
           f"{r['unprofiled_idle_share']:.1%} against the same device busy")
     for k, t in r["stage_device_s"].items():

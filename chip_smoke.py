@@ -10,7 +10,14 @@ windows (with the time of an empty launch of its grid there); K2, the
 fused strong NCC, bitwise at the strong sweep's black pixels (u8 and f32),
 the classify chunk, a tile-route rank's halo row block, one pixel, an SA
 star window and degenerate planes, and timed against the torch-op
-composition it replaced (homography, warp, K1, window sums, NCC). The paths:
+composition it replaced (homography, warp, K1, window sums, NCC); K5, the
+fused disparity sweep of DepthToWeak and LocalRefine with the geometric cost
+inside, bitwise at the classify chunk in both modes (u8 and f32, geometric
+cost on and off), an SA star window, a tile-route halo row block,
+degenerate planes with empty view weights on a ragged chunk, and every
+pixel of a view in the export-curve form, timed against the per-probe
+composition it replaced (a K2 call, the geometric cost and the view
+weighting a probe). The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -50,8 +57,11 @@ limit (the exports pass follows the APD scan). The kernel checks, the
 view-parallel scan, the tile route and the batch scan always use all 11
 views.
 
-Every path must run its strong NCC through K2 (at least one launch, none
-of K1 at a strong site); K1 must carry the weak sites of the APD scan.
+Every path must run its strong NCC through K2 (at least one launch, all at
+the strong path's sites: the initial cost, the strong sweep, debug_point;
+none of K1 at a strong site) and its classify and refine sweeps through K5
+(at least one launch of each mode on a path that runs a pass); K1 must
+carry the weak sites of the APD scan.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -105,6 +115,19 @@ K1_OPS_PER_SAMPLE = 17
 # pair) is its own choice and not counted.
 K2_OPS_PER_TAP = 38
 K2_OPS_PER_PAIR = 90
+# operations of the disparity sweep K5 as the function needs them, beside
+# K2's per tap and per pair for every probe: per (pixel, view, probe) 2 for
+# the weighting (a product, the view sum's add) and with the geometric cost
+# 115 more (projection into the source view 35, the texel index 10,
+# back-projection 24, projection into the reference 35, distance, clamp and
+# checks 9, the factor and its add 2); per (pixel, probe) 22 (the probe
+# depth 3, the plane's w 12, the mean and masks 7) and with the geometric
+# cost 36 more (depth from the plane 12, back-projection 24). A (pixel,
+# view) pair whose weight is 0 needs nothing: its term is +0.
+K5_OPS_PER_PAIR = 2
+K5_GEOM_OPS_PER_PAIR = 115
+K5_OPS_PER_PIXEL = 22
+K5_GEOM_OPS_PER_PIXEL = 36
 
 
 def log(msg: str) -> None:
@@ -505,10 +528,8 @@ def k2_phase(scene, seed: int, device, card: str) -> dict:
     cwin = precompute_ref_window(data[True], cx, cy, 5, 2)
     errs.append(k2_check(data[True], cx, cy, cplane, cwin,
                          "classify chunk u8"))
-    res["chunk_ms"] = cuda_ms(lambda: ncc.ncc_strong_fused(
-        data[True], cx, cy, cplane, cwin), 20)
-    log(f"  K2 classify chunk ({cx.numel()} pixels): {res['chunk_ms']:.4f} "
-        f"ms [{card}]")
+    res["chunk"] = k2_times(data[True], cx, cy, cplane, cwin,
+                            "classify chunk u8", card)
     # one tile-route rank: rows 0 .. H / RANKS - 1 with their halo, the
     # source tables at full height
     shard = {}
@@ -564,6 +585,283 @@ def k2_phase(scene, seed: int, device, card: str) -> dict:
     near_max = float((got[5::7] == 2.0).float().mean())
     log(f"  K2 degenerate planes: w = 0 and NaN all at COST_MAX, planes "
         f"0.01 in front of the camera {near_max:.4f} at COST_MAX")
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def k5_bound(data, px, win, refine: bool, geom: bool) -> tuple:
+    """The least time the card could take for one K5 call: its f32
+    operations over the plain-f32 rate (only the (pixel, view) pairs whose
+    weight is not 0 need any), against the bytes of its inputs (the quad
+    tables and source depth maps whole, each read once), and output over the
+    memory rate. Returns (ms, "bytes" or "operations", bytes, operations)."""
+    s, b = data.num_src, px.x.numel()
+    t = win.tap_val.shape[1]
+    probes = 12 if refine else 61
+    pairs = int((px.vw != 0).sum())
+    per_tap = K2_OPS_PER_TAP + (2 if win.tap_w is not None else 0)
+    ops = probes * (
+        pairs * (t * per_tap + K2_OPS_PER_PAIR + K5_OPS_PER_PAIR
+                 + (K5_GEOM_OPS_PER_PAIR if geom else 0))
+        + b * (K5_OPS_PER_PIXEL + (K5_GEOM_OPS_PER_PIXEL if geom else 0)))
+    per_pixel = 4 * (2 + 4 + 3 + s + t + 2)   # x, y, plane, scalars, vw,
+    if win.tap_w is not None:                 # values, sums
+        per_pixel += 4 * (3 * t + 1)          # offsets, weights, weight sum
+    nbytes = b * (per_pixel + 4 * probes) + data.src_quads.numel() \
+        * data.src_quads.element_size() + (s + 1) * 40 * 4
+    if win.tap_w is None:
+        nbytes += 8 * t
+    if geom:
+        nbytes += 4 * data.src_depths.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def bitwise(got, want) -> bool:
+    """Bit-for-bit equality of two f32 tensors, NaN payloads included."""
+    import torch
+    return got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32))
+
+
+def k5_check(data, px, win, kw: dict, what: str) -> float:
+    """K5 against its plain version on the card: bitwise. Returns the max
+    abs difference read from the two (over non-NaN costs)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    got = sweep.sweep_fused(data, px, win, **kw)
+    want = sweep.sweep_plain(data, px, win, **kw)
+    torch.cuda.synchronize()
+    if not bitwise(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"K5 {what}: {bad} costs differ from the plain "
+                             f"version")
+    ok = ~torch.isnan(want)
+    n_max = int((want[ok] >= 2.0).sum())
+    log(f"  K5 {what} {tuple(want.shape)}: bitwise equal to the plain "
+        f"version, {n_max} of {want.numel()} at or above COST_MAX, "
+        f"{int((~ok).sum())} NaN")
+    return float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) \
+        else 0.0
+
+
+def k5_times(data, sc, px, win, kw: dict, what: str, card: str) -> dict:
+    """K5's, the plain version's and the per-probe composition's mean times
+    (CUDA events, warm), K5 with every view weighted (no pair skipped), and
+    the bound; the composition held to K5 within 1e-4 at every cost, and
+    non-finite at the same costs (it sums the plane's w in K5's order:
+    ``testing.sweep_composition``)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    from apde_mvs_tpu_torch.testing.sweep_composition import \
+        sweep_composition
+    comp = sweep_composition(data, sc, px, win, **kw)
+    got = sweep.sweep_fused(data, px, win, **kw)
+    torch.cuda.synchronize()
+    ok = torch.isfinite(comp) & torch.isfinite(got)
+    diff = torch.where(ok, comp - got, 0.0).abs()
+    max_diff = float(diff.max())
+    log(f"  K5 {what} against the composition: max abs {max_diff:.3g} over "
+        f"{comp.numel()} costs, {int((diff > 1e-6).sum())} more than 1e-6 "
+        f"apart")
+    if not max_diff <= 1e-4 \
+            or not torch.equal(torch.isfinite(comp), torch.isfinite(got)):
+        raise AssertionError(f"K5 {what} disagrees with the composition")
+    del comp, got, diff
+    ms = cuda_ms(lambda: sweep.sweep_fused(data, px, win, **kw), 10)
+    plain_ms = cuda_ms(lambda: sweep.sweep_plain(data, px, win, **kw), 1, 1)
+    comp_ms = cuda_ms(
+        lambda: sweep_composition(data, sc, px, win, **kw), 3, 1)
+    every = px._replace(vw=torch.ones_like(px.vw),
+                        wnorm=torch.full_like(px.wnorm, px.vw.shape[1]))
+    all_ms = cuda_ms(lambda: sweep.sweep_fused(data, every, win, **kw), 5)
+    bound, by, nbytes, ops = k5_bound(data, px, win, kw["refine"],
+                                      kw["geom"])
+    pairs = float((px.vw != 0).float().mean())
+    log(f"  K5 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, composition "
+        f"{comp_ms:.4f} ms, every view weighted {all_ms:.4f} ms ({pairs:.3f} "
+        f"of the pairs weighted here), bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                composition_ms=comp_ms, all_views_ms=all_ms,
+                composition_max_abs=max_diff,
+                library_ms=None)
+
+
+def k5_phase(scene, seed: int, device, card: str) -> dict:
+    """K5, the fused disparity sweep, against its plain version on the card,
+    bitwise, at the shapes the main path gives it: the classify chunk
+    (65,536 pixels, all 10 sources) in classify and refine modes with u8
+    and f32 tables and the geometric cost on and off, an SA star window, a
+    tile-route rank's halo row block, degenerate planes and empty weights
+    on a ragged chunk, and every pixel of a view in the export-curve form;
+    then its times against the plain version and the composition it
+    replaced. The state: near-truth planes (some 3% off), each pixel's
+    top-k views of K2's costs selected with weights 1-4."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.cost import CostData, contiguous_window, \
+        initial_cost_and_selection, ncc_strong, precompute_ref_window
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    from apde_mvs_tpu_torch.ops.state import PMState
+    from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
+    from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK, MIN_MARGIN
+    from apde_mvs_tpu_torch.testing.sweep_composition import \
+        sweep_composition
+
+    H, W = scene.images.shape[1:]
+    S = scene.num_views - 1
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    imgs = torch.as_tensor(scene.images, device=device)
+    sa = segment_masks(scene.depths[0], seed).to(device)
+    src_depths = torch.as_tensor(np.stack(scene.depths[1:]), device=device)
+    data = {u8: CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
+                               imgs[0], imgs[1:], src_depths=src_depths,
+                               sampler_u8=u8, sa_mask=sa)
+            for u8 in (True, False)}
+    params = cfg.build_schedule(max(H, W))[1].params      # REFINE_ITER
+    dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
+    dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
+    rng = np.random.default_rng(seed)
+    depth = scene.depths[0] * (1 + rng.normal(0, 0.002, (H, W)))
+    depth = np.where(rng.random((H, W)) < 0.2,
+                     depth * (1 + rng.choice([-0.03, 0.03], (H, W))), depth)
+    planes = torch.as_tensor(np.concatenate(
+        [scene.normals[0], depth[..., None]], -1).astype(np.float32),
+        device=device)
+    xs, ys = geo.pixel_grid(H, W, device)
+    cam_planes = filters.depth_normal_to_planes(data[True], planes[..., 3],
+                                                planes[..., :3])
+    win_all = precompute_ref_window(data[True], xs.reshape(-1),
+                                    ys.reshape(-1), 5, 2)
+    costs = ncc_strong(data[True], xs.reshape(-1), ys.reshape(-1),
+                       cam_planes.reshape(-1, 4), win_all)
+    del win_all, cam_planes
+    _, sel = initial_cost_and_selection(costs, params.top_k)
+    vw = sel.float() * torch.randint(1, 5, sel.shape, device=device,
+                                     generator=torch.Generator(
+                                         device=device).manual_seed(seed))
+    state = PMState.create(H, W, S, device=device).replace(
+        planes=planes, selected=sel.reshape(H, W, S),
+        view_weights=vw.reshape(H, W, S))
+    del costs
+    # the classify chunk: the first CHUNK sweepable pixels off the margins
+    margin = (xs < MIN_MARGIN) | (ys < MIN_MARGIN) \
+        | (xs >= W - MIN_MARGIN) | (ys >= H - MIN_MARGIN)
+    cy, cx = torch.nonzero(~margin, as_tuple=True)
+    cx, cy = cx[:CHUNK].to(torch.int32), cy[:CHUNK].to(torch.int32)
+
+    def inputs(d, st, x, y, use_sa=False):
+        xf, yf = x.float(), y.float()
+        sc = filters._sweep_scalars(d, st, x, y)
+        px = sweep.SweepPixels(xf, yf, sc.plane_cam.contiguous(), sc.disp,
+                               sc.base_line, sc.vw.contiguous(), sc.wnorm)
+        return sc, px, contiguous_window(
+            precompute_ref_window(d, xf, yf, 5, 2, use_sa))
+
+    def kwargs(refine, geom):
+        return dict(refine=refine, geom=geom,
+                    geom_factor=params.geom_factor, depth_min=dmin,
+                    depth_max=dmax)
+
+    log(f"K5 classify chunk: {S} views x {cx.numel()} pixels x 36 taps x 61 "
+        f"probes (refine: 12) in one launch; "
+        f"{float(sel.float().sum(-1).mean()):.2f} views selected a pixel")
+    errs, res = [], {}
+    for u8 in (True, False):
+        sc, px, win = inputs(data[u8], state, cx, cy)
+        for geom in (True, False):
+            for refine in (False, True):
+                errs.append(k5_check(
+                    data[u8], px, win, kwargs(refine, geom),
+                    f"{'refine' if refine else 'classify'} chunk "
+                    f"{'u8' if u8 else 'f32'}"
+                    f"{', geometric' if geom else ''}"))
+    sc, px, win = inputs(data[True], state, cx, cy)
+    for refine in (False, True):
+        mode = "refine" if refine else "classify"
+        res[mode] = k5_times(data[True], sc, px, win, kwargs(refine, True),
+                             f"{mode} chunk u8, geometric", card)
+    res["classify"]["no_geom_ms"] = cuda_ms(lambda: sweep.sweep_fused(
+        data[True], px, win, **kwargs(False, False)), 10)
+    res["classify"]["no_geom_composition_ms"] = cuda_ms(
+        lambda: sweep_composition(data[True], sc, px, win,
+                                  **kwargs(False, False)), 3, 1)
+    log(f"  K5 classify chunk u8 without the geometric cost (FIRST_INIT): "
+        f"{res['classify']['no_geom_ms']:.4f} ms, composition "
+        f"{res['classify']['no_geom_composition_ms']:.4f} ms [{card}]")
+    # L2 residency: the u8 quad tables and the f32 source depth maps (19.2
+    # MB each at 600x800x10) fit the 50 MB L2 together, f32 tables (76.8 MB)
+    # do not
+    _, fpx, fwin = inputs(data[False], state, cx, cy)
+    res["classify"]["f32_ms"] = cuda_ms(lambda: sweep.sweep_fused(
+        data[False], fpx, fwin, **kwargs(False, True)), 10)
+    log(f"  K5 classify chunk f32 tables, geometric: "
+        f"{res['classify']['f32_ms']:.4f} ms (u8 "
+        f"{res['classify']['ms']:.4f} ms) [{card}]")
+    del fpx, fwin
+    # the SA star window on the segment masks
+    sc, px, win = inputs(data[True], state, cx, cy, use_sa=True)
+    cut = int((win.wsum < 36).sum())
+    if cut == 0:
+        raise AssertionError("no SA window was truncated")
+    for refine in (False, True):
+        errs.append(k5_check(data[True], px, win, kwargs(refine, True),
+                             f"{'refine' if refine else 'classify'} SA star "
+                             f"u8, geometric ({cut} windows cut)"))
+    # one tile-route rank: rows 0 .. H / RANKS - 1 with their halo
+    block, row0, _, _ = halo_block(data[True], 0, H // RANKS, HALO_ROWS)
+    if not block.quad_h > block.height:
+        raise AssertionError("the row block has no halo table")
+    rows = torch.clamp(torch.arange(block.height, device=device) + row0, 0,
+                       H - 1)
+    bstate = PMState.create(block.height, W, S, device=device).replace(
+        planes=state.planes[rows], selected=state.selected[rows],
+        view_weights=state.view_weights[rows])
+    by, bx = torch.nonzero(~margin[:H // RANKS], as_tuple=True)
+    bx, by = bx[:CHUNK].to(torch.int32), (by[:CHUNK] - row0).to(torch.int32)
+    _, bpx, bwin = inputs(block, bstate, bx, by)
+    errs.append(k5_check(block, bpx, bwin, kwargs(False, True),
+                         f"classify row shard u8, geometric (block "
+                         f"{block.height} rows, tables {block.quad_h})"))
+    # degenerate planes and empty view weights on a ragged chunk
+    n = CHUNK - 17
+    sc, px, win = inputs(data[True], state, cx[:n], cy[:n])
+    plane = px.plane.clone()
+    plane[0::7, 3] = 0.0
+    plane[1::7] = float("nan")
+    plane[2::7, 3] = float("inf")
+    plane[3::7, 3] = float("-inf")
+    plane[4::7, 0] = float("inf")
+    plane[6::7, 2] = float("-inf")
+    vw_d = px.vw.clone()
+    vw_d[5::7] = 0.0
+    bad = px._replace(plane=plane, vw=vw_d, wnorm=vw_d.sum(-1))
+    for refine in (False, True):
+        errs.append(k5_check(data[True], bad, win, kwargs(refine, True),
+                             f"{'refine' if refine else 'classify'} "
+                             "degenerate planes, empty weights u8"))
+    got = sweep.sweep_fused(data[True], bad, win, **kwargs(False, True))
+    if not bool((got[1::7] == 2.0).all()) or \
+            not bool((got[5::7] == 2.0).all()):
+        raise AssertionError("K5: NaN planes or empty weights not all at "
+                             "COST_MAX")
+    # the export-curve form: every pixel of the view, chunk by chunk
+    ey, ex = ys.reshape(-1).to(torch.int32), xs.reshape(-1).to(torch.int32)
+    for lo in range(0, ex.numel(), CHUNK):
+        _, epx, ewin = inputs(data[True], state, ex[lo:lo + CHUNK],
+                              ey[lo:lo + CHUNK])
+        err = k5_check(data[True], epx, ewin, kwargs(False, True),
+                       f"export-curve chunk at pixel {lo} u8, geometric")
+        errs.append(err)
     res["max_abs_err"] = max(errs)
     return res
 
@@ -736,13 +1034,33 @@ def coloured_points(ply: Path, what: str) -> int:
 
 
 def reset_counts() -> None:
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
     sampler.reset_launches()
     ncc.reset_launches()
+    sweep.reset_launches()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last reset, in this process: K1's
+    and K2's by call site, K5's by mode."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
+    return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
+                k2=ncc.launches, k2_sites=dict(ncc.site_launches),
+                k5=sweep.launches, k5_modes=dict(sweep.mode_launches))
+
+
+def parsed_counts(match) -> dict:
+    """``read_counts``'s dict from one LAUNCH_RE match of an engine's log."""
+    return dict(k1=int(match[0]), sites=json.loads(match[1]),
+                k2=int(match[2]), k2_sites=json.loads(match[3]),
+                k5=int(match[4]), k5_modes=json.loads(match[5]))
 
 
 # K1's call sites on the main paths: the deformable NCC's two windows
 WEAK_SITES = ("weak_centre", "weak_anchor")
+# K2's: the strong path (the initial cost, the strong sweep) and the debug
+# tool; a sweep that reached K2 would count under another site
+K2_SITES = ("init", "strong", "debug_point")
 
 
 def k1_elsewhere(sites: dict) -> int:
@@ -752,14 +1070,38 @@ def k1_elsewhere(sites: dict) -> int:
                if site not in WEAK_SITES + ("K2",))
 
 
-def check_counts(what: str, k1: int, sites: dict, k2: int) -> None:
-    """The strong NCC went through K2 (at least one launch, and K1
-    launched only at the deformable NCC's weak sites); K1's launches add up
-    over its sites."""
-    if k2 <= 0 or sum(sites.values()) != k1 \
-            or not set(sites) <= set(WEAK_SITES):
-        raise AssertionError(f"{what}: K2 launches {k2}, K1 launches {k1} "
-                             f"by site {sites}")
+def k2_elsewhere(k2_sites: dict) -> int:
+    """K2 launches at any site but the strong path's in a by-site count:
+    a disparity sweep that reached K2 (check_counts holds them at 0)."""
+    return sum(n for site, n in k2_sites.items() if site not in K2_SITES)
+
+
+def check_counts(what: str, c: dict, passes: bool = True) -> None:
+    """The strong NCC went through K2 (at least one launch, every one at a
+    strong-path site, and K1 launched only at the deformable NCC's weak
+    sites), and the disparity sweeps through K5 (at least one classify
+    launch, and on a path that runs a pass at least one refine launch and
+    K2 launches at the strong sweep); each kernel's launches add up over
+    its sites or modes."""
+    ok = c["k2"] > 0 and sum(c["sites"].values()) == c["k1"] \
+        and set(c["sites"]) <= set(WEAK_SITES) \
+        and sum(c["k2_sites"].values()) == c["k2"] \
+        and set(c["k2_sites"]) <= set(K2_SITES) \
+        and sum(c["k5_modes"].values()) == c["k5"] \
+        and c["k5_modes"].get("classify", 0) > 0
+    if passes:
+        ok = ok and c["k5_modes"].get("refine", 0) > 0 \
+            and c["k2_sites"].get("strong", 0) > 0
+    if not ok:
+        raise AssertionError(f"{what}: launches {json.dumps(c)}")
+
+
+def counts_line(c: dict) -> str:
+    return (f"K2 launches {c['k2']} by site "
+            f"{json.dumps(c['k2_sites'], sort_keys=True)}, K5 launches "
+            f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
+            f"K1 launches {c['k1']} by site "
+            f"{json.dumps(c['sites'], sort_keys=True)}")
 
 
 def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
@@ -770,7 +1112,6 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     import torch
 
     from apde_mvs_tpu_torch.cli import apd
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
 
     log(f"==== {label} ====")
     torch.cuda.synchronize()
@@ -779,23 +1120,19 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     text = run_main(apd.main, ["--dense_folder", root, "--dataset",
                                "General"] + list(cli_args))
     wall = time.perf_counter() - t0
-    launches = sampler.launches
-    sites = dict(sampler.site_launches)
-    k2 = ncc.launches
+    c = read_counts()
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(passes) != n_passes:
         raise AssertionError(f"expected {n_passes} passes, saw {passes}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "fused PLY")
-    check_counts(label, launches, sites, k2)
-    log(f"{label}: {wall:.3f} s wall, K2 launches {k2}, K1 launches "
-        f"{launches}, by site {json.dumps(sites, sort_keys=True)} [{card}]")
+    check_counts(label, c)
+    log(f"{label}: {wall:.3f} s wall, {counts_line(c)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
-    return dict(launches=launches, sites=sites, k2=k2, wall_s=wall,
-                errors=errs, points=points, passes=passes, fusion=fusion,
-                text=text)
+    return dict(c, wall_s=wall, errors=errs, points=points, passes=passes,
+                fusion=fusion, text=text)
 
 
 def write_sa_masks(scene, root: Path) -> None:
@@ -904,7 +1241,6 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
 
     from apde_mvs_tpu_torch.cli import apd
     from apde_mvs_tpu_torch.io import binmat
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
     from apde_mvs_tpu_torch.tools import anchor_vis, debug_point
 
     log("==== debug exports: the APD scan's last pass again ====")
@@ -917,14 +1253,13 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
         "--export_anchor", "true", "--export_curve", "true",
         "--no_fuse", "true"])
     wall = time.perf_counter() - t0
-    launches, sites = sampler.launches, dict(sampler.site_launches)
-    k2 = ncc.launches
+    c = read_counts()
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     weak = [int(ln.split()[2]) for ln in text.splitlines()
             if ln.startswith("Weak count:")]
     if len(passes) != 1 or len(weak) != num_views:
         raise AssertionError(f"exports pass: {passes}, weak counts {weak}")
-    check_counts("exports pass", launches, sites, k2)
+    check_counts("exports pass", c)
     for v in range(num_views):
         rf = root / "APD" / f"{v:08d}"
         missing = [n for n in EXPORTS if not (rf / n).is_file()]
@@ -945,9 +1280,8 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
                                  f"weak count {weak[v]}")
         curve.unlink()
     log(f"exports pass: {passes[0]}, {wall:.3f} s wall, weak counts "
-        f"{weak}; K2 launches {k2}, K1 launches {launches}, by site "
-        f"{json.dumps(sites, sort_keys=True)}; all five files on every "
-        f"view, curves (H, W, 61) f32 checked and deleted [{card}]")
+        f"{weak}; {counts_line(c)}; all five files on every view, curves "
+        f"(H, W, 61) f32 checked and deleted [{card}]")
 
     rf = root / "APD" / "00000000"
     amap = binmat.read_bin_mat(rf / "anchors_map.bin")
@@ -965,18 +1299,15 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
     text = run_main(debug_point.main, [
         "--dense_folder", root, "--view", 0, "--point", f"{x},{y}",
         "--device", "cuda", "--geom"])
-    dp = dict(sampler.site_launches)
-    dp_k2 = ncc.launches
+    dp = read_counts()
     curve_line = text.splitlines()[[i for i, ln in enumerate(
         text.splitlines()) if "reliability curve" in ln][0] + 1]
     if len(curve_line.split()) != 61:
         raise AssertionError(f"debug_point: curve {curve_line!r}")
-    check_counts("debug_point", sampler.launches, dp, dp_k2)
-    log(f"debug_point at ({x}, {y}) of view 0: K2 launches {dp_k2}, K1 "
-        f"launches {json.dumps(dp, sort_keys=True)}")
-    return dict(wall_s=wall, pass_line=passes[0], launches=launches,
-                sites=sites, k2=k2, weak=weak, debug_point_sites=dp,
-                debug_point_k2=dp_k2)
+    check_counts("debug_point", dp, passes=False)
+    log(f"debug_point at ({x}, {y}) of view 0: {counts_line(dp)}")
+    return dict(c, wall_s=wall, pass_line=passes[0], weak=weak,
+                debug_point=dp)
 
 
 def batch_phase(scene, tmp: Path, card: str) -> dict:
@@ -1017,9 +1348,8 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
             or "dataset       : ETH3D" not in text:
         raise AssertionError(f"engine log: passes {passes}, fusion {fusion}"
                              f", launches {counts}\n{text[-3000:]}")
-    launches, sites, k2 = int(counts[0][0]), json.loads(counts[0][1]), \
-        int(counts[0][2])
-    check_counts("batch engine", launches, sites, k2)
+    c = parsed_counts(counts[0])
+    check_counts("batch engine", c)
     errs = depth_errors(scene, scan)
     points = coloured_points(scan / "APD" / "APD.ply", "batch fused PLY")
     out = tmp / "collected"
@@ -1028,15 +1358,14 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
             != (scan / "APD" / "APD.ply").read_bytes():
         raise AssertionError("collect did not copy the fused cloud")
     log(f"batch path: {wall:.3f} s for the eth3d_train subprocess; engine "
-        f"K2 launches {k2}, K1 launches {launches}, by site "
-        f"{json.dumps(sites)} [{card}]")
+        f"{counts_line(c)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
-    return dict(wall_s=wall, passes=passes, fusion=fusion, errors=errs,
-                points=points, launches=launches, sites=sites, k2=k2)
+    return dict(c, wall_s=wall, passes=passes, fusion=fusion, errors=errs,
+                points=points)
 
 
-KERNEL_MODULES = {"K1": "sampler", "K2": "ncc"}
+KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K5": "sweep"}
 
 
 def build_race(card: str) -> dict:
@@ -1061,7 +1390,8 @@ def build_race(card: str) -> dict:
             raise RuntimeError(f"{k} build in a rank-like process exited "
                                f"{p.returncode}:\n{err[-4000:]}")
         secs[k].append(float(out.split()[-1]))
-    log(f"K1 and K2 built by {RANKS} processes each, all at once: nvcc "
+    log(f"{', '.join(KERNEL_MODULES)} built by {RANKS} processes each, all "
+        f"at once: nvcc "
         f"{secs} s "
         f"({'a library existed' if existing else 'fresh build'}); "
         f"{len(list(kbuild.BUILD_DIR.glob('lib*.so')))} library "
@@ -1102,15 +1432,16 @@ class Utilization:
 PASS_RE = re.compile(r"Pass (\d+) \((\w+)\) wall ([\d.]+) s, exchanged "
                      r"(\d+) B, rank (\d+) of (\d+)")
 LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
-                       r"(\{[^}]*\}), NCC kernel launches: (\d+)"
-                       r"(?:, rank (\d+) of (\d+))?")
+                       r"(\{[^}]*\}), NCC kernel launches: (\d+), by site "
+                       r"(\{[^}]*\}), sweep kernel launches: (\d+), by mode "
+                       r"(\{[^}]*\})(?:, rank (\d+) of (\d+))?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
     """The port's engine CLI under ``torch.distributed.run`` with RANKS
     ranks on the one card; raises on a non-zero exit (a dead rank).
-    Returns (stdout, wall seconds, per-rank pass walls, per-rank launches:
-    K1's by site and K2's as "K2")."""
+    Returns (stdout, wall seconds, per-rank pass walls, per-rank launch
+    counts as ``read_counts`` gives them)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(RANKS), "-m",
            "apde_mvs_tpu_torch.cli.apd"] + [str(a) for a in cli_args]
@@ -1129,9 +1460,9 @@ def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
     for it, state, sec, sent, r, n in PASS_RE.findall(text):
         passes[int(r)].append((int(it), state, float(sec), int(sent)))
     sites = {}
-    for n, js, k2, r, _ in LAUNCH_RE.findall(text):
-        check_counts(f"{what}, rank {r}", int(n), json.loads(js), int(k2))
-        sites[int(r)] = dict(json.loads(js), K2=int(k2))
+    for m in LAUNCH_RE.findall(text):
+        sites[int(m[6])] = parsed_counts(m)
+        check_counts(f"{what}, rank {m[6]}", sites[int(m[6])])
     if sorted(sites) != list(range(RANKS)):
         raise AssertionError(f"{what}: launch lines of ranks "
                              f"{sorted(sites)}")
@@ -1156,19 +1487,25 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
         raise AssertionError(f"fusion lines {fusion}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "view-parallel PLY")
-    launches = {site: sum(sites[r].get(site, 0) for r in range(RANKS))
-                for site in ("K2",) + WEAK_SITES}
-    launches["elsewhere"] = sum(k1_elsewhere(sites[r]) for r in range(RANKS))
+    launches = {site: sum(sites[r]["sites"].get(site, 0)
+                          for r in range(RANKS)) for site in WEAK_SITES}
+    launches["elsewhere"] = sum(k1_elsewhere(sites[r]["sites"])
+                                for r in range(RANKS))
+    launches["K2"] = sum(sites[r]["k2"] for r in range(RANKS))
+    k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
+          for mode in ("classify", "refine")}
     log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
         f"utilization.gpu mean {util.mean:.1f}% over {util.samples} "
-        f"samples; launches {launches} [{card}]")
+        f"samples; launches {launches}, K5 by mode {k5} [{card}]")
     for r in range(RANKS):
         for it, state, sec, sent in passes[r]:
             log(f"  rank {r}: Pass {it} ({state}) wall {sec:.3f} s, "
                 f"exchanged {sent} B [{card}]")
     log(f"  {fusion[0]} [{card}]")
-    return dict(wall_s=wall, passes=passes, launches=launches, errors=errs,
-                points=points, util=util.mean, fusion=fusion)
+    return dict(wall_s=wall, passes=passes, launches=launches, k5=k5,
+                k2_elsewhere=sum(k2_elsewhere(sites[r]["k2_sites"])
+                                 for r in range(RANKS)),
+                errors=errs, points=points, util=util.mean, fusion=fusion)
 
 
 def keep_only_view0(root: Path) -> None:
@@ -1206,6 +1543,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
             or "Scale-out: tile route over 2 rank(s)" not in text:
         raise AssertionError(f"tile route not taken:\n{text[-3000:]}")
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     run_main(apd.main, [roots["serial"] if a is None else a for a in args])
     serial_s = time.perf_counter() - t0
@@ -1221,20 +1559,26 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
         dep = binmat.read_bin_mat(root / "APD" / "00000000" / "depths.bin")
         ok = (dep > 0) & (gt > 0)
         errs[name] = float(np.median(np.abs(dep - gt)[ok] / gt[ok]))
-    launches = sum(sites[r]["K2"] for r in range(RANKS))
-    k1_other = sum(k1_elsewhere(sites[r]) for r in range(RANKS))
+    launches = sum(sites[r]["k2"] for r in range(RANKS))
+    k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
+          for mode in ("classify", "refine")}
+    k1_other = sum(k1_elsewhere(sites[r]["sites"]) for r in range(RANKS))
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
         f"{[p[0][2] for p in passes.values()]} s, exchanged "
         f"{[p[0][3] for p in passes.values()]} B, serial CLI "
-        f"{serial_s:.3f} s; K2 launches {launches} [{card}]")
+        f"{serial_s:.3f} s; K2 launches {launches}, K5 launches by mode "
+        f"{k5} [{card}]")
     if not max(errs.values()) < 0.01:
         raise AssertionError(f"tile route above the verify bar: {errs}")
     for root in roots.values():
         shutil.rmtree(root)
     return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
-                launches=launches, k1_elsewhere=k1_other, passes=passes)
+                launches=launches, k5=k5, k1_elsewhere=k1_other,
+                k2_elsewhere=sum(k2_elsewhere(sites[r]["k2_sites"])
+                                 for r in range(RANKS)),
+                passes=passes)
 
 
 def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
@@ -1251,7 +1595,6 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
 
     from apde_mvs_tpu_torch import config as cfg
     from apde_mvs_tpu_torch.io import MemoryCache, binmat
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
     from apde_mvs_tpu_torch.parallel import distributed as pdist
     from apde_mvs_tpu_torch.pipeline import driver
     from apde_mvs_tpu_torch.pipeline.scan_parallel import ViewParallelRunner
@@ -1306,13 +1649,12 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
         torch.cuda.synchronize()
         geom_s = time.perf_counter() - t0
         sent = pdist.exchanged_bytes - sent
-        launches = ncc.launches
-        check_counts("NCCL agreement", sampler.launches,
-                     dict(sampler.site_launches), launches)
+        c = read_counts()
+        check_counts("NCCL agreement", c)
         want = 3 * HEIGHT * WIDTH * 4
         log(f"geometric pass through NCCL: {sent} B exchanged (expected "
-            f"{want}), {geom_s:.3f} s; K2 launches over both passes "
-            f"{launches} [{card}]")
+            f"{want}), {geom_s:.3f} s; over both passes {counts_line(c)} "
+            f"[{card}]")
         if sent != want:
             raise AssertionError(f"exchanged {sent} B, expected {want}")
         errs = depth_errors(scene, roots["parallel"])
@@ -1320,8 +1662,8 @@ def nccl_phase(seed: int, tmp: Path, device, card: str) -> dict:
         dist.destroy_process_group()
     for root in roots.values():
         shutil.rmtree(root)
-    return dict(serial_s=serial_s, vp_s=vp_s, geom_s=geom_s,
-                launches=launches, errors=errs)
+    return dict(c, serial_s=serial_s, vp_s=vp_s, geom_s=geom_s,
+                errors=errs)
 
 
 def main(argv=None) -> int:
@@ -1350,7 +1692,7 @@ def main(argv=None) -> int:
 
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
     from apde_mvs_tpu_torch.testing import synthetic
 
     t_all = time.perf_counter()
@@ -1361,9 +1703,9 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1 and K2 from this checkout -------------------------
+    # ---- setup: build K1, K2 and K5 from this checkout ---------------------
     build_race(card)
-    for name, mod in (("K1", sampler), ("K2", ncc)):
+    for name, mod in (("K1", sampler), ("K2", ncc), ("K5", sweep)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -1392,6 +1734,7 @@ def main(argv=None) -> int:
     # ---- kernel checks -----------------------------------------------------
     k = kernel_phase(full_scene, args.seed, device, card)
     kk = k2_phase(full_scene, args.seed, device, card)
+    k5 = k5_phase(full_scene, args.seed, device, card)
     kw = weak_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1443,18 +1786,33 @@ def main(argv=None) -> int:
     # launches on every path, each read from its own counters (the
     # subprocess engines' from their logs): K1's by site (the strong NCC
     # is K2's now: K1's strong-shape rows count its launches at any other
-    # than the weak sites, which check_counts holds at 0), K2's
-    by_path = (r0["sites"], ap["sites"], ex["sites"], ex["debug_point_sites"],
-               bt["sites"], vp["launches"])
+    # than the weak sites, which check_counts holds at 0), K2's, and K5's
+    # by mode
+    by_path = (r0["sites"], ap["sites"], ex["sites"],
+               ex["debug_point"]["sites"], bt["sites"], vp["launches"])
     launches = {site: sum(d.get(site, 0) for d in by_path)
                 for site in WEAK_SITES}
     launches["elsewhere"] = sum(k1_elsewhere(d) for d in by_path)
     k2_paths = dict(round0=r0["k2"], apd=ap["k2"], exports=ex["k2"],
-                    debug_point=ex["debug_point_k2"],
-                    view_parallel=vp["launches"]["K2"], nccl=ag["launches"],
+                    debug_point=ex["debug_point"]["k2"],
+                    view_parallel=vp["launches"]["K2"], nccl=ag["k2"],
                     batch=bt["k2"])
+    # K2 at any other than the strong path's sites: the sweeps' probes ran
+    # there until K5 took them
+    k2_sweeps = sum(k2_elsewhere(c["k2_sites"]) for c in (
+        r0, ap, ex, ex["debug_point"], ag, bt)) + vp["k2_elsewhere"] \
+        + tl["k2_elsewhere"]
     log(f"K2 launches by path: {json.dumps(k2_paths)}, tile route "
-        f"{tl['launches']} [{card}]")
+        f"{tl['launches']}; outside the strong path {k2_sweeps} [{card}]")
+    k5_paths = {mode: dict(
+        round0=r0["k5_modes"].get(mode, 0), apd=ap["k5_modes"].get(mode, 0),
+        exports=ex["k5_modes"].get(mode, 0),
+        debug_point=ex["debug_point"]["k5_modes"].get(mode, 0),
+        view_parallel=vp["k5"][mode],
+        nccl=ag["k5_modes"].get(mode, 0), batch=bt["k5_modes"].get(mode, 0))
+        for mode in ("classify", "refine")}
+    log(f"K5 launches by path: {json.dumps(k5_paths)}, tile route "
+        f"{json.dumps(tl['k5'])} [{card}]")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
@@ -1481,6 +1839,19 @@ def main(argv=None) -> int:
                      max_abs_err=kk["max_abs_err"],
                      **{k_: v for k_, v in kk["shard"].items()
                         if k_ != "shape"}))
+    rows.append(dict(name="K2 fused strong NCC, classify chunk (u8 quads)",
+                     **k2, launches=k2_sweeps, max_abs_err=kk["max_abs_err"],
+                     **kk["chunk"]))
+    k5_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sweep.cu",
+              "replaces": "apde_mvs_tpu/ops/filters.py:196-263 and :476-507 "
+                          "with cost.py:418 (XLA-compiled jnp)"}
+    for mode, what in (("classify", "DepthToWeak classify chunk, 61 probes"),
+                       ("refine", "LocalRefine chunk, 12 probes")):
+        rows.append(dict(name=f"K5 fused disparity sweep, {what} (u8 quads, "
+                              "geometric cost)", **k5_src,
+                         launches=sum(k5_paths[mode].values())
+                         + tl["k5"][mode],
+                         max_abs_err=k5["max_abs_err"], **k5[mode]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

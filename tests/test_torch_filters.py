@@ -5,7 +5,8 @@ package, and of DepthToWeak / LocalRefine with the NumPy oracles
 
 Classes exactly (both sides use the same strict-minimum tie rules); depths
 to 1e-5 relative; median and confidence exactly. With SA (the APD passes'
-window) the same holds on a seeded segment mask."""
+window) the same holds on a seeded segment mask. On CPU tensors the sweeps
+run the plain version of the fused sweep kernel (ops/cuda/sweep.py)."""
 
 import jax
 import jax.numpy as jnp

@@ -33,7 +33,8 @@ def _submodules():
 def test_import_loads_no_jax_or_jax_package():
     mods = ["apde_mvs_tpu_torch"] + _submodules()
     assert {"apde_mvs_tpu_torch.ops.cuda.sampler",
-            "apde_mvs_tpu_torch.ops.cuda.ncc"} <= set(mods)
+            "apde_mvs_tpu_torch.ops.cuda.ncc",
+            "apde_mvs_tpu_torch.ops.cuda.sweep"} <= set(mods)
     assert {"apde_mvs_tpu_torch.pipeline.full_pass",
             "apde_mvs_tpu_torch.pipeline.scan_parallel",
             "apde_mvs_tpu_torch.parallel.distributed",
@@ -41,7 +42,8 @@ def test_import_loads_no_jax_or_jax_package():
             "apde_mvs_tpu_torch.parallel.scene",
             "apde_mvs_tpu_torch.parallel.tile_pass",
             "apde_mvs_tpu_torch.parallel.tiles",
-            "apde_mvs_tpu_torch.testing.ranks"} <= set(mods)
+            "apde_mvs_tpu_torch.testing.ranks",
+            "apde_mvs_tpu_torch.testing.sweep_composition"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
