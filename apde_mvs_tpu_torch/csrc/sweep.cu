@@ -27,30 +27,45 @@
 // probe depth lies outside [depth_min, depth_max], and in classify mode
 // clamped at COST_MAX.
 //
-// Layout: K2's. A block holds 32 pixels (the lanes) and S source views (the
-// warps). The block stages its pixels' window (tap values; for an SA window
-// the per-pixel offsets and weights) and reference sums in shared memory
-// once for all probes; each thread keeps its pixel's scalars and its view's
-// weight in registers. Per probe each thread writes weight * cost to an
-// (S, 32) shared array, and after one barrier warp 0 sums the pixel's row in
-// view order; the array is double-buffered by probe parity, so one barrier a
-// probe suffices. The curve collects in shared memory and is stored
-// coalesced at the end. A view whose weight is 0 adds exactly +0 to the
-// sum (its cost is finite and >= 0, and the sum starts at +0), so its
-// thread skips the probe's taps: the result is unchanged bit for bit.
+// Layout: a warp a pixel, the pixel's weighted views in view order, its
+// probes across the lanes. A block is 4 warps, so 4 pixels: a block ends
+// when its slowest pixel does, and pixels differ in their weighted views,
+// so blocks stay small. The block stages the camera table; each warp
+// stages its pixel's window (tap values; for an SA window the per-pixel
+// offsets, the weights and the weight-value products) in its own slice of
+// shared memory, and builds the pixel's list of weighted views with one
+// ballot over its lanes (lane s holds the weight of view s; a weight
+// counts where it is != 0, so NaN does and -0 does not). Only those
+// (pixel, view) pairs run: a view whose weight is +-0 adds +-0 to the sum
+// (its cost is finite and >= 0), which leaves the sum unchanged (it starts
+// at +0 and never becomes -0), so leaving it out keeps the sum bit for
+// bit; a pixel whose weight sum is not > 0 runs none (every probe is
+// COST_MAX). The lanes run the probes: classify's 61 in two passes of 32;
+// refine's 12 in one pass of two half-warps, each half taking every other
+// weighted view, the two terms of a round added in view order after a
+// shuffle. Each lane keeps its probe's running view sum in a register,
+// adding the views in order s = 0 .. S-1 from +0 as the plain version
+// does; no barrier follows the block's start. The window taps every lane
+// reads are one shared-memory word (a broadcast); the lanes' samples lie
+// along one epipolar segment of one source table. The curve is stored a
+// pixel row at a time, coalesced.
 //
 // Arithmetic equals the plain PyTorch version (ops/cuda/sweep.py,
 // `sweep_plain`) bit for bit: every operation is rounded on its own, in the
 // order of the torch ops there (ncc_common.cuh says how).
 //
-// Bound: operations. Per (pixel, view, probe) K2's 38 f32 operations a tap
-// and ~90 a pair, ~90 more for the geometric cost and 2 for the weighting;
-// per (pixel, probe) ~15 for the probe depth and plane. At S = 10,
-// B = 65,536, 61 probes, 36 taps that is ~60 GFLOP (~0.9 ms at the H100's
-// 67 TFLOP/s of plain f32); the inputs and the curve are ~30 MB. The u8
-// quad tables (19.2 MB at 600x800x10) and the f32 source depth maps
-// (19.2 MB) together fit the 50 MB L2; f32 quad tables (76.8 MB) do not. No
-// matrix product, so no tensor core work.
+// Bound: operations, counted as chip_smoke.py counts them (K2_OPS_*,
+// K5_OPS_*, `k5_bound`). Per (pixel, view, probe) whose weight is not 0,
+// K2's 38 f32 operations a tap (40 on an SA window) and 90 a pair, 2 for
+// the weighting and 115 for the geometric cost; per (pixel, probe) 22 for
+// the probe depth, the plane and the masks, and 36 for the geometric
+// cost's depth and back-projection. At S = 10, B = 65,536, 61 probes, 36
+// taps and 32.5% of the pairs weighted (3.5 views a pixel) that is 20.7
+// GFLOP: 0.309 ms at the H100's 67 TFLOP/s of plain f32, against 69 MB of
+// inputs and curve (0.02 ms at 3.35 TB/s). The u8 quad tables (19.2 MB at
+// 600x800x10) and the f32 source depth maps (19.2 MB) together fit the
+// 50 MB L2; f32 quad tables (76.8 MB) do not. No matrix product, so no
+// tensor core work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,8 +83,9 @@ using namespace apde;
 constexpr int kSweepCamStride = 40;
 constexpr int kGeomCols = 16;
 constexpr float kGeomCostMax = 3.f;   // cost.GEOM_COST_MAX
-// per-pixel arrays in shared memory: sum_ref, sum_rr, 1 / wsum, wsum <= 0
-constexpr int kPixelArrays = 4;
+constexpr int kWarps = 4;             // a block's warps, a pixel each
+constexpr int kThreads = kWarps * 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* quads;         // (S, quad_h * width, 4) u8 or f32
@@ -108,18 +124,21 @@ struct Params {
   float img_h;
 };
 
+// rows of a warp's window slice in shared memory: the tap values (weighted:
+// the weight-value products), the weights, the per-pixel offsets
+__host__ __device__ inline int slice_rows(bool pixel_offsets, bool weighted) {
+  return 1 + (weighted ? 1 : 0) + (pixel_offsets ? 2 : 0);
+}
+
+// the camera table, the shared offsets, then one window slice a warp (rows
+// of T floats: every lane of a warp reads the same word, a broadcast)
 __host__ __device__ inline size_t smem_floats(int num_views, int num_taps,
                                               bool pixel_offsets,
-                                              bool weighted,
-                                              int num_probes) {
-  const size_t rows = static_cast<size_t>(kLanes) * window_stride(num_taps);
-  size_t n = static_cast<size_t>(num_views + 1) * kSweepCamStride +
-             kPixelArrays * kLanes + rows;
-  n += pixel_offsets ? 2 * rows : 2 * static_cast<size_t>(num_taps);
-  if (weighted) n += rows;
-  n += 2 * static_cast<size_t>(num_views) * kLanes;            // the terms
-  n += static_cast<size_t>(kLanes) * (num_probes | 1);         // the curve
-  return n;
+                                              bool weighted) {
+  return static_cast<size_t>(num_views + 1) * kSweepCamStride +
+         (pixel_offsets ? 0 : 2 * static_cast<size_t>(num_taps)) +
+         static_cast<size_t>(kWarps) * num_taps *
+             slice_rows(pixel_offsets, weighted);
 }
 
 // geometry.backproject_world: camera-frame point (depth (x - cx) / fx,
@@ -202,72 +221,55 @@ __device__ __forceinline__ float geom_cost(const float* gr, const float* gs,
   return (sd == 0.f || !isfinite(cost)) ? kGeomCostMax : cost;
 }
 
-template <typename Q, bool kPixelOffsets, bool kWeighted>
-__global__ void __launch_bounds__(kLanes * kMaxViews)
+
+template <typename Q, bool kPixelOffsets, bool kWeighted, int kTaps>
+__global__ void __launch_bounds__(kThreads)
 sweep_kernel(const Params p) {
   extern __shared__ float smem[];
   const int S = p.num_views;
-  const int T = p.num_taps;
+  const int T = kTaps > 0 ? kTaps : p.num_taps;
   const int P = p.num_probes;
-  const int tp = window_stride(T);
-  const int op = P | 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   float* s_cam = smem;
-  float* s_sref = s_cam + (S + 1) * kSweepCamStride;
-  float* s_srr = s_sref + kLanes;
-  float* s_inv = s_srr + kLanes;
-  float* s_empty = s_inv + kLanes;
-  float* s_val = s_sref + kPixelArrays * kLanes;
-  float* s_dx = s_val + kLanes * tp;
-  float* s_dy = s_dx + (kPixelOffsets ? kLanes * tp : T);
-  float* s_tw = s_dy + (kPixelOffsets ? kLanes * tp : T);
-  float* s_term = s_tw + (kWeighted ? kLanes * tp : 0);
-  float* s_out = s_term + 2 * S * kLanes;
+  float* s_off = s_cam + (S + 1) * kSweepCamStride;
+  float* slice = s_off + (kPixelOffsets ? 0 : 2 * T) +
+                 warp * T * slice_rows(kPixelOffsets, kWeighted);
+  float* w_val = slice;
+  float* w_tw = slice + T;
+  float* w_dx = kPixelOffsets ? slice + (kWeighted ? 2 : 1) * T : s_off;
+  float* w_dy = kPixelOffsets ? w_dx + T : s_off + T;
 
-  const int lane = threadIdx.x;
-  const int view = threadIdx.y;
-  const int tid = view * kLanes + lane;
-  const int nthreads = kLanes * S;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kLanes;
-  const int npix = static_cast<int>(
-      p.num_pix - b0 < kLanes ? p.num_pix - b0 : kLanes);
-  const bool active = lane < npix;
-
-  // ---- stage the block's cameras and window in shared memory --------------
-  for (int i = tid; i < (S + 1) * kSweepCamStride; i += nthreads) {
+  // ---- the cameras and the shared offsets, once a block -----------------
+  for (int i = threadIdx.x; i < (S + 1) * kSweepCamStride; i += kThreads) {
     s_cam[i] = __ldg(p.cams + i);
   }
-  if (tid < npix) {
-    const int64_t b = b0 + tid;
-    s_sref[tid] = __ldg(p.sum_ref + b);
-    s_srr[tid] = __ldg(p.sum_rr + b);
-    float inv = p.inv_wsum;
-    bool empty = false;
-    if (p.wsum != nullptr) {
-      inverse_weight_sum(__ldg(p.wsum + b), &inv, &empty);
-    }
-    s_inv[tid] = inv;
-    s_empty[tid] = empty ? 1.f : 0.f;
-  }
-  const int64_t base = b0 * T;
-  for (int i = tid; i < npix * T; i += nthreads) {
-    const int q = i / T;
-    const int at = q * tp + (i - q * T);
-    s_val[at] = __ldg(p.tap_val + base + i);
-    if (kPixelOffsets) {
-      s_dx[at] = __ldg(p.tap_dx + base + i);
-      s_dy[at] = __ldg(p.tap_dy + base + i);
-    }
-    if (kWeighted) s_tw[at] = __ldg(p.tap_w + base + i);
-  }
   if (!kPixelOffsets) {
-    for (int i = tid; i < T; i += nthreads) {
-      s_dx[i] = __ldg(p.tap_dx + i);
-      s_dy[i] = __ldg(p.tap_dy + i);
+    for (int i = threadIdx.x; i < T; i += kThreads) {
+      s_off[i] = __ldg(p.tap_dx + i);
+      s_off[T + i] = __ldg(p.tap_dy + i);
     }
   }
+  __syncthreads();
 
-  // ---- the pixel's scalars and this view's weight, in registers -----------
-  const int64_t b = b0 + (active ? lane : 0);
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (b >= p.num_pix) return;
+  const float* r = s_cam + S * kSweepCamStride;
+  const float fx_r = r[12], fy_r = r[13], cx_r = r[14], cy_r = r[15];
+  const Q* __restrict__ quads = static_cast<const Q*>(p.quads);
+  const int64_t view_elems =
+      static_cast<int64_t>(p.quad_h) * p.width * 4;   // a view's table
+  // the lanes: G groups of L lanes (L the power of two >= P, at most 32);
+  // lane j of a group runs probes j, j + L, ...; the groups take the
+  // pixel's weighted views in turn
+  int L = 2;
+  while (L < P && L < 32) L <<= 1;
+  const int G = 32 / L;
+  const int g = lane / L;
+  const int j = lane % L;
+  const int passes = (P + L - 1) / L;
+
+  // ---- the pixel: scalars, weighted views, window ------------------------
   const float x = __ldg(p.x + b);
   const float y = __ldg(p.y + b);
   const float n0 = __ldg(p.planes + 4 * b + 0);
@@ -275,33 +277,33 @@ sweep_kernel(const Params p) {
   const float n2 = __ldg(p.planes + 4 * b + 2);
   const float depth = __ldg(p.planes + 4 * b + 3);
   const float disp = __ldg(p.disp + b);
-  const float fb = mul(p.cams[S * kSweepCamStride + 12],
-                       __ldg(p.base_line + b));
-  const float weight = active ? __ldg(p.vw + b * S + view) : 0.f;
+  const float fb = mul(fx_r, __ldg(p.base_line + b));
   const float wnorm = __ldg(p.wnorm + b);
-  __syncthreads();
-
-  const float* c = s_cam + view * kSweepCamStride;
-  const float* r = s_cam + S * kSweepCamStride;
-  const float fx_r = r[12], fy_r = r[13], cx_r = r[14], cy_r = r[15];
+  const float my_vw = lane < S ? __ldg(p.vw + b * S + lane) : 0.f;
+  // bit s: view s weighs != 0; none where wnorm <= 0 (COST_MAX anyway)
+  const unsigned views =
+      __ballot_sync(kFull, my_vw != 0.f) & (wnorm > 0.f ? kFull : 0u);
   PixelWindow win;
-  win.dx = s_dx + (kPixelOffsets ? lane * tp : 0);
-  win.dy = s_dy + (kPixelOffsets ? lane * tp : 0);
-  win.val = s_val + lane * tp;
-  win.tw = s_tw + lane * tp;
-  win.sum_ref = s_sref[lane];
-  win.sum_rr = s_srr[lane];
-  win.inv = s_inv[lane];
-  win.empty = s_empty[lane] != 0.f;
-  const Q* __restrict__ tab = static_cast<const Q*>(p.quads);
-  const int64_t view_row0 =
-      static_cast<int64_t>(view) * p.quad_h * static_cast<int64_t>(p.width);
-  const float* dmap =
-      p.src_depths == nullptr
-          ? nullptr
-          : p.src_depths + static_cast<int64_t>(view) * p.depth_h * p.depth_w;
+  win.dx = w_dx;
+  win.dy = w_dy;
+  win.val = w_val;
+  win.tw = w_tw;
+  win.sum_ref = __ldg(p.sum_ref + b);
+  win.sum_rr = __ldg(p.sum_rr + b);
+  win.inv = p.inv_wsum;
+  win.empty = false;
+  if (p.wsum != nullptr) {
+    inverse_weight_sum(__ldg(p.wsum + b), &win.inv, &win.empty);
+  }
+  for (int i = lane; i < T; i += 32) {
+    stage_tap<kPixelOffsets, kWeighted>(p.tap_val, p.tap_w, p.tap_dx,
+                                        p.tap_dy, b * T + i, i, w_val,
+                                        w_tw, w_dx, w_dy);
+  }
+  __syncwarp();
 
-  for (int k = 0; k < P; ++k) {
+  for (int pass = 0; pass < passes; ++pass) {
+    const int k = j + L * pass;
     // the probe depth (filters.probe_depths) and its bounds
     float pd = depth, lo = -INFINITY, hi = INFINITY;
     if (!(p.refine && k == 0)) {
@@ -317,68 +319,81 @@ sweep_kernel(const Params p) {
     const float Y = dvd(mul(pd, sub(y, cy_r)), fy_r);
     const float w = -add(add(mul(n0, X), mul(n1, Y)), mul(n2, pd));
 
-    float term = 0.f;
-    if (weight != 0.f) {
-      float h[3][3];
-      plane_homography(c, r, n0, n1, n2, w, h);
-      float cv = window_ncc<Q, kWeighted>(tab, view_row0, h, x, y, T, win,
-                                          p.width, p.quad_h, p.img_w,
-                                          p.img_h);
-      if (p.src_depths != nullptr) {
-        cv = add(cv, mul(p.geom_factor,
-                         geom_cost(r + kGeomCols, c + kGeomCols, dmap,
-                                   p.depth_h, p.depth_w, x, y, n0, n1, n2,
-                                   w)));
+    // the weighted views in order, G a round: group g takes the g-th
+    float acc = 0.f;
+    unsigned rest = views;
+    while (rest != 0u) {
+      int mine = -1, count = 0;
+      for (; count < G && rest != 0u; ++count) {
+        if (count == g) mine = __ffs(rest) - 1;
+        rest &= rest - 1;
       }
-      term = mul(weight, cv);
+      const float weight = __shfl_sync(kFull, my_vw, mine < 0 ? 0 : mine);
+      float term = 0.f;
+      if (mine >= 0 && k < P) {
+        const float* c = s_cam + mine * kSweepCamStride;
+        float h[3][3];
+        plane_homography(c, r, n0, n1, n2, w, h);
+        float cv = window_ncc<Q, kWeighted, kTaps>(
+            quads + mine * view_elems, h, x, y, T, win, p.width, p.quad_h,
+            p.img_w, p.img_h);
+        if (p.src_depths != nullptr) {
+          const float* dmap = p.src_depths +
+                              static_cast<int64_t>(mine) * p.depth_h *
+                                  p.depth_w;
+          cv = add(cv, mul(p.geom_factor,
+                           geom_cost(r + kGeomCols, c + kGeomCols, dmap,
+                                     p.depth_h, p.depth_w, x, y, n0, n1,
+                                     n2, w)));
+        }
+        term = mul(weight, cv);
+      }
+      // the round's terms in view order: group 0's view comes first
+      for (int i = 0; i < count; ++i) {
+        acc = add(acc, G == 1 ? term : __shfl_sync(kFull, term, i * L + j));
+      }
     }
-    float* part = s_term + (k & 1) * S * kLanes;
-    part[view * kLanes + lane] = term;
-    __syncthreads();
-    if (view == 0 && active) {
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) acc = add(acc, part[s * kLanes + lane]);
+    if (g == 0 && k < P) {
       float cost = dvd(acc, clamp_min_keep_nan(wnorm, 1e-20f));
       cost = wnorm > 0.f ? cost : kCostMax;
       cost = (pd >= lo && pd <= hi) ? cost : kCostMax;
       if (!p.refine) cost = cost > kCostMax ? kCostMax : cost;
-      s_out[lane * op + k] = cost;
+      p.out[b * P + k] = cost;
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < npix * P; i += nthreads) {
-    const int q = i / P;
-    p.out[b0 * P + i] = s_out[q * op + (i - q * P)];
   }
 }
 
+using Kernel = void (*)(const Params);
+
 template <typename Q, bool kPixelOffsets, bool kWeighted>
-int launch(const Params& p, void* stream) {
-  const size_t bytes = smem_floats(p.num_views, p.num_taps, kPixelOffsets,
-                                   kWeighted, p.num_probes) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel<Q, kPixelOffsets, kWeighted>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 block(kLanes, p.num_views);
-  const unsigned int grid =
-      static_cast<unsigned int>((p.num_pix + kLanes - 1) / kLanes);
-  sweep_kernel<Q, kPixelOffsets, kWeighted>
-      <<<grid, block, bytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+Kernel pick_taps(int num_taps) {
+  return num_taps == kMainTaps
+             ? sweep_kernel<Q, kPixelOffsets, kWeighted, kMainTaps>
+             : sweep_kernel<Q, kPixelOffsets, kWeighted, 0>;
 }
 
 template <typename Q>
-int launch_window(const Params& p, bool pixel_offsets, void* stream) {
-  const bool weighted = p.tap_w != nullptr;
+Kernel pick_window(bool pixel_offsets, bool weighted, int num_taps) {
   if (pixel_offsets) {
-    return weighted ? launch<Q, true, true>(p, stream)
-                    : launch<Q, true, false>(p, stream);
+    return weighted ? pick_taps<Q, true, true>(num_taps)
+                    : pick_taps<Q, true, false>(num_taps);
   }
-  return weighted ? launch<Q, false, true>(p, stream)
-                  : launch<Q, false, false>(p, stream);
+  return weighted ? pick_taps<Q, false, true>(num_taps)
+                  : pick_taps<Q, false, false>(num_taps);
+}
+
+// the instantiation for a table type, window form and tap count
+Kernel pick(bool quads_u8, bool pixel_offsets, bool weighted, int num_taps) {
+  return quads_u8 ? pick_window<uint8_t>(pixel_offsets, weighted, num_taps)
+                  : pick_window<float>(pixel_offsets, weighted, num_taps);
+}
+
+// its shared memory, with the attribute set where it passes 48 KB
+cudaError_t prepare(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -394,11 +409,34 @@ int apde_sweep_max_views() { return kMaxViews; }
 int apde_sweep_cam_stride() { return kSweepCamStride; }
 
 long long apde_sweep_smem_bytes(int num_views, int num_taps, int pixel_offsets,
-                                int weighted, int num_probes) {
+                                int weighted) {
   return static_cast<long long>(
-      smem_floats(num_views, num_taps, pixel_offsets != 0, weighted != 0,
-                  num_probes) *
+      smem_floats(num_views, num_taps, pixel_offsets != 0, weighted != 0) *
       sizeof(float));
+}
+
+// The instantiation's registers, local memory (spills) and resident blocks
+// an SM (the CUDA runtime's occupancy calculator) at S views; returns the
+// first error.
+int apde_sweep_kernel_info(int quads_u8, int pixel_offsets, int weighted,
+                           int num_taps, int num_views, int* regs,
+                           int* local_bytes, int* blocks_per_sm) {
+  const Kernel kernel =
+      pick(quads_u8 != 0, pixel_offsets != 0, weighted != 0, num_taps);
+  const size_t bytes =
+      smem_floats(num_views, num_taps, pixel_offsets != 0, weighted != 0) *
+      sizeof(float);
+  cudaFuncAttributes attr;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kThreads, bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 int apde_sweep(const void* quads, int quads_u8, const void* cams,
@@ -452,8 +490,18 @@ int apde_sweep(const void* quads, int quads_u8, const void* cams,
   p.quad_h = quad_h;
   p.img_w = static_cast<float>(img_w);
   p.img_h = static_cast<float>(img_h);
-  return quads_u8 ? launch_window<uint8_t>(p, pixel_offsets != 0, stream)
-                  : launch_window<float>(p, pixel_offsets != 0, stream);
+  const bool weighted = p.tap_w != nullptr;
+  const Kernel kernel =
+      pick(quads_u8 != 0, pixel_offsets != 0, weighted, num_taps);
+  const size_t bytes =
+      smem_floats(num_views, num_taps, pixel_offsets != 0, weighted) *
+      sizeof(float);
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int grid =
+      static_cast<unsigned int>((num_pix + kWarps - 1) / kWarps);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -10,11 +10,12 @@ three window sums and the NCC cost, COST_MAX where the centre leaves the
 image, a variance or the weight sum is degenerate, or the cost is not
 finite. ``cost.ncc_strong`` is one call of ``ncc_strong_fused``.
 
-The kernel (``csrc/ncc.cu``) runs one thread per (pixel, view) and keeps
-the (S, B, T) coordinates and samples in registers; only the (S, B) costs
-are written. What bounds it on the H100: operations (the function needs
-38 f32 operations a tap), not bytes: the window is read once, the quad
-tables stay in L2.
+The kernel (``csrc/ncc.cu``) runs one thread per (pixel, view), a warp one
+view of 32 pixels, 8 warps a block at any S, and keeps the (S, B, T)
+coordinates and samples in registers; only the (S, B) costs are written.
+What bounds it on the H100: operations (the function needs 38 f32
+operations a tap and 90 a pair), not bytes: the window is read once, the
+quad tables stay in L2.
 
 The plain version fixes the operation order: the homography of
 ``geometry.homography``, the warp of ``geometry.warp``, K1's plain sample,
@@ -51,7 +52,7 @@ from .sampler import sample_packed_plain
 launches = 0      # kernel launches since the last reset (plain runs excluded)
 site_launches: dict = {}   # the same launches by call site
 
-MAX_VIEWS = 32    # csrc/ncc.cu kMaxViews: one warp a source view
+MAX_VIEWS = 32    # csrc/ncc_common.cuh kMaxViews: one warp's lanes (K5)
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 _SOURCES = ("ncc.cu",)
 
@@ -79,10 +80,32 @@ def library() -> _build.Built:
     lib.apde_ncc_max_views.restype = i32
     lib.apde_ncc_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.apde_ncc_smem_bytes.restype = ctypes.c_longlong
+    lib.apde_ncc_kernel_info.argtypes = [i32] * 5 + [ctypes.c_void_p] * 3
+    lib.apde_ncc_kernel_info.restype = i32
     if lib.apde_ncc_max_views() != MAX_VIEWS:
         raise RuntimeError(f"csrc/ncc.cu takes {lib.apde_ncc_max_views()} "
                            f"views, the wrapper assumes {MAX_VIEWS}")
     return built
+
+
+def read_kernel_info(fn, quads_u8: bool, pixel_offsets: bool,
+                     weighted: bool, num_taps: int, num_views: int) -> dict:
+    """Call a library's ``*_kernel_info`` entry point: the instantiation's
+    registers, local memory (spill) bytes and resident blocks an SM."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _raise_on(fn(int(quads_u8), int(pixel_offsets), int(weighted), num_taps,
+                 num_views, *(ctypes.addressof(v) for v in out)),
+              "kernel_info")
+    return dict(zip(("regs", "local_bytes", "blocks_per_sm"),
+                    (v.value for v in out)))
+
+
+def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
+                num_taps: int, num_views: int) -> dict:
+    """The kernel instantiation's registers, local memory (spill) bytes and
+    resident blocks an SM at ``num_views`` views, from the CUDA runtime."""
+    return read_kernel_info(library().lib.apde_ncc_kernel_info, quads_u8,
+                            pixel_offsets, weighted, num_taps, num_views)
 
 
 def camera_table(data) -> torch.Tensor:

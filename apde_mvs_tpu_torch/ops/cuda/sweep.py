@@ -16,10 +16,12 @@ leaves ``[depth_min, depth_max]``. Two modes:
 - refine (LocalRefine): the current depth first (never depth-masked), then
   11 probes at offsets -5 .. 5: (B, 12) costs.
 
-The kernel (``csrc/sweep.cu``) runs the probe loop inside one launch, K2's
-layout (32 pixels x S views a block), the window staged once for every
-probe; only the curve is written. What bounds it on the H100: operations
-(K2's 38 f32 operations a tap for every probe and view).
+The kernel (``csrc/sweep.cu``) runs the whole sweep inside one launch: a
+warp a pixel, only the pixel's weighted (pixel, view) pairs, in view
+order, its probes across the warp's lanes, the view sum in each lane's
+registers; only the curve is written. What bounds it on the H100:
+operations (for every probe and weighted pair, K2's 38 f32 operations a
+tap and 90 a pair, and 115 for the geometric cost).
 
 The plain version fixes every operation's order: the probe depth of
 ``probe_depths``, the plane's w of ``geometry.plane_dist_to_origin`` with
@@ -97,13 +99,24 @@ def library() -> _build.Built:
     for fn in (lib.apde_sweep_max_views, lib.apde_sweep_cam_stride):
         fn.argtypes = []
         fn.restype = i32
-    lib.apde_sweep_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.apde_sweep_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.apde_sweep_smem_bytes.restype = ctypes.c_longlong
+    lib.apde_sweep_kernel_info.argtypes = [i32] * 5 + [ptr] * 3
+    lib.apde_sweep_kernel_info.restype = i32
     if (lib.apde_sweep_max_views(), lib.apde_sweep_cam_stride()) \
             != (MAX_VIEWS, CAM_STRIDE):
         raise RuntimeError("csrc/sweep.cu's view limit or camera table "
                            "differs from the wrapper's")
     return built
+
+
+def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
+                num_taps: int, num_views: int) -> dict:
+    """The kernel instantiation's registers, local memory (spill) bytes and
+    resident blocks an SM at ``num_views`` views, from the CUDA runtime."""
+    return ncc.read_kernel_info(library().lib.apde_sweep_kernel_info,
+                                quads_u8, pixel_offsets, weighted, num_taps,
+                                num_views)
 
 
 def camera_table(data) -> torch.Tensor:
@@ -239,7 +252,7 @@ def sweep_fused(data, px: SweepPixels, win, *, refine: bool, geom: bool,
     weighted = win.tap_w is not None
     lib = library().lib
     smem = lib.apde_sweep_smem_bytes(data.num_src, t, int(pixel_offsets),
-                                     int(weighted), num_probes)
+                                     int(weighted))
     if smem > SMEM_LIMIT:
         raise ValueError(f"a {t}-tap window needs {smem} B of shared memory "
                          f"a block, more than {SMEM_LIMIT}")

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA
-GPU: builds the hand-written kernels from this checkout (every library by
-two processes, all at once, as two ranks would), holds each against its
-plain PyTorch version at the shapes its call sites give it, then drives
-the port's paths through its entry points and checks each result. K1, the
-bilinear sampler, is held at the strong window's shape, a tile-route row
-shard's and one pixel's, and at the deformable NCC's centre and anchor
-windows (with the time of an empty launch of its grid there); K2, the
-fused strong NCC, bitwise at the strong sweep's black pixels (u8 and f32),
-the classify chunk, a tile-route rank's halo row block, one pixel, an SA
-star window and degenerate planes, and timed against the torch-op
-composition it replaced (homography, warp, K1, window sums, NCC); K5, the
-fused disparity sweep of DepthToWeak and LocalRefine with the geometric cost
-inside, bitwise at the classify chunk in both modes (u8 and f32, geometric
-cost on and off), an SA star window, a tile-route halo row block,
-degenerate planes with empty view weights on a ragged chunk, and every
-pixel of a view in the export-curve form, timed against the per-probe
-composition it replaced (a K2 call, the geometric cost and the view
-weighting a probe). The paths:
+"""Smoke run of the PyTorch/CUDA port (apde_mvs_tpu_torch) on one NVIDIA GPU:
+builds the hand-written kernels from this checkout (every library by two
+processes, all at once, as two ranks would) and prints, per kernel, its
+registers, spills and resident blocks an SM and the SASS instructions of
+one window tap by opcode class (``tools/sass_taps.py``; a diagnostic,
+skipped with a note where ``cuobjdump`` is missing), holds each kernel
+against its plain PyTorch version at the shapes its call sites give it,
+then drives the port's paths through its entry points and checks each
+result. K1, the bilinear sampler, is held at the strong window's shape, a
+tile-route row shard's and one pixel's, and at the deformable NCC's centre
+and anchor windows (with the time of an empty launch of its grid there);
+K2, the fused strong NCC, bitwise at the strong sweep's black pixels (u8
+and f32), the classify chunk, a tile-route rank's halo row block, one
+pixel, an SA star window, 25-tap windows (the generic tap loop), 32 source
+views and degenerate planes, and timed against the torch-op composition it
+replaced (homography, warp, K1, window sums, NCC); K5, the fused disparity
+sweep of DepthToWeak and LocalRefine with the geometric cost inside,
+bitwise at the classify chunk in both modes (u8 and f32, geometric cost on
+and off), an SA star window, a tile-route halo row block, degenerate planes
+with empty view weights on a ragged chunk, view-weight patterns (none, one,
+every view, a NaN weight, -0 weights), 32 source views, and every pixel of
+a view in the export-curve form, timed against the per-probe composition it
+replaced (a K2 call, the geometric cost and the view weighting a probe).
+The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -486,6 +491,8 @@ def k2_phase(scene, seed: int, device, card: str) -> dict:
     from apde_mvs_tpu_torch.ops.cuda import ncc
     from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
     from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK
+    from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views, \
+        window_25
 
     H, W = scene.images.shape[1:]
     cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
@@ -577,6 +584,18 @@ def k2_phase(scene, seed: int, device, card: str) -> dict:
     swin = precompute_ref_window(data[True], x[:n], y[:n], 5, 2)
     errs.append(k2_check(data[True], x[:n], y[:n], sp.contiguous(), swin,
                          "degenerate planes u8"))
+    # the generic tap loop: 25-tap windows, shared and per-pixel offsets
+    for per_pixel in (False, True):
+        errs.append(k2_check(
+            data[True], x, y, plane, window_25(data[True], x, y, per_pixel),
+            f"25-tap {'per-pixel weighted' if per_pixel else 'square'} "
+            "window u8"))
+    # 32 source views, the kernel's limit: the 10 cycled
+    d32, _ = cycled_views(data[True], 32)
+    errs.append(k2_check(d32, x, y, plane,
+                         precompute_ref_window(d32, x, y, 5, 2),
+                         "strong u8, 32 views (the 10 cycled)"))
+    del d32
     got = ncc.ncc_strong_fused(data[True], x[:n], y[:n], sp.contiguous(),
                                swin)
     for k, what in ((0, "w = 0"), (1, "NaN")):
@@ -714,6 +733,8 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
     from apde_mvs_tpu_torch.ops.state import PMState
     from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
     from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK, MIN_MARGIN
+    from apde_mvs_tpu_torch.testing.kernel_cases import WEIGHT_PATTERNS, \
+        cycled_views, weight_pattern
     from apde_mvs_tpu_torch.testing.sweep_composition import \
         sweep_composition
 
@@ -786,6 +807,22 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
                     f"{'u8' if u8 else 'f32'}"
                     f"{', geometric' if geom else ''}"))
     sc, px, win = inputs(data[True], state, cx, cy)
+    # view-weight patterns on the classify chunk
+    for pattern in WEIGHT_PATTERNS:
+        for refine in (False, True):
+            errs.append(k5_check(
+                data[True], weight_pattern(px, pattern), win,
+                kwargs(refine, True), f"{'refine' if refine else 'classify'}"
+                f" chunk u8, geometric, weights {pattern}"))
+    # 32 source views, the kernel's limit: the 10 and their weights cycled
+    d32, idx = cycled_views(data[True], 32)
+    vw32 = px.vw[:, idx].contiguous()
+    for refine in (False, True):
+        errs.append(k5_check(
+            d32, px._replace(vw=vw32, wnorm=vw32.sum(-1)), win,
+            kwargs(refine, True), f"{'refine' if refine else 'classify'} "
+            "chunk u8, geometric, 32 views (the 10 cycled)"))
+    del d32, vw32
     for refine in (False, True):
         mode = "refine" if refine else "classify"
         res[mode] = k5_times(data[True], sc, px, win, kwargs(refine, True),
@@ -1402,6 +1439,37 @@ def build_race(card: str) -> dict:
     return secs
 
 
+def kernel_report(card: str) -> None:
+    """A diagnostic: the main path's K2 and K5 instantiations (u8 tables,
+    36-tap square and SA star windows, 10 views) with their registers,
+    local-memory (spill) bytes and resident blocks an SM from the CUDA
+    runtime, and each of the two libraries' SASS instructions a window tap
+    by opcode class (``tools/sass_taps.py``: static instructions of the tap
+    loop, the divisions' slow-path calls included), or a note where
+    ``cuobjdump`` is missing."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sweep
+    from apde_mvs_tpu_torch.tools import sass_taps
+    kernels = (("K2", ncc), ("K5", sweep))
+    for name, mod in kernels:
+        for form, pixel_offsets in (("square", False), ("SA star", True)):
+            info = mod.kernel_info(True, pixel_offsets, pixel_offsets, 36,
+                                   FULL_VIEWS - 1)
+            log(f"{name} u8, {form} window, 36 taps, {FULL_VIEWS - 1} views: "
+                f"{info['regs']} registers, {info['local_bytes']} B local "
+                f"(spills), {info['blocks_per_sm']} resident blocks an SM "
+                f"[{card}]")
+    cuobjdump = sass_taps.find_cuobjdump()
+    if cuobjdump is None:
+        log("SASS a tap: cuobjdump missing, not counted")
+        return
+    for name, mod in kernels:
+        taps = sass_taps.library_taps(mod.library().path, cuobjdump)
+        for kernel, r in taps.items():
+            log(f"  SASS a tap, {name} {kernel}: {r['per_tap_total']:g} "
+                f"({r['taps']} taps an iteration): " + ", ".join(
+                    f"{c} {n:g}" for c, n in r["per_tap"].items()))
+
+
 def repo_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1713,6 +1781,7 @@ def main(argv=None) -> int:
         for ln in built.log.splitlines():
             if "registers" in ln or "spill" in ln or "error" in ln.lower():
                 log(f"  ptxas: {ln.strip()}")
+    kernel_report(card)
 
     t0 = time.perf_counter()
     full_scene = synthetic.make_scene(num_views=FULL_VIEWS, height=HEIGHT,

@@ -8,7 +8,9 @@ Every case runs on a 24x32 synthetic scene with 4 source views: u8 and f32
 quad tables, real bounds smaller than the padded ones, an SA star window on
 seeded segment masks, a halo-extended row block (``src_height`` >
 ``height``), and planes with w = 0, NaN and +-inf components and centres
-warped off the image mixed into near-truth and random planes.
+warped off the image mixed into near-truth and random planes. On the card
+K2 is also held at 1 and 32 source views and on 25-tap windows (the
+kernel's generic tap loop; its main path runs 36 taps).
 
 The card part imports no JAX, so on a machine with a card and without the
 JAX package's imports it runs with ``--noconftest`` (the JAX parity tests
@@ -30,6 +32,7 @@ from apde_mvs_tpu_torch.ops.cuda import ncc as k2
 from apde_mvs_tpu_torch.ops.cuda import sampler as k1
 from apde_mvs_tpu_torch.parallel.tiles import halo_block
 from apde_mvs_tpu_torch.testing import synthetic
+from apde_mvs_tpu_torch.testing.kernel_cases import window_25
 
 # one intra-op thread per test worker process (see tests/test_torch_cost.py)
 torch.set_num_threads(1)
@@ -37,6 +40,9 @@ torch.set_num_threads(1)
 H, W, V = 24, 32, 5
 COST_MAX = tcost.COST_MAX
 CASES = ("u8", "f32", "u8-real", "sa-u8", "sa-f32", "halo-u8", "halo-sa-f32")
+# the card's further cases: 1 or 32 source views (the 4 cycled), a 25-tap
+# square window with shared or per-pixel offsets and weights
+CARD_CASES = CASES + ("u8-s1", "sa-u8-s32", "u8-taps25", "f32-taps25-pp")
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,14 +72,17 @@ def _case(name, device="cpu"):
     mask = torch.as_tensor(_sa_mask(scene.depths[0], 2), device=device) \
         if sa else None
     real = (29, 21) if name.endswith("real") else (0, 0)
+    src = [1] if name.endswith("-s1") else \
+        [1 + i % (V - 1) for i in range(32)] if name.endswith("-s32") else \
+        list(range(1, V))
     data = tcost.CostData.build(
-        cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
+        cams.view(0), cams.map(lambda a: a[src]), imgs[0], imgs[src],
         real_width=real[0], real_height=real[1], sampler_u8="u8" in name,
         sa_mask=mask)
     row0 = 0
     if name.startswith("halo"):
         data, row0, _, _ = halo_block(data, 6, 18, 4)   # 20 rows of 24
-    rng = np.random.default_rng(CASES.index(name))
+    rng = np.random.default_rng(CARD_CASES.index(name))
     ys, xs = np.mgrid[0:data.height, 0:data.width]
     n = xs.size
     x = torch.as_tensor(xs.reshape(-1).astype(np.float32), device=device)
@@ -110,6 +119,14 @@ def _case(name, device="cpu"):
 
 def _window(data, x, y, sa):
     return tcost.precompute_ref_window(data, x, y, 5, 2, use_sa=sa)
+
+
+def _case_window(name, data, x, y, sa):
+    """The case's window: ``kernel_cases.window_25`` for ``taps25``, with
+    per-pixel offsets and weights for ``taps25-pp``; else ``_window``'s."""
+    if "taps25" not in name:
+        return _window(data, x, y, sa)
+    return window_25(data, x, y, per_pixel=name.endswith("-pp"))
 
 
 def _composition(data, x, y, plane, win):
@@ -335,10 +352,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CARD_CASES)
 def test_k2_matches_plain_on_card(cuda_device, name):
     data, x, y, planes, sa, special = _case(name, cuda_device)
-    win = _window(data, x, y, sa)
+    win = _case_window(name, data, x, y, sa)
     before = (k2.launches, k1.launches)
     got = k2.ncc_strong_fused(data, x, y, planes, win)
     torch.cuda.synchronize()

@@ -11,7 +11,12 @@ tables, the geometric cost on and off, an SA star window on seeded segment
 masks, a halo-extended row block (``src_height`` > ``height``), depth
 bounds that cut probes, planes with zero, NaN and +-inf depths and normals,
 pixels whose selected views all weigh 0, and a ragged pixel count (not a
-multiple of 32).
+multiple of 32). The kernel runs only the (pixel, view) pairs whose weight
+is not 0; a CPU test pins that rule against the plain version on every
+case and on weight patterns (no view weighted, one, every view, a NaN
+weight, -0 weights). On the card K5 is also held at those patterns, at 1
+and 32 source views, at a ragged count and one pixel, and on 25-tap
+windows (the kernel's generic tap loop; its main path runs 36 taps).
 
 The card part imports no JAX, so on a machine with a card and without the
 JAX package's imports it runs with ``--noconftest`` (the JAX parity tests
@@ -21,6 +26,7 @@ then skip):
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -37,6 +43,9 @@ from apde_mvs_tpu_torch.ops.cuda import sweep as k5
 from apde_mvs_tpu_torch.ops.state import PMState
 from apde_mvs_tpu_torch.parallel.tiles import halo_block
 from apde_mvs_tpu_torch.testing import synthetic
+from apde_mvs_tpu_torch.testing.kernel_cases import (WEIGHT_PATTERNS,
+                                                     weight_pattern,
+                                                     window_25)
 from apde_mvs_tpu_torch.testing.sweep_composition import sweep_composition
 
 # one intra-op thread per test worker process (see tests/test_torch_cost.py)
@@ -49,6 +58,12 @@ GF = 0.2
 CASES = ("u8", "f32-geom", "u8-geom-cut", "sa-u8-geom", "sa-f32",
          "halo-u8-geom", "halo-sa-f32-cut")
 MODES = ("classify", "refine")
+# the card's further cases: a weight pattern (``kernel_cases``), 1 or 32
+# source views (the 4 cycled), a ragged or one-pixel count, a 25-tap square
+# window with shared or per-pixel offsets and weights
+CARD_CASES = CASES + tuple(f"u8-geom-vw-{p}" for p in WEIGHT_PATTERNS) + (
+    "u8-geom-s1", "sa-u8-geom-s32", "u8-geom-ragged", "u8-geom-one-pixel",
+    "u8-geom-taps25", "f32-taps25-pp")
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,6 +88,7 @@ def _state(data, row0, rng, degenerate=True):
     ``degenerate`` some zero, NaN and +-inf depths and normals; random
     selections and weights, some selected views all weighing 0."""
     scene = _scene()
+    S = data.num_src
     h, w = data.height, data.width
     rows = np.clip(np.arange(h) + row0, 0, H - 1)
     depth = scene.depths[0][rows] * (1 + rng.normal(0, 0.01, (h, w)))
@@ -101,25 +117,32 @@ def _state(data, row0, rng, degenerate=True):
 
 def _case(name, device="cpu"):
     """(cost data, state, x, y (int32), depth bounds) of one case. The pixels
-    are a seeded raster-order subset of 601 (not a multiple of 32)."""
+    are a seeded raster-order subset of 601 (not a multiple of 32); 737
+    for ``ragged``, 1 for ``one-pixel``. ``s1`` keeps the first source
+    view, ``s32`` cycles the four into 32."""
     scene = _scene()
     cams = tgeo.CameraArrays.from_cameras(scene.cameras, device=device)
     imgs = torch.as_tensor(scene.images, device=device)
     sa = name.startswith("sa") or "-sa" in name
     mask = torch.as_tensor(_sa_mask(scene.depths[0], 2), device=device) \
         if sa else None
-    depths = torch.as_tensor(np.stack(scene.depths[1:]), device=device) \
+    src = [1] if name.endswith("-s1") else \
+        [1 + i % S for i in range(32)] if name.endswith("-s32") else \
+        list(range(1, V))
+    depths = torch.as_tensor(np.stack(scene.depths)[src], device=device) \
         if "geom" in name else None
     data = tcost.CostData.build(
-        cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
+        cams.view(0), cams.map(lambda a: a[src]), imgs[0], imgs[src],
         src_depths=depths, sampler_u8="u8" in name, sa_mask=mask)
     row0 = 0
     if name.startswith("halo"):
         data, row0, _, _ = halo_block(data, 6, 18, 4)   # 20 rows of 24
-    rng = np.random.default_rng(CASES.index(name))
+    rng = np.random.default_rng(CARD_CASES.index(name))
     state = _state(data, row0, rng)
     n = data.height * data.width
-    pick = np.sort(rng.choice(n, 601, replace=False))
+    count = 737 if name.endswith("ragged") else \
+        1 if name.endswith("one-pixel") else 601
+    pick = np.sort(rng.choice(n, count, replace=False))
     x = torch.as_tensor((pick % data.width).astype(np.int32), device=device)
     y = torch.as_tensor((pick // data.width).astype(np.int32), device=device)
     lo = scene.cameras[0].depth_min * 0.6
@@ -143,6 +166,11 @@ def _args(name, mode, device="cpu"):
     data, state, x, y, (lo, hi) = _case(name, device)
     sa = name.startswith("sa") or "-sa" in name
     sc, px, win = _inputs(data, state, x, y, sa)
+    if "taps25" in name:
+        win = tcost.contiguous_window(
+            window_25(data, px.x, px.y, per_pixel=name.endswith("-pp")))
+    if "-vw-" in name:
+        px = weight_pattern(px, name.split("-vw-")[1])
     kw = dict(refine=mode == "refine", geom="geom" in name, geom_factor=GF,
               depth_min=lo, depth_max=hi)
     return data, sc, px, win, kw
@@ -184,6 +212,65 @@ def test_plain_matches_the_composition_it_replaces(name, mode):
     assert nan_plane.any() and (got[nan_plane] >= COST_MAX).all()
     if name.endswith("cut"):
         assert (got[:, 1:] == COST_MAX).float().mean() > 0.3
+
+
+def _weighted_pairs_only(data, px, win, *, refine: bool, geom: bool,
+                         geom_factor, depth_min, depth_max):
+    """K5's costs as the kernel gathers them: only the (pixel, view) pairs
+    whose weight is not 0 (NaN is, -0 is not) and whose pixel's weight sum
+    is > 0, listed pixel by pixel in view order; each pixel's terms summed
+    in list order from +0; the per-pair cost, the division and the masks
+    as the plain version has them."""
+    cam = data.ref_cam
+    offsets = k5.REFINE_OFFSETS if refine else k5.CLASSIFY_OFFSETS
+    depths = k5.probe_depths(cam.fx, px.disp, px.base_line, offsets)
+    lo, hi = k5._f32(depth_min), k5._f32(depth_max)
+    probes = [(depths[:, i], lo, hi) for i in range(len(offsets))]
+    if refine:
+        probes.insert(0, (px.plane[:, 3], -math.inf, math.inf))
+    gf = k5._f32(geom_factor)
+    on = (px.vw != 0) & (px.wnorm > 0)[:, None]
+    pix, view = torch.nonzero(on, as_tuple=True)      # pixel, then view
+    rank = (torch.cumsum(on.to(torch.int64), 1) - 1)[pix, view]
+    n0, n1, n2 = px.plane[:, 0], px.plane[:, 1], px.plane[:, 2]
+    cols = []
+    for pd, lo, hi in probes:
+        X = pd * (px.x - cam.cx) / cam.fx
+        Y = pd * (px.y - cam.cy) / cam.fy
+        w = -((n0 * X + n1 * Y) + n2 * pd)
+        plane = torch.stack([n0, n1, n2, w], -1)
+        cv = k2.ncc_strong_plain(data, px.x, px.y, plane, win)
+        if geom:
+            cv = cv + gf * tcost.geom_cost(data, px.x, px.y, plane)
+        terms = px.vw[pix, view] * cv[pix, view]
+        acc = torch.zeros_like(pd)
+        for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+            at = rank == r        # each pixel's r-th weighted view
+            acc = acc.index_put((pix[at],), acc[pix[at]] + terms[at])
+        cost = acc / torch.clamp(px.wnorm, min=1e-20)
+        cost = torch.where(px.wnorm > 0, cost, COST_MAX)
+        cost = torch.where((pd >= lo) & (pd <= hi), cost, COST_MAX)
+        cols.append(cost if refine else torch.clamp(cost, max=COST_MAX))
+    return torch.stack(cols, 1)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "name", CASES + tuple(f"u8-geom-vw-{p}" for p in WEIGHT_PATTERNS))
+def test_weighted_pairs_in_view_order_equal_plain(name, mode):
+    """The rule K5's compaction relies on: the costs from the weighted
+    pairs alone, each pixel's summed in view order from +0, equal the
+    plain version's sum over every view bit for bit (a pair whose weight is
+    0 adds +0 there), NaN payloads included."""
+    data, _, px, win, kw = _args(name, mode)
+    want = k5.sweep_plain(data, px, win, **kw)
+    got = _weighted_pairs_only(data, px, win, **kw)
+    assert _bitwise(got, want), \
+        f"{int((got != want).sum())} costs differ"
+    if name.endswith("nan"):
+        assert torch.isnan(want).any()
+    if name.endswith("none"):
+        assert ((want == 0) | (want == COST_MAX)).all() and (want == 0).any()
 
 
 def _jax():
@@ -454,7 +541,7 @@ def _bitwise(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CARD_CASES)
 def test_k5_matches_plain_on_card(cuda_device, name, mode):
     data, sc, px, win, kw = _args(name, mode, cuda_device)
     before = _launches()
@@ -465,7 +552,10 @@ def test_k5_matches_plain_on_card(cuda_device, name, mode):
     assert _bitwise(got, want), \
         f"{int((got != want).sum())} costs differ, max " \
         f"{float((got - want).abs().nan_to_num().max())}"
-    assert (got < 0.5).sum() > 100
+    if "one-pixel" not in name and "-vw-" not in name:
+        assert (got < 0.5).sum() > 100
+    if name.endswith("nan"):
+        assert torch.isnan(got).any()
 
 
 @pytest.mark.cuda
