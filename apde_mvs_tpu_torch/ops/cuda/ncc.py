@@ -28,11 +28,12 @@ own, so the two agree bit for bit on the card.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches, and
 ``site_launches`` splits them by the call site that asked for them
-("init": the initial cost, "strong": the strong sweep, "debug_point": the
-debug tool; "other" for any caller that names none). The disparity sweeps
-of DepthToWeak and LocalRefine run their NCC inside K5
-(``ops/cuda/sweep.py``), which shares K2's per-pixel code
-(``csrc/ncc_common.cuh``).
+("init": the initial cost, "debug_point": the debug tool, "strong": the
+torch-op strong sweep of ``testing/strong_composition.py``; "other" for
+any caller that names none). The strong sweep runs its NCC inside K3
+(``ops/cuda/strong.py``), the disparity sweeps of DepthToWeak and
+LocalRefine inside K5 (``ops/cuda/sweep.py``); both share K2's per-pixel
+code (``csrc/ncc_common.cuh``).
 """
 
 from __future__ import annotations
@@ -186,6 +187,17 @@ def ncc_strong_plain(data, x, y, plane, win) -> torch.Tensor:
 def _check_args(data, x, y, plane, win) -> tuple:
     """Shapes, dtypes, devices and the view limit, on every device.
     Returns (B, T, per-pixel offsets, {name: (tensor, shape)})."""
+    b = x.shape[0] if x.ndim == 1 else -1
+    t, pixel_offsets, want = check_window(data, b, win, x.shape)
+    want.update({"x": (x, (b,)), "y": (y, (b,)), "plane": (plane, (b, 4))})
+    _check_tensors(want, data.src_quads.device)
+    return b, t, pixel_offsets, want
+
+
+def check_window(data, b: int, win, pixels=None) -> tuple:
+    """The view limit, the quad tables, and the window of ``b`` pixels
+    (``pixels``: the pixel tensor's shape, for the message). Returns (T,
+    per-pixel offsets, {name: (tensor, shape)}) for `_check_tensors`."""
     quads = data.src_quads
     s = data.num_src
     if s > MAX_VIEWS:
@@ -197,11 +209,9 @@ def _check_args(data, x, y, plane, win) -> tuple:
                          f"4), got {tuple(quads.shape)}")
     if quads.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"quad table dtype {quads.dtype} (u8 or f32)")
-    b = x.shape[0] if x.ndim == 1 else -1
     t = win.tap_val.shape[-1] if win.tap_val.ndim == 2 else 0
     offsets = win.tap_dx.shape
-    want = {"x": (x, (b,)), "y": (y, (b,)), "plane": (plane, (b, 4)),
-            "tap_val": (win.tap_val, (b, t)),
+    want = {"tap_val": (win.tap_val, (b, t)),
             "tap_dy": (win.tap_dy, offsets),
             "sum_ref": (win.sum_ref, (b,)), "sum_rr": (win.sum_rr, (b,))}
     if win.tap_w is not None:
@@ -209,20 +219,25 @@ def _check_args(data, x, y, plane, win) -> tuple:
     if isinstance(win.wsum, torch.Tensor):
         want["wsum"] = (win.wsum, (b,))
     if b < 0 or t < 1 or offsets not in ((t,), (b, t)):
-        raise ValueError(f"pixels x {tuple(x.shape)}, window values "
+        raise ValueError(f"pixels {tuple(pixels or (b,))}, window values "
                          f"{tuple(win.tap_val.shape)}, offsets "
                          f"{tuple(offsets)}: need (B,), (B, T) and (T,) or "
                          "(B, T)")
     want["tap_dx"] = (win.tap_dx, offsets)
+    return t, len(offsets) == 2, want
+
+
+def _check_tensors(want: dict, device) -> None:
+    """Each of ``want``'s (tensor, shape) has that shape, float32, on
+    ``device``."""
     for name, (a, shape) in want.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} is {tuple(a.shape)}, expected {shape}")
         if a.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {a.dtype}, expected float32")
-        if a.device != quads.device:
+        if a.device != device:
             raise ValueError(f"{name} is on {a.device}, the quad tables on "
-                             f"{quads.device}")
-    return b, t, len(offsets) == 2, want
+                             f"{device}")
 
 
 def _raise_on(err: int, what: str) -> None:

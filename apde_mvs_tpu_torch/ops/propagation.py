@@ -5,7 +5,8 @@ APD.cu:1098-1692) become batched evaluations:
 
 - the *strong* sweep runs per color on the checkerboard-compacted half
   grid (candidates live on the opposite color, so black-then-red preserves
-  the reference's intra-sweep data flow exactly);
+  the reference's intra-sweep data flow exactly); a color's update is one
+  launch of the kernel K3 (ops/cuda/strong.py);
 - the *weak* sweep runs once over a compacted weak-pixel list — weak
   pixels read only strong pixels' state (their anchors) and never each
   other, so the reference's black/red split of the weak kernels is a no-op.
@@ -37,8 +38,8 @@ from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch
 from . import selection
-from .cost import COST_MAX, GEOM_COST_MAX, CostData, geom_cost, \
-    ncc_strong, precompute_ref_window
+from .cost import COST_MAX, GEOM_COST_MAX, CostData, contiguous_window, \
+    geom_cost, precompute_ref_window
 from .deformable import WeakRefData, ncc_weak
 from .state import PMState
 
@@ -199,99 +200,24 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
                  draws: SweepDraws, x, y, depth_min, depth_max, geom_factor,
                  row_bounds=None):
     """Candidate evaluation + view selection + refinement for one flat batch
-    of same-color pixels. Returns (planes_out, costs_out, sel_new, vw).
-    Each plane hypothesis (8 candidates, the current plane, 5 refinement
-    probes) is one all-views `ncc_strong`: 14 K2 launches."""
-    xf = x.to(torch.float32)
-    yf = y.to(torch.float32)
-    cam = data.ref_cam
-
-    cand_x, cand_y, flags = checkerboard_candidates(state.costs, x, y,
-                                                    row_bounds)
-    cand_planes = fetch(state.planes, cand_x, cand_y)          # (B, 8, 4)
-    cur_plane = fetch(state.planes, x, y)
-
-    win = precompute_ref_window(data, xf, yf, cfg.strong_radius,
-                                cfg.strong_increment, cfg.use_sa)
-    cost_array = torch.stack([ncc_strong(data, xf, yf, cand_planes[:, c], win,
-                                         site="strong")
-                              for c in range(8)], dim=1)        # (B, 8, S)
-    # invalid regions keep ~zero rows (C aggregate-init quirk, see module
-    # doc) EXCEPT element [0][0]: `float cost_array[8][32] = {2.0f}`
-    # (APD.cu:1120) leaves 2.0 in the very first slot, so an invalid region
-    # 0 contributes cost 2.0 to view 0
-    cost_array = torch.where(flags[..., None], cost_array, 0.0)
-    cost_array[:, 0, 0] = torch.where(flags[:, 0], cost_array[:, 0, 0], 2.0)
-
-    # view selection
-    nb_x = torch.stack([x, x, x - 1, x + 1], -1)
-    nb_y = torch.stack([y - 1, y + 1, y, y], -1)
-    nb_sel = fetch(state.selected, nb_x, nb_y)                 # (B, 4, S)
-    nb_valid = flags[:, [0, 2, 4, 6]]
-    priors = selection.view_selection_priors(nb_sel, nb_valid)
-    probs = selection.sampling_probabilities(cost_array, priors, iteration)
-    vw, temp_sel, wnorm = selection.monte_carlo_view_weights(draws.sel_u,
-                                                             probs)
-    has_views = wnorm > 0
-    inv_norm = torch.where(has_views, 1.0 / torch.clamp(wnorm, min=1e-20),
-                           0.0)
-    final_costs = (vw[:, None, :] * cost_array).sum(-1) * inv_norm[:, None]
-
-    # current plane + refinement hypotheses are weighted sums over the
-    # Monte-Carlo-selected views only (APD.cu:1405-1412, 988-996): all views
-    # are evaluated and unselected ones weigh 0
-    def weighted_cost(plane):
-        cv = ncc_strong(data, xf, yf, plane, win, site="strong")
-        if cfg.geom_consistency and cfg.use_impetus:
-            cv = cv + geom_factor * geom_cost(data, xf, yf, plane)
-        return (vw * cv).sum(-1) * inv_norm
-
-    cost_recomputed = torch.where(has_views, weighted_cost(cur_plane),
-                                  COST_MAX)
-
-    # adopt best candidate (last-min wins ties)
-    best = last_min_index(final_costs)[:, None]
-    best_plane = torch.gather(cand_planes, 1,
-                              best[:, :, None].expand(-1, 1, 4))[:, 0]
-    best_cost = torch.gather(final_costs, 1, best)[:, 0]
-    best_flag = torch.gather(flags, 1, best)[:, 0]
-    depth_before = geo.depth_from_plane(cam, best_plane, xf, yf)
-    adopt = best_flag & (depth_before >= depth_min) \
-        & (depth_before <= depth_max) & (best_cost < cost_recomputed) \
-        & has_views
-    plane_cur = torch.where(adopt[:, None], best_plane, cur_plane)
-    cost_cur = torch.where(adopt, best_cost, cost_recomputed)
-    sel_new = torch.where(adopt[:, None], temp_sel,
-                          fetch(state.selected, x, y))
-
-    # refinement (5 hypotheses; geom only under impetus gating)
-    depth_cur = geo.depth_from_plane(cam, plane_cur, xf, yf)
-    r_depths, r_normals = refinement_from_raws(
-        draws.raws, cam, xf, yf, plane_cur, depth_cur, depth_min, depth_max)
-    r_costs, r_planes = [], []
-    for i in range(5):
-        plane_i = geo.make_plane(cam, xf, yf, r_depths[:, i], r_normals[:, i])
-        ci = weighted_cost(plane_i)
-        d_i = geo.depth_from_plane(cam, plane_i, xf, yf)
-        ok = (d_i >= depth_min) & (d_i <= depth_max) & has_views
-        r_costs.append(torch.where(ok, ci, math.inf))
-        r_planes.append(plane_i)
-    r_costs = torch.stack(r_costs, 1)                          # (B, 5)
-    r_planes = torch.stack(r_planes, 1)                        # (B, 5, 4)
-    r_best = torch.argmin(r_costs, -1)[:, None]
-    r_cost = torch.gather(r_costs, 1, r_best)[:, 0]
-    r_plane = torch.gather(r_planes, 1,
-                           r_best[:, :, None].expand(-1, 1, 4))[:, 0]
-    take_ref = r_cost < cost_cur
-    plane_cur = torch.where(take_ref[:, None], r_plane, plane_cur)
-    cost_cur = torch.where(take_ref, r_cost, cost_cur)
-
-    # commit (REFINE_INIT needs a 0.1 improvement; reference APD.cu:1430-1439)
-    if cfg.refine_init:
-        commit = cost_cur < cost_recomputed - 0.1
-        return (torch.where(commit[:, None], plane_cur, cur_plane),
-                torch.where(commit, cost_cur, cost_recomputed), sel_new, vw)
-    return plane_cur, cost_cur, sel_new, vw
+    of same-color pixels. Returns (planes_out, costs_out, sel_new, vw):
+    one call of the colour-update kernel K3 (`ops/cuda/strong.py`), its
+    plain version on CPU tensors."""
+    from .cuda.strong import strong_fused
+    win = contiguous_window(precompute_ref_window(
+        data, x.to(torch.float32), y.to(torch.float32), cfg.strong_radius,
+        cfg.strong_increment, cfg.use_sa))
+    draws = SweepDraws(draws.sel_u.contiguous(),
+                       RefineRaws(*(r.contiguous() for r in draws.raws)))
+    state = state.replace(costs=state.costs.contiguous(),
+                          planes=state.planes.contiguous(),
+                          selected=state.selected.contiguous())
+    return tuple(strong_fused(
+        data, state, x.contiguous(), y.contiguous(), win, draws,
+        iteration=iteration, depth_min=depth_min, depth_max=depth_max,
+        geom_factor=geom_factor,
+        geom=cfg.geom_consistency and cfg.use_impetus,
+        refine_init=cfg.refine_init, row_bounds=row_bounds))
 
 
 def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
@@ -306,7 +232,9 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
     ``shard`` (a `parallel.tile_pass.RowShard`) evaluates only its rank's
     rows, with their slice of the draws, and all-gathers the outputs
     before the commit, so every rank commits the serial sweep's result.
-    ``row_bounds`` as in `checkerboard_candidates`."""
+    ``row_bounds`` as in `checkerboard_candidates`. The depth bounds and
+    the geometric factor are best Python numbers: K3 reads a device
+    tensor's value back, which waits for the device."""
     h, w = state.costs.shape
     dev = state.costs.device
     xs2, ys2 = cb.color_coords(h, w, color, device=dev)
@@ -314,9 +242,6 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
     y = ys2.reshape(-1)
     if draws is None:
         draws = sweep_draws(generator, x.shape[0], dev)
-    depth_min = geo.f32_scalar(depth_min, dev)
-    depth_max = geo.f32_scalar(depth_max, dev)
-    geom_factor = geo.f32_scalar(geom_factor, dev)
 
     weak_c = cb.gather_color(state.weak, color).reshape(-1)
     valid_c = cb.gather_color(state.valid, color).reshape(-1)

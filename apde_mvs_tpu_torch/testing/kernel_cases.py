@@ -1,15 +1,19 @@
-"""Inputs that hold K2 and K5 against their plain versions beyond the main
-path's own: view-weight patterns, sources cycled to a view count, and a
-25-tap window (the kernels' generic tap loop; the main path runs 36 taps).
-One copy for the CPU tests, ``chip_smoke.py`` and
-``tools/kernel_times.py``."""
+"""Inputs that hold K2, K5 and K3 against their plain versions beyond the
+main path's own: view-weight patterns, sources cycled to a view count, a
+25-tap window (the kernels' generic tap loop; the main path runs 36 taps),
+and for K3 selection draws that weight one view or many, and the state of
+a tile route's halo row block. One copy for the CPU tests,
+``chip_smoke.py`` and ``tools/kernel_times.py``."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..ops.cost import RefWindow, precompute_ref_window
+from ..ops.state import PMState
 
 WEIGHT_PATTERNS = ("none", "one", "every", "nan", "neg-zero")
 
@@ -70,3 +74,47 @@ def window_25(data, x, y, per_pixel: bool = False,
         win.tap_dy.expand(b, t).contiguous(), win.tap_val,
         (w * win.tap_val).sum(-1), (w * win.tap_val * win.tap_val).sum(-1),
         w.sum(-1), w)
+
+
+# K3's selection draws: the generator's, one uniform a pixel for all 15
+# samples (one view weighted), or the 15 stratified (as many views as the
+# probabilities allow)
+SELECTION_PATTERNS = ("random", "one", "spread")
+
+
+def strong_draws(n: int, pattern: str, seed: int, device):
+    """A colour update's draws for ``n`` pixels (a
+    ``propagation.SweepDraws``): the refinement draws from a generator
+    seeded with ``seed``, the 15 selection uniforms by ``pattern`` (one of
+    SELECTION_PATTERNS)."""
+    from ..ops.propagation import sweep_draws
+    draws = sweep_draws(torch.Generator(device=device).manual_seed(seed), n,
+                        device)
+    k = draws.sel_u.shape[1]
+    if pattern == "one":
+        return draws._replace(
+            sel_u=draws.sel_u[:, :1].expand(n, k).contiguous())
+    if pattern == "spread":
+        return draws._replace(sel_u=((torch.arange(
+            k, dtype=torch.float32, device=device) + 0.5) / k).expand(
+                n, k).contiguous())
+    if pattern != "random":
+        raise ValueError(f"unknown selection pattern {pattern!r}")
+    return draws
+
+
+def block_state(state: PMState, row0: int, height: int) -> PMState:
+    """The ``height`` rows of ``state`` that a row block whose row 0 is
+    image row ``row0`` holds (``parallel.tiles.halo_block``), zeros where a
+    row lies outside the image, as a halo exchange leaves the chain's ends
+    (``parallel.tiles._extend``)."""
+    h = state.costs.shape[0]
+    rows = torch.arange(height, device=state.costs.device) + row0
+    outside = (rows < 0) | (rows >= h)
+
+    def take(a):
+        out = a[torch.clamp(rows, 0, h - 1)].clone()
+        out[outside] = 0
+        return out
+    return PMState(**{f.name: take(getattr(state, f.name))
+                      for f in dataclasses.fields(PMState)})

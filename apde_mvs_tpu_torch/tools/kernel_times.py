@@ -1,5 +1,5 @@
-"""Device times of K2 and K5 at the main path's shapes, for comparing two
-checkouts of the port on one card.
+"""Device times of K2, K5 and the strong sweep's colour update (K3) at the
+main path's shapes, for comparing two checkouts of the port on one card.
 
 The shapes are chip_smoke.py's, on view 0 of the 11-view 600x800 synthetic
 scene (seed 0), u8 quad tables:
@@ -13,7 +13,12 @@ scene (seed 0), u8 quad tables:
   weighted;
 - both at S = 32: the 10 sources cycled into 32 (K2 at the strong shape;
   K5 at the classify chunk with the weights cycled the same way, so the
-  same share of pairs is weighted).
+  same share of pairs is weighted);
+- the strong sweep's colour update, ``propagation._strong_body``, at the
+  black pixels of view 0 (10 x 240,000, geometric cost, iteration 2) over
+  the same near-truth planes as camera-frame planes, their top-k mean
+  costs and views: K3 in a checkout that has it, the torch-op body (14 K2
+  launches and ~100 torch ops) in one from before.
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
 events). The script imports the package by absolute name, so it times the
@@ -185,6 +190,48 @@ def k5_times(scene, dev, out: dict, seed: int = 0) -> None:
               flush=True)
 
 
+def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
+    from apde_mvs_tpu_torch.ops import propagation
+    H, W = scene.images.shape[1:]
+    S = scene.num_views - 1
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
+    imgs = torch.as_tensor(scene.images, device=dev)
+    data = CostData.build(cams.view(0), cams.map(lambda a: a[1:]), imgs[0],
+                          imgs[1:], src_depths=torch.as_tensor(
+                              np.stack(scene.depths[1:]), device=dev),
+                          sampler_u8=True)
+    params = cfg.build_schedule(max(H, W))[1].params      # REFINE_ITER
+    rng = np.random.default_rng(seed)
+    depth = scene.depths[0] * (1 + rng.normal(0, 0.002, (H, W)))
+    depth = np.where(rng.random((H, W)) < 0.2,
+                     depth * (1 + rng.choice([-0.03, 0.03], (H, W))), depth)
+    xs, ys = geo.pixel_grid(H, W, dev)
+    planes = filters.depth_normal_to_planes(
+        data, torch.as_tensor(depth.astype(np.float32), device=dev),
+        torch.as_tensor(scene.normals[0], device=dev)).contiguous()
+    costs = ncc_strong(data, xs.reshape(-1), ys.reshape(-1),
+                       planes.reshape(-1, 4), precompute_ref_window(
+                           data, xs.reshape(-1), ys.reshape(-1), 5, 2))
+    mean_cost, sel = initial_cost_and_selection(costs, params.top_k)
+    state = PMState.create(H, W, S, device=dev).replace(
+        planes=planes, costs=mean_cost.reshape(H, W).contiguous(),
+        selected=sel.reshape(H, W, S).contiguous())
+    xs2, ys2 = cb.color_coords(H, W, 0, device=dev)
+    x, y = xs2.reshape(-1).contiguous(), ys2.reshape(-1).contiguous()
+    draws = propagation.sweep_draws(
+        torch.Generator(device=dev).manual_seed(seed), x.numel(), dev)
+    prop = propagation.PropCfg(geom_consistency=True)
+    dmin, dmax, gf = (float(np.float32(v)) for v in (
+        scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR,
+        scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR,
+        params.geom_factor))
+    name = "colour update"
+    out[name] = cuda_ms(lambda: propagation._strong_body(
+        data, state, prop, 2, draws, x, y, dmin, dmax, gf), 10)
+    print(f"{name}: {out[name]:.4f} ms ({S} views x {x.numel()} pixels, "
+          "geometric)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="this checkout")
@@ -194,12 +241,18 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     libs = [m.library().path.name for m in (ncc, sweep)]
+    try:
+        from apde_mvs_tpu_torch.ops.cuda import strong
+        libs.append(strong.library().path.name)
+    except ImportError:
+        libs.append("no K3 in this checkout")
     print(f"{args.tag}: {', '.join(libs)} [{card}]", flush=True)
     scene = synthetic.make_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
                                  baseline=0.12)
     out: dict = {}
     k2_times(scene, dev, out)
     k5_times(scene, dev, out)
+    colour_update_times(scene, dev, out)
     print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
     return 0
 

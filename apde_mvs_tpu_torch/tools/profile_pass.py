@@ -16,9 +16,10 @@ after one warm-up run, under torch.profiler:
 Per pass it prints host wall, device busy time (sum of kernel and copy
 time) and idle share, the wall of the same pass run without the profiler
 (just before), the device time (CUDA events around each launch) and
-launches of the fused strong NCC K2 by call site (init, strong sweep), of
-the fused disparity sweep K5 by mode (classify, refine) and of K1 by call
-site, each kernel's profiler time, the device and host time of the pass's
+launches of the fused strong NCC K2 by call site (the initial cost), of
+the strong sweep's colour update K3, of the fused disparity sweep K5 by
+mode (classify, refine) and of K1 by call site, each kernel's profiler
+time, the device and host time of the pass's
 stages (anchors, fit planes, the weak sweep, the deformable NCC, the
 classify and refine sweeps, ...), and the torch ops that hold the most
 device time.
@@ -48,7 +49,7 @@ from ..core import geometry as geo
 from ..core.platform import card_line
 from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
-from ..ops.cuda import ncc, sampler, sweep
+from ..ops.cuda import ncc, sampler, strong, sweep
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
@@ -121,13 +122,18 @@ def _k5_mode(a, kw):
     return "K5 " + ("refine" if kw["refine"] else "classify")
 
 
+def _k3_name(a, kw):
+    return "K3 colour update"
+
+
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site) and K5 (by mode) into ``kernel_events``;
+    K2 and K1 (by call site), K3 and K5 (by mode) into ``kernel_events``;
     restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
+               (strong, "strong_fused", _k3_name),
                (sweep, "sweep_fused", _k5_mode))
     saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES + kernels]
     try:
@@ -152,9 +158,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     t0 = time.perf_counter()
     run()
     plain_wall = time.perf_counter() - t0
-    sampler.reset_launches()
-    ncc.reset_launches()
-    sweep.reset_launches()
+    for mod in (sampler, ncc, strong, sweep):
+        mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     labels = {label for _, _, label in _STAGES}
@@ -186,6 +191,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
     k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k) / 1e6
     k5 = sum(t for k, t in kernels.items() if "sweep_kernel" in k) / 1e6
+    k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k) / 1e6
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
     sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
                for site, ev in kernel_events.items()}
@@ -194,7 +200,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 idle_share=max(0.0, 1.0 - busy / wall),
                 unprofiled_wall_s=plain_wall,
                 unprofiled_idle_share=max(0.0, 1.0 - busy / plain_wall),
-                k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k5_s=k5,
+                k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k3_s=k3,
+                k3_launches=strong.launches, k5_s=k5,
                 k5_launches=sweep.launches, k1_launches=launches,
                 site_launches=sites,
                 site_event_s={k: round(v, 6) for k, v in sites_s.items()},
@@ -213,13 +220,14 @@ def _report(r, card):
     print(f"{r['state']}{' (APD)' if r['use_apd'] else ''}: wall "
           f"{r['wall_s']:.3f} s, device busy {r['device_busy_s']:.3f} s "
           f"(idle {r['idle_share']:.1%}), K2 {r['k2_s']:.3f} s over "
-          f"{r['k2_launches']} launches, K5 {r['k5_s']:.3f} s over "
+          f"{r['k2_launches']} launches, K3 {r['k3_s']:.3f} s over "
+          f"{r['k3_launches']} launches, K5 {r['k5_s']:.3f} s over "
           f"{r['k5_launches']} launches, K1 {r['k1_s']:.3f} s over "
           f"{r['k1_launches']} launches (profiler kernel time) [{card}]",
           flush=True)
     for site, t in r["site_event_s"].items():
         calls = r["site_launches"].get(site, 0)
-        print(f"  {site[:2] if site[:2] in ('K2', 'K5') else 'K1'}    "
+        print(f"  {site[:2] if site[:2] in ('K2', 'K3', 'K5') else 'K1'}    "
               f"{t:9.4f} s  {site}: {calls} calls, "
               f"{t / max(calls, 1) * 1e3:.4f} ms a call (CUDA events)")
     print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "

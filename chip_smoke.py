@@ -21,8 +21,15 @@ and off), an SA star window, a tile-route halo row block, degenerate planes
 with empty view weights on a ragged chunk, view-weight patterns (none, one,
 every view, a NaN weight, -0 weights), 32 source views, and every pixel of
 a view in the export-curve form, timed against the per-probe composition it
-replaced (a K2 call, the geometric cost and the view weighting a probe).
-The paths:
+replaced (a K2 call, the geometric cost and the view weighting a probe);
+K3, the strong sweep's colour update with K2's NCC and the geometric cost
+inside, bitwise at the black pixels of a view (u8 and f32, geometric cost
+on and off, iterations 0 and 2, REFINE_INIT), selection draws weighting one
+view or many, every plane NaN, an SA star window, a tile-route halo row
+block with its row bounds, 1 and 32 source views, a ragged batch and one
+pixel, held to the torch-op body it replaced (``testing.strong_composition``:
+14 K2 calls and the selection's torch ops a colour) at the CPU tests'
+tolerance and timed against it. The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -62,11 +69,13 @@ limit (the exports pass follows the APD scan). The kernel checks, the
 view-parallel scan, the tile route and the batch scan always use all 11
 views.
 
-Every path must run its strong NCC through K2 (at least one launch, all at
-the strong path's sites: the initial cost, the strong sweep, debug_point;
-none of K1 at a strong site) and its classify and refine sweeps through K5
-(at least one launch of each mode on a path that runs a pass); K1 must
-carry the weak sites of the APD scan.
+Every path must run its initial cost's NCC through K2 (at least one
+launch, all at the initial cost's and debug_point's sites, none at the
+strong sweep's; none of K1 at a strong site), its classify and refine
+sweeps through K5 (at least one launch of each mode on a path that runs a
+pass) and its strong sweeps through K3 (on a path that runs a pass at least
+one launch, at most two a colour update); K1 must carry the weak sites of
+the APD scan.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -133,6 +142,22 @@ K5_OPS_PER_PAIR = 2
 K5_GEOM_OPS_PER_PAIR = 115
 K5_OPS_PER_PIXEL = 22
 K5_GEOM_OPS_PER_PIXEL = 36
+# operations of the strong sweep's colour update K3 as the function needs
+# them, beside K2's per tap and per pair for every valid (candidate, view)
+# pair and every (plane, weighted view) pair of the current plane and the 5
+# hypotheses, and with the geometric cost K5's 115 a (plane, weighted view)
+# and 36 a (pixel, plane): per (pixel, view) 80 for the selection (8
+# candidates' threshold, square, division, exponential, weight sum and
+# counts, the prior's 4 adds, the probability, the CDF's add and division,
+# 15 sample comparisons); per (pixel, weighted view) 28 (a product and an
+# add for each of the 8 candidates' and 6 planes' sums); per pixel 300 (the
+# candidate scan's 8 regions of 7-11 positions, the adoption, the 5
+# hypotheses' normals, rotation, norms, planes and depths, the commit). A
+# pair whose weight is 0 needs nothing: its term is +0.
+K3_SELECT_OPS_PER_VIEW = 80
+K3_OPS_PER_WEIGHTED_PAIR = 28
+K3_OPS_PER_PIXEL = 300
+K3_PLANES = 6                # the current plane and the 5 hypotheses
 
 
 def log(msg: str) -> None:
@@ -711,6 +736,49 @@ def k5_times(data, sc, px, win, kw: dict, what: str, card: str) -> dict:
                 library_ms=None)
 
 
+def refine_iter_state(scene, data, params, seed: int, device) -> tuple:
+    """A REFINE_ITER pass's state on view 0: planes near the truth (depth
+    noise 0.2%, a fifth of the pixels 3% off), each pixel's top-k views of
+    K2's costs selected with weights 1-4. Returns (the state with (world
+    normal, depth) planes, as the classify and refine sweeps read it; the
+    camera-frame planes and the top-k mean costs, as the strong sweep reads
+    them)."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.cost import initial_cost_and_selection, \
+        ncc_strong, precompute_ref_window
+    from apde_mvs_tpu_torch.ops.state import PMState
+
+    H, W = scene.images.shape[1:]
+    S = data.num_src
+    rng = np.random.default_rng(seed)
+    depth = scene.depths[0] * (1 + rng.normal(0, 0.002, (H, W)))
+    depth = np.where(rng.random((H, W)) < 0.2,
+                     depth * (1 + rng.choice([-0.03, 0.03], (H, W))), depth)
+    planes = torch.as_tensor(np.concatenate(
+        [scene.normals[0], depth[..., None]], -1).astype(np.float32),
+        device=device)
+    xs, ys = geo.pixel_grid(H, W, device)
+    cam_planes = filters.depth_normal_to_planes(data, planes[..., 3],
+                                                planes[..., :3])
+    win_all = precompute_ref_window(data, xs.reshape(-1), ys.reshape(-1), 5,
+                                    2)
+    costs = ncc_strong(data, xs.reshape(-1), ys.reshape(-1),
+                       cam_planes.reshape(-1, 4), win_all)
+    del win_all
+    mean_cost, sel = initial_cost_and_selection(costs, params.top_k)
+    vw = sel.float() * torch.randint(1, 5, sel.shape, device=device,
+                                     generator=torch.Generator(
+                                         device=device).manual_seed(seed))
+    state = PMState.create(H, W, S, device=device).replace(
+        planes=planes, selected=sel.reshape(H, W, S).contiguous(),
+        view_weights=vw.reshape(H, W, S))
+    return state, cam_planes.contiguous(), mean_cost.reshape(H, W)
+
+
 def k5_phase(scene, seed: int, device, card: str) -> dict:
     """K5, the fused disparity sweep, against its plain version on the card,
     bitwise, at the shapes the main path gives it: the classify chunk
@@ -728,7 +796,7 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
     from apde_mvs_tpu_torch.core import geometry as geo
     from apde_mvs_tpu_torch.ops import filters
     from apde_mvs_tpu_torch.ops.cost import CostData, contiguous_window, \
-        initial_cost_and_selection, ncc_strong, precompute_ref_window
+        precompute_ref_window
     from apde_mvs_tpu_torch.ops.cuda import sweep
     from apde_mvs_tpu_torch.ops.state import PMState
     from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
@@ -751,29 +819,9 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
     params = cfg.build_schedule(max(H, W))[1].params      # REFINE_ITER
     dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
     dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
-    rng = np.random.default_rng(seed)
-    depth = scene.depths[0] * (1 + rng.normal(0, 0.002, (H, W)))
-    depth = np.where(rng.random((H, W)) < 0.2,
-                     depth * (1 + rng.choice([-0.03, 0.03], (H, W))), depth)
-    planes = torch.as_tensor(np.concatenate(
-        [scene.normals[0], depth[..., None]], -1).astype(np.float32),
-        device=device)
+    state, _, _ = refine_iter_state(scene, data[True], params, seed, device)
+    sel = state.selected.reshape(H * W, S)
     xs, ys = geo.pixel_grid(H, W, device)
-    cam_planes = filters.depth_normal_to_planes(data[True], planes[..., 3],
-                                                planes[..., :3])
-    win_all = precompute_ref_window(data[True], xs.reshape(-1),
-                                    ys.reshape(-1), 5, 2)
-    costs = ncc_strong(data[True], xs.reshape(-1), ys.reshape(-1),
-                       cam_planes.reshape(-1, 4), win_all)
-    del win_all, cam_planes
-    _, sel = initial_cost_and_selection(costs, params.top_k)
-    vw = sel.float() * torch.randint(1, 5, sel.shape, device=device,
-                                     generator=torch.Generator(
-                                         device=device).manual_seed(seed))
-    state = PMState.create(H, W, S, device=device).replace(
-        planes=planes, selected=sel.reshape(H, W, S),
-        view_weights=vw.reshape(H, W, S))
-    del costs
     # the classify chunk: the first CHUNK sweepable pixels off the margins
     margin = (xs < MIN_MARGIN) | (ys < MIN_MARGIN) \
         | (xs >= W - MIN_MARGIN) | (ys >= H - MIN_MARGIN)
@@ -899,6 +947,270 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
         err = k5_check(data[True], epx, ewin, kwargs(False, True),
                        f"export-curve chunk at pixel {lo} u8, geometric")
         errs.append(err)
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def k3_bound(data, x, win, flags, out, geom: bool) -> tuple:
+    """The least time the card could take for one K3 call: its f32
+    operations over the plain-f32 rate (the valid candidates against every
+    view, the current plane and the hypotheses against the weighted views
+    this run's selection gave), against the bytes of its inputs (the state
+    arrays, quad tables and source depth maps whole, each read once) and
+    outputs over the memory rate. Returns (ms, "bytes" or "operations",
+    bytes, operations)."""
+    s, b = data.num_src, x.numel()
+    t = win.tap_val.shape[1]
+    per_tap = K2_OPS_PER_TAP + (2 if win.tap_w is not None else 0)
+    per_pair = t * per_tap + K2_OPS_PER_PAIR
+    cand_pairs = int(flags.sum()) * s
+    weighted = int((out.view_weights != 0).sum())
+    ops = cand_pairs * per_pair \
+        + K3_PLANES * weighted * (per_pair + (K5_GEOM_OPS_PER_PAIR if geom
+                                              else 0)) \
+        + weighted * K3_OPS_PER_WEIGHTED_PAIR + b * s * K3_SELECT_OPS_PER_VIEW \
+        + b * (K3_OPS_PER_PIXEL
+               + (K3_PLANES * K5_GEOM_OPS_PER_PIXEL if geom else 0))
+    cells = data.height * data.width
+    per_pixel = 4 * (2 + t + 2 + 15 + 8)       # x, y, values, sums, draws
+    if win.tap_w is not None:
+        per_pixel += 4 * (3 * t + 1)           # offsets, weights, weight sum
+    nbytes = b * (per_pixel + 4 * 5 + 5 * s) + cells * (4 + 16 + s) \
+        + data.src_quads.numel() * data.src_quads.element_size() \
+        + (s + 1) * 40 * 4
+    if win.tap_w is None:
+        nbytes += 8 * t
+    if geom:
+        nbytes += 4 * data.src_depths.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def strong_mismatch(got, want):
+    """Per-pixel disagreement of two colour updates' outputs: view weights
+    or selections not equal, or a cost or a plane's component more than
+    2e-5 apart (the JAX parity tests' rule, tests/test_torch_strong.py)."""
+    import torch
+    planes, costs, sel, vw = got
+    bad = (vw != want.view_weights).any(-1) | (sel != want.selected).any(-1)
+    bad |= ~torch.isclose(costs, want.costs, rtol=2e-5, atol=2e-5,
+                          equal_nan=True)
+    bad |= ~torch.isclose(planes, want.planes, rtol=2e-5, atol=2e-5,
+                          equal_nan=True).all(-1)
+    return bad
+
+
+def k3_check(data, state, x, y, win, draws, kw: dict, what: str) -> float:
+    """K3 against its plain version on the card: bitwise, every output.
+    Returns the max abs difference read from the two (over non-NaN costs
+    and planes)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    got = strong.strong_fused(data, state, x, y, win, draws, **kw)
+    want = strong.strong_plain(data, state, x, y, win, draws, **kw)
+    torch.cuda.synchronize()
+    bad = {}
+    for name, g, w in zip(got._fields, got, want):
+        same = g.shape == w.shape and torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w)
+        if not same:
+            bad[name] = int((g != w).reshape(g.shape[0], -1).any(-1).sum()) \
+                if g.shape == w.shape else -1
+    if bad:
+        raise AssertionError(f"K3 {what}: pixels differing from the plain "
+                             f"version by output {bad}")
+    views = (want.view_weights > 0).sum(-1).float()
+    old = state.planes[y.long(), x.long()]
+    moved = ((want.planes != old)
+             & ~(torch.isnan(want.planes) & torch.isnan(old))).any(-1)
+    log(f"  K3 {what} ({x.numel()} pixels, {data.num_src} views): bitwise "
+        f"equal to the plain version; {float(views.mean()):.2f} views "
+        f"weighted a pixel, {float((views == 0).float().mean()):.4f} of the "
+        f"pixels none; {float(moved.float().mean()):.3f} of the planes "
+        "changed")
+    errs = [float((g - w)[~torch.isnan(w)].abs().max()) if bool(
+        (~torch.isnan(w)).any()) else 0.0
+        for g, w in ((got.costs, want.costs), (got.planes, want.planes))]
+    return max(errs)
+
+
+def k3_times(data, state, x, y, win, draws, kw: dict, cfg, what: str,
+             card: str) -> dict:
+    """K3's, the plain version's and the composition's (the torch-op body
+    it replaced, ``testing.strong_composition``) mean times (CUDA events,
+    warm), the composition held to K3 at the CPU tests' tolerance (view
+    weights and selections exact, planes and costs to 2e-5, at most 0.5%
+    of the pixels flipped on a float tie), and the bound."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    from apde_mvs_tpu_torch.ops.propagation import checkerboard_candidates
+    from apde_mvs_tpu_torch.testing.strong_composition import \
+        strong_composition
+    dev = x.device
+    scalars = [geo.f32_scalar(kw[k], dev)
+               for k in ("depth_min", "depth_max", "geom_factor")]
+
+    def comp():
+        return strong_composition(data, state, cfg, kw["iteration"], draws,
+                                  x, y, *scalars, kw["row_bounds"])
+    got = strong.strong_fused(data, state, x, y, win, draws, **kw)
+    bad = strong_mismatch(comp(), got)
+    torch.cuda.synchronize()
+    share = float(bad.float().mean())
+    log(f"  K3 {what} against the composition: {int(bad.sum())} of "
+        f"{bad.numel()} pixels differ ({share:.5f}; at most 0.005)")
+    if not share <= 0.005:
+        raise AssertionError(f"K3 {what} disagrees with the composition")
+    ms = cuda_ms(lambda: strong.strong_fused(data, state, x, y, win, draws,
+                                             **kw), 10)
+    plain_ms = cuda_ms(lambda: strong.strong_plain(data, state, x, y, win,
+                                                   draws, **kw), 1, 1)
+    comp_ms = cuda_ms(comp, 3, 1)
+    _, _, flags = checkerboard_candidates(state.costs, x, y,
+                                          kw["row_bounds"])
+    bound, by, nbytes, ops = k3_bound(data, x, win, flags, got, kw["geom"])
+    log(f"  K3 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, composition "
+        f"{comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                composition_ms=comp_ms, composition_flipped=share,
+                library_ms=None)
+
+
+def k3_phase(scene, seed: int, device, card: str) -> dict:
+    """K3, the strong sweep's colour update, against its plain version on
+    the card, bitwise, at the shapes the main path gives it: the black
+    colour of view 0 (240,000 pixels, all 10 sources) with u8 and f32
+    tables, the geometric cost on and off, iterations 0 and 2, and
+    REFINE_INIT's commit; an SA star window; a tile-route rank's halo row
+    block with its row bounds; 1 and 32 source views; selection draws that
+    weight one view or many; every plane NaN (no view weighted); a ragged
+    batch and one pixel; then its times against the plain version and the
+    composition it replaced. The state: a REFINE_ITER pass's (near-truth
+    planes, some 3% off; the top-k mean costs and views of K2's costs)."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.core import checkerboard as cb
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops.cost import CostData, contiguous_window, \
+        precompute_ref_window
+    from apde_mvs_tpu_torch.ops.propagation import PropCfg
+    from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
+    from apde_mvs_tpu_torch.testing.kernel_cases import block_state, \
+        cycled_views, strong_draws
+
+    H, W = scene.images.shape[1:]
+    S = scene.num_views - 1
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    imgs = torch.as_tensor(scene.images, device=device)
+    sa = segment_masks(scene.depths[0], seed).to(device)
+    src_depths = torch.as_tensor(np.stack(scene.depths[1:]), device=device)
+    data = {u8: CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
+                               imgs[0], imgs[1:], src_depths=src_depths,
+                               sampler_u8=u8, sa_mask=sa)
+            for u8 in (True, False)}
+    params = cfg.build_schedule(max(H, W))[1].params      # REFINE_ITER
+    dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
+    dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
+    base, planes, costs = refine_iter_state(scene, data[True], params, seed,
+                                            device)
+    state = base.replace(planes=planes, costs=costs.contiguous())
+    xs, ys = cb.color_coords(H, W, 0, device=device)
+    x, y = xs.reshape(-1).contiguous(), ys.reshape(-1).contiguous()
+
+    def window(d, x, y, use_sa=False):
+        return contiguous_window(precompute_ref_window(
+            d, x.float(), y.float(), 5, 2, use_sa))
+
+    def kwargs(it, geom, refine_init=False, row_bounds=None):
+        return dict(iteration=it, depth_min=dmin, depth_max=dmax,
+                    geom_factor=params.geom_factor, geom=geom,
+                    refine_init=refine_init, row_bounds=row_bounds)
+
+    def draws(n, pattern="random"):
+        return strong_draws(n, pattern, seed, device)
+
+    log(f"K3 strong shape: {S} views x {x.numel()} pixels x 36 taps, 8 "
+        "candidates, the current plane and 5 hypotheses in one launch")
+    errs, res = [], {}
+    dr = draws(x.numel())
+    for u8 in (True, False):
+        win = window(data[u8], x, y)
+        for it, geom in ((2, True), (0, False)):
+            errs.append(k3_check(
+                data[u8], state, x, y, win, dr, kwargs(it, geom),
+                f"black u8={u8}, iteration {it}"
+                f"{', geometric' if geom else ''}"))
+    win = window(data[True], x, y)
+    errs.append(k3_check(data[True], state, x, y, win, dr,
+                         kwargs(2, True, refine_init=True),
+                         "black u8, geometric, REFINE_INIT"))
+    for pattern in ("one", "spread"):
+        errs.append(k3_check(data[True], state, x, y, win,
+                             draws(x.numel(), pattern), kwargs(2, True),
+                             f"black u8, geometric, selection {pattern}"))
+    nan_state = state.replace(planes=torch.full_like(state.planes,
+                                                     float("nan")))
+    errs.append(k3_check(data[True], nan_state, x, y, win, dr,
+                         kwargs(2, True), "black u8, every plane NaN"))
+    cfg_geom = PropCfg(geom_consistency=True)
+    res["strong"] = k3_times(data[True], state, x, y, win, dr,
+                             kwargs(2, True), cfg_geom,
+                             "black u8, geometric", card)
+    # the SA star window on the segment masks
+    swin = window(data[True], x, y, use_sa=True)
+    cut = int((swin.wsum < 36).sum())
+    if cut == 0:
+        raise AssertionError("no SA window was truncated")
+    errs.append(k3_check(data[True], state, x, y, swin, dr, kwargs(2, True),
+                         f"SA star u8, geometric ({cut} windows cut)"))
+    # one tile-route rank: rows 0 .. H / RANKS - 1 with their halo, the
+    # halo rows above the image zero, the candidates held to the image rows
+    block, row0, lo, hi = halo_block(data[True], 0, H // RANKS, HALO_ROWS)
+    if not (block.quad_h > block.height and lo > 0):
+        raise AssertionError("the row block has no halo table or bounds")
+    bstate = block_state(state, row0, block.height)
+    bxs, bys = cb.color_coords(block.height, W, 0, device=device)
+    bx, by = bxs.reshape(-1).contiguous(), bys.reshape(-1).contiguous()
+    errs.append(k3_check(block, bstate, bx, by, window(block, bx, by),
+                         draws(bx.numel()), kwargs(2, True,
+                                                   row_bounds=(lo, hi)),
+                         f"row shard u8, geometric (block {block.height} "
+                         f"rows, tables {block.quad_h}, rows {lo}..{hi})"))
+    res["shard"] = k3_times(block, bstate, bx, by, window(block, bx, by),
+                            draws(bx.numel()),
+                            kwargs(2, True, row_bounds=(lo, hi)), cfg_geom,
+                            "row shard u8, geometric", card)
+    del block, bstate
+    # 1 and 32 source views (the 10 cycled)
+    d1 = data[True].replace(src_quads=data[True].src_quads[:1].contiguous(),
+                            src_cams=data[True].src_cams.map(lambda a: a[:1]),
+                            src_depths=src_depths[:1].contiguous(), num_src=1)
+    errs.append(k3_check(d1, state.replace(
+        selected=state.selected[..., :1].contiguous()), x, y, window(d1, x, y),
+        dr, kwargs(2, True), "black u8, geometric, 1 view"))
+    d32, idx = cycled_views(data[True], 32)
+    errs.append(k3_check(d32, state.replace(
+        selected=state.selected[..., idx].contiguous()), x, y,
+        window(d32, x, y), dr, kwargs(2, True),
+        "black u8, geometric, 32 views (the 10 cycled)"))
+    del d1, d32
+    # a ragged batch and one pixel
+    n = x.numel() - 17
+    errs.append(k3_check(data[True], state, x[:n], y[:n],
+                         window(data[True], x[:n], y[:n]), draws(n),
+                         kwargs(2, True), "ragged batch u8, geometric"))
+    errs.append(k3_check(data[True], state, x[:1], y[:1],
+                         window(data[True], x[:1], y[:1]), draws(1),
+                         kwargs(2, True), "one pixel u8, geometric"))
     res["max_abs_err"] = max(errs)
     return res
 
@@ -1071,33 +1383,38 @@ def coloured_points(ply: Path, what: str) -> int:
 
 
 def reset_counts() -> None:
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
-    sampler.reset_launches()
-    ncc.reset_launches()
-    sweep.reset_launches()
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
+    for mod in (sampler, ncc, strong, sweep):
+        mod.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset, in this process: K1's
-    and K2's by call site, K5's by mode."""
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
+    and K2's by call site, K3's with the colour updates they served, K5's
+    by mode."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
-                k5=sweep.launches, k5_modes=dict(sweep.mode_launches))
+                k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
+                k3=strong.launches, k3_colours=strong.colours)
 
 
 def parsed_counts(match) -> dict:
     """``read_counts``'s dict from one LAUNCH_RE match of an engine's log."""
     return dict(k1=int(match[0]), sites=json.loads(match[1]),
                 k2=int(match[2]), k2_sites=json.loads(match[3]),
-                k5=int(match[4]), k5_modes=json.loads(match[5]))
+                k5=int(match[4]), k5_modes=json.loads(match[5]),
+                k3=int(match[6]), k3_colours=int(match[7]))
 
 
 # K1's call sites on the main paths: the deformable NCC's two windows
 WEAK_SITES = ("weak_centre", "weak_anchor")
-# K2's: the strong path (the initial cost, the strong sweep) and the debug
-# tool; a sweep that reached K2 would count under another site
-K2_SITES = ("init", "strong", "debug_point")
+# K2's: the initial cost and the debug tool; the strong sweep runs in K3, the
+# classify and refine sweeps in K5, and K2 launched for either would count
+# under another site ("strong", "other")
+K2_SITES = ("init", "debug_point")
+# K3 launches a colour update may take at most (it takes one)
+K3_LAUNCHES_A_COLOUR = 2
 
 
 def k1_elsewhere(sites: dict) -> int:
@@ -1108,34 +1425,40 @@ def k1_elsewhere(sites: dict) -> int:
 
 
 def k2_elsewhere(k2_sites: dict) -> int:
-    """K2 launches at any site but the strong path's in a by-site count:
-    a disparity sweep that reached K2 (check_counts holds them at 0)."""
+    """K2 launches at any site but the initial cost's and the debug tool's
+    in a by-site count: a strong, classify or refine sweep that reached K2
+    (check_counts holds them at 0)."""
     return sum(n for site, n in k2_sites.items() if site not in K2_SITES)
 
 
 def check_counts(what: str, c: dict, passes: bool = True) -> None:
-    """The strong NCC went through K2 (at least one launch, every one at a
-    strong-path site, and K1 launched only at the deformable NCC's weak
-    sites), and the disparity sweeps through K5 (at least one classify
-    launch, and on a path that runs a pass at least one refine launch and
-    K2 launches at the strong sweep); each kernel's launches add up over
-    its sites or modes."""
+    """The initial cost's NCC went through K2 (at least one launch, every
+    one at the initial cost's or the debug tool's site, none at the strong
+    sweep's; K1 launched only at the deformable NCC's weak sites), the
+    disparity sweeps through K5 (at least one classify launch, and on a path
+    that runs a pass at least one refine launch), and on a path that runs a
+    pass the strong sweep through K3 (at least one launch, at most
+    K3_LAUNCHES_A_COLOUR a colour update); each kernel's launches add up
+    over its sites or modes."""
     ok = c["k2"] > 0 and sum(c["sites"].values()) == c["k1"] \
         and set(c["sites"]) <= set(WEAK_SITES) \
         and sum(c["k2_sites"].values()) == c["k2"] \
         and set(c["k2_sites"]) <= set(K2_SITES) \
+        and c["k2_sites"].get("strong", 0) == 0 \
         and sum(c["k5_modes"].values()) == c["k5"] \
         and c["k5_modes"].get("classify", 0) > 0
     if passes:
         ok = ok and c["k5_modes"].get("refine", 0) > 0 \
-            and c["k2_sites"].get("strong", 0) > 0
+            and c["k3"] > 0 and c["k3_colours"] > 0 \
+            and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
     if not ok:
         raise AssertionError(f"{what}: launches {json.dumps(c)}")
 
 
 def counts_line(c: dict) -> str:
     return (f"K2 launches {c['k2']} by site "
-            f"{json.dumps(c['k2_sites'], sort_keys=True)}, K5 launches "
+            f"{json.dumps(c['k2_sites'], sort_keys=True)}, K3 launches "
+            f"{c['k3']} for {c['k3_colours']} colour updates, K5 launches "
             f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
             f"K1 launches {c['k1']} by site "
             f"{json.dumps(c['sites'], sort_keys=True)}")
@@ -1402,7 +1725,8 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
                 points=points)
 
 
-KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K5": "sweep"}
+KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K3": "strong",
+                  "K5": "sweep"}
 
 
 def build_race(card: str) -> dict:
@@ -1440,16 +1764,16 @@ def build_race(card: str) -> dict:
 
 
 def kernel_report(card: str) -> None:
-    """A diagnostic: the main path's K2 and K5 instantiations (u8 tables,
-    36-tap square and SA star windows, 10 views) with their registers,
-    local-memory (spill) bytes and resident blocks an SM from the CUDA
-    runtime, and each of the two libraries' SASS instructions a window tap
-    by opcode class (``tools/sass_taps.py``: static instructions of the tap
-    loop, the divisions' slow-path calls included), or a note where
-    ``cuobjdump`` is missing."""
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sweep
+    """A diagnostic: the main path's K2, K3 and K5 instantiations (u8
+    tables, 36-tap square and SA star windows, 10 views) with their
+    registers, local-memory (spill) bytes and resident blocks an SM from the
+    CUDA runtime, and each of the three libraries' SASS instructions a
+    window tap by opcode class (``tools/sass_taps.py``: static instructions
+    of the tap loop, the divisions' slow-path calls included), or a note
+    where ``cuobjdump`` is missing."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, strong, sweep
     from apde_mvs_tpu_torch.tools import sass_taps
-    kernels = (("K2", ncc), ("K5", sweep))
+    kernels = (("K2", ncc), ("K3", strong), ("K5", sweep))
     for name, mod in kernels:
         for form, pixel_offsets in (("square", False), ("SA star", True)):
             info = mod.kernel_info(True, pixel_offsets, pixel_offsets, 36,
@@ -1502,7 +1826,8 @@ PASS_RE = re.compile(r"Pass (\d+) \((\w+)\) wall ([\d.]+) s, exchanged "
 LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), NCC kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), sweep kernel launches: (\d+), by mode "
-                       r"(\{[^}]*\})(?:, rank (\d+) of (\d+))?")
+                       r"(\{[^}]*\}), strong kernel launches: (\d+) for "
+                       r"(\d+) colour updates(?:, rank (\d+) of (\d+))?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
@@ -1529,8 +1854,8 @@ def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
         passes[int(r)].append((int(it), state, float(sec), int(sent)))
     sites = {}
     for m in LAUNCH_RE.findall(text):
-        sites[int(m[6])] = parsed_counts(m)
-        check_counts(f"{what}, rank {m[6]}", sites[int(m[6])])
+        sites[int(m[8])] = parsed_counts(m)
+        check_counts(f"{what}, rank {m[8]}", sites[int(m[8])])
     if sorted(sites) != list(range(RANKS)):
         raise AssertionError(f"{what}: launch lines of ranks "
                              f"{sorted(sites)}")
@@ -1560,6 +1885,7 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
     launches["elsewhere"] = sum(k1_elsewhere(sites[r]["sites"])
                                 for r in range(RANKS))
     launches["K2"] = sum(sites[r]["k2"] for r in range(RANKS))
+    launches["K3"] = sum(sites[r]["k3"] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
     log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
@@ -1628,6 +1954,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
         ok = (dep > 0) & (gt > 0)
         errs[name] = float(np.median(np.abs(dep - gt)[ok] / gt[ok]))
     launches = sum(sites[r]["k2"] for r in range(RANKS))
+    k3 = sum(sites[r]["k3"] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
     k1_other = sum(k1_elsewhere(sites[r]["sites"]) for r in range(RANKS))
@@ -1636,14 +1963,14 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
         f"{[p[0][2] for p in passes.values()]} s, exchanged "
         f"{[p[0][3] for p in passes.values()]} B, serial CLI "
-        f"{serial_s:.3f} s; K2 launches {launches}, K5 launches by mode "
-        f"{k5} [{card}]")
+        f"{serial_s:.3f} s; K2 launches {launches}, K3 launches {k3}, K5 "
+        f"launches by mode {k5} [{card}]")
     if not max(errs.values()) < 0.01:
         raise AssertionError(f"tile route above the verify bar: {errs}")
     for root in roots.values():
         shutil.rmtree(root)
     return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
-                launches=launches, k5=k5, k1_elsewhere=k1_other,
+                launches=launches, k3=k3, k5=k5, k1_elsewhere=k1_other,
                 k2_elsewhere=sum(k2_elsewhere(sites[r]["k2_sites"])
                                  for r in range(RANKS)),
                 passes=passes)
@@ -1760,7 +2087,7 @@ def main(argv=None) -> int:
 
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, sweep
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
     from apde_mvs_tpu_torch.testing import synthetic
 
     t_all = time.perf_counter()
@@ -1771,9 +2098,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1, K2 and K5 from this checkout ---------------------
+    # ---- setup: build K1, K2, K3 and K5 from this checkout -----------------
     build_race(card)
-    for name, mod in (("K1", sampler), ("K2", ncc), ("K5", sweep)):
+    for name, mod in (("K1", sampler), ("K2", ncc), ("K3", strong),
+                      ("K5", sweep)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -1804,6 +2132,7 @@ def main(argv=None) -> int:
     k = kernel_phase(full_scene, args.seed, device, card)
     kk = k2_phase(full_scene, args.seed, device, card)
     k5 = k5_phase(full_scene, args.seed, device, card)
+    k3 = k3_phase(full_scene, args.seed, device, card)
     kw = weak_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1882,6 +2211,14 @@ def main(argv=None) -> int:
         for mode in ("classify", "refine")}
     log(f"K5 launches by path: {json.dumps(k5_paths)}, tile route "
         f"{json.dumps(tl['k5'])} [{card}]")
+    # K3: every strong sweep's colour update, one launch each
+    k3_paths = dict(round0=r0["k3"], apd=ap["k3"], exports=ex["k3"],
+                    view_parallel=vp["launches"]["K3"], nccl=ag["k3"],
+                    batch=bt["k3"], tile_route=tl["k3"])
+    log(f"K3 launches by path: {json.dumps(k3_paths)}; colour updates "
+        f"in-process: round0 {r0['k3_colours']}, apd {ap['k3_colours']}, "
+        f"exports {ex['k3_colours']}, nccl {ag['k3_colours']}, batch "
+        f"{bt['k3_colours']} [{card}]")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
@@ -1921,6 +2258,17 @@ def main(argv=None) -> int:
                          launches=sum(k5_paths[mode].values())
                          + tl["k5"][mode],
                          max_abs_err=k5["max_abs_err"], **k5[mode]))
+    k3_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/strong.cu",
+              "replaces": "apde_mvs_tpu/ops/propagation.py:239-427 "
+                          "(XLA-compiled jnp)"}
+    rows.append(dict(name="K3 strong sweep colour update, black pixels of a "
+                          "view (u8 quads, geometric cost)", **k3_src,
+                     launches=sum(k3_paths.values()),
+                     max_abs_err=k3["max_abs_err"], **k3["strong"]))
+    rows.append(dict(name="K3 strong sweep colour update, tile-route halo "
+                          "row block (u8 quads, geometric cost)", **k3_src,
+                     launches=tl["k3"], max_abs_err=k3["max_abs_err"],
+                     **k3["shard"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

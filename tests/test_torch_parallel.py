@@ -321,6 +321,9 @@ def test_cli_torchrun_two_ranks_cpu(tmp_path):
     assert {int(b) > 0 for p, b, _ in passes if p != "0"} == {True}
     assert len(re.findall(r"Sampler kernel launches: 0, .*rank \d of 2",
                           log)) == 2
+    # CPU ranks run the plain versions: the colour update K3 never launches
+    assert len(re.findall(r"strong kernel launches: 0 for 0 colour "
+                          r"updates, rank \d of 2", log)) == 2
     for v in range(V):
         depth = binmat.read_bin_mat(tmp_path / "scan" / "APD" / f"{v:08d}"
                                     / "depths.bin")
