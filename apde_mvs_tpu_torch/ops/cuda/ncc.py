@@ -89,14 +89,13 @@ def library() -> _build.Built:
     return built
 
 
-def read_kernel_info(fn, quads_u8: bool, pixel_offsets: bool,
-                     weighted: bool, num_taps: int, num_views: int) -> dict:
-    """Call a library's ``*_kernel_info`` entry point: the instantiation's
-    registers, local memory (spill) bytes and resident blocks an SM."""
+def read_kernel_info(fn, *args: int) -> dict:
+    """Call a library's ``*_kernel_info`` entry point with the integers
+    ``args`` that pick the instantiation: its registers, local memory
+    (spill) bytes and resident blocks an SM."""
     out = [ctypes.c_int(0) for _ in range(3)]
-    _raise_on(fn(int(quads_u8), int(pixel_offsets), int(weighted), num_taps,
-                 num_views, *(ctypes.addressof(v) for v in out)),
-              "kernel_info")
+    _raise_on(fn(*(int(a) for a in args),
+                 *(ctypes.addressof(v) for v in out)), "kernel_info")
     return dict(zip(("regs", "local_bytes", "blocks_per_sm"),
                     (v.value for v in out)))
 
@@ -194,10 +193,8 @@ def _check_args(data, x, y, plane, win) -> tuple:
     return b, t, pixel_offsets, want
 
 
-def check_window(data, b: int, win, pixels=None) -> tuple:
-    """The view limit, the quad tables, and the window of ``b`` pixels
-    (``pixels``: the pixel tensor's shape, for the message). Returns (T,
-    per-pixel offsets, {name: (tensor, shape)}) for `_check_tensors`."""
+def check_tables(data) -> None:
+    """The view limit and the source quad tables."""
     quads = data.src_quads
     s = data.num_src
     if s > MAX_VIEWS:
@@ -209,6 +206,13 @@ def check_window(data, b: int, win, pixels=None) -> tuple:
                          f"4), got {tuple(quads.shape)}")
     if quads.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"quad table dtype {quads.dtype} (u8 or f32)")
+
+
+def check_window(data, b: int, win, pixels=None) -> tuple:
+    """The view limit, the quad tables, and the window of ``b`` pixels
+    (``pixels``: the pixel tensor's shape, for the message). Returns (T,
+    per-pixel offsets, {name: (tensor, shape)}) for `_check_tensors`."""
+    check_tables(data)
     t = win.tap_val.shape[-1] if win.tap_val.ndim == 2 else 0
     offsets = win.tap_dx.shape
     want = {"tap_val": (win.tap_val, (b, t)),

@@ -14,13 +14,17 @@ hypotheses from the injected draws, each costed over the selected views
 body it replaced is ``testing/strong_composition.py``.
 
 The kernel (``csrc/strong.cu``) runs the whole update in one launch: a warp
-a pixel, its (plane, view) pairs across the lanes; only the four outputs
-are written. What bounds it on the H100: operations (K2's 38 f32
-operations a tap and 90 a pair for every evaluated pair, K4's 115 a pair,
-the selection's and the hypotheses' per pixel).
+a pixel, its (plane, view) pairs across the lanes; it builds each pixel's
+reference window from ``data.ref_image`` (and, under SA, ``data.sa_mask``)
+itself, so the inputs are the image, the state, the pixels and the draws,
+and only the four outputs are written. What bounds it on the H100:
+operations (30 f32 operations a tap and 138 a pair for every evaluated
+pair, K4's 115 a pair, the selection's and the hypotheses' per pixel).
 
-The plain version fixes every operation's order: K2's plain NCC
-(``ncc_strong_plain``), ``cost.geom_cost``'s torch ops, the selection of
+The plain version fixes every operation's order: the window of
+``cost.precompute_ref_window`` with its sums in tap order
+(``window_plain``), K2's plain NCC (``ncc_strong_plain``),
+``cost.geom_cost``'s torch ops, the selection of
 ``selection.ordered_*`` (the priors, the probabilities and the CDF as
 ordered adds), every view sum as ordered adds over s = 0 .. S-1, the
 hypotheses' norms and dot products written out x, y, z, every division a
@@ -28,8 +32,9 @@ true one between tensors. The kernel computes the same sequence with every
 operation rounded on its own, so the two agree bit for bit on the card.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback. ``launches`` counts kernel launches and
-``colours`` the colour updates they served (one launch each).
+raises — there is no fallback. ``launches`` counts kernel launches,
+``colours`` the colour updates they served (one launch each) and
+``sa_launches`` those with an SA window.
 """
 
 from __future__ import annotations
@@ -45,13 +50,15 @@ import torch
 from ...core import geometry as geo
 from ...core.sampling import fetch
 from .. import selection
-from ..cost import COST_MAX, geom_cost
+from ..cost import COST_MAX, RefWindow, geom_cost, ref_window_taps, \
+    square_taps
 from . import build as _build
 from . import ncc, sweep
 from .sweep import _f32
 
 launches = 0      # kernel launches since the last reset (plain runs excluded)
 colours = 0       # colour updates those launches served
+sa_launches = 0   # those launches whose window was SA's
 
 MAX_VIEWS = ncc.MAX_VIEWS
 CAM_STRIDE = sweep.CAM_STRIDE   # the camera table is K5's
@@ -71,9 +78,10 @@ class StrongOutputs(NamedTuple):
 
 
 def reset_launches() -> None:
-    global launches, colours
+    global launches, colours, sa_launches
     launches = 0
     colours = 0
+    sa_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,9 +95,9 @@ def library() -> _build.Built:
     f32 = ctypes.c_float
     lib.apde_strong.argtypes = (
         [ptr, i32, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, i32, i32, i32,
-         i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, ptr,
-         ptr, ptr, ptr, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr,
-         ctypes.c_int64, i32, i32, i32, i32, i32, i32, ptr])
+         i32, ptr, ptr, ptr, i32, ptr, i32, i32, f32, ptr, ptr, ptr, ptr,
+         ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ctypes.c_int64,
+         i32, i32, i32, i32, i32, ptr])
     lib.apde_strong.restype = i32
     for fn in (lib.apde_strong_max_views, lib.apde_strong_cam_stride,
                lib.apde_strong_num_samples):
@@ -99,6 +107,8 @@ def library() -> _build.Built:
     lib.apde_strong_smem_bytes.restype = ctypes.c_longlong
     lib.apde_strong_kernel_info.argtypes = [i32] * 5 + [ptr] * 3
     lib.apde_strong_kernel_info.restype = i32
+    lib.apde_strong_div_check.argtypes = [ptr, ptr, ctypes.c_int64, ptr, ptr]
+    lib.apde_strong_div_check.restype = i32
     if (lib.apde_strong_max_views(), lib.apde_strong_cam_stride(),
             lib.apde_strong_num_samples()) \
             != (MAX_VIEWS, CAM_STRIDE, NUM_SAMPLES):
@@ -107,18 +117,59 @@ def library() -> _build.Built:
     return built
 
 
-def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
-                num_taps: int, num_views: int) -> dict:
+def kernel_info(quads_u8: bool, sa: bool, radius: int, increment: int,
+                num_views: int) -> dict:
     """The kernel instantiation's registers, local memory (spill) bytes and
-    resident blocks an SM at ``num_views`` views, from the CUDA runtime."""
+    resident blocks an SM at ``num_views`` views, from the CUDA runtime:
+    u8 or f32 tables, with or without SA, the window of (radius,
+    increment)."""
     return ncc.read_kernel_info(library().lib.apde_strong_kernel_info,
-                                quads_u8, pixel_offsets, weighted, num_taps,
-                                num_views)
+                                quads_u8, sa, radius, increment, num_views)
+
+
+def div_check(num: torch.Tensor, den: torch.Tensor) -> Tuple[int, int]:
+    """The division K3's taps take without checks (a refined reciprocal
+    shared by a tap's two quotients) against ``__fdiv_rn`` on the card:
+    ``num`` (n, 2) numerators over ``den`` (n,) denominators, f32 CUDA
+    tensors. Returns (quotients whose bits differ, triples compared: those
+    whose operands all lie in the fast range)."""
+    if num.shape != (den.shape[0], 2) or num.dtype != torch.float32 \
+            or den.dtype != torch.float32 or num.device.type != "cuda" \
+            or den.device != num.device:
+        raise ValueError("div_check takes (n, 2) and (n,) f32 CUDA tensors")
+    num, den = num.contiguous(), den.contiguous()
+    counts = torch.zeros(2, dtype=torch.int64, device=num.device)
+    ncc._raise_on(library().lib.apde_strong_div_check(
+        num.data_ptr(), den.data_ptr(), den.shape[0], counts.data_ptr(),
+        torch.cuda.current_stream(num.device).cuda_stream),
+        "apde_strong_div_check")
+    bad, compared = counts.tolist()
+    return bad, compared
 
 
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
+
+def ordered_sum(v: torch.Tensor) -> torch.Tensor:
+    """sum_t v[..., t], added in order from +0."""
+    acc = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for t in range(v.shape[-1]):
+        acc = acc + v[..., t]
+    return acc
+
+
+def window_plain(data, x, y, radius: int, increment: int,
+                 use_sa: bool) -> RefWindow:
+    """The reference window K3 builds for pixels (x, y) f32: the taps,
+    weights and values of ``cost.precompute_ref_window``, its sums taken in
+    tap order. With u8 tables the values are integers, so the sums equal
+    ``precompute_ref_window``'s in any order."""
+    dx, dy, val, w = ref_window_taps(data, x, y, radius, increment, use_sa)
+    wv = val if w is None else w * val
+    return RefWindow(dx, dy, val, ordered_sum(wv), ordered_sum(wv * val),
+                     float(dx.shape[0]) if w is None else w.sum(-1), w)
+
 
 def weighted_sum(vw: torch.Tensor, costs: torch.Tensor) -> torch.Tensor:
     """sum_s vw[..., s] * costs[..., s], added in view order from 0."""
@@ -272,14 +323,15 @@ def commit_plain(plane_cur, cost_cur, cur_plane, cost_recomputed,
             torch.where(commit, cost_cur, cost_recomputed))
 
 
-def strong_plain(data, state, x, y, win, draws, *, iteration, depth_min,
-                 depth_max, geom_factor, geom: bool, refine_init: bool,
-                 row_bounds=None) -> StrongOutputs:
+def strong_plain(data, state, x, y, draws, *, radius, increment, use_sa,
+                 iteration, depth_min, depth_max, geom_factor, geom: bool,
+                 refine_init: bool, row_bounds=None) -> StrongOutputs:
     """The colour update of pixels (x, y) int32 as torch ops, in the
     kernel's operation order."""
     dev = x.device
     xf, yf = x.to(torch.float32), y.to(torch.float32)
     cam = data.ref_cam
+    win = window_plain(data, xf, yf, radius, increment, use_sa)
     dmin, dmax, gf = (geo.f32_scalar(_f32(v), dev)
                       for v in (depth_min, depth_max, geom_factor))
 
@@ -328,25 +380,36 @@ def strong_plain(data, state, x, y, win, draws, *, iteration, depth_min,
 # Wrapper
 # ---------------------------------------------------------------------------
 
-def _check_args(data, state, x, y, win, draws, geom: bool) -> tuple:
-    """K2's checks of the window and tables, then the pixels, the state,
-    the draws and the source depths, on every device. Returns (B, T,
-    per-pixel offsets, {name: tensor})."""
+def _check_args(data, state, x, y, draws, radius, increment, use_sa,
+                geom: bool) -> tuple:
+    """K2's checks of the quad tables, then the window, the reference image
+    and segment ids, the pixels, the state, the draws and the source depths,
+    on every device. Returns (B, T, SA on, {name: tensor})."""
     if x.ndim != 1 or y.shape != x.shape:
         raise ValueError(f"pixels x {tuple(x.shape)}, y {tuple(y.shape)}: "
                          "need (B,) and (B,)")
     b = x.shape[0]
-    t, pixel_offsets, want = ncc.check_window(data, b, win)
+    ncc.check_tables(data)
+    if int(radius) != radius or int(increment) != increment or radius < 0 \
+            or increment < 1:
+        raise ValueError(f"window radius {radius}, increment {increment}: "
+                         "need integers >= 0 and >= 1")
+    t = len(square_taps(int(radius), int(increment)))
+    sa = bool(use_sa) and data.sa_mask is not None
+    if sa and t != 36:
+        raise ValueError("SA mixing assumes 36-tap square windows")
     s = data.num_src
     grid = tuple(state.costs.shape)
     if len(grid) != 2:
         raise ValueError(f"costs must be (H, W), got {grid}")
     raws = draws.raws
-    want.update({
+    image = (data.height, data.width)
+    want = {
+        "ref_image": (data.ref_image, image),
         "costs": (state.costs, grid), "planes": (state.planes, grid + (4,)),
         "sel_u": (draws.sel_u, (b, NUM_SAMPLES)),
         "u_rand": (raws.u_rand, (b,)), "g": (raws.g, (b, 3)),
-        "u_pert": (raws.u_pert, (b,)), "angles": (raws.angles, (b, 3))})
+        "u_pert": (raws.u_pert, (b,)), "angles": (raws.angles, (b, 3))}
     if geom:
         depths = data.src_depths
         if depths.ndim != 3:
@@ -357,6 +420,8 @@ def _check_args(data, state, x, y, win, draws, geom: bool) -> tuple:
     ncc._check_tensors(want, dev)
     others = {"x": (x, (b,), torch.int32), "y": (y, (b,), torch.int32),
               "selected": (state.selected, grid + (s,), torch.bool)}
+    if sa:
+        others["sa_mask"] = (data.sa_mask, image, torch.int32)
     for name, (a, shape, dtype) in others.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} is {tuple(a.shape)}, expected {shape}")
@@ -367,29 +432,33 @@ def _check_args(data, state, x, y, win, draws, geom: bool) -> tuple:
                              f"{dev}")
     tensors = {name: a for name, (a, _) in want.items()}
     tensors.update((name, a) for name, (a, _, _) in others.items())
-    return b, t, pixel_offsets, tensors
+    return b, t, sa, tensors
 
 
-def strong_fused(data, state, x, y, win, draws, *, iteration, depth_min,
-                 depth_max, geom_factor, geom: bool, refine_init: bool,
+def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
+                 use_sa: bool, iteration, depth_min, depth_max, geom_factor,
+                 geom: bool, refine_init: bool,
                  row_bounds: Optional[Tuple[int, int]] = None
                  ) -> StrongOutputs:
     """The strong sweep's colour update of pixels (x, y) (B,) int32, all of
     one checkerboard colour, against every source view of ``data`` (a
     ``cost.CostData``): ``state`` (a ``PMState``) gives the costs, planes
-    and selections the candidates and neighbours are read from, ``win``
-    (a ``cost.RefWindow``) the pixels' reference window, ``draws`` (a
-    ``propagation.SweepDraws``) the selection uniforms and refinement
-    draws. With ``geom`` each view's cost of the current plane and the
-    hypotheses adds ``geom_factor`` times the geometric cost against
-    ``data.src_depths``; ``refine_init`` is REFINE_INIT's commit rule;
-    ``row_bounds`` (lo, hi) the rows a candidate region may use (the state
-    arrays' own by default). Every tensor must be contiguous on CUDA."""
-    b, t, pixel_offsets, tensors = _check_args(data, state, x, y, win,
-                                               draws, geom)
+    and selections the candidates and neighbours are read from, ``draws``
+    (a ``propagation.SweepDraws``) the selection uniforms and refinement
+    draws. The reference window is ``cost.precompute_ref_window``'s of
+    (``radius``, ``increment``, ``use_sa``), built from ``data.ref_image``
+    and ``data.sa_mask``. With ``geom`` each view's cost of the current
+    plane and the hypotheses adds ``geom_factor`` times the geometric cost
+    against ``data.src_depths``; ``refine_init`` is REFINE_INIT's commit
+    rule; ``row_bounds`` (lo, hi) the rows a candidate region may use (the
+    state arrays' own by default). Every tensor must be contiguous on
+    CUDA."""
+    b, t, sa, tensors = _check_args(data, state, x, y, draws, radius,
+                                    increment, use_sa, geom)
     quads = data.src_quads
     if quads.device.type == "cpu":
-        return strong_plain(data, state, x, y, win, draws,
+        return strong_plain(data, state, x, y, draws, radius=radius,
+                            increment=increment, use_sa=use_sa,
                             iteration=iteration, depth_min=depth_min,
                             depth_max=depth_max, geom_factor=geom_factor,
                             geom=geom, refine_init=refine_init,
@@ -403,10 +472,10 @@ def strong_fused(data, state, x, y, win, draws, *, iteration, depth_min,
         raise ValueError("quads must be contiguous")
     if quads.data_ptr() % (4 * quads.element_size()):
         raise ValueError("quad table rows must be aligned to their size")
-    weighted = win.tap_w is not None
     lib = library().lib
     s = data.num_src
-    smem = lib.apde_strong_smem_bytes(s, t, int(pixel_offsets), int(weighted))
+    smem = lib.apde_strong_smem_bytes(s, int(radius), int(increment),
+                                      int(sa))
     if smem > SMEM_LIMIT:
         raise ValueError(f"a {t}-tap window at {s} views needs {smem} B of "
                          f"shared memory a block, more than {SMEM_LIMIT}")
@@ -414,10 +483,6 @@ def strong_fused(data, state, x, y, win, draws, *, iteration, depth_min,
     if cams.device != quads.device:
         raise ValueError(f"cameras on {cams.device}, the quad tables on "
                          f"{quads.device}")
-    if isinstance(win.wsum, torch.Tensor):
-        wsum_ptr, inv = win.wsum.data_ptr(), 0.0
-    else:
-        wsum_ptr, inv = None, float(np.float32(1.0) / np.float32(win.wsum))
     gh, gw = state.costs.shape
     lo, hi = (0, gh - 1) if row_bounds is None else row_bounds
     threshold, fallback = selection.selection_thresholds(iteration)
@@ -430,25 +495,25 @@ def strong_fused(data, state, x, y, win, draws, *, iteration, depth_min,
     if b == 0:
         return out
     raws = draws.raws
-    global launches, colours
+    global launches, colours, sa_launches
     launches += 1
     colours += 1
+    sa_launches += int(sa)
     ncc._raise_on(lib.apde_strong(
         quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
         depths.data_ptr() if geom else None,
         depths.shape[1] if geom else 0, depths.shape[2] if geom else 0,
         _f32(geom_factor), state.costs.data_ptr(), state.planes.data_ptr(),
         state.selected.data_ptr(), gh, gw, int(lo), int(hi), x.data_ptr(),
-        y.data_ptr(), win.tap_dx.data_ptr(), win.tap_dy.data_ptr(),
-        int(pixel_offsets), win.tap_val.data_ptr(),
-        win.tap_w.data_ptr() if weighted else None, win.sum_ref.data_ptr(),
-        win.sum_rr.data_ptr(), wsum_ptr, inv, draws.sel_u.data_ptr(),
-        raws.u_rand.data_ptr(), raws.g.data_ptr(), raws.u_pert.data_ptr(),
-        raws.angles.data_ptr(), threshold, fallback, _f32(depth_min),
-        _f32(depth_max), int(refine_init), out.planes.data_ptr(),
-        out.costs.data_ptr(), out.selected.data_ptr(),
-        out.view_weights.data_ptr(), b, s, t, data.width, data.quad_h,
-        data.img_w, data.img_h,
+        y.data_ptr(), data.ref_image.data_ptr(), data.height,
+        data.sa_mask.data_ptr() if sa else None, int(radius),
+        int(increment), float(np.float32(1.0) / np.float32(t)),
+        draws.sel_u.data_ptr(), raws.u_rand.data_ptr(), raws.g.data_ptr(),
+        raws.u_pert.data_ptr(), raws.angles.data_ptr(), threshold, fallback,
+        _f32(depth_min), _f32(depth_max), int(refine_init),
+        out.planes.data_ptr(), out.costs.data_ptr(),
+        out.selected.data_ptr(), out.view_weights.data_ptr(), b, s,
+        data.width, data.quad_h, data.img_w, data.img_h,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_strong")
     return out

@@ -38,8 +38,7 @@ from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch
 from . import selection
-from .cost import COST_MAX, GEOM_COST_MAX, CostData, contiguous_window, \
-    geom_cost, precompute_ref_window
+from .cost import COST_MAX, GEOM_COST_MAX, CostData, geom_cost
 from .deformable import WeakRefData, ncc_weak
 from .state import PMState
 
@@ -201,20 +200,19 @@ def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
                  row_bounds=None):
     """Candidate evaluation + view selection + refinement for one flat batch
     of same-color pixels. Returns (planes_out, costs_out, sel_new, vw):
-    one call of the colour-update kernel K3 (`ops/cuda/strong.py`), its
-    plain version on CPU tensors."""
+    one call of the colour-update kernel K3 (`ops/cuda/strong.py`), which
+    builds the reference window itself, its plain version on CPU
+    tensors."""
     from .cuda.strong import strong_fused
-    win = contiguous_window(precompute_ref_window(
-        data, x.to(torch.float32), y.to(torch.float32), cfg.strong_radius,
-        cfg.strong_increment, cfg.use_sa))
     draws = SweepDraws(draws.sel_u.contiguous(),
                        RefineRaws(*(r.contiguous() for r in draws.raws)))
     state = state.replace(costs=state.costs.contiguous(),
                           planes=state.planes.contiguous(),
                           selected=state.selected.contiguous())
     return tuple(strong_fused(
-        data, state, x.contiguous(), y.contiguous(), win, draws,
-        iteration=iteration, depth_min=depth_min, depth_max=depth_max,
+        data, state, x.contiguous(), y.contiguous(), draws,
+        radius=cfg.strong_radius, increment=cfg.strong_increment,
+        use_sa=cfg.use_sa, iteration=iteration, depth_min=depth_min, depth_max=depth_max,
         geom_factor=geom_factor,
         geom=cfg.geom_consistency and cfg.use_impetus,
         refine_init=cfg.refine_init, row_bounds=row_bounds))

@@ -18,7 +18,14 @@ scene (seed 0), u8 quad tables:
   black pixels of view 0 (10 x 240,000, geometric cost, iteration 2) over
   the same near-truth planes as camera-frame planes, their top-k mean
   costs and views: K3 in a checkout that has it, the torch-op body (14 K2
-  launches and ~100 torch ops) in one from before.
+  launches and ~100 torch ops) in one from before; with the square window
+  and with SA (segment 1 where the depth is below 0.95 of its mean, the
+  star there), so the window's torch ops count where a checkout builds it
+  outside K3;
+- K3 alone at the same two windows (``strong.strong_fused``; in a
+  checkout whose K3 still takes a prebuilt window, that window is built
+  beforehand, untimed: this branch exists only to time such older
+  checkouts against this one).
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
 events). The script imports the package by absolute name, so it times the
@@ -35,6 +42,7 @@ the libraries' file names and the times in ms.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 
 import numpy as np
@@ -220,16 +228,36 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
     x, y = xs2.reshape(-1).contiguous(), ys2.reshape(-1).contiguous()
     draws = propagation.sweep_draws(
         torch.Generator(device=dev).manual_seed(seed), x.numel(), dev)
-    prop = propagation.PropCfg(geom_consistency=True)
     dmin, dmax, gf = (float(np.float32(v)) for v in (
         scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR,
         scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR,
         params.geom_factor))
-    name = "colour update"
-    out[name] = cuda_ms(lambda: propagation._strong_body(
-        data, state, prop, 2, draws, x, y, dmin, dmax, gf), 10)
-    print(f"{name}: {out[name]:.4f} ms ({S} views x {x.numel()} pixels, "
-          "geometric)", flush=True)
+    sa_data = data.replace(sa_mask=torch.as_tensor(
+        scene.depths[0] < 0.95 * scene.depths[0].mean(), device=dev).to(
+            torch.int32))
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    # only an older checkout's K3 takes a prebuilt window
+    takes_window = "win" in inspect.signature(strong.strong_fused).parameters
+    for tag, d, sa in (("", data, False), (" SA", sa_data, True)):
+        prop = propagation.PropCfg(geom_consistency=True, use_sa=sa)
+        name = "colour update" + tag
+        out[name] = cuda_ms(lambda: propagation._strong_body(
+            d, state, prop, 2, draws, x, y, dmin, dmax, gf), 10)
+        print(f"{name}: {out[name]:.4f} ms ({S} views x {x.numel()} pixels, "
+              "geometric)", flush=True)
+        kw = dict(iteration=2, depth_min=dmin, depth_max=dmax,
+                  geom_factor=gf, geom=True, refine_init=False)
+        if takes_window:
+            win = contiguous_window(precompute_ref_window(
+                d, x.float(), y.float(), 5, 2, sa))
+            args = (d, state, x, y, win, draws)
+        else:
+            args = (d, state, x, y, draws)
+            kw.update(radius=5, increment=2, use_sa=sa)
+        name = "K3" + tag
+        out[name] = cuda_ms(lambda: strong.strong_fused(*args, **kw), 10)
+        print(f"{name}: {out[name]:.4f} ms ({S} views x {x.numel()} pixels, "
+              "geometric)", flush=True)
 
 
 def main(argv=None) -> int:

@@ -12,7 +12,9 @@ only for operands out of the fast path's range) by its global loads
 (``LDG``): the tap loop reads one quad-table row a tap and nothing else
 from device memory, so its ``LDG`` count is the number of taps an
 iteration runs (the unroll factor). Per kernel it prints the
-loop's taps an iteration and the instructions a tap by class:
+loop's taps an iteration and the instructions a tap by class, and every
+tap loop's taps an iteration and instructions a tap (``loops``: a kernel
+may hold several, one a window form or division path):
 
 - ``fp32``: FADD, FMUL, FFMA, FSEL, FSETP, FMNMX, FCHK, ...;
 - ``conv``: conversions and roundings (I2F, F2I, FRND, F2F, ...), issued at
@@ -29,7 +31,7 @@ loop's taps an iteration and the instructions a tap by class:
 Without arguments it reads the libraries the package has built under
 ``build/kernels/``. Needs ``cuobjdump`` (the CUDA toolkit); the last line is
 one JSON object ``{library: {kernel: {"taps": n, "per_tap": {class: x},
-"opcodes": {opcode: x}}}}``.
+"opcodes": {opcode: x}, "loops": [[taps, per tap], ...]}}}``.
 """
 
 from __future__ import annotations
@@ -173,7 +175,8 @@ def sass_taps(sass: str) -> dict:
         res[short_name(names[fn])] = dict(
             taps=taps, per_tap_total=round(total / taps, 2),
             per_tap={c: round(n / taps, 2) for c, n in sorted(per_class.items())},
-            opcodes={op: round(n / taps, 2) for op, n in sorted(ops.items())})
+            opcodes={op: round(n / taps, 2) for op, n in sorted(ops.items())},
+            loops=[[t, round(sum(o.values()) / t, 2)] for t, _, o in loops])
     return res
 
 
@@ -197,7 +200,8 @@ def main(argv=None) -> int:
         for kernel, r in res.items():
             cls = ", ".join(f"{c} {n:g}" for c, n in r["per_tap"].items())
             print(f"{lib.name} {kernel}: {r['per_tap_total']:g} a tap "
-                  f"({r['taps']} taps an iteration): {cls}")
+                  f"({r['taps']} taps an iteration): {cls}; every tap loop "
+                  f"(taps, a tap): {r['loops']}")
     print(json.dumps(out))
     return 0
 

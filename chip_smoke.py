@@ -23,13 +23,18 @@ every view, a NaN weight, -0 weights), 32 source views, and every pixel of
 a view in the export-curve form, timed against the per-probe composition it
 replaced (a K2 call, the geometric cost and the view weighting a probe);
 K3, the strong sweep's colour update with K2's NCC and the geometric cost
-inside, bitwise at the black pixels of a view (u8 and f32, geometric cost
-on and off, iterations 0 and 2, REFINE_INIT), selection draws weighting one
-view or many, every plane NaN, an SA star window, a tile-route halo row
-block with its row bounds, 1 and 32 source views, a ragged batch and one
+inside and the reference window built in the kernel, bitwise at the black
+pixels of a view (u8 and f32, geometric cost on and off, iterations 0 and
+2, REFINE_INIT), selection draws weighting one view or many, every plane
+NaN, an SA star window (u8 and f32), a tile-route halo row block with its
+row bounds (square and SA), 1 and 32 source views, a ragged batch and one
 pixel, held to the torch-op body it replaced (``testing.strong_composition``:
-14 K2 calls and the selection's torch ops a colour) at the CPU tests'
-tolerance and timed against it. The paths:
+the window's torch ops, 14 K2 calls and the selection's torch ops a
+colour) at the CPU tests' tolerance and timed against it with the square
+and the SA star window; and the division K3's taps take without checks
+against ``__fdiv_rn`` bit for bit on 2^27 random triples each in a pass's
+ranges, over the fast range and of random bits, and every triple of
+special values. The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -74,8 +79,8 @@ launch, all at the initial cost's and debug_point's sites, none at the
 strong sweep's; none of K1 at a strong site), its classify and refine
 sweeps through K5 (at least one launch of each mode on a path that runs a
 pass) and its strong sweeps through K3 (on a path that runs a pass at least
-one launch, at most two a colour update); K1 must carry the weak sites of
-the APD scan.
+one launch, at most two a colour update; the APD scan at least one with an
+SA window); K1 must carry the weak sites of the APD scan.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -158,6 +163,17 @@ K3_SELECT_OPS_PER_VIEW = 80
 K3_OPS_PER_WEIGHTED_PAIR = 28
 K3_OPS_PER_PIXEL = 300
 K3_PLANES = 6                # the current plane and the 5 hypotheses
+# K3's strong NCC forms each offset's warp products once a pair, so its
+# taps and pairs need other counts than K2's: a tap 6 adds for the 3 warp
+# rows, 2 divisions, one K1 sample (17), 2 products and 3 sums (an SA tap
+# 2 products more); a pair K2's 90 and, on the square window, the 6 x- and
+# 6 y-offsets' adds and their 3 rows' products (48; the star's 4 quadrants
+# form theirs each: 96). The window itself: 4 a (pixel, tap) for the
+# weight-value product, its square and the two sums.
+K3_OPS_PER_TAP = 30
+K3_OPS_PER_PAIR = 138
+K3_STAR_OPS_PER_PAIR = 48
+K3_WINDOW_OPS_PER_TAP = 4
 
 
 def log(msg: str) -> None:
@@ -951,35 +967,44 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
     return res
 
 
-def k3_bound(data, x, win, flags, out, geom: bool) -> tuple:
+def k3_bound(data, x, y, kw: dict, flags, out) -> tuple:
     """The least time the card could take for one K3 call: its f32
-    operations over the plain-f32 rate (the valid candidates against every
-    view, the current plane and the hypotheses against the weighted views
-    this run's selection gave), against the bytes of its inputs (the state
-    arrays, quad tables and source depth maps whole, each read once) and
-    outputs over the memory rate. Returns (ms, "bytes" or "operations",
-    bytes, operations)."""
+    operations over the plain-f32 rate (the pixels' windows built from the
+    reference image, the valid candidates against every view, the current
+    plane and the hypotheses against the weighted views this run's
+    selection gave; a star window's taps weighted), against the bytes of
+    its inputs (the state arrays, reference image, segment ids, quad tables
+    and source depth maps whole, each read once) and outputs over the
+    memory rate. Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
+    import torch
+
+    from apde_mvs_tpu_torch.core.sampling import fetch
+    from apde_mvs_tpu_torch.ops.cost import square_taps
     s, b = data.num_src, x.numel()
-    t = win.tap_val.shape[1]
-    per_tap = K2_OPS_PER_TAP + (2 if win.tap_w is not None else 0)
-    per_pair = t * per_tap + K2_OPS_PER_PAIR
-    cand_pairs = int(flags.sum()) * s
+    geom = kw["geom"]
+    t = len(square_taps(kw["radius"], kw["increment"]))
+    sa = kw["use_sa"] and data.sa_mask is not None
+    star = (fetch(data.sa_mask, x, y) > 0) if sa \
+        else torch.zeros_like(x, dtype=torch.bool)
+    per_pair = t * K3_OPS_PER_TAP + K3_OPS_PER_PAIR
+    pairs = int(flags.sum(-1).mul(s).sum())
     weighted = int((out.view_weights != 0).sum())
-    ops = cand_pairs * per_pair \
+    # a star pixel's pairs weigh each tap and form 4 quadrants' products
+    star_pairs = int((flags.sum(-1) * s + K3_PLANES
+                      * (out.view_weights != 0).sum(-1))[star].sum())
+    ops = pairs * per_pair \
         + K3_PLANES * weighted * (per_pair + (K5_GEOM_OPS_PER_PAIR if geom
                                               else 0)) \
+        + star_pairs * (2 * t + K3_STAR_OPS_PER_PAIR) \
         + weighted * K3_OPS_PER_WEIGHTED_PAIR + b * s * K3_SELECT_OPS_PER_VIEW \
-        + b * (K3_OPS_PER_PIXEL
+        + b * (K3_OPS_PER_PIXEL + t * K3_WINDOW_OPS_PER_TAP
                + (K3_PLANES * K5_GEOM_OPS_PER_PIXEL if geom else 0))
     cells = data.height * data.width
-    per_pixel = 4 * (2 + t + 2 + 15 + 8)       # x, y, values, sums, draws
-    if win.tap_w is not None:
-        per_pixel += 4 * (3 * t + 1)           # offsets, weights, weight sum
-    nbytes = b * (per_pixel + 4 * 5 + 5 * s) + cells * (4 + 16 + s) \
+    nbytes = b * (4 * (2 + 15 + 8) + 4 * 5 + 5 * s) \
+        + cells * (4 + 16 + s) + 4 * cells * (2 if sa else 1) \
         + data.src_quads.numel() * data.src_quads.element_size() \
         + (s + 1) * 40 * 4
-    if win.tap_w is None:
-        nbytes += 8 * t
     if geom:
         nbytes += 4 * data.src_depths.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1002,15 +1027,15 @@ def strong_mismatch(got, want):
     return bad
 
 
-def k3_check(data, state, x, y, win, draws, kw: dict, what: str) -> float:
+def k3_check(data, state, x, y, draws, kw: dict, what: str) -> float:
     """K3 against its plain version on the card: bitwise, every output.
     Returns the max abs difference read from the two (over non-NaN costs
     and planes)."""
     import torch
 
     from apde_mvs_tpu_torch.ops.cuda import strong
-    got = strong.strong_fused(data, state, x, y, win, draws, **kw)
-    want = strong.strong_plain(data, state, x, y, win, draws, **kw)
+    got = strong.strong_fused(data, state, x, y, draws, **kw)
+    want = strong.strong_plain(data, state, x, y, draws, **kw)
     torch.cuda.synchronize()
     bad = {}
     for name, g, w in zip(got._fields, got, want):
@@ -1038,28 +1063,34 @@ def k3_check(data, state, x, y, win, draws, kw: dict, what: str) -> float:
     return max(errs)
 
 
-def k3_times(data, state, x, y, win, draws, kw: dict, cfg, what: str,
+def k3_times(data, state, x, y, draws, kw: dict, what: str,
              card: str) -> dict:
     """K3's, the plain version's and the composition's (the torch-op body
-    it replaced, ``testing.strong_composition``) mean times (CUDA events,
-    warm), the composition held to K3 at the CPU tests' tolerance (view
-    weights and selections exact, planes and costs to 2e-5, at most 0.5%
-    of the pixels flipped on a float tie), and the bound."""
+    it replaced, ``testing.strong_composition``, its window built as torch
+    ops) mean times (CUDA events, warm), the composition held to K3 at the
+    CPU tests' tolerance (view weights and selections exact, planes and
+    costs to 2e-5, at most 0.5% of the pixels flipped on a float tie), and
+    the bound."""
     import torch
 
     from apde_mvs_tpu_torch.core import geometry as geo
     from apde_mvs_tpu_torch.ops.cuda import strong
-    from apde_mvs_tpu_torch.ops.propagation import checkerboard_candidates
+    from apde_mvs_tpu_torch.ops.propagation import PropCfg, \
+        checkerboard_candidates
     from apde_mvs_tpu_torch.testing.strong_composition import \
         strong_composition
     dev = x.device
     scalars = [geo.f32_scalar(kw[k], dev)
                for k in ("depth_min", "depth_max", "geom_factor")]
+    cfg = PropCfg(geom_consistency=kw["geom"], use_sa=kw["use_sa"],
+                  refine_init=kw["refine_init"],
+                  strong_radius=kw["radius"],
+                  strong_increment=kw["increment"])
 
     def comp():
         return strong_composition(data, state, cfg, kw["iteration"], draws,
                                   x, y, *scalars, kw["row_bounds"])
-    got = strong.strong_fused(data, state, x, y, win, draws, **kw)
+    got = strong.strong_fused(data, state, x, y, draws, **kw)
     bad = strong_mismatch(comp(), got)
     torch.cuda.synchronize()
     share = float(bad.float().mean())
@@ -1067,14 +1098,14 @@ def k3_times(data, state, x, y, win, draws, kw: dict, cfg, what: str,
         f"{bad.numel()} pixels differ ({share:.5f}; at most 0.005)")
     if not share <= 0.005:
         raise AssertionError(f"K3 {what} disagrees with the composition")
-    ms = cuda_ms(lambda: strong.strong_fused(data, state, x, y, win, draws,
-                                             **kw), 10)
-    plain_ms = cuda_ms(lambda: strong.strong_plain(data, state, x, y, win,
-                                                   draws, **kw), 1, 1)
+    ms = cuda_ms(lambda: strong.strong_fused(data, state, x, y, draws, **kw),
+                 10)
+    plain_ms = cuda_ms(lambda: strong.strong_plain(data, state, x, y, draws,
+                                                   **kw), 1, 1)
     comp_ms = cuda_ms(comp, 3, 1)
     _, _, flags = checkerboard_candidates(state.costs, x, y,
                                           kw["row_bounds"])
-    bound, by, nbytes, ops = k3_bound(data, x, win, flags, got, kw["geom"])
+    bound, by, nbytes, ops = k3_bound(data, x, y, kw, flags, got)
     log(f"  K3 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, composition "
         f"{comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
         f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
@@ -1088,21 +1119,25 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
     the card, bitwise, at the shapes the main path gives it: the black
     colour of view 0 (240,000 pixels, all 10 sources) with u8 and f32
     tables, the geometric cost on and off, iterations 0 and 2, and
-    REFINE_INIT's commit; an SA star window; a tile-route rank's halo row
-    block with its row bounds; 1 and 32 source views; selection draws that
+    REFINE_INIT's commit; an SA star window, and one where some segment
+    ids are negative (no segment: the square); a tile-route rank's halo
+    row block with its row bounds, square and SA; 1 and 32 source views,
+    square and SA at 32; selection draws that
     weight one view or many; every plane NaN (no view weighted); a ragged
     batch and one pixel; then its times against the plain version and the
-    composition it replaced. The state: a REFINE_ITER pass's (near-truth
-    planes, some 3% off; the top-k mean costs and views of K2's costs)."""
+    composition it replaced, with the square and the SA star window. K3
+    builds each pixel's window from the reference image and segment ids
+    itself. The state: a REFINE_ITER pass's (near-truth planes, some 3%
+    off; the top-k mean costs and views of K2's costs). Last, the division
+    K3's taps take against __fdiv_rn (``div_phase``)."""
     import numpy as np
     import torch
 
     from apde_mvs_tpu_torch import config as cfg
     from apde_mvs_tpu_torch.core import checkerboard as cb
     from apde_mvs_tpu_torch.core import geometry as geo
-    from apde_mvs_tpu_torch.ops.cost import CostData, contiguous_window, \
-        precompute_ref_window
-    from apde_mvs_tpu_torch.ops.propagation import PropCfg
+    from apde_mvs_tpu_torch.ops.cost import CostData
+    from apde_mvs_tpu_torch.ops.cuda import strong
     from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
     from apde_mvs_tpu_torch.testing.kernel_cases import block_state, \
         cycled_views, strong_draws
@@ -1126,12 +1161,9 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
     xs, ys = cb.color_coords(H, W, 0, device=device)
     x, y = xs.reshape(-1).contiguous(), ys.reshape(-1).contiguous()
 
-    def window(d, x, y, use_sa=False):
-        return contiguous_window(precompute_ref_window(
-            d, x.float(), y.float(), 5, 2, use_sa))
-
-    def kwargs(it, geom, refine_init=False, row_bounds=None):
-        return dict(iteration=it, depth_min=dmin, depth_max=dmax,
+    def kwargs(it, geom, refine_init=False, row_bounds=None, use_sa=False):
+        return dict(radius=5, increment=2, use_sa=use_sa, iteration=it,
+                    depth_min=dmin, depth_max=dmax,
                     geom_factor=params.geom_factor, geom=geom,
                     refine_init=refine_init, row_bounds=row_bounds)
 
@@ -1139,39 +1171,53 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
         return strong_draws(n, pattern, seed, device)
 
     log(f"K3 strong shape: {S} views x {x.numel()} pixels x 36 taps, 8 "
-        "candidates, the current plane and 5 hypotheses in one launch")
+        "candidates, the current plane and 5 hypotheses in one launch, the "
+        "window built in the kernel")
     errs, res = [], {}
     dr = draws(x.numel())
     for u8 in (True, False):
-        win = window(data[u8], x, y)
         for it, geom in ((2, True), (0, False)):
             errs.append(k3_check(
-                data[u8], state, x, y, win, dr, kwargs(it, geom),
+                data[u8], state, x, y, dr, kwargs(it, geom),
                 f"black u8={u8}, iteration {it}"
                 f"{', geometric' if geom else ''}"))
-    win = window(data[True], x, y)
-    errs.append(k3_check(data[True], state, x, y, win, dr,
+    errs.append(k3_check(data[True], state, x, y, dr,
                          kwargs(2, True, refine_init=True),
                          "black u8, geometric, REFINE_INIT"))
     for pattern in ("one", "spread"):
-        errs.append(k3_check(data[True], state, x, y, win,
+        errs.append(k3_check(data[True], state, x, y,
                              draws(x.numel(), pattern), kwargs(2, True),
                              f"black u8, geometric, selection {pattern}"))
     nan_state = state.replace(planes=torch.full_like(state.planes,
                                                      float("nan")))
-    errs.append(k3_check(data[True], nan_state, x, y, win, dr,
-                         kwargs(2, True), "black u8, every plane NaN"))
-    cfg_geom = PropCfg(geom_consistency=True)
-    res["strong"] = k3_times(data[True], state, x, y, win, dr,
-                             kwargs(2, True), cfg_geom,
+    errs.append(k3_check(data[True], nan_state, x, y, dr, kwargs(2, True),
+                         "black u8, every plane NaN"))
+    res["strong"] = k3_times(data[True], state, x, y, dr, kwargs(2, True),
                              "black u8, geometric", card)
-    # the SA star window on the segment masks
-    swin = window(data[True], x, y, use_sa=True)
-    cut = int((swin.wsum < 36).sum())
-    if cut == 0:
+    # the SA star window on the segment masks, u8 and f32, timed on u8
+    swin = strong.window_plain(data[True], x.float(), y.float(), 5, 2, True)
+    star = int((swin.tap_w is not None) and (swin.wsum < 36).sum())
+    if star == 0:
         raise AssertionError("no SA window was truncated")
-    errs.append(k3_check(data[True], state, x, y, swin, dr, kwargs(2, True),
-                         f"SA star u8, geometric ({cut} windows cut)"))
+    del swin
+    for u8 in (True, False):
+        errs.append(k3_check(data[u8], state, x, y, dr,
+                             kwargs(2, True, use_sa=True),
+                             f"SA star u8={u8}, geometric ({star} windows "
+                             "cut)"))
+    res["sa"] = k3_times(data[True], state, x, y, dr,
+                         kwargs(2, True, use_sa=True),
+                         "SA star u8, geometric", card)
+    # negative segment ids: no segment, so the square window (ids > 0 take
+    # the star), and their pixels leave their neighbours' segments
+    neg = torch.where(sa % 2 == 1, -sa, sa)
+    n_neg = int((neg[y.long(), x.long()] < 0).sum())
+    if n_neg == 0:
+        raise AssertionError("no pixel has a negative segment id")
+    errs.append(k3_check(data[True].replace(sa_mask=neg), state, x, y, dr,
+                         kwargs(2, True, use_sa=True),
+                         f"SA u8, geometric, odd segment ids negative "
+                         f"({n_neg} pixels)"))
     # one tile-route rank: rows 0 .. H / RANKS - 1 with their halo, the
     # halo rows above the image zero, the candidates held to the image rows
     block, row0, lo, hi = halo_block(data[True], 0, H // RANKS, HALO_ROWS)
@@ -1180,14 +1226,15 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
     bstate = block_state(state, row0, block.height)
     bxs, bys = cb.color_coords(block.height, W, 0, device=device)
     bx, by = bxs.reshape(-1).contiguous(), bys.reshape(-1).contiguous()
-    errs.append(k3_check(block, bstate, bx, by, window(block, bx, by),
-                         draws(bx.numel()), kwargs(2, True,
-                                                   row_bounds=(lo, hi)),
-                         f"row shard u8, geometric (block {block.height} "
-                         f"rows, tables {block.quad_h}, rows {lo}..{hi})"))
-    res["shard"] = k3_times(block, bstate, bx, by, window(block, bx, by),
-                            draws(bx.numel()),
-                            kwargs(2, True, row_bounds=(lo, hi)), cfg_geom,
+    for use_sa in (False, True):
+        errs.append(k3_check(block, bstate, bx, by, draws(bx.numel()),
+                             kwargs(2, True, row_bounds=(lo, hi),
+                                    use_sa=use_sa),
+                             f"row shard u8, geometric{', SA' * use_sa} "
+                             f"(block {block.height} rows, tables "
+                             f"{block.quad_h}, rows {lo}..{hi})"))
+    res["shard"] = k3_times(block, bstate, bx, by, draws(bx.numel()),
+                            kwargs(2, True, row_bounds=(lo, hi)),
                             "row shard u8, geometric", card)
     del block, bstate
     # 1 and 32 source views (the 10 cycled)
@@ -1195,24 +1242,86 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
                             src_cams=data[True].src_cams.map(lambda a: a[:1]),
                             src_depths=src_depths[:1].contiguous(), num_src=1)
     errs.append(k3_check(d1, state.replace(
-        selected=state.selected[..., :1].contiguous()), x, y, window(d1, x, y),
-        dr, kwargs(2, True), "black u8, geometric, 1 view"))
+        selected=state.selected[..., :1].contiguous()), x, y, dr,
+        kwargs(2, True), "black u8, geometric, 1 view"))
     d32, idx = cycled_views(data[True], 32)
-    errs.append(k3_check(d32, state.replace(
-        selected=state.selected[..., idx].contiguous()), x, y,
-        window(d32, x, y), dr, kwargs(2, True),
-        "black u8, geometric, 32 views (the 10 cycled)"))
+    for use_sa in (False, True):
+        errs.append(k3_check(d32, state.replace(
+            selected=state.selected[..., idx].contiguous()), x, y, dr,
+            kwargs(2, True, use_sa=use_sa),
+            f"black u8, geometric{', SA' * use_sa}, 32 views (the 10 "
+            "cycled)"))
     del d1, d32
     # a ragged batch and one pixel
     n = x.numel() - 17
-    errs.append(k3_check(data[True], state, x[:n], y[:n],
-                         window(data[True], x[:n], y[:n]), draws(n),
+    errs.append(k3_check(data[True], state, x[:n], y[:n], draws(n),
                          kwargs(2, True), "ragged batch u8, geometric"))
-    errs.append(k3_check(data[True], state, x[:1], y[:1],
-                         window(data[True], x[:1], y[:1]), draws(1),
+    errs.append(k3_check(data[True], state, x[:1], y[:1], draws(1),
                          kwargs(2, True), "one pixel u8, geometric"))
     res["max_abs_err"] = max(errs)
+    res["div"] = div_phase(seed, device, card)
     return res
+
+
+def div_phase(seed: int, device, card: str, n: int = 1 << 27) -> dict:
+    """The division K3's taps take where a pair's window lies in the fast
+    range (``strong.div_check``: a refined reciprocal of tz shared by both
+    quotients, no checks) against ``__fdiv_rn``, bit for bit, over ``n``
+    (two numerators, one denominator) triples of each kind: in the ranges
+    of a pass's warp (tz log-uniform in 1e-3 .. 1e3 of either sign, the
+    quotient uniform in -2000 .. 2000), uniform over the fast range's
+    exponents and mantissas, and random bit patterns (only their triples
+    inside the fast range are compared); then every triple of the special
+    values (NaN, +-inf, +-0, subnormals, the range's edges and their
+    neighbours)."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    gen = torch.Generator(device=device).manual_seed(seed)
+    total = bad = compared = 0
+    chunk = 1 << 25
+
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    for kind in ("pass", "range", "bits"):
+        for _ in range(max(1, n // chunk)):
+            if kind == "pass":
+                den = torch.pow(10.0, uniform(chunk) * 6 - 3)
+                den = torch.where(uniform(chunk) < 0.5, -den, den)
+                num = (uniform((chunk, 2)) - 0.5) * 4000 * den[:, None]
+            elif kind == "range":
+                v = torch.ldexp(1 + uniform((chunk, 3)), torch.randint(
+                    -30, 30, (chunk, 3), generator=gen, device=device))
+                v = torch.where(uniform((chunk, 3)) < 0.5, -v, v)
+                num, den = v[:, :2], v[:, 2]
+            else:
+                bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (chunk, 3),
+                                     generator=gen, device=device,
+                                     dtype=torch.int64).to(torch.int32)
+                num = bits[:, :2].contiguous().view(torch.float32)
+                den = bits[:, 2].contiguous().view(torch.float32)
+            b, c = strong.div_check(num.contiguous(), den.contiguous())
+            total, bad, compared = total + chunk, bad + b, compared + c
+    edges = [2.0 ** -30, 2.0 ** 30, 2.0 ** -126, 2.0 ** -149, 1.0, 3.0,
+             float(np.finfo(np.float32).max), float("inf"), 0.0]
+    vals = np.array(edges + [np.nextafter(np.float32(v), np.float32(0))
+                             for v in edges[:2]]
+                    + [np.nextafter(np.float32(v), np.float32(np.inf))
+                       for v in edges[:2]], np.float32)
+    vals = np.concatenate([vals, -vals, [np.nan]]).astype(np.float32)
+    g = np.stack(np.meshgrid(vals, vals, vals, indexing="ij"), -1)
+    g = torch.as_tensor(g.reshape(-1, 3), device=device)
+    b, c = strong.div_check(g[:, :2].contiguous(), g[:, 2].contiguous())
+    total, bad, compared = total + g.shape[0], bad + b, compared + c
+    log(f"K3 division without checks against __fdiv_rn: {bad} of "
+        f"{2 * compared} quotients differ ({compared} of {total} triples in "
+        f"the fast range) [{card}]")
+    if bad:
+        raise AssertionError(f"K3's division differs from __fdiv_rn in {bad} "
+                             "quotients")
+    return dict(triples=total, compared=compared, differ=bad)
 
 
 def weak_region(depth):
@@ -1396,7 +1505,8 @@ def read_counts() -> dict:
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
                 k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
-                k3=strong.launches, k3_colours=strong.colours)
+                k3=strong.launches, k3_colours=strong.colours,
+                k3_sa=strong.sa_launches)
 
 
 def parsed_counts(match) -> dict:
@@ -1419,9 +1529,9 @@ K3_LAUNCHES_A_COLOUR = 2
 
 def k1_elsewhere(sites: dict) -> int:
     """K1 launches at any site but the weak ones (the strong NCC is K2's)
-    in a by-site count; a K2 count under "K2" is not K1's."""
+    in a by-site count; a K2 or K3 count under "K2" or "K3" is not K1's."""
     return sum(n for site, n in sites.items()
-               if site not in WEAK_SITES + ("K2",))
+               if site not in WEAK_SITES + ("K2", "K3"))
 
 
 def k2_elsewhere(k2_sites: dict) -> int:
@@ -1775,9 +1885,11 @@ def kernel_report(card: str) -> None:
     from apde_mvs_tpu_torch.tools import sass_taps
     kernels = (("K2", ncc), ("K3", strong), ("K5", sweep))
     for name, mod in kernels:
-        for form, pixel_offsets in (("square", False), ("SA star", True)):
-            info = mod.kernel_info(True, pixel_offsets, pixel_offsets, 36,
-                                   FULL_VIEWS - 1)
+        for form, sa in (("square", False), ("SA star", True)):
+            # K3 builds its window (radius 5, increment 2) itself
+            info = strong.kernel_info(True, sa, 5, 2, FULL_VIEWS - 1) \
+                if mod is strong else mod.kernel_info(True, sa, sa, 36,
+                                                      FULL_VIEWS - 1)
             log(f"{name} u8, {form} window, 36 taps, {FULL_VIEWS - 1} views: "
                 f"{info['regs']} registers, {info['local_bytes']} B local "
                 f"(spills), {info['blocks_per_sm']} resident blocks an SM "
@@ -1791,7 +1903,8 @@ def kernel_report(card: str) -> None:
         for kernel, r in taps.items():
             log(f"  SASS a tap, {name} {kernel}: {r['per_tap_total']:g} "
                 f"({r['taps']} taps an iteration): " + ", ".join(
-                    f"{c} {n:g}" for c, n in r["per_tap"].items()))
+                    f"{c} {n:g}" for c, n in r["per_tap"].items())
+                + f"; every tap loop (taps, a tap): {r['loops']}")
 
 
 def repo_env() -> dict:
@@ -2218,7 +2331,11 @@ def main(argv=None) -> int:
     log(f"K3 launches by path: {json.dumps(k3_paths)}; colour updates "
         f"in-process: round0 {r0['k3_colours']}, apd {ap['k3_colours']}, "
         f"exports {ex['k3_colours']}, nccl {ag['k3_colours']}, batch "
-        f"{bt['k3_colours']} [{card}]")
+        f"{bt['k3_colours']}; with an SA window: apd {ap['k3_sa']}, exports "
+        f"{ex['k3_sa']} [{card}]")
+    if not ap["k3_sa"] > 0:
+        raise AssertionError("the APD scan ran no K3 launch with an SA "
+                             "window")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
@@ -2265,6 +2382,10 @@ def main(argv=None) -> int:
                           "view (u8 quads, geometric cost)", **k3_src,
                      launches=sum(k3_paths.values()),
                      max_abs_err=k3["max_abs_err"], **k3["strong"]))
+    rows.append(dict(name="K3 strong sweep colour update, black pixels of a "
+                          "view, SA star window (u8 quads, geometric cost)",
+                     **k3_src, launches=ap["k3_sa"] + ex["k3_sa"],
+                     max_abs_err=k3["max_abs_err"], **k3["sa"]))
     rows.append(dict(name="K3 strong sweep colour update, tile-route halo "
                           "row block (u8 quads, geometric cost)", **k3_src,
                      launches=tl["k3"], max_abs_err=k3["max_abs_err"],

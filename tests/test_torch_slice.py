@@ -151,3 +151,28 @@ def test_run_patchmatch_matches_jax_statistically(scene):
     assert np.median(rel) < 0.01
     # the classification agrees on most pixels
     assert (tout.weak == jout.weak).mean() > 0.8
+
+
+def _pair_txt(path, num_src):
+    """pair.txt of one reference view (0) with ``num_src`` sources."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(f"1\n0\n{num_src} " + " ".join(
+        f"{i} 1.0" for i in range(1, num_src + 1)) + "\n")
+
+
+def test_driver_refuses_more_than_32_sources(tmp_path):
+    """A problem with 33 sources fails in ``generate_sample_list``, before
+    any image is looked for or folder made, naming the limit, the view and
+    its count; 32 sources are taken."""
+    from apde_mvs_tpu_torch.pipeline import driver
+    root = tmp_path / "scan"
+    _pair_txt(root / "pair.txt", 33)
+    with pytest.raises(ValueError, match=r"reference view 0 has 33 source "
+                       r"views.*at most 32"):
+        driver.generate_sample_list(root)
+    assert not (root / "APD").exists()
+    _pair_txt(root / "pair.txt", 32)
+    (root / "images").mkdir()
+    (root / "images" / "00000000.png").write_bytes(b"")
+    probs = driver.generate_sample_list(root)
+    assert len(probs) == 1 and len(probs[0].src_image_ids) == 32

@@ -3,8 +3,10 @@ csrc/strong.cu): its plain version against the torch-op body it replaced
 (``testing.strong_composition``, the old ``propagation._strong_body``: 14 K2
 calls and the selection's torch ops a colour); the reference's quirks on
 crafted pixels; the rule the kernel's weighted pairs rest on; the wrapper's
-CPU contract and the sweep's route through it; and, on a card, the kernel
-against its plain version bit for bit.
+CPU contract and the sweep's route through it; the reference window K3
+builds itself (``strong.window_plain``) against
+``cost.precompute_ref_window``; and, on a card, the kernel against its
+plain version bit for bit.
 
 Cases run on a 24x32 synthetic scene with 4 source views, one colour's
 pixels at a time: u8 and f32 quad tables, square and SA star windows, the
@@ -49,8 +51,7 @@ from apde_mvs_tpu_torch.testing.kernel_cases import (SELECTION_PATTERNS,
                                                      block_state,
                                                      cycled_views,
                                                      strong_draws,
-                                                     weight_pattern,
-                                                     window_25)
+                                                     weight_pattern)
 from apde_mvs_tpu_torch.testing.strong_composition import strong_composition
 
 # one intra-op thread per test worker process (see tests/test_torch_cost.py)
@@ -65,14 +66,22 @@ MAX_FLIP = 0.005
 CASES = ("u8-it2", "f32-geom-it2", "u8-geom-it0", "sa-u8-geom-it1",
          "sa-f32-it2", "u8-geom-init-it2", "halo-u8-geom-it2",
          "halo-sa-f32-init-it1")
+# SA with the odd segment ids negative: no segment, so the square window
+NEG_CASE = "sa-neg-u8-geom-it2"
 # the card's further cases: selection draws weighting one view or many,
 # every plane NaN (no view weighted), 1 or 32 source views (the 4 cycled),
-# a ragged or one-pixel batch, 25-tap windows (the generic tap loop)
+# a ragged or one-pixel batch, other windows than the main path's (the
+# generic tap loop): 25-tap squares of radius 4, step 2 and radius 6, step
+# 3, and SA with a 36-tap square of radius 8, step 3; then the square at
+# 32 views and negative segment ids
 CARD_CASES = CASES + tuple(
     f"u8-geom-it2-sel-{p}" for p in SELECTION_PATTERNS[1:]) + (
     "u8-geom-it2-nan", "u8-geom-it2-s1", "sa-u8-geom-it2-s32",
     "u8-geom-it2-ragged", "u8-geom-it2-one-pixel", "u8-geom-it2-taps25",
-    "f32-it2-taps25-pp")
+    "f32-it2-taps25-pp", "sa-u8-geom-it2-r8i3", "u8-geom-it2-s32",
+    NEG_CASE)
+# (radius, increment) of a case's window
+WINDOWS = {"taps25": (4, 2), "taps25-pp": (6, 3), "r8i3": (8, 3)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +109,7 @@ class Case(NamedTuple):
     state: PMState
     x: torch.Tensor            # (B,) int32
     y: torch.Tensor
-    win: tcost.RefWindow
+    win: tcost.RefWindow       # the window K3 builds (window_plain)
     draws: tprop.SweepDraws
     kw: dict                   # strong_fused's keyword arguments
     cfg: tprop.PropCfg
@@ -163,6 +172,14 @@ def _case(name, device="cpu") -> Case:
                                    "draws")})
 
 
+def _window(name):
+    """(radius, increment) of case ``name``'s window."""
+    for suffix, window in WINDOWS.items():
+        if name.endswith(suffix):
+            return window
+    return 5, 2
+
+
 @functools.lru_cache(maxsize=None)
 def _cpu_case(name) -> Case:
     device = "cpu"
@@ -177,6 +194,8 @@ def _cpu_case(name) -> Case:
     depths = torch.as_tensor(np.stack(scene.depths)[src], device=device)
     mask = torch.as_tensor(_sa_mask(scene.depths[0], 2), device=device) \
         if sa else None
+    if "-neg" in name:
+        mask = torch.where(mask % 2 == 1, -mask, mask)
     data = tcost.CostData.build(
         cams.view(0), cams.map(lambda a: a[src]), imgs[0], imgs[src],
         src_depths=depths, sampler_u8="u8" in name, sa_mask=mask)
@@ -197,25 +216,25 @@ def _cpu_case(name) -> Case:
     elif name.endswith("one-pixel"):
         x, y = x[200:201].contiguous(), y[200:201].contiguous()
     xf, yf = x.float(), y.float()
-    if "taps25" in name:
-        win = window_25(data, xf, yf, per_pixel=name.endswith("-pp"))
-    else:
-        win = tcost.precompute_ref_window(data, xf, yf, 5, 2, use_sa=sa)
+    radius, increment = _window(name)
+    win = k3.window_plain(data, xf, yf, radius, increment, sa)
     pattern = name.split("-sel-")[1] if "-sel-" in name else "random"
     draws = strong_draws(x.numel(), pattern, 7 + CARD_CASES.index(name),
                          device)
     it = int(name.split("-it")[1][0])
     dmin, dmax = _bounds()
-    kw = dict(iteration=it, depth_min=dmin, depth_max=dmax, geom_factor=GF,
-              geom=geom, refine_init="-init" in name, row_bounds=row_bounds)
+    kw = dict(radius=radius, increment=increment, use_sa=sa, iteration=it,
+              depth_min=dmin, depth_max=dmax, geom_factor=GF, geom=geom,
+              refine_init="-init" in name, row_bounds=row_bounds)
     cfg = tprop.PropCfg(geom_consistency=geom, use_sa=sa,
-                        refine_init="-init" in name)
+                        refine_init="-init" in name, strong_radius=radius,
+                        strong_increment=increment)
     return Case(data, state, x, y, tcost.contiguous_window(win), draws, kw,
                 cfg)
 
 
 def _plain(c: Case):
-    return k3.strong_plain(c.data, c.state, c.x, c.y, c.win, c.draws, **c.kw)
+    return k3.strong_plain(c.data, c.state, c.x, c.y, c.draws, **c.kw)
 
 
 def _composition(c: Case):
@@ -242,7 +261,7 @@ def _mismatch(got, want):
 # The plain version on the CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + (NEG_CASE,))
 def test_plain_matches_the_composition_it_replaces(name):
     c = _case(name)
     got = _plain(c)
@@ -454,6 +473,148 @@ def test_weighted_pairs_in_view_order_equal_plain(pattern):
 
 
 # ---------------------------------------------------------------------------
+# The reference window K3 builds
+# ---------------------------------------------------------------------------
+
+WH, WW = 48, 64
+
+
+@functools.lru_cache(maxsize=None)
+def _window_data(u8: bool):
+    """A 48x64 view with segment ids whose star windows are cut: the
+    near half of the scene is segment 1, a block segment 2, 3% of the
+    pixels segment 3, 3% segment -1 and a block -2 (no segment: the
+    square), and the segments' edges run through the image."""
+    scene = synthetic.make_scene(num_views=2, height=WH, width=WW)
+    cams = tgeo.CameraArrays.from_cameras(scene.cameras, device="cpu")
+    imgs = torch.as_tensor(scene.images)
+    rng = np.random.default_rng(11)
+    m = np.where(scene.depths[0] < scene.depths[0].mean(), 1, 0)
+    m[10:30, 20:41] = 2
+    m[rng.random(m.shape) < 0.03] = 3
+    m[rng.random(m.shape) < 0.03] = -1
+    m[32:44, 44:60] = -2
+    return tcost.CostData.build(
+        cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
+        sampler_u8=u8, sa_mask=torch.as_tensor(m.astype(np.int32)))
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("sa", [False, True], ids=["square", "sa-star"])
+def test_window_plain_equals_precompute_ref_window(sa, u8):
+    """``window_plain`` (the window K3 builds, its sums in tap order)
+    against ``cost.precompute_ref_window`` at every pixel of a 48x64 view,
+    each image border included: offsets, values and weights exact; the
+    sums exact on u8-rounded images, within 1e-6 relative on f32."""
+    data = _window_data(u8)
+    xs, ys = tgeo.pixel_grid(WH, WW, "cpu")
+    x, y = xs.reshape(-1), ys.reshape(-1)
+    got = k3.window_plain(data, x, y, 5, 2, sa)
+    want = tcost.precompute_ref_window(data, x, y, 5, 2, use_sa=sa)
+    for name in ("tap_dx", "tap_dy", "tap_val"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if sa:
+        assert torch.equal(got.tap_w, want.tap_w)
+        assert torch.equal(got.wsum, want.wsum)
+    else:
+        assert got.tap_w is None and got.wsum == want.wsum == 36.0
+    for name in ("sum_ref", "sum_rr"):
+        g, w = getattr(got, name), getattr(want, name)
+        if u8:
+            assert torch.equal(g, w), name
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    # the ordered sums are the tap-order sums of the window's own terms
+    wv = got.tap_val if got.tap_w is None else got.tap_w * got.tap_val
+    acc = torch.zeros(x.shape)
+    for t in range(36):
+        acc = acc + wv[:, t]
+    assert torch.equal(got.sum_ref, acc)
+    border = (x == 0) | (y == 0) | (x == WW - 1) | (y == WH - 1)
+    assert int(border.sum()) == 2 * (WH + WW) - 4
+    if sa:
+        ids = data.sa_mask.reshape(-1)
+        star = ids > 0
+        in_image = ((x[:, None] + got.tap_dx >= 0)
+                    & (x[:, None] + got.tap_dx < WW)
+                    & (y[:, None] + got.tap_dy >= 0)
+                    & (y[:, None] + got.tap_dy < WH))
+        skipped = star & (~in_image).any(-1)
+        cut = star & ((got.tap_w == 0) & in_image).any(-1)
+        # star windows at a border skip taps, and some are cut inside
+        assert (skipped & border).any() and cut.any() and (cut & ~border).any()
+        assert (got.wsum[~star] == 36).all()
+        # a negative id is no segment: the square, as at id 0
+        sq = torch.as_tensor(tcost.square_taps(5, 2), dtype=torch.float32)
+        neg = ids < 0
+        assert neg.sum() > 100
+        assert (got.tap_dx[neg] == sq[:, 0]).all()
+        assert (got.tap_dy[neg] == sq[:, 1]).all()
+        # and an in-image star tap on a negative id leaves the segment: it
+        # weighs 0
+        tx = (x[:, None] + got.tap_dx).long().clamp(0, WW - 1)
+        ty = (y[:, None] + got.tap_dy).long().clamp(0, WH - 1)
+        on_neg = star[:, None] & in_image & (data.sa_mask[ty, tx] < 0)
+        assert on_neg.sum() > 100 and (got.tap_w[on_neg] == 0).all()
+
+
+def _star_tables():
+    """The star's tap offsets as csrc/strong.cu encodes them (two bits a
+    tap of kStarIx / kStarIy index {1, 3, 5}, a quadrant's signs from its
+    number)."""
+    import re
+    from pathlib import Path
+    src = (Path(k3.__file__).resolve().parents[2] / "csrc"
+           / "strong.cu").read_text()
+    ix, iy = (int(re.search(rf"{n} = (0x[0-9A-Fa-f]+)u;", src)[1], 16)
+              for n in ("kStarIx", "kStarIy"))
+    taps = []
+    for q in range(4):
+        sx = -1 if q & 1 else 1
+        sy = -1 if q in (1, 2) else 1
+        for k in range(9):
+            taps.append((sx * (2 * ((ix >> 2 * k) & 3) + 1),
+                         sy * (2 * ((iy >> 2 * k) & 3) + 1)))
+    return np.asarray(taps, np.int32)
+
+
+def test_kernel_star_tables_are_cost_star_taps():
+    """The star K3 builds on the card is ``cost.star_taps()``, tap for tap
+    in truncation order."""
+    np.testing.assert_array_equal(_star_tables(), tcost.star_taps())
+
+
+def test_strong_body_builds_no_window(monkeypatch):
+    """``_strong_body`` hands K3 the window's radius, increment and SA flag,
+    never a window: ``precompute_ref_window`` is not called."""
+    c = _case("sa-u8-geom-it1")
+
+    def refuse(*a, **kw):
+        raise AssertionError("precompute_ref_window called")
+    monkeypatch.setattr(tcost, "precompute_ref_window", refuse)
+    dmin, dmax = _bounds()
+    got = tprop._strong_body(c.data, c.state, c.cfg, 1, c.draws, c.x, c.y,
+                             dmin, dmax, GF)
+    for g, w in zip(got, _plain(c._replace(kw=dict(c.kw, iteration=1,
+                                                   row_bounds=None)))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("window, err", [
+    (dict(radius=4), ValueError), (dict(radius=5.5), ValueError),
+    (dict(increment=0), ValueError)], ids=["sa-25-taps", "radius-5.5",
+                                           "increment-0"])
+def test_wrapper_rejects_bad_windows(window, err):
+    """SA mixes the star only with a 36-tap square; the window's radius and
+    increment are integers >= 0 and >= 1."""
+    c = _case("sa-u8-geom-it1")
+    before = _launches()
+    with pytest.raises(err):
+        _fused(c, **window)
+    assert _launches() == before
+
+
+# ---------------------------------------------------------------------------
 # The wrapper's CPU contract and the sweep's route
 # ---------------------------------------------------------------------------
 
@@ -462,8 +623,7 @@ def _launches():
 
 
 def _fused(c: Case, **changes):
-    args = dict(data=c.data, state=c.state, x=c.x, y=c.y, win=c.win,
-                draws=c.draws)
+    args = dict(data=c.data, state=c.state, x=c.x, y=c.y, draws=c.draws)
     kw = dict(c.kw)
     for k, v in changes.items():
         (args if k in args else kw)[k] = v
@@ -501,8 +661,8 @@ def _bad(c: Case, what):
             g=raws.g.double()))), TypeError),
         "angles (B, 2)": (dict(draws=dr._replace(raws=raws._replace(
             angles=raws.angles[:, 1:]))), ValueError),
-        "window float64": (dict(win=c.win._replace(
-            tap_val=c.win.tap_val.double())), TypeError),
+        "window float64": (dict(data=c.data.replace(
+            ref_image=c.data.ref_image.double())), TypeError),
         "src_depths (H, W)": (dict(data=c.data.replace(
             src_depths=c.data.src_depths[0])), ValueError),
         "u_rand on another device": (dict(draws=dr._replace(
