@@ -1,9 +1,10 @@
 // The strong NCC of one (pixel, source view) pair, shared by K2 (ncc.cu,
-// one plane a launch) and K5 (sweep.cu, a disparity sweep a launch), so the
-// two cannot drift apart: the plane homography (geometry.homography), the
-// warp of the centre and of the window taps (geometry.warp), K1's bilinear
-// sample (csrc/sampler.cu), the three window sums with Kahan compensation
-// in tap order, and cost.ncc_from_sums.
+// one plane a launch), K5 (sweep.cu, a disparity sweep a launch), K3
+// (strong.cu) and K6 (weak.cu, the deformable NCC's centre and anchor
+// windows), so they cannot drift apart: the plane homography
+// (geometry.homography), the warp of the centre and of the window taps
+// (geometry.warp), K1's bilinear sample (csrc/sampler.cu), the three window
+// sums with Kahan compensation in tap order, and cost.ncc_from_sums.
 //
 // Every product, sum, quotient and square root is rounded on its own
 // (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn: no FMA
@@ -23,7 +24,8 @@
 // - on the main path's 36-tap windows (cost.square_taps(5, 2), and
 //   cost.star_taps, which SA mixing pairs only with that square) the tap
 //   loop has a compile-time trip count, unrolled by four, so four taps'
-//   gathers are in flight while the Kahan steps run in tap order.
+//   gathers are in flight while the Kahan steps run in tap order; the weak
+//   anchors' 9-tap windows (cost.square_taps(5, 5), K6) unroll whole.
 // The two divisions of a tap's warp stay IEEE (__fdiv_rn): a reciprocal
 // would round differently from the plain versions.
 //
@@ -195,23 +197,27 @@ struct PixelWindow {
   bool empty;
 };
 
-// The strong NCC cost of one (pixel, view): the centre's out-of-image test
-// against the real bounds, the warped taps sampled from the view's quad
-// table ``tab``, the compensated sums in tap order, cost.ncc_from_sums;
-// COST_MAX where the centre leaves the image, a variance or the window is
-// degenerate, or the cost is not finite. kTaps is the window's tap count
-// where it is known at compile time (kMainTaps), else 0 and ``num_taps``
-// counts them.
-template <typename Q, bool kWeighted, int kTaps>
-__device__ __forceinline__ float window_ncc(
-    const Q* __restrict__ tab, const float (&h)[3][3], float x, float y,
-    int num_taps, const PixelWindow& win, int width, int quad_h, float img_w,
-    float img_h) {
+// The centre's out-of-image test of geometry.warp's (x, y) under ``h``,
+// against the real (unpadded) bounds; NaN coordinates are inside.
+__device__ __forceinline__ bool out_of_image(const float (&h)[3][3], float x,
+                                             float y, float img_w,
+                                             float img_h) {
   const float pz = row_dot(h[2][0], h[2][1], h[2][2], x, y);
   const float cx = dvd(row_dot(h[0][0], h[0][1], h[0][2], x, y), pz);
   const float cy = dvd(row_dot(h[1][0], h[1][1], h[1][2], x, y), pz);
-  const bool oob = cx < 0.f || cx >= img_w || cy < 0.f || cy >= img_h;
+  return cx < 0.f || cx >= img_w || cy < 0.f || cy >= img_h;
+}
 
+// The window's NCC cost of one (pixel, view) without the centre's test:
+// the warped taps sampled from the view's quad table ``tab``, the
+// compensated sums in tap order, cost.ncc_from_sums; COST_MAX where a
+// variance or the window is degenerate, or the cost is not finite. kTaps
+// is the window's tap count where it is known at compile time, else 0 and
+// ``num_taps`` counts them.
+template <typename Q, bool kWeighted, int kTaps>
+__device__ __forceinline__ float window_cost(
+    const Q* __restrict__ tab, const float (&h)[3][3], float x, float y,
+    int num_taps, const PixelWindow& win, int width, int quad_h) {
   float s_src = 0.f, s_ss = 0.f, s_rs = 0.f;
   float c_src = 0.f, c_ss = 0.f, c_rs = 0.f;
   auto tap = [&](int t) {
@@ -231,8 +237,11 @@ __device__ __forceinline__ float window_ncc(
     }
     kahan_add(s_rs, c_rs, mul(win.val[t], sv));
   };
-  if constexpr (kTaps > 0) {
+  if constexpr (kTaps >= 16) {
 #pragma unroll 4
+    for (int t = 0; t < kTaps; ++t) tap(t);
+  } else if constexpr (kTaps > 0) {
+#pragma unroll
     for (int t = 0; t < kTaps; ++t) tap(t);
   } else {
     for (int t = 0; t < num_taps; ++t) tap(t);
@@ -253,7 +262,21 @@ __device__ __forceinline__ float window_ncc(
       clamp_keep_nan(sub(1.f, dvd(covar, denom)), 0.f, kCostMax);
   const bool degenerate = var_ref < kMinVar || var_src < kMinVar ||
                           !isfinite(cost) || win.empty;
-  return (oob || degenerate) ? kCostMax : cost;
+  return degenerate ? kCostMax : cost;
+}
+
+// The strong NCC cost of one (pixel, view): COST_MAX where the centre
+// leaves the image (`out_of_image`), else `window_cost`.
+template <typename Q, bool kWeighted, int kTaps>
+__device__ __forceinline__ float window_ncc(
+    const Q* __restrict__ tab, const float (&h)[3][3], float x, float y,
+    int num_taps, const PixelWindow& win, int width, int quad_h, float img_w,
+    float img_h) {
+  const bool oob = out_of_image(h, x, y, img_w, img_h);
+  const float cost =
+      window_cost<Q, kWeighted, kTaps>(tab, h, x, y, num_taps, win, width,
+                                       quad_h);
+  return oob ? kCostMax : cost;
 }
 
 // torch.where(wsum <= 0, 0, 1 / clamp(wsum, min=1e-20)) and wsum <= 0, of

@@ -21,8 +21,8 @@ Forms:
 
 - ``sample_packed(quads, width, height, x, y)``: quads (S, N, 4) u8 or f32
   in the ``pack_bilinear`` layout (N = height * width), x, y (S, ...) f32 ->
-  (S, ...) f32. The deformable NCC's form: one launch samples all S
-  source views of one plane hypothesis.
+  (S, ...) f32: one launch samples all S source views of one plane
+  hypothesis, the form the deformable NCC took before K6.
 - ``sample_blocks(img, xs, ys)``: the Pallas entry's own contract, one (H, W)
   f32 image, coordinates of any shape.
 
@@ -30,8 +30,10 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches, and
 ``site_launches`` splits the packed form's launches by the call site that
 asked for them ("weak_centre" and "weak_anchor": the deformable NCC's
-centre window and anchor windows). The strong NCC samples inside the fused
-kernel K2 (ops/cuda/ncc.py), which repeats K1's sample bit for bit.
+centre and anchor windows in ``testing/weak_composition.py``). No main
+path launches K1: the strong NCC samples inside K2, K3 and K5, the
+deformable NCC inside K6 (ops/cuda/weak.py), each repeating K1's sample
+bit for bit.
 """
 
 from __future__ import annotations

@@ -9,9 +9,10 @@ anchors dominate, then blended 0.25*center + 0.75*strong.
 
 All reference-side quantities (anchor positions, tap values, SA gating,
 window sums) depend only on the pixel, so `WeakRefData.build` hoists them
-out of the per-candidate / per-view loops. `ncc_weak` evaluates one plane
-per pixel against all S views at once: one K1 launch samples the
-(S, B, 36) centre taps and one the (S, B, 8, 9) anchor taps.
+out of the per-candidate / per-view loops. `ncc_weak_planes` evaluates P
+planes per pixel against all S views in one launch of the deformable NCC
+kernel K6 (ops/cuda/weak.py), with the geometric cost K4 inside when asked
+for; `ncc_weak` is its one-plane form.
 """
 
 from __future__ import annotations
@@ -20,10 +21,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core import geometry as geo
-from ..core.sampling import bilinear_sample_packed, clamped_fetch, fetch
-from .cost import COST_MAX, CostData, RefWindow, ncc_from_sums, \
-    precompute_ref_window, square_taps, window_sums
+from ..core.sampling import clamped_fetch, fetch
+from .cost import COST_MAX, CostData, RefWindow, precompute_ref_window, \
+    square_taps
 
 
 class WeakRefData(NamedTuple):
@@ -127,71 +127,33 @@ def _softmax_weighted(costs, mask):
     return torch.clamp(strong_cost, max=COST_MAX)
 
 
-class WeakTaps(NamedTuple):
-    """One plane hypothesis per weak pixel warped into all S source views:
-    the coordinates K1 samples and the out-of-image tests."""
-
-    center_oob: torch.Tensor   # (S, B) the pixel leaves the image
-    cwx: torch.Tensor          # (S, B, T) centre-window taps
-    cwy: torch.Tensor
-    anchor_oob: torch.Tensor   # (S, B, 8) the anchor leaves the image
-    awx: torch.Tensor          # (S, B, 8, T') anchor-window taps
-    awy: torch.Tensor
+def contiguous_ref(wref: WeakRefData) -> WeakRefData:
+    """``wref`` with every tensor contiguous, as K6 takes it."""
+    def c(v):
+        return v.contiguous() if isinstance(v, torch.Tensor) else v
+    return WeakRefData(*(RefWindow(*map(c, v)) if isinstance(v, RefWindow)
+                         else c(v) for v in wref))
 
 
-def weak_taps(data: CostData, wref: WeakRefData, plane, params) -> WeakTaps:
-    """Warp the pixel, its centre window, its anchors and their sparse
-    windows through the homographies of ``plane`` (B, 4)."""
-    Hm = geo.homography(data.ref_cam, data.src_views, plane)   # (S, B, 3, 3)
-    x, y = wref.x, wref.y
-    cx, cy = geo.warp(Hm, x, y)                                 # (S, B)
-    center_oob = (cx < 0) | (cx >= data.img_w) | (cy < 0) \
-        | (cy >= data.img_h)
-    win = wref.center_win
-    cwx, cwy = geo.warp(Hm[..., None, :, :], x[:, None] + win.tap_dx,
-                        y[:, None] + win.tap_dy)
-    awx, awy = geo.warp(Hm[..., None, :, :], wref.anchor_x, wref.anchor_y)
-    a_oob = (awx < 0) | (awx >= data.img_w) | (awy < 0) | (awy >= data.img_h)
-    wk = torch.as_tensor(square_taps(params.weak_radius,
-                                     params.weak_increment),
-                         device=x.device).to(torch.float32)
-    wx, wy = geo.warp(Hm[..., None, None, :, :],
-                      wref.anchor_x[..., None] + wk[:, 0],
-                      wref.anchor_y[..., None] + wk[:, 1])
-    return WeakTaps(center_oob, cwx.contiguous(), cwy.contiguous(), a_oob,
-                    wx.contiguous(), wy.contiguous())
+def ncc_weak_planes(data: CostData, wref: WeakRefData, planes, params,
+                    geom: bool = False, view_weights=None):
+    """Multi-view deformable NCC costs (B, P, S) of P planes (B, P, 4) per
+    weak pixel (reference: ComputeMultiViewCostVectorNew, APD.cu:809-818,
+    over ComputeBilateralNCCNew for every view): one K6 launch on CUDA
+    tensors, its plain version on CPU tensors. Returns a
+    ``cuda.weak.WeakCosts``: the costs and, with ``geom``, the geometric
+    costs (B, P, S), else None. With ``view_weights`` (B, S) only the views
+    weighing > 0 are evaluated, the others cost COST_MAX and geometric cost
+    0."""
+    from .cuda.weak import weak_fused
+    return weak_fused(data, contiguous_ref(wref), planes.contiguous(),
+                      params.weak_radius, params.weak_increment, geom=geom,
+                      view_weights=None if view_weights is None
+                      else view_weights.contiguous())
 
 
 def ncc_weak(data: CostData, wref: WeakRefData, plane, params
              ) -> torch.Tensor:
     """Multi-view deformable NCC cost vector (B, S) of one plane (B, 4) per
-    weak pixel (reference: ComputeMultiViewCostVectorNew, APD.cu:809-818,
-    over ComputeBilateralNCCNew for every view)."""
-    t = weak_taps(data, wref, plane, params)
-
-    # anchor 0 (the pixel) with the strong window: (S, B, T) taps
-    win = wref.center_win
-    csv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
-                                 t.cwx, t.cwy, site="weak_centre")
-    center_cost = ncc_from_sums(win.sum_ref, win.sum_rr,
-                                *window_sums(win.tap_w, win.tap_val, csv),
-                                win.wsum)                       # (S, B)
-
-    # anchors 1..8 with sparse windows: (S, B, 8, T') taps
-    sv = bilinear_sample_packed(data.src_quads, data.width, data.quad_h,
-                                t.awx, t.awy, site="weak_anchor")
-    a_cost = ncc_from_sums(wref.sum_ref, wref.sum_rr,
-                           *window_sums(wref.tap_w, wref.tap_val, sv),
-                           wref.wsum)                           # (S, B, 8)
-
-    # contribution rules (APD.cu:488-571): invalid anchors skip; anchors
-    # whose warp leaves the image contribute COST_MAX iff that anchor
-    # selected this source view; degenerate windows (wsum == 0) skip
-    sel_here = wref.anchor_sel.permute(2, 0, 1)                 # (S, B, 8)
-    computable = wref.anchor_valid & ~t.anchor_oob & (wref.wsum > 0)
-    contrib = computable | (wref.anchor_valid & t.anchor_oob & sel_here)
-    vals = torch.where(computable, a_cost, COST_MAX)
-    strong_cost = _softmax_weighted(vals, contrib)
-    cost = torch.where(contrib.any(-1),
-                       0.25 * center_cost + 0.75 * strong_cost, center_cost)
-    return torch.where(t.center_oob, COST_MAX, cost).T
+    weak pixel: `ncc_weak_planes` with P = 1."""
+    return ncc_weak_planes(data, wref, plane[:, None], params).ncc[:, 0]

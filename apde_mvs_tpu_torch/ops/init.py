@@ -55,7 +55,7 @@ def initial_cost(data: CostData, state: PMState, params, weak_x=None,
     ComputeMultiViewInitialCostandSelectedViews, APD.cu:723-774). Given a
     weak list (``weak_x``, ``weak_y`` (Nw,) int32, ``anchors`` (Nw, 9, 2)),
     those pixels are re-scored with the deformable NCC before the view
-    selection (the APD passes). ``shard`` (`parallel.tile_pass.RowShard`)
+    selection (the APD passes): one K6 launch a chunk of WEAK_CHUNK. ``shard`` (`parallel.tile_pass.RowShard`)
     scores only its rank's rows and slice of the weak list and all-gathers
     the costs; the selection then runs on the whole image on every rank."""
     h, w = data.height, data.width

@@ -38,8 +38,8 @@ from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch
 from . import selection
-from .cost import COST_MAX, GEOM_COST_MAX, CostData, geom_cost
-from .deformable import WeakRefData, ncc_weak
+from .cost import COST_MAX, GEOM_COST_MAX, CostData
+from .deformable import WeakRefData, ncc_weak_planes
 from .state import PMState
 
 
@@ -278,9 +278,9 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
 # Weak sweep (one pass over the compacted weak-pixel list)
 # ---------------------------------------------------------------------------
 
-# weak pixels per sweep evaluation: the deformable NCC carries (S, chunk, 8,
-# 9) anchor taps; the result does not depend on it (draws are taken for the
-# whole list first)
+# weak pixels per sweep evaluation: it bounds the (chunk, 10, S) costs and
+# the plain version's (S, chunk x 10 x 8, 9) anchor taps; the result does
+# not depend on it (draws are taken for the whole list first)
 WEAK_SWEEP_CHUNK = 1 << 16
 
 
@@ -295,9 +295,11 @@ def _weak_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     """Anchor-candidate evaluation + fit-plane test + refinement for one
     flat batch of weak pixels (reference: CheckerboardPropagationWeak,
     APD.cu:1441-1615, and PlaneHypothesisRefinementWeak, :1008-1096).
-    Returns (planes_out, costs_out, sel_new, vw). Each plane hypothesis (8
-    anchor candidates, the current plane, the fit plane, 5 refinement
-    probes) is one all-views `ncc_weak`: 2 K1 launches."""
+    Returns (planes_out, costs_out, sel_new, vw). Two launches of the
+    deformable NCC kernel K6 (`ops/cuda/weak.py`), with the geometric cost
+    K4 inside when the pass is geometric: the 10 candidate planes (8 anchor
+    candidates, the current plane, the fit plane) against every view, then
+    the 5 refinement probes against the views the selection weights."""
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
     cam = data.ref_cam
@@ -314,8 +316,9 @@ def _weak_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     cur_plane = fetch(state.planes, x, y)
     all_planes = torch.cat([cand_planes, cur_plane[:, None],
                             fit_planes[:, None]], 1)            # (B, 10, 4)
-    all_costs = torch.stack([ncc_weak(data, wref, all_planes[:, c], cfg)
-                             for c in range(10)], 1)            # (B, 10, S)
+    geom = cfg.geom_consistency
+    all_costs, gcosts = ncc_weak_planes(data, wref, all_planes, cfg,
+                                        geom=geom)              # (B, 10, S)
     cost_array = torch.where(flags[..., None], all_costs[:, :8], 0.0)
     # C aggregate-init quirk (APD.cu:1464): a missing / non-strong anchor 0
     # leaves cost_array[0][0] = 2.0 (see the strong body)
@@ -332,9 +335,7 @@ def _weak_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
 
     # geometric consistency here has no impetus gate; an invalid candidate
     # pays the flat GEOM_COST_MAX (APD.cu:1556-1576, 1589-1599)
-    if cfg.geom_consistency:
-        gcosts = torch.stack([geom_cost(data, xf, yf, all_planes[:, c])
-                              for c in range(10)], 1)           # (B, 10, S)
+    if geom:
         total = cost_array + geom_factor * torch.where(
             flags[..., None], gcosts[:, :8], GEOM_COST_MAX)
         all_costs = all_costs[:, 8:] + geom_factor * gcosts[:, 8:]
@@ -373,19 +374,21 @@ def _weak_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     depth_cur = geo.depth_from_plane(cam, plane_cur, xf, yf)
     r_depths, r_normals = refinement_from_raws(
         draws.raws, cam, xf, yf, plane_cur, depth_cur, depth_min, depth_max)
-    r_costs, r_planes = [], []
+    r_planes = torch.stack([
+        geo.make_plane(cam, xf, yf, r_depths[:, i], r_normals[:, i])
+        for i in range(5)], 1)                                  # (B, 5, 4)
+    # only the weighted views: the others weigh 0 in every use of the costs
+    cvs, gvs = ncc_weak_planes(data, wref, r_planes, cfg, geom=geom,
+                               view_weights=vw)                 # (B, 5, S)
+    if geom:
+        cvs = cvs + geom_factor * gvs
+    r_costs = []
     for i in range(5):
-        plane_i = geo.make_plane(cam, xf, yf, r_depths[:, i], r_normals[:, i])
-        cv = ncc_weak(data, wref, plane_i, cfg)
-        if cfg.geom_consistency:
-            cv = cv + geom_factor * geom_cost(data, xf, yf, plane_i)
-        d_i = geo.depth_from_plane(cam, plane_i, xf, yf)
+        d_i = geo.depth_from_plane(cam, r_planes[:, i], xf, yf)
         ok = (d_i >= depth_min) & (d_i <= depth_max) & has_views
-        r_costs.append(torch.where(ok, (vw * cv).sum(-1) * inv_norm,
+        r_costs.append(torch.where(ok, (vw * cvs[:, i]).sum(-1) * inv_norm,
                                    math.inf))
-        r_planes.append(plane_i)
     r_costs = torch.stack(r_costs, 1)                           # (B, 5)
-    r_planes = torch.stack(r_planes, 1)                         # (B, 5, 4)
     r_best = torch.argmin(r_costs, -1)[:, None]
     r_cost = torch.gather(r_costs, 1, r_best)[:, 0]
     r_plane = torch.gather(r_planes, 1,

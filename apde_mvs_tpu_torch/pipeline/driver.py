@@ -29,7 +29,7 @@ from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
                          resize_bilinear, resize_nearest, scaled_size,
                          write_image)
 from ..ops.cost import CostData
-from ..ops.cuda import ncc, sampler, strong, sweep
+from ..ops.cuda import ncc, sampler, strong, sweep, weak
 from ..tools import visualize
 from .patchmatch import pad_to_multiple, run_patchmatch
 
@@ -487,7 +487,8 @@ def run_scan(dense_folder, dataset: str = "General", *,
           f"launches: {sweep.launches}, by mode "
           f"{json.dumps(sweep.mode_launches, sort_keys=True)}, strong kernel "
           f"launches: {strong.launches} for {strong.colours} colour updates"
-          f"{tag}\n", end="", flush=True)
+          f"{tag}, weak kernel launches: {weak.launches} for {weak.planes} "
+          "planes\n", end="", flush=True)
 
     if cache is not None and flush:
         cache.flush()

@@ -1,9 +1,11 @@
-"""Inputs that hold K2, K5 and K3 against their plain versions beyond the
-main path's own: view-weight patterns, sources cycled to a view count, a
-25-tap window (the kernels' generic tap loop; the main path runs 36 taps),
-and for K3 selection draws that weight one view or many, and the state of
-a tile route's halo row block. One copy for the CPU tests,
-``chip_smoke.py`` and ``tools/kernel_times.py``."""
+"""Inputs that hold K2, K5, K3 and K6 against their plain versions beyond
+the main path's own: view-weight patterns, sources cycled to a view count,
+a 25-tap window (the kernels' generic tap loop; the main path runs 36
+taps), for K3 selection draws that weight one view or many and the state
+of a tile route's halo row block, and for K6 a weak chunk's plane
+hypotheses with the degenerate ones among them and the probes' view
+weights. One copy for the CPU tests, ``chip_smoke.py`` and
+``tools/kernel_times.py``."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import geometry as geo
 from ..ops.cost import RefWindow, precompute_ref_window
 from ..ops.state import PMState
 
@@ -118,3 +121,64 @@ def block_state(state: PMState, row0: int, height: int) -> PMState:
         return out
     return PMState(**{f.name: take(getattr(state, f.name))
                       for f in dataclasses.fields(PMState)})
+
+
+# K6's probes: no view weighted, one, every view, or Monte-Carlo-like counts
+VIEW_PATTERNS = ("none", "one", "all", "random")
+
+
+def weak_planes(cam, x, y, depth, normal, p: int, seed: int):
+    """(B, P, 4) plane hypotheses for the weak pixels (x, y) f32 of a K6
+    case, from their depths (B,) and camera-frame normals (B, 3) seen by
+    ``cam``: plane 0 through the depth with the normal, the others with the
+    depth scaled by a seeded factor in [0.9, 1.1] and the normal tilted,
+    every third random (depth 0.5-2 times the pixel's, normal along
+    (0.1, -0.1, -1)), which sends centres and anchors out of the image; then
+    the degenerate ones: plane 2 of every 13th pixel NaN, w = 0 on plane 1
+    of every 29th, and the last plane of every 7th the zero plane (a weak
+    pixel without a RANSAC fit)."""
+    rng = np.random.default_rng(seed)
+    b = x.shape[0]
+    dev = x.device
+    scale = rng.uniform(0.9, 1.1, (b, p))
+    scale[:, 0] = 1.0
+    random = (np.arange(p) % 3 == 2) & (np.arange(p) > 0)
+    scale[:, random] = rng.uniform(0.5, 2.0, (b, int(random.sum())))
+    tilt = rng.normal(0.0, 0.15, (b, p, 3))
+    tilt[:, 0] = 0.0
+    n = normal.cpu().numpy()[:, None, :] + tilt
+    n[:, random] = np.array([0.1, -0.1, -1.0])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = depth[:, None] * torch.as_tensor(scale.astype(np.float32),
+                                         device=dev)
+    nt = torch.as_tensor(n.astype(np.float32), device=dev)
+    planes = torch.stack([geo.make_plane(cam, x, y, d[:, i], nt[:, i])
+                          for i in range(p)], 1)
+    if p > 2:
+        planes[::13, 2] = float("nan")
+    if p > 1:
+        planes[::29, 1, 3] = 0.0
+    planes[::7, p - 1] = 0.0
+    return planes.contiguous()
+
+
+def weak_view_weights(b: int, s: int, pattern: str, seed: int, device):
+    """(B, S) f32 view weights of K6's probes by ``pattern``: ``none``
+    (every weight 0), ``one`` (view b mod S only, weighing 1-3), ``all``
+    (1-5 on every view) or ``random`` (counts 0-3, about half of them 0, as
+    the Monte-Carlo selection gives)."""
+    rows = np.arange(b)
+    if pattern == "none":
+        vw = np.zeros((b, s))
+    elif pattern == "one":
+        vw = np.zeros((b, s))
+        vw[rows, rows % s] = 1 + rows % 3
+    elif pattern == "all":
+        vw = 1 + (rows[:, None] + np.arange(s)) % 5
+    elif pattern == "random":
+        rng = np.random.default_rng(seed)
+        vw = np.where(rng.random((b, s)) < 0.5, 0,
+                      rng.integers(1, 4, (b, s)))
+    else:
+        raise ValueError(f"unknown view pattern {pattern!r}")
+    return torch.as_tensor(np.asarray(vw, np.float32), device=device)

@@ -1,5 +1,6 @@
-"""Device times of K2, K5 and the strong sweep's colour update (K3) at the
-main path's shapes, for comparing two checkouts of the port on one card.
+"""Device times of K2, K5, the strong sweep's colour update (K3) and the
+weak sweep's chunk (K6) at the main path's shapes, for comparing two
+checkouts of the port on one card.
 
 The shapes are chip_smoke.py's, on view 0 of the 11-view 600x800 synthetic
 scene (seed 0), u8 quad tables:
@@ -25,14 +26,20 @@ scene (seed 0), u8 quad tables:
 - K3 alone at the same two windows (``strong.strong_fused``; in a
   checkout whose K3 still takes a prebuilt window, that window is built
   beforehand, untimed: this branch exists only to time such older
-  checkouts against this one).
+  checkouts against this one);
+- the weak sweep's body, ``propagation._weak_body``, on one chunk of the
+  APD scan chip_smoke.py runs (``weak_chunk``: round 1 at 600x800, 6 views,
+  the SA mask, REFINE_ITER's geometric cost): two K6 launches in a
+  checkout that has K6, 30 K1 launches and ~14,000 torch ops in one from
+  before; and K6 alone on the chunk's 10 candidate planes (every view) and
+  5 probes (the weighted views), where the checkout has it.
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
 events). The script imports the package by absolute name, so it times the
 checkout found first on ``sys.path``: run it from another checkout's root
 with that root on ``PYTHONPATH`` to time that checkout's kernels.
 
-    python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME]
+    python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] [--weak_only]
     cd OTHER && PYTHONPATH=$PWD python /path/to/kernel_times.py --tag other
 
 Needs a CUDA device. The last line is one JSON object: the tag, the card,
@@ -42,8 +49,10 @@ the libraries' file names and the times in ms.
 from __future__ import annotations
 
 import argparse
+import importlib
 import inspect
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,6 +73,11 @@ from apde_mvs_tpu_torch.testing import synthetic
 
 HEIGHT, WIDTH, VIEWS = 600, 800, 11
 CYCLED = 32
+# chip_smoke.py's APD scan: its views, its pyramid base (round 1 at full
+# size) and the weak plane of benchmarks/fullres_stress.py's scene
+APD_VIEWS = 6
+APD_BASE = 400
+WEAK_REGION = (-0.3, 0.3, -0.2, 0.2)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -260,27 +274,169 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
               "geometric)", flush=True)
 
 
+class WeakChunk(NamedTuple):
+    """One weak-sweep chunk: ``_weak_body``'s arguments, and K6's inputs."""
+
+    data: CostData
+    state: PMState
+    cfg: object           # propagation.PropCfg
+    iteration: int
+    draws: object         # propagation.SweepDraws
+    x: torch.Tensor       # (B,) int32
+    y: torch.Tensor
+    anchors: torch.Tensor  # (B, 9, 2) int32
+    fit: torch.Tensor     # (B, 4) fit planes, zeros where none
+    depth_min: float
+    depth_max: float
+    geom_factor: float
+    candidates: torch.Tensor   # (B, 10, 4) the body's candidate planes
+    probes: torch.Tensor       # (B, 5, 4) refinement probes of the current
+    vw: torch.Tensor           # (B, S) view weights of the body's selection
+
+
+def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
+    """The first weak-sweep chunk of an APD scan's round 1 (``scene`` at
+    600x800 with its weak plane): the reference view's SA mask is the weak
+    plane (depth below 0.95 of its mean), the state the ground-truth depths
+    and normals with the plane WEAK, the initial cost's top-k views
+    selected; anchors from ``anchors.gen_anchors`` and fit planes from
+    ``anchors.ransac_fit_planes``, seeded; the chunk is the first
+    WEAK_SWEEP_CHUNK reliable weak pixels. REFINE_ITER's parameters of the
+    APD round (SA windows, the geometric cost against the ground-truth
+    source depths). The probes are the refinement hypotheses of the
+    current planes, the view weights those of ``_weak_body``'s selection.
+    Uses only what checkouts from before K6 have too."""
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops import propagation
+    H, W = scene.images.shape[1:]
+    S = scene.num_views - 1
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
+    imgs = torch.as_tensor(scene.images, device=dev)
+    depth = torch.as_tensor(scene.depths[0], device=dev)
+    normal = torch.as_tensor(scene.normals[0], device=dev)
+    region = depth < depth.mean() * 0.95
+    data = CostData.build(cams.view(0), cams.map(lambda a: a[1:]), imgs[0],
+                          imgs[1:], src_depths=torch.as_tensor(
+                              np.stack(scene.depths[1:]), device=dev),
+                          sampler_u8=True, sa_mask=region.to(torch.int32))
+    params = next(sp.params for sp in cfg.build_schedule(
+        max(H, W), base=APD_BASE) if sp.params.use_apd
+        and sp.params.geom_consistency)
+    dmin = float(np.float32(scene.cameras[0].depth_min
+                            * cfg.DEPTH_MIN_FACTOR))
+    dmax = float(np.float32(scene.cameras[0].depth_max
+                            * cfg.DEPTH_MAX_FACTOR))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = PMState.create(H, W, S, device=dev).replace(
+        planes=torch.cat([normal, depth[..., None]], -1),
+        weak=torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32),
+        confidence=torch.where(region, 40.0, 200.0))
+    wy, wx = torch.nonzero(region, as_tuple=True)
+    wx, wy = wx.to(torch.int32), wy.to(torch.int32)
+    ns = anc.nearest_strong_jfa(state.weak, state.confidence, state.valid)
+    res = anc.gen_anchors(data, state, wx, wy, params.rotate_time,
+                          params.ransac_threshold, dmin, dmax, ns,
+                          generator=gen)
+    keep = torch.nonzero(res.reliable, as_tuple=True)[0][
+        :propagation.WEAK_SWEEP_CHUNK]
+    x, y, anchors = wx[keep], wy[keep], res.anchors[keep]
+    planes = filters.depth_normal_to_planes(data, depth,
+                                            normal).contiguous()
+    xs, ys = geo.pixel_grid(H, W, dev)
+    costs = ncc_strong(data, xs.reshape(-1), ys.reshape(-1),
+                       planes.reshape(-1, 4), precompute_ref_window(
+                           data, xs.reshape(-1), ys.reshape(-1), 5, 2))
+    mean_cost, sel = initial_cost_and_selection(costs, params.top_k)
+    state = state.replace(planes=planes,
+                          costs=mean_cost.reshape(H, W).contiguous(),
+                          selected=sel.reshape(H, W, S).contiguous())
+    fit = anc.ransac_fit_planes(data, state, x, y, anchors, generator=gen)
+    prop = propagation.PropCfg(
+        geom_consistency=True, use_impetus=bool(params.use_impetus),
+        use_sa=bool(params.use_sa), strong_radius=params.strong_radius,
+        strong_increment=params.strong_increment,
+        weak_radius=params.weak_radius, weak_increment=params.weak_increment)
+    draws = propagation.sweep_draws(gen, x.numel(), dev)
+    gf = float(np.float32(params.geom_factor))
+    a_xc = torch.clamp(anchors[:, 1:, 0], min=0)
+    a_yc = torch.clamp(anchors[:, 1:, 1], min=0)
+    cur = planes[y.long(), x.long()]
+    candidates = torch.cat([planes[a_yc.long(), a_xc.long()], cur[:, None],
+                            fit[:, None]], 1).contiguous()
+    xf, yf = x.float(), y.float()
+    r_depths, r_normals = propagation.refinement_from_raws(
+        draws.raws, data.ref_cam, xf, yf, cur,
+        geo.depth_from_plane(data.ref_cam, cur, xf, yf), dmin, dmax)
+    probes = torch.stack([geo.make_plane(data.ref_cam, xf, yf,
+                                         r_depths[:, i], r_normals[:, i])
+                          for i in range(5)], 1).contiguous()
+    it = 1
+    vw = propagation._weak_body(data, state, prop, it, draws, x, y, anchors,
+                                fit, dmin, dmax, gf)[3].contiguous()
+    return WeakChunk(data, state, prop, it, draws, x, y, anchors, fit, dmin,
+                     dmax, gf, candidates, probes, vw)
+
+
+def weak_times(dev, out: dict, seed: int = 0) -> None:
+    from apde_mvs_tpu_torch.ops import propagation
+    from apde_mvs_tpu_torch.ops.deformable import WeakRefData
+    scene = synthetic.make_scene(num_views=APD_VIEWS, height=HEIGHT,
+                                 width=WIDTH, baseline=0.12,
+                                 focal=1.25 * WIDTH, weak_region=WEAK_REGION)
+    wc = weak_chunk(scene, dev, seed)
+    S = wc.data.num_src
+    what = f"({S} views x {wc.x.numel()} weak pixels, geometric, SA)"
+    out["weak body"] = cuda_ms(lambda: propagation._weak_body(
+        wc.data, wc.state, wc.cfg, wc.iteration, wc.draws, wc.x, wc.y,
+        wc.anchors, wc.fit, wc.depth_min, wc.depth_max, wc.geom_factor), 5)
+    print(f"weak body: {out['weak body']:.4f} ms {what}", flush=True)
+    try:
+        from apde_mvs_tpu_torch.ops.cuda import weak
+        from apde_mvs_tpu_torch.ops.deformable import contiguous_ref
+    except ImportError:
+        print("no K6 in this checkout", flush=True)
+        return
+    wref = contiguous_ref(WeakRefData.build(
+        wc.data, wc.x.float(), wc.y.float(), wc.anchors, wc.state.selected,
+        wc.cfg))
+    r, inc = wc.cfg.weak_radius, wc.cfg.weak_increment
+    for name, planes, vw in (("K6 candidates", wc.candidates, None),
+                             ("K6 probes", wc.probes, wc.vw)):
+        out[name] = cuda_ms(lambda: weak.weak_fused(
+            wc.data, wref, planes, r, inc, geom=True, view_weights=vw), 20)
+        print(f"{name}: {out[name]:.4f} ms ({planes.shape[1]} planes) "
+              f"{what}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="this checkout")
+    ap.add_argument("--weak_only", action="store_true",
+                    help="time only the weak sweep's chunk and K6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     dev = torch.device("cuda", 0)
     card = card_line()
-    libs = [m.library().path.name for m in (ncc, sweep)]
-    try:
-        from apde_mvs_tpu_torch.ops.cuda import strong
-        libs.append(strong.library().path.name)
-    except ImportError:
-        libs.append("no K3 in this checkout")
+    libs = []
+    kernels = (("weak", "K6"),) if args.weak_only else (
+        ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3"), ("weak", "K6"))
+    for name, kernel in kernels:
+        try:
+            mod = importlib.import_module(
+                f"apde_mvs_tpu_torch.ops.cuda.{name}")
+            libs.append(mod.library().path.name)
+        except ImportError:
+            libs.append(f"no {kernel} in this checkout")
     print(f"{args.tag}: {', '.join(libs)} [{card}]", flush=True)
-    scene = synthetic.make_scene(num_views=VIEWS, height=HEIGHT, width=WIDTH,
-                                 baseline=0.12)
     out: dict = {}
-    k2_times(scene, dev, out)
-    k5_times(scene, dev, out)
-    colour_update_times(scene, dev, out)
+    if not args.weak_only:
+        scene = synthetic.make_scene(num_views=VIEWS, height=HEIGHT,
+                                     width=WIDTH, baseline=0.12)
+        k2_times(scene, dev, out)
+        k5_times(scene, dev, out)
+        colour_update_times(scene, dev, out)
+    weak_times(dev, out)
     print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
     return 0
 

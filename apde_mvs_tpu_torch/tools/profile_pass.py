@@ -18,8 +18,9 @@ time) and idle share, the wall of the same pass run without the profiler
 (just before), the device time (CUDA events around each launch) and
 launches of the fused strong NCC K2 by call site (the initial cost), of
 the strong sweep's colour update K3, of the fused disparity sweep K5 by
-mode (classify, refine) and of K1 by call site, each kernel's profiler
-time, the device and host time of the pass's
+mode (classify, refine), of the deformable NCC K6 by use (the weak sweep's
+candidates and probes, the initial cost's re-score) and of K1 by call
+site, each kernel's profiler time, the device and host time of the pass's
 stages (anchors, fit planes, the weak sweep, the deformable NCC, the
 classify and refine sweeps, ...), and the torch ops that hold the most
 device time.
@@ -49,7 +50,7 @@ from ..core import geometry as geo
 from ..core.platform import card_line
 from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
-from ..ops.cuda import ncc, sampler, strong, sweep
+from ..ops.cuda import ncc, sampler, strong, sweep, weak
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
@@ -69,7 +70,7 @@ _STAGES = (
     (init, "initial_cost", "initial_cost"),
     (full_pass, "propagate_strong", "propagate_strong"),
     (full_pass, "propagate_weak", "propagate_weak"),
-    (propagation, "ncc_weak", "ncc_weak"),
+    (propagation, "ncc_weak_planes", "ncc_weak_planes"),
     (init, "ncc_weak", "ncc_weak"),
     (filters, "depth_to_weak", "depth_to_weak"),
     (filters, "local_refine", "local_refine"),
@@ -126,15 +127,22 @@ def _k3_name(a, kw):
     return "K3 colour update"
 
 
+def _k6_use(a, kw):
+    if kw.get("view_weights") is not None:
+        return "K6 probes"
+    return "K6 re-score" if a[2].shape[1] == 1 else "K6 candidates"
+
+
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site), K3 and K5 (by mode) into ``kernel_events``;
-    restore the plain functions afterwards."""
+    K2 and K1 (by call site), K3, K5 (by mode) and K6 (by use) into
+    ``kernel_events``; restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
                (strong, "strong_fused", _k3_name),
-               (sweep, "sweep_fused", _k5_mode))
+               (sweep, "sweep_fused", _k5_mode),
+               (weak, "weak_fused", _k6_use))
     saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES + kernels]
     try:
         for m, a, label in _STAGES:
@@ -158,7 +166,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     t0 = time.perf_counter()
     run()
     plain_wall = time.perf_counter() - t0
-    for mod in (sampler, ncc, strong, sweep):
+    for mod in (sampler, ncc, strong, sweep, weak):
         mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -191,7 +199,9 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
     k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k) / 1e6
     k5 = sum(t for k, t in kernels.items() if "sweep_kernel" in k) / 1e6
-    k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k) / 1e6
+    k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k
+             and "ncc_strong" not in k) / 1e6
+    k6 = sum(t for k, t in kernels.items() if "weak_kernel" in k) / 1e6
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
     sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
                for site, ev in kernel_events.items()}
@@ -202,7 +212,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 unprofiled_idle_share=max(0.0, 1.0 - busy / plain_wall),
                 k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k3_s=k3,
                 k3_launches=strong.launches, k5_s=k5,
-                k5_launches=sweep.launches, k1_launches=launches,
+                k5_launches=sweep.launches, k6_s=k6,
+                k6_launches=weak.launches, k1_launches=launches,
                 site_launches=sites,
                 site_event_s={k: round(v, 6) for k, v in sites_s.items()},
                 stage_device_s={k: round(v, 6) for k, v in sorted(
@@ -222,13 +233,14 @@ def _report(r, card):
           f"(idle {r['idle_share']:.1%}), K2 {r['k2_s']:.3f} s over "
           f"{r['k2_launches']} launches, K3 {r['k3_s']:.3f} s over "
           f"{r['k3_launches']} launches, K5 {r['k5_s']:.3f} s over "
-          f"{r['k5_launches']} launches, K1 {r['k1_s']:.3f} s over "
+          f"{r['k5_launches']} launches, K6 {r['k6_s']:.3f} s over "
+          f"{r['k6_launches']} launches, K1 {r['k1_s']:.3f} s over "
           f"{r['k1_launches']} launches (profiler kernel time) [{card}]",
           flush=True)
     for site, t in r["site_event_s"].items():
         calls = r["site_launches"].get(site, 0)
-        print(f"  {site[:2] if site[:2] in ('K2', 'K3', 'K5') else 'K1'}    "
-              f"{t:9.4f} s  {site}: {calls} calls, "
+        kernel = site[:2] if site[:2] in ("K2", "K3", "K5", "K6") else "K1"
+        print(f"  {kernel}    {t:9.4f} s  {site}: {calls} calls, "
               f"{t / max(calls, 1) * 1e3:.4f} ms a call (CUDA events)")
     print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "
           f"{r['unprofiled_idle_share']:.1%} against the same device busy")

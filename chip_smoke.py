@@ -9,7 +9,8 @@ against its plain PyTorch version at the shapes its call sites give it,
 then drives the port's paths through its entry points and checks each
 result. K1, the bilinear sampler, is held at the strong window's shape, a
 tile-route row shard's and one pixel's, and at the deformable NCC's centre
-and anchor windows (with the time of an empty launch of its grid there);
+and anchor windows (with the time of an empty launch of its grid there),
+though no main path launches it any more;
 K2, the fused strong NCC, bitwise at the strong sweep's black pixels (u8
 and f32), the classify chunk, a tile-route rank's halo row block, one
 pixel, an SA star window, 25-tap windows (the generic tap loop), 32 source
@@ -34,7 +35,19 @@ colour) at the CPU tests' tolerance and timed against it with the square
 and the SA star window; and the division K3's taps take without checks
 against ``__fdiv_rn`` bit for bit on 2^27 random triples each in a pass's
 ranges, over the fast range and of random bits, and every triple of
-special values. The paths:
+special values; K6, the deformable NCC of weak pixels with the geometric
+cost inside, bitwise on a weak-sweep chunk of the APD scan (its 10
+candidate planes with u8 and f32 tables, SA weights on and off and the
+geometric cost on and off; its 5 probes with the chunk's view weights and
+with none, one, every view and random ones weighted; one plane, as the
+initial cost's re-score; planes with NaN, w = 0 and the zero fit plane; 1
+and 32 source views; a ragged batch and one pixel), held to the torch-op
+composition it replaced (``testing.weak_composition``: two K1 launches and
+~575 torch ops a plane, the torch-op geometric cost) on a chunk of
+textured windows and on the weak plane's nearly textureless ones, both
+held to the plain version taken in float64 (K6 no farther from it on
+average than the composition), and timed against it at the candidates,
+the probes, the re-score and with square windows. The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -76,11 +89,13 @@ views.
 
 Every path must run its initial cost's NCC through K2 (at least one
 launch, all at the initial cost's and debug_point's sites, none at the
-strong sweep's; none of K1 at a strong site), its classify and refine
-sweeps through K5 (at least one launch of each mode on a path that runs a
-pass) and its strong sweeps through K3 (on a path that runs a pass at least
-one launch, at most two a colour update; the APD scan at least one with an
-SA window); K1 must carry the weak sites of the APD scan.
+strong sweep's), its classify and refine sweeps through K5 (at least one
+launch of each mode on a path that runs a pass), its strong sweeps through
+K3 (on a path that runs a pass at least one launch, at most two a colour
+update; the APD scan at least one with an SA window) and its deformable
+NCC through K6 (two launches for 15 planes a weak-sweep chunk, one for one
+plane a re-score chunk; the APD scan and the exports pass at least one of
+each); no path may launch K1.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -174,6 +189,21 @@ K3_OPS_PER_TAP = 30
 K3_OPS_PER_PAIR = 138
 K3_STAR_OPS_PER_PAIR = 48
 K3_WINDOW_OPS_PER_TAP = 4
+# operations of the deformable NCC K6 as the function needs them, counted
+# on the call's data: per evaluated (pixel, plane, view) 75 for the
+# homography (57) and the centre's warp and test (18), with the geometric
+# cost K5's 115 more and 36 a (pixel, plane); per pair whose centre stays
+# in the image 20 (the centre's NCC from its sums 15, the blend and the
+# softmax's division 5) and K2's 38 a centre tap (40 with SA weights); per
+# valid anchor such a pair tests 18 (its warp and test); per anchor window
+# it computes 15 (the NCC from its sums) and 38 (40) a tap; per anchor
+# that counts 6 (the max, the difference, exp, the two products and
+# sums).
+K6_OPS_PER_PAIR = 75
+K6_OPS_PER_LIVE_PAIR = 20
+K6_OPS_PER_TESTED_ANCHOR = 18
+K6_OPS_PER_ANCHOR_WINDOW = 15
+K6_OPS_PER_COUNTING_ANCHOR = 6
 
 
 def log(msg: str) -> None:
@@ -230,17 +260,26 @@ def special_coords(S: int, n: int, w: int, h: int, seed: int, device):
     return x.contiguous(), y.contiguous()
 
 
+def mark_rows(hit, idx, where=None) -> None:
+    """Set in ``hit`` (S, rows) the rows ``idx`` (S, ...) of each view's
+    table; ``where`` (a leading part of idx's shape) keeps only the
+    samples that are read."""
+    import torch
+    s = hit.shape[0]
+    idx = idx + (torch.arange(s, device=idx.device) * hit.shape[1]).reshape(
+        (s,) + (1,) * (idx.ndim - 1))
+    hit.view(-1)[(idx if where is None else idx[where]).reshape(-1)] = True
+
+
 def touched_rows(quads, width: int, height: int, x, y) -> int:
     """Distinct quad-table rows the samples read: the table bytes this run's
     data needs, each counted once."""
     import torch
 
     from apde_mvs_tpu_torch.core.sampling import quad_coords
-    idx, _, _ = quad_coords(width, height, x, y)
-    s = quads.shape[0]
-    base = torch.arange(s, device=idx.device) * (width * height)
-    hit = torch.zeros(s * width * height, dtype=torch.bool, device=idx.device)
-    hit[(idx + base.reshape((s,) + (1,) * (idx.ndim - 1))).reshape(-1)] = True
+    hit = torch.zeros((quads.shape[0], width * height), dtype=torch.bool,
+                      device=x.device)
+    mark_rows(hit, quad_coords(width, height, x, y)[0])
     return int(hit.sum())
 
 
@@ -1330,104 +1369,394 @@ def weak_region(depth):
     return depth < depth.mean() * 0.95
 
 
-def weak_kernel_phase(scene, seed: int, device, card: str) -> dict:
-    """K1 against its plain version at the deformable NCC's two call sites,
-    on one weak-sweep hypothesis of the APD scan's round 1: the weak plane's
-    pixels (one sweep chunk), anchors generated on the card from the
-    ground-truth weak map and depths, and each pixel's ground-truth plane
-    warped into every source view."""
+def k6_bound(data, wref, planes, params, vw, geom: bool) -> tuple:
+    """The least time the card could take for one K6 call: its f32
+    operations over the plain-f32 rate, counted on this call's data (the
+    evaluated pairs: every view, or the weighted ones; the windows of the
+    pairs whose centre stays in the image; the anchors each such pair
+    tests, computes and counts), against the bytes of its inputs and
+    outputs over the memory rate: the reference side, planes and weights
+    read once, and of the quad tables the rows that those centre and
+    anchor windows touch, with the geometric cost of the source depth maps
+    the texels its pairs read, each once (the windows warped as the
+    composition warps them, ``weak_taps``). Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
     import torch
 
-    from apde_mvs_tpu_torch import config as cfg
     from apde_mvs_tpu_torch.core import geometry as geo
-    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.core.sampling import quad_coords, trunc_index
+    from apde_mvs_tpu_torch.testing.weak_composition import weak_taps
+    b, p = planes.shape[:2]
+    s = data.num_src
+    dev = planes.device
+    evaluated = torch.ones((s, b), dtype=torch.bool, device=dev) \
+        if vw is None else (vw > 0).T
+    sel = wref.anchor_sel.permute(2, 0, 1)                      # (S, B, 8)
+    rows = torch.zeros((s, data.width * data.quad_h), dtype=torch.bool,
+                       device=dev)
+    dh, dw = data.src_depths.shape[-2:]
+    texels = torch.zeros((s, dh * dw), dtype=torch.bool, device=dev)
+    live = tested = computed = counting = 0
+    for c in range(p):
+        plane = planes[:, c]
+        tp = weak_taps(data, wref, plane, params)
+        on = evaluated & ~tp.center_oob
+        test = on[..., None] & wref.anchor_valid
+        comp = test & ~tp.anchor_oob & (wref.wsum > 0)
+        live += int(on.sum())
+        tested += int(test.sum())
+        computed += int(comp.sum())
+        counting += int((comp | (test & tp.anchor_oob & sel)).sum())
+        mark_rows(rows, quad_coords(data.width, data.quad_h, tp.cwx,
+                                    tp.cwy)[0], on)
+        mark_rows(rows, quad_coords(data.width, data.quad_h, tp.awx,
+                                    tp.awy)[0], comp)
+        del tp
+        if geom:
+            # cost.geom_cost's texel: the plane's point seen from view s
+            xw = geo.backproject_world(data.ref_cam, wref.x, wref.y,
+                                       geo.depth_from_plane(
+                                           data.ref_cam, plane, wref.x,
+                                           wref.y))
+            sx, sy, _ = geo.project(data.src_views, xw)
+            mark_rows(texels, trunc_index(sy, dh) * dw + trunc_index(sx, dw),
+                      evaluated)
+    weighted = wref.tap_w is not None
+    per_tap = K2_OPS_PER_TAP + (2 if weighted else 0)
+    t = wref.center_win.tap_val.shape[1]
+    ta = wref.tap_val.shape[2]
+    ops = int(evaluated.sum()) * p * (K6_OPS_PER_PAIR + (
+        K5_GEOM_OPS_PER_PAIR if geom else 0)) \
+        + live * (K6_OPS_PER_LIVE_PAIR + t * per_tap) \
+        + tested * K6_OPS_PER_TESTED_ANCHOR \
+        + computed * (K6_OPS_PER_ANCHOR_WINDOW + ta * per_tap) \
+        + counting * K6_OPS_PER_COUNTING_ANCHOR \
+        + (b * p * K5_GEOM_OPS_PER_PIXEL if geom else 0)
+    w = 2 if weighted else 1
+    per_pixel = 4 * (2 + w * t + 3 + 8 * (2 + w * ta + 3)) + 8 + 8 * s
+    nbytes = b * (per_pixel + 16 * p + (4 * s if vw is not None else 0)) \
+        + 4 * b * p * s * (2 if geom else 1) + 8 * (t + ta) \
+        + int(rows.sum()) * 4 * data.src_quads.element_size() \
+        + (s + 1) * 40 * 4 + (4 * int(texels.sum()) if geom else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def k6_check(data, wref, planes, radius: int, increment: int, geom: bool,
+             vw, what: str) -> float:
+    """K6 against its plain version on the card: bitwise, both outputs.
+    Returns the max abs difference read from the two (over non-NaN
+    costs)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import weak
+    got = weak.weak_fused(data, wref, planes, radius, increment, geom=geom,
+                          view_weights=vw)
+    want = weak.weak_plain(data, wref, planes, radius, increment, geom=geom,
+                           view_weights=vw)
+    torch.cuda.synchronize()
+    for name, g, w in (("costs", got.ncc, want.ncc),
+                       ("geometric costs", got.geom, want.geom)):
+        if (g is None) != (w is None) or (g is not None
+                                          and not bitwise(g, w)):
+            bad = int((g != w).sum()) if g is not None and w is not None \
+                and g.shape == w.shape else -1
+            raise AssertionError(f"K6 {what}: {bad} {name} differ from the "
+                                 "plain version")
+    c = want.ncc
+    at_max = float((c == 2.0).float().mean())
+    log(f"  K6 {what} {tuple(c.shape)}: bitwise equal to the plain version"
+        f"{' (both outputs)' if geom else ''}; {at_max:.4f} of the costs at "
+        "COST_MAX")
+    ok = ~torch.isnan(c)
+    return float((got.ncc[ok] - c[ok]).abs().max()) if bool(ok.any()) \
+        else 0.0
+
+
+def float64_copy(data, wref):
+    """``data`` and ``wref`` with every float32 tensor in float64 (the
+    quad tables keep their texels: the plain sample promotes them): K6's
+    plain version run on them takes each operation in float64, a referee
+    for the float32 orders of K6 and of the composition."""
+    import torch
+
+    def dbl(v):
+        return v.double() if isinstance(v, torch.Tensor) \
+            and v.dtype == torch.float32 else v
+    cw = wref.center_win
+    return (data.replace(ref_cam=data.ref_cam.map(dbl),
+                         src_cams=data.src_cams.map(dbl),
+                         ref_image=dbl(data.ref_image),
+                         src_depths=dbl(data.src_depths)),
+            wref._replace(center_win=type(cw)(*map(dbl, cw)),
+                          **{f: dbl(getattr(wref, f)) for f in wref._fields
+                             if f != "center_win"}))
+
+
+def k6_against_composition(data, wref, planes, params, geom: bool, vw,
+                           what: str) -> float:
+    """K6 against the torch-op composition it replaced
+    (``testing.weak_composition``; every view, so only the views K6
+    evaluates are compared), the geometric costs equal, and both against
+    the plain version taken in float64 (``float64_copy``): K6 must be no
+    farther from it, on average, than the composition. On these 600x800
+    windows a source variance can sit at float32's resolution at its mean,
+    so the cost is noise of either order of the sums at the CPU tests'
+    1e-4 (and crosses MIN_VAR to COST_MAX either way); the float64 plain
+    version says which order is nearer the function. Returns the share of
+    the costs more than 1e-2 from the composition."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import weak
+    from apde_mvs_tpu_torch.testing.weak_composition import weak_composition
+    r, inc = params.weak_radius, params.weak_increment
+    got = weak.weak_fused(data, wref, planes, r, inc, geom=geom,
+                          view_weights=vw)
+    want, gwant = weak_composition(data, wref, planes, params, geom=geom)
+    torch.cuda.synchronize()
+    keep = torch.ones_like(got.ncc, dtype=torch.bool) if vw is None \
+        else (vw > 0)[:, None].expand_as(got.ncc)
+    diff = (got.ncc - want).abs()[keep]
+    far = float((diff > 1e-2).float().mean())
+    log(f"  K6 {what} against the composition: median abs "
+        f"{float(diff.median()):.3g}, 99th percentile "
+        f"{float(diff.quantile(0.99)):.3g}, max {float(diff.max()):.3g}; "
+        f"{float((diff > 1e-4).float().mean()):.4f} of {diff.numel()} costs "
+        f"beyond 1e-4, {far:.5f} beyond 1e-2")
+    d64, w64 = float64_copy(data, wref)
+    ref = weak.weak_plain(d64, w64, planes.double(), r, inc, geom=False,
+                          view_weights=vw).ncc[keep]
+    errs = [(v[keep].double() - ref).abs() for v in (got.ncc, want)]
+    log(f"  K6 {what} against the plain version in float64: mean abs "
+        f"{float(errs[0].mean()):.4g} (the composition "
+        f"{float(errs[1].mean()):.4g}), 99th percentile "
+        f"{float(errs[0].quantile(0.99)):.4g} "
+        f"({float(errs[1].quantile(0.99)):.4g}), max "
+        f"{float(errs[0].max()):.4g} ({float(errs[1].max()):.4g}), beyond "
+        f"1e-4 {float((errs[0] > 1e-4).float().mean()):.5f} "
+        f"({float((errs[1] > 1e-4).float().mean()):.5f}), beyond 1e-2 "
+        f"{float((errs[0] > 1e-2).float().mean()):.5f} "
+        f"({float((errs[1] > 1e-2).float().mean()):.5f})")
+    if bool(torch.isnan(diff).any()) \
+            or (geom and not torch.equal(got.geom[keep], gwant[keep])) \
+            or not float(errs[0].mean()) <= float(errs[1].mean()):
+        raise AssertionError(f"K6 {what} disagrees with the composition")
+    return far
+
+
+def k6_times(data, wref, planes, params, geom: bool, vw, what: str,
+             card: str) -> dict:
+    """K6's, the plain version's and the composition's mean times (CUDA
+    events, warm; the composition it replaced, ``testing.weak_composition``:
+    two K1 launches and ~575 torch ops a plane, the torch-op geometric cost
+    a plane, every view), the agreement with the composition
+    (``k6_against_composition``, the weak plane's windows), and the
+    bound."""
+    from apde_mvs_tpu_torch.ops.cuda import weak
+    from apde_mvs_tpu_torch.testing.weak_composition import weak_composition
+    r, inc = params.weak_radius, params.weak_increment
+    far = k6_against_composition(data, wref, planes, params, geom, vw, what)
+    ms = cuda_ms(lambda: weak.weak_fused(data, wref, planes, r, inc,
+                                         geom=geom, view_weights=vw), 20)
+    plain_ms = cuda_ms(lambda: weak.weak_plain(
+        data, wref, planes, r, inc, geom=geom, view_weights=vw), 2, 1)
+    comp_ms = cuda_ms(lambda: weak_composition(data, wref, planes, params,
+                                               geom=geom), 3, 1)
+    bound, by, nbytes, ops = k6_bound(data, wref, planes, params, vw, geom)
+    log(f"  K6 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, composition "
+        f"{comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                composition_ms=comp_ms, composition_far=far,
+                library_ms=None)
+
+
+def weak_kernel_phase(scene, seed: int, device, card: str,
+                      textured) -> dict:
+    """K1 at the deformable NCC's two old call sites, and K6 against its
+    plain version, on one weak-sweep chunk of the APD scan's round 1
+    (``tools.kernel_times.weak_chunk``: the weak plane's reliable pixels,
+    anchors and fit planes generated on the card, the ground-truth state,
+    REFINE_ITER's SA windows and geometric cost). K1 samples the centre
+    and anchor windows of each pixel's current plane (the composition's
+    ``weak_taps``). K6 bitwise at the chunk's 10 candidate planes (u8 and
+    f32 tables, SA weights on and off, the geometric cost on and off), its
+    5 probes with the chunk's view weights and with the patterns of
+    ``kernel_cases`` (none, one, all, random), one plane (the initial cost's
+    re-score), planes with NaN, w = 0 and the zero fit plane, 1 and 32
+    source views, a ragged batch and one pixel; K6 against the composition
+    it replaced (``k6_against_composition``) on the same kind of chunk of
+    the ``textured`` scene (the APD scene's cameras with a textured
+    foreground plane where its weak plane was), and then on the weak
+    plane's windows together with its times against the plain version and
+    the composition at the candidates, the probes, the re-score and with
+    square windows."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
     from apde_mvs_tpu_torch.ops.cost import CostData
     from apde_mvs_tpu_torch.ops.cuda import sampler
-    from apde_mvs_tpu_torch.ops.deformable import WeakRefData, weak_taps
-    from apde_mvs_tpu_torch.ops.propagation import WEAK_SWEEP_CHUNK
-    from apde_mvs_tpu_torch.ops.state import PMState
+    from apde_mvs_tpu_torch.ops.deformable import WeakRefData, \
+        contiguous_ref
+    from apde_mvs_tpu_torch.testing.kernel_cases import (VIEW_PATTERNS,
+                                                         cycled_views,
+                                                         weak_planes,
+                                                         weak_view_weights)
+    from apde_mvs_tpu_torch.testing.weak_composition import weak_taps
+    from apde_mvs_tpu_torch.tools.kernel_times import weak_chunk
 
-    S = scene.num_views - 1
     H, W = scene.images.shape[1:]
+    t0 = time.perf_counter()
+    wc = weak_chunk(scene, device, seed)
+    torch.cuda.synchronize()
+    x, y = wc.x.float(), wc.y.float()
+    b = x.numel()
+    have = (wc.anchors[:, 1:, 0] >= 0).sum(-1)
+    log(f"weak chunk: {b} reliable weak pixels of the APD scan's view 0, "
+        f"{float(have.float().mean()):.2f} anchors a pixel, "
+        f"{float((wc.fit == 0).all(-1).float().mean()):.3f} without a fit "
+        f"plane, {float((wc.vw > 0).sum(-1).float().mean()):.2f} views "
+        f"weighted a pixel; built in {time.perf_counter() - t0:.1f} s")
+    if b == 0:
+        raise AssertionError("no weak pixel found anchors")
+    S = wc.data.num_src
     cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
     imgs = torch.as_tensor(scene.images, device=device)
-    region = torch.as_tensor(weak_region(scene.depths[0]), device=device)
-    data = {u8: CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
-                               imgs[0], imgs[1:], sampler_u8=u8,
-                               sa_mask=region.to(torch.int32))
-            for u8 in (True, False)}
-    params = next(s.params for s in cfg.build_schedule(
-        max(H, W), base=APD_BASE) if s.params.state == "refine_init")
-    depth = torch.as_tensor(scene.depths[0], device=device)
-    normal = torch.as_tensor(scene.normals[0], device=device)
-    state = PMState.create(H, W, S, device=device).replace(
-        planes=torch.cat([normal, depth[..., None]], -1),
-        weak=torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32),
-        confidence=torch.where(region, 40.0, 200.0))
-    dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
-    dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
-    wy, wx = torch.nonzero(region, as_tuple=True)
-    wx = wx.to(torch.int32)
-    wy = wy.to(torch.int32)
-    t0 = time.perf_counter()
-    ns = anc.nearest_strong_jfa(state.weak, state.confidence, state.valid)
-    res = anc.gen_anchors(
-        data[True], state, wx, wy, params.rotate_time,
-        params.ransac_threshold, dmin, dmax, ns,
-        generator=torch.Generator(device=device).manual_seed(seed))
-    torch.cuda.synchronize()
-    # the weak sweep runs over the reliable pixels, one chunk at a time:
-    # take its first (largest) chunk
-    keep = torch.nonzero(res.reliable, as_tuple=True)[0][:WEAK_SWEEP_CHUNK]
-    wx, wy, anchors = wx[keep], wy[keep], res.anchors[keep]
-    have = (anchors[:, 1:, 0] >= 0).sum(-1)
-    log(f"weak sites: {int(region.sum())} weak pixels, anchors in "
-        f"{time.perf_counter() - t0:.2f} s, "
-        f"{float(res.reliable.float().mean()):.3f} reliable; the sweep "
-        f"chunk holds {wx.numel()} of them, "
-        f"{float(have.float().mean()):.2f} anchors a pixel")
-    if wx.numel() == 0:
-        raise AssertionError("no weak pixel found anchors")
-    xf, yf = wx.float(), wy.float()
-    plane = geo.make_plane(
-        cams.view(0), xf, yf, depth[wy.long(), wx.long()],
-        geo.normal_world_to_cam(
-            cams.view(0).R, torch.cat([normal[wy.long(), wx.long()],
-                                       torch.zeros_like(xf)[:, None]],
-                                      -1))[:, :3])
-    wref = WeakRefData.build(data[True], xf, yf, anchors, state.selected,
-                             params)
-    taps = weak_taps(data[True], wref, plane, params)
-    del ns, state, wref
-    sites = {"weak_centre": (taps.cwx, taps.cwy),
-             "weak_anchor": (taps.awx, taps.awy)}
+    datas = {True: wc.data, False: CostData.build(
+        cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
+        src_depths=wc.data.src_depths, sampler_u8=False,
+        sa_mask=wc.data.sa_mask)}
+    refs = {(u8, sa): contiguous_ref(WeakRefData.build(
+        datas[u8], x, y, wc.anchors, wc.state.selected,
+        wc.cfg._replace(use_sa=sa)))
+        for u8 in (True, False) for sa in (True, False)}
+    r, inc = wc.cfg.weak_radius, wc.cfg.weak_increment
+    current = wc.candidates[:, 8:9].contiguous()
+
+    # K1 at its two old weak sites: the current planes' windows
+    taps = weak_taps(datas[True], refs[(True, True)], current[:, 0], wc.cfg)
     out = {}
-    for site, (x, y) in sites.items():
-        log(f"K1 at {site}: {tuple(x.shape)} samples per launch")
+    for site, (sx, sy) in (("weak_centre", (taps.cwx, taps.cwy)),
+                           ("weak_anchor", (taps.awx, taps.awy))):
+        log(f"K1 at {site}: {tuple(sx.shape)} samples per launch")
         errs = []
-        r = {}
+        res = {}
         for u8 in (True, False):
-            q = data[u8].src_quads
+            q = datas[u8].src_quads
             tag = "u8" if u8 else "f32"
-            errs.append(compare(sampler.sample_packed(q, W, H, x, y),
-                                sampler.sample_packed_plain(q, W, H, x, y),
+            errs.append(compare(sampler.sample_packed(q, W, H, sx, sy),
+                                sampler.sample_packed_plain(q, W, H, sx, sy),
                                 f"{site} {tag}", tol=0.0))
-            r[tag] = time_packed(q, W, H, x, y, f"{site} {tag}", card)
-        r["u8"]["library_ms"] = grid_sample_ms(data[True].src_quads, W, H,
-                                               x, y, card)
+            res[tag] = time_packed(q, W, H, sx, sy, f"{site} {tag}", card)
+        res["u8"]["library_ms"] = grid_sample_ms(datas[True].src_quads, W,
+                                                 H, sx, sy, card)
         if site == "weak_centre":
             # K1a: the fixed cost of a launch of K1's grid at this size
-            total = x.numel()
-            r["u8"]["empty_launch_ms"] = cuda_ms(
+            total = sx.numel()
+            res["u8"]["empty_launch_ms"] = cuda_ms(
                 lambda: sampler.launch_empty(total, device), 20)
             log(f"  {site}: an empty launch of K1's grid "
                 f"({(total + 255) // 256} blocks of 256) takes "
-                f"{r['u8']['empty_launch_ms']:.4f} ms, K1 "
-                f"{r['u8']['ms']:.4f} ms, bound {r['u8']['bound_ms']:.4f} ms "
-                f"[{card}]")
-        r["max_abs_err"] = max(errs)
-        r["shape"] = tuple(x.shape)
-        out[site] = r
+                f"{res['u8']['empty_launch_ms']:.4f} ms, K1 "
+                f"{res['u8']['ms']:.4f} ms, bound "
+                f"{res['u8']['bound_ms']:.4f} ms [{card}]")
+        res["max_abs_err"] = max(errs)
+        res["shape"] = tuple(sx.shape)
+        out[site] = res
+    del taps
+
+    # K6 bitwise against its plain version
+    log(f"K6 on the weak chunk: {b} pixels, {S} views")
+    errs = []
+
+    def check(u8, sa, geom, planes, vw, what, ref=None, data=None):
+        tag = (f"{'u8' if u8 else 'f32'}, {'SA' if sa else 'square'}"
+               f"{', geometric' if geom else ''}")
+        errs.append(k6_check(data or datas[u8], ref or refs[(u8, sa)],
+                             planes, r, inc, geom, vw, f"{what} ({tag})"))
+    for u8 in (True, False):
+        for sa in (True, False):
+            for geom in (True, False):
+                check(u8, sa, geom, wc.candidates, None, "10 candidates")
+    check(True, True, True, wc.probes, wc.vw, "5 probes, the chunk's "
+          "view weights")
+    check(False, False, False, wc.probes, wc.vw, "5 probes, the chunk's "
+          "view weights")
+    for pattern in VIEW_PATTERNS:
+        check(True, True, True, wc.probes,
+              weak_view_weights(b, S, pattern, seed, device),
+              f"5 probes, view weights {pattern}")
+    check(True, True, False, current, None, "1 plane (re-score)")
+    depth = torch.as_tensor(scene.depths[0], device=device)[
+        wc.y.long(), wc.x.long()]
+    normal = geo.normal_world_to_cam(cams.view(0).R, torch.cat(
+        [torch.as_tensor(scene.normals[0], device=device)[
+            wc.y.long(), wc.x.long()], torch.zeros_like(x)[:, None]],
+        -1))[:, :3]
+    odd = weak_planes(cams.view(0), x, y, depth, normal, 10, seed)
+    check(True, True, True, odd, None, "10 planes with NaN, w = 0 and the "
+          "zero plane")
+    check(True, False, True, odd, None, "10 planes with NaN, w = 0 and the "
+          "zero plane")
+
+    def part(ref, sl):
+        """The rows ``sl`` of a WeakRefData; the shared offsets whole."""
+        def cut(v):
+            return v[sl].contiguous() if isinstance(v, torch.Tensor) else v
+        cw = ref.center_win
+        return ref._replace(
+            center_win=cw._replace(**{f: cut(getattr(cw, f)) for f in (
+                "tap_val", "sum_ref", "sum_rr", "wsum", "tap_w")}),
+            **{f: cut(getattr(ref, f)) for f in ref._fields
+               if f != "center_win"})
+    few = slice(0, 4096)
+    for n_views in (1, 32):
+        data_n, idx = cycled_views(datas[True], n_views)
+        ref_n = part(refs[(True, True)], few)
+        ref_n = ref_n._replace(
+            anchor_sel=ref_n.anchor_sel[..., idx].contiguous())
+        check(True, True, True, wc.candidates[few].contiguous(), None,
+              f"10 candidates of {ref_n.x.numel()} pixels, {n_views} views",
+              ref=ref_n, data=data_n)
+    for sl, what in ((slice(0, 1001), "a ragged batch of 1001 pixels"),
+                     (slice(b // 2, b // 2 + 1), "one pixel")):
+        check(True, True, True, wc.candidates[sl].contiguous(), None,
+              f"10 candidates, {what}", ref=part(refs[(True, True)], sl))
+        check(True, True, True, wc.probes[sl].contiguous(),
+              wc.vw[sl].contiguous(), f"5 probes, {what}",
+              ref=part(refs[(True, True)], sl))
+    out["k6_max_abs_err"] = max(errs)
+    tc = weak_chunk(textured, device, seed)
+    log(f"K6 against the composition on a chunk of {tc.x.numel()} textured "
+        f"pixels (a foreground plane at the APD scene's focal length), "
+        f"{tc.data.num_src} views")
+    if tc.x.numel() == 0:
+        raise AssertionError("the textured scene has no weak chunk")
+    for sa in (True, False):
+        cfg = tc.cfg._replace(use_sa=sa)
+        ref = contiguous_ref(WeakRefData.build(
+            tc.data, tc.x.float(), tc.y.float(), tc.anchors,
+            tc.state.selected, cfg))
+        tag = "SA" if sa else "square"
+        for planes, vw, what in ((tc.candidates, None, "10 candidates"),
+                                 (tc.probes, tc.vw, "5 probes")):
+            k6_against_composition(tc.data, ref, planes, cfg, True, vw,
+                                   f"{what}, textured (u8, {tag})")
+    del tc
+    # the APD scan's windows are SA's (its weak plane is one segment, so
+    # no anchor outside it counts); without a segment mask every valid
+    # anchor does: timed too, as "candidates_square"
+    for key, planes, vw, geom, sa, what in (
+            ("candidates", wc.candidates, None, True, True, "10 candidates"),
+            ("probes", wc.probes, wc.vw, True, True, "5 probes"),
+            ("rescore", current, None, False, True, "1 plane (re-score)"),
+            ("candidates_square", wc.candidates, None, True, False,
+             "10 candidates")):
+        out[key] = k6_times(datas[True], refs[(True, sa)], planes,
+                            wc.cfg._replace(use_sa=sa), geom, vw,
+                            f"{what} (u8, {'SA' if sa else 'square'})", card)
     return out
 
 
@@ -1492,46 +1821,59 @@ def coloured_points(ply: Path, what: str) -> int:
 
 
 def reset_counts() -> None:
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
-    for mod in (sampler, ncc, strong, sweep):
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
+    for mod in (sampler, ncc, strong, sweep, weak):
         mod.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset, in this process: K1's
     and K2's by call site, K3's with the colour updates they served, K5's
-    by mode."""
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
+    by mode, K6's with the planes a pixel they evaluated."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
                 k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
                 k3=strong.launches, k3_colours=strong.colours,
-                k3_sa=strong.sa_launches)
+                k3_sa=strong.sa_launches, k6=weak.launches,
+                k6_planes=weak.planes)
 
 
 def parsed_counts(match) -> dict:
-    """``read_counts``'s dict from one LAUNCH_RE match of an engine's log."""
+    """``read_counts``'s dict from one LAUNCH_RE match of an engine's log;
+    raises where the line lacks K6's counts."""
+    if not match[10]:
+        raise AssertionError(f"engine launch line without K6's counts: "
+                             f"{match}")
     return dict(k1=int(match[0]), sites=json.loads(match[1]),
                 k2=int(match[2]), k2_sites=json.loads(match[3]),
                 k5=int(match[4]), k5_modes=json.loads(match[5]),
-                k3=int(match[6]), k3_colours=int(match[7]))
+                k3=int(match[6]), k3_colours=int(match[7]),
+                k6=int(match[10]), k6_planes=int(match[11]))
 
 
-# K1's call sites on the main paths: the deformable NCC's two windows
-WEAK_SITES = ("weak_centre", "weak_anchor")
 # K2's: the initial cost and the debug tool; the strong sweep runs in K3, the
 # classify and refine sweeps in K5, and K2 launched for either would count
 # under another site ("strong", "other")
 K2_SITES = ("init", "debug_point")
 # K3 launches a colour update may take at most (it takes one)
 K3_LAUNCHES_A_COLOUR = 2
+# K6: a weak-sweep chunk is two launches for 15 planes a pixel (the 10
+# candidates, the 5 probes), an initial cost's re-score chunk one launch
+# for one plane
+K6_CHUNK_LAUNCHES, K6_CHUNK_PLANES = 2, 15
 
 
-def k1_elsewhere(sites: dict) -> int:
-    """K1 launches at any site but the weak ones (the strong NCC is K2's)
-    in a by-site count; a K2 or K3 count under "K2" or "K3" is not K1's."""
-    return sum(n for site, n in sites.items()
-               if site not in WEAK_SITES + ("K2", "K3"))
+def k6_chunks(c: dict) -> tuple:
+    """(weak-sweep chunks, re-score chunks) that K6's launches and planes
+    in a count make up; None where they fit no such split."""
+    extra = c["k6_planes"] - c["k6"]
+    per = K6_CHUNK_PLANES - K6_CHUNK_LAUNCHES
+    if extra < 0 or extra % per:
+        return None
+    chunks = extra // per
+    rescores = c["k6"] - K6_CHUNK_LAUNCHES * chunks
+    return (chunks, rescores) if rescores >= 0 else None
 
 
 def k2_elsewhere(k2_sites: dict) -> int:
@@ -1541,17 +1883,22 @@ def k2_elsewhere(k2_sites: dict) -> int:
     return sum(n for site, n in k2_sites.items() if site not in K2_SITES)
 
 
-def check_counts(what: str, c: dict, passes: bool = True) -> None:
+def check_counts(what: str, c: dict, passes: bool = True,
+                 weak: bool = False) -> None:
     """The initial cost's NCC went through K2 (at least one launch, every
     one at the initial cost's or the debug tool's site, none at the strong
-    sweep's; K1 launched only at the deformable NCC's weak sites), the
-    disparity sweeps through K5 (at least one classify launch, and on a path
-    that runs a pass at least one refine launch), and on a path that runs a
-    pass the strong sweep through K3 (at least one launch, at most
-    K3_LAUNCHES_A_COLOUR a colour update); each kernel's launches add up
-    over its sites or modes."""
-    ok = c["k2"] > 0 and sum(c["sites"].values()) == c["k1"] \
-        and set(c["sites"]) <= set(WEAK_SITES) \
+    sweep's), K1 launched at no site, the disparity sweeps through K5 (at
+    least one classify launch, and on a path that runs a pass at least one
+    refine launch), on a path that runs a pass the strong sweep through K3
+    (at least one launch, at most K3_LAUNCHES_A_COLOUR a colour update),
+    and the deformable NCC through K6, whose launches and planes fit two
+    launches for 15 planes a weak-sweep chunk and one for one plane a
+    re-score chunk, at least one of each chunk on a ``weak`` path (one that
+    runs APD passes); each kernel's launches add up over its sites or
+    modes."""
+    split = k6_chunks(c)
+    ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
+        and split is not None \
         and sum(c["k2_sites"].values()) == c["k2"] \
         and set(c["k2_sites"]) <= set(K2_SITES) \
         and c["k2_sites"].get("strong", 0) == 0 \
@@ -1561,24 +1908,30 @@ def check_counts(what: str, c: dict, passes: bool = True) -> None:
         ok = ok and c["k5_modes"].get("refine", 0) > 0 \
             and c["k3"] > 0 and c["k3_colours"] > 0 \
             and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
+    if weak:
+        ok = ok and min(split) > 0
     if not ok:
         raise AssertionError(f"{what}: launches {json.dumps(c)}")
 
 
 def counts_line(c: dict) -> str:
+    split = k6_chunks(c)
     return (f"K2 launches {c['k2']} by site "
             f"{json.dumps(c['k2_sites'], sort_keys=True)}, K3 launches "
             f"{c['k3']} for {c['k3_colours']} colour updates, K5 launches "
             f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
-            f"K1 launches {c['k1']} by site "
-            f"{json.dumps(c['sites'], sort_keys=True)}")
+            f"K6 launches {c['k6']} for {c['k6_planes']} planes ("
+            f"{split[0] if split else '?'} weak-sweep chunks, "
+            f"{split[1] if split else '?'} re-score chunks), K1 launches "
+            f"{c['k1']} by site {json.dumps(c['sites'], sort_keys=True)}")
 
 
 def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
-               card: str) -> dict:
+               card: str, weak: bool = False) -> dict:
     """The port's CLI on the card over the written scan; checks the pass
-    count, depth error against ground truth, the fused PLY, and that K2
-    carried the strong NCC. K1's launch counts are read per call site."""
+    count, depth error against ground truth, the fused PLY, and every
+    kernel's launches (``check_counts``; ``weak``: the scan runs APD
+    passes)."""
     import torch
 
     from apde_mvs_tpu_torch.cli import apd
@@ -1597,7 +1950,7 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
         raise AssertionError(f"expected {n_passes} passes, saw {passes}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "fused PLY")
-    check_counts(label, c)
+    check_counts(label, c, weak=weak)
     log(f"{label}: {wall:.3f} s wall, {counts_line(c)} [{card}]")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
@@ -1618,7 +1971,7 @@ def write_sa_masks(scene, root: Path) -> None:
 
 def apd_checks(scan: dict, root: Path, num_views: int, card: str) -> float:
     """What the APD scan must show beyond a scan's checks: weak pixels in
-    round 1, K1 launched at both weak sites. Returns the final weak
+    round 1 (K6's launches are ``check_counts``'). Returns the final weak
     fraction over all views."""
     import numpy as np
 
@@ -1628,9 +1981,6 @@ def apd_checks(scan: dict, root: Path, num_views: int, card: str) -> float:
               if ln.startswith("Weak count:")]
     if len(counts) != 4 * num_views or min(counts[:num_views]) <= 0:
         raise AssertionError(f"round-1 weak counts {counts}")
-    for site in ("weak_centre", "weak_anchor"):
-        if scan["sites"].get(site, 0) <= 0:
-            raise AssertionError(f"K1 never launched at {site}")
     weak = [binmat.read_bin_mat(root / "APD" / f"{v:08d}" / "weak.bin")
             for v in range(num_views)]
     frac = float(np.mean([np.mean(w == WEAK) for w in weak]))
@@ -1729,7 +2079,7 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
             if ln.startswith("Weak count:")]
     if len(passes) != 1 or len(weak) != num_views:
         raise AssertionError(f"exports pass: {passes}, weak counts {weak}")
-    check_counts("exports pass", c)
+    check_counts("exports pass", c, weak=True)
     for v in range(num_views):
         rf = root / "APD" / f"{v:08d}"
         missing = [n for n in EXPORTS if not (rf / n).is_file()]
@@ -1836,7 +2186,7 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
 
 
 KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K3": "strong",
-                  "K5": "sweep"}
+                  "K5": "sweep", "K6": "weak"}
 
 
 def build_race(card: str) -> dict:
@@ -1874,17 +2224,26 @@ def build_race(card: str) -> dict:
 
 
 def kernel_report(card: str) -> None:
-    """A diagnostic: the main path's K2, K3 and K5 instantiations (u8
-    tables, 36-tap square and SA star windows, 10 views) with their
-    registers, local-memory (spill) bytes and resident blocks an SM from the
-    CUDA runtime, and each of the three libraries' SASS instructions a
-    window tap by opcode class (``tools/sass_taps.py``: static instructions
-    of the tap loop, the divisions' slow-path calls included), or a note
-    where ``cuobjdump`` is missing."""
-    from apde_mvs_tpu_torch.ops.cuda import ncc, strong, sweep
+    """A diagnostic: the main path's K2, K3, K5 and K6 instantiations (u8
+    tables, 36-tap square and SA star windows, 10 views; K6's 36-tap centre
+    and 9-tap anchor windows with SA weights and the geometric cost, and
+    without either) with their registers, local-memory (spill) bytes and
+    resident blocks an SM from the CUDA runtime, and each of the four
+    libraries' SASS instructions a window tap by opcode class
+    (``tools/sass_taps.py``: static instructions of the tap loop, the
+    divisions' slow-path calls included; K6's 9-tap anchor windows unroll
+    whole and have no loop), or a note where ``cuobjdump`` is missing."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, strong, sweep, weak
     from apde_mvs_tpu_torch.tools import sass_taps
-    kernels = (("K2", ncc), ("K3", strong), ("K5", sweep))
-    for name, mod in kernels:
+    kernels = (("K2", ncc), ("K3", strong), ("K5", sweep), ("K6", weak))
+    for form, sa in (("SA weights, geometric cost", True),
+                     ("square, no geometric cost", False)):
+        info = weak.kernel_info(True, sa, sa, 36, 9, FULL_VIEWS - 1)
+        log(f"K6 u8, {form}, 36 + 8 x 9 taps, {FULL_VIEWS - 1} views: "
+            f"{info['regs']} registers, {info['local_bytes']} B local "
+            f"(spills), {info['blocks_per_sm']} resident blocks an SM "
+            f"[{card}]")
+    for name, mod in kernels[:3]:
         for form, sa in (("square", False), ("SA star", True)):
             # K3 builds its window (radius 5, increment 2) itself
             info = strong.kernel_info(True, sa, 5, 2, FULL_VIEWS - 1) \
@@ -1940,7 +2299,9 @@ LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), NCC kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), sweep kernel launches: (\d+), by mode "
                        r"(\{[^}]*\}), strong kernel launches: (\d+) for "
-                       r"(\d+) colour updates(?:, rank (\d+) of (\d+))?")
+                       r"(\d+) colour updates(?:, rank (\d+) of (\d+))?"
+                       r"(?:, weak kernel launches: (\d+) for (\d+) "
+                       r"planes)?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
@@ -1993,12 +2354,10 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
         raise AssertionError(f"fusion lines {fusion}")
     errs = depth_errors(scene, root)
     points = coloured_points(root / "APD" / "APD.ply", "view-parallel PLY")
-    launches = {site: sum(sites[r]["sites"].get(site, 0)
-                          for r in range(RANKS)) for site in WEAK_SITES}
-    launches["elsewhere"] = sum(k1_elsewhere(sites[r]["sites"])
-                                for r in range(RANKS))
+    launches = {"K1": sum(sites[r]["k1"] for r in range(RANKS))}
     launches["K2"] = sum(sites[r]["k2"] for r in range(RANKS))
     launches["K3"] = sum(sites[r]["k3"] for r in range(RANKS))
+    launches["K6"] = sum(sites[r]["k6"] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
     log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
@@ -2070,7 +2429,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
     k3 = sum(sites[r]["k3"] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
-    k1_other = sum(k1_elsewhere(sites[r]["sites"]) for r in range(RANKS))
+    k1 = sum(sites[r]["k1"] for r in range(RANKS))
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
@@ -2083,7 +2442,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
     for root in roots.values():
         shutil.rmtree(root)
     return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
-                launches=launches, k3=k3, k5=k5, k1_elsewhere=k1_other,
+                launches=launches, k3=k3, k5=k5, k1=k1,
                 k2_elsewhere=sum(k2_elsewhere(sites[r]["k2_sites"])
                                  for r in range(RANKS)),
                 passes=passes)
@@ -2200,7 +2559,7 @@ def main(argv=None) -> int:
 
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep
+    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
     from apde_mvs_tpu_torch.testing import synthetic
 
     t_all = time.perf_counter()
@@ -2211,10 +2570,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1, K2, K3 and K5 from this checkout -----------------
+    # ---- setup: build K1, K2, K3, K5 and K6 from this checkout -------------
     build_race(card)
     for name, mod in (("K1", sampler), ("K2", ncc), ("K3", strong),
-                      ("K5", sweep)):
+                      ("K5", sweep), ("K6", weak)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -2246,7 +2605,16 @@ def main(argv=None) -> int:
     kk = k2_phase(full_scene, args.seed, device, card)
     k5 = k5_phase(full_scene, args.seed, device, card)
     k3 = k3_phase(full_scene, args.seed, device, card)
-    kw = weak_kernel_phase(apd_scene, args.seed, device, card)
+    # the APD scene's cameras with a textured foreground plane before a
+    # fronto-parallel background, so that the foreground alone is nearer
+    # than 0.95 of the mean depth: a weak chunk whose windows carry the
+    # full texture amplitude
+    textured = synthetic.make_scene(
+        num_views=args.apd_views, height=HEIGHT, width=WIDTH, baseline=0.12,
+        focal=1.25 * WIDTH, with_foreground=True, plane_tilt=(0.0, 0.0))
+    kw = weak_kernel_phase(apd_scene, args.seed, device, card,
+                           textured=textured)
+    del textured
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2260,7 +2628,8 @@ def main(argv=None) -> int:
         synthetic.write_scene_to_disk(apd_scene, root)
         write_sa_masks(apd_scene, root)
         ap = scan_phase("APD scan", seed_args + [
-            "--pyramid_base", str(APD_BASE)], apd_scene, root, 8, card)
+            "--pyramid_base", str(APD_BASE)], apd_scene, root, 8, card,
+            weak=True)
         apd_checks(ap, root, apd_scene.num_views, card)
         fusion_phase(root, Path(tmp) / "profile", card)
         ex = exports_phase(root, apd_scene.num_views, args.seed, Path(tmp),
@@ -2295,15 +2664,22 @@ def main(argv=None) -> int:
     log(f"utilization.gpu mean: view-parallel scan {vp['util']:.1f}%, "
         f"batch path {bu.mean:.1f}% ({bu.samples} samples) [{card}]")
     # launches on every path, each read from its own counters (the
-    # subprocess engines' from their logs): K1's by site (the strong NCC
-    # is K2's now: K1's strong-shape rows count its launches at any other
-    # than the weak sites, which check_counts holds at 0), K2's, and K5's
-    # by mode
-    by_path = (r0["sites"], ap["sites"], ex["sites"],
-               ex["debug_point"]["sites"], bt["sites"], vp["launches"])
-    launches = {site: sum(d.get(site, 0) for d in by_path)
-                for site in WEAK_SITES}
-    launches["elsewhere"] = sum(k1_elsewhere(d) for d in by_path)
+    # subprocess engines' from their logs): K1's (no main-path site is
+    # left: check_counts holds them at 0), K2's, K5's by mode, K3's and
+    # K6's
+    k1_launches = sum(c["k1"] for c in (r0, ap, ex, ex["debug_point"], ag,
+                                        bt)) + vp["launches"]["K1"] + tl["k1"]
+    k6_paths = dict(round0=r0["k6"], apd=ap["k6"], exports=ex["k6"],
+                    debug_point=ex["debug_point"]["k6"],
+                    view_parallel=vp["launches"]["K6"], nccl=ag["k6"],
+                    batch=bt["k6"])
+    k6_split = [k6_chunks(c) for c in (ap, ex)]
+    k6_chunk_launches = sum(c for c, _ in k6_split)
+    k6_rescores = sum(r for _, r in k6_split)
+    log(f"K6 launches by path: {json.dumps(k6_paths)}; the APD scan and the "
+        f"exports pass: {k6_chunk_launches} weak-sweep chunks (a candidates "
+        f"and a probes launch each), {k6_rescores} re-score chunks; K1 "
+        f"launches on every path {k1_launches} [{card}]")
     k2_paths = dict(round0=r0["k2"], apd=ap["k2"], exports=ex["k2"],
                     debug_point=ex["debug_point"]["k2"],
                     view_parallel=vp["launches"]["K2"], nccl=ag["k2"],
@@ -2338,19 +2714,21 @@ def main(argv=None) -> int:
                              "window")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
+    # K1 launches on no main path now: its rows' launches are every path's
+    # K1 launches, 0 (check_counts)
     rows = [dict(name="K1 bilinear sampler (packed u8 quads)", **k1,
-                 launches=launches["elsewhere"],
+                 launches=k1_launches,
                  max_abs_err=k["max_abs_err"], **k["u8"])]
     rows.append(dict(name="K1 bilinear sampler, tile-route row shard "
                           "(packed u8 quads)", **k1,
-                     launches=tl["k1_elsewhere"],
+                     launches=k1_launches,
                      max_abs_err=k["max_abs_err"], **k["shard"]["u8"]))
     for site, what in (("weak_centre", "weak centre windows"),
                        ("weak_anchor", "weak anchor windows")):
         r = kw[site]
-        rows.append(dict(name=f"K1 bilinear sampler, {what} (packed u8 "
-                              "quads)", **k1,
-                         launches=launches[site],
+        rows.append(dict(name=f"K1 bilinear sampler, {what}, redesigned as "
+                              "K6 (packed u8 quads)", **k1,
+                         launches=k1_launches,
                          max_abs_err=r["max_abs_err"], **r["u8"]))
     k2 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/ncc.cu",
           "replaces": "apde_mvs_tpu/ops/cost.py:248-297 (XLA-compiled jnp)"}
@@ -2390,6 +2768,30 @@ def main(argv=None) -> int:
                           "row block (u8 quads, geometric cost)", **k3_src,
                      launches=tl["k3"], max_abs_err=k3["max_abs_err"],
                      **k3["shard"]))
+    k6_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/weak.cu",
+              "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38 at the weak "
+                          "sites, with apde_mvs_tpu/ops/deformable.py:124-198"
+                          " and cost.py:418 (XLA-compiled jnp)"}
+    # the main paths' weak windows are all SA's: the square's row counts
+    # no launch
+    for key, what, n in (
+            ("candidates", "weak-sweep chunk, 10 candidate planes, every "
+             "view", k6_chunk_launches),
+            ("probes", "weak-sweep chunk, 5 probes, weighted views",
+             k6_chunk_launches),
+            ("rescore", "initial cost's re-score chunk, 1 plane",
+             k6_rescores),
+            ("candidates_square", "weak-sweep chunk, 10 candidate planes, "
+             "every view, square windows", 0)):
+        # a weak-sweep chunk runs K6 with the geometric cost in a geometric
+        # pass and without it in REFINE_INIT: its launches count both forms
+        geo_tag = "" if key == "rescore" else (
+            ", geometric cost; launches with and without it")
+        sa_tag = "" if key == "candidates_square" else ", SA"
+        rows.append(dict(name=f"K6 deformable NCC, {what} (u8 quads"
+                              f"{sa_tag}{geo_tag})", **k6_src, launches=n,
+                         max_abs_err=kw["k6_max_abs_err"],
+                         **kw[key]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
