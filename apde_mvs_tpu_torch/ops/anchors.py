@@ -1,6 +1,7 @@
 """Adaptive patch deformation: anchor machinery for weak-texture pixels.
 
-The reference's three brute-force kernels, as batched torch ops:
+The reference's three brute-force kernels, as batched torch ops (the
+plain versions) and as hand-written kernels (see Devices below):
 
 - FindNearestStrongPoint (APD.cu:2434-2484) scans a 201x201 window per
   pixel; here it is a jump-flooding transform (log-step passes of 8
@@ -26,11 +27,21 @@ Float discipline: every product, sum and comparison that gates a discrete
 choice is written in the JAX package's operation order (3-term dots and
 norms left-associated, the cross product in `jnp.cross` component order),
 since RANSAC redraws the same triangle in permuted vertex order and ulp
-differences would flip real ties.
+differences would flip real ties; every reduction that decides something
+runs in a fixed order (the fit cost's sum over the anchors left to right,
+the view direction's length in float64 rounded once).
+
+Devices: the public functions take the plain versions here
+(``nearest_strong_jfa_plain``, ``gen_anchors_chunk_plain``,
+``ransac_fit_planes_plain``) for CPU tensors and launch the hand-written
+kernels K10, K8 and K9 (``ops/cuda/anchors.py``, ``csrc/anchors.cu``) for
+CUDA tensors, which equal the plain versions bit for bit; there is no
+fallback between the two.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -40,6 +51,7 @@ import torch
 from ..config import ANCHOR_NUM, MAX_SEARCH_RADIUS, STRONG, UNKNOWN, WEAK
 from ..core import geometry as geo
 from ..core.sampling import fetch
+from .cuda import anchors as kernels
 from .state import PMState
 
 RANSAC_ITERS = 50           # reference: `int iteration = 50` (APD.cu:1989)
@@ -58,11 +70,34 @@ ANCHOR_CHUNK = 1 << 14
 # Nearest strong point via jump flooding
 # ---------------------------------------------------------------------------
 
+def jfa_steps(h: int, w: int) -> list:
+    """The flooding's jump steps for an (h, w) map: the powers of two from
+    the first at or above max(h, w) - 1 down to 1, then 1 again (JFA+1)."""
+    max_step = 1 << (max(h, w) - 1).bit_length()
+    steps = []
+    s = max_step
+    while s >= 1:
+        steps.append(s)
+        s //= 2
+    steps.append(1)  # extra pass improves JFA accuracy (JFA+1)
+    return steps
+
+
 def nearest_strong_jfa(weak: torch.Tensor, confidence: torch.Tensor,
                        valid: torch.Tensor) -> torch.Tensor:
     """(H, W) maps -> (H, W, 2) int32 coords of the nearest STRONG pixel with
     confidence >= own (ties prefer higher confidence); (-1, -1) when none.
-    STRONG pixels map to themselves."""
+    STRONG pixels map to themselves. K10 on CUDA tensors."""
+    if weak.device.type == "cpu":
+        return nearest_strong_jfa_plain(weak, confidence, valid)
+    return kernels.nearest_strong(weak.contiguous(), confidence.contiguous(),
+                                  valid.contiguous(), jfa_steps(*weak.shape))
+
+
+def nearest_strong_jfa_plain(weak: torch.Tensor, confidence: torch.Tensor,
+                             valid: torch.Tensor) -> torch.Tensor:
+    """`nearest_strong_jfa` as torch ops: each (step, neighbour) relaxes
+    the whole map against the one the previous neighbours left."""
     h, w = weak.shape
     dev = weak.device
     ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.int32, device=dev),
@@ -73,14 +108,7 @@ def nearest_strong_jfa(weak: torch.Tensor, confidence: torch.Tensor,
     by = torch.where(strong, ys, -1)
     big = torch.iinfo(torch.int32).max
 
-    max_step = 1 << (max(h, w) - 1).bit_length()
-    steps = []
-    s = max_step
-    while s >= 1:
-        steps.append(s)
-        s //= 2
-    steps.append(1)  # extra pass improves JFA accuracy (JFA+1)
-    for step in steps:
+    for step in jfa_steps(h, w):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
                 if dx == 0 and dy == 0:
@@ -254,20 +282,28 @@ def _plane_dist(pts, plane):
     return torch.abs(_dot3(pts, plane[:, None, :3]) + plane[:, None, 3])
 
 
-def _gen_anchors_chunk(cam, h, w, depth_map, nearest_strong, weak_x, weak_y,
-                       rotate_time, ransac_threshold, depth_min, depth_max,
-                       raws: AnchorRaws):
-    n = weak_x.shape[0]
-    dev = weak_x.device
+def _cone_cos(rotate_time: int) -> float:
+    """The cosine of a direction's acceptance half-angle."""
+    return math.cos(math.radians(45.0 / rotate_time / 2.0))
+
+
+def probe_table(h, w, nearest_strong, weak_x, weak_y, rotate_time,
+                raws: AnchorRaws) -> tuple:
+    """Every probe of every weak pixel, (n, D * Rn * J) each in the flat
+    order (direction, radius, jitter), jitter innermost: whether its
+    un-jittered test point lies in the (h, w) image, whether it is
+    accepted, the nearest-strong pixel (sx, sy) it snaps to, and the flat
+    index y * w + x of the map texel it reads (-1 where it reads none: its
+    test point out of the image or the probe within MIN_MARGIN of an
+    edge)."""
     xf = weak_x.to(torch.float32)
     yf = weak_y.to(torch.float32)
-
+    dev = weak_x.device
     dirs_np = _direction_table(rotate_time)                   # (D, 2)
     D = dirs_np.shape[0]
     radii_np = _radius_schedule(RADIUS_BUDGET).astype(np.float32)
     Rn = radii_np.shape[0]
     J = JITTER_SAMPLES
-    cone_cos = math.cos(math.radians(45.0 / rotate_time / 2.0))
 
     # flat probe layout: (direction, radius, jitter) with jitter innermost,
     # radius next — the reference's first-hit scan order
@@ -290,10 +326,11 @@ def _gen_anchors_chunk(cam, h, w, depth_map, nearest_strong, weak_x, weak_y,
     # monotonically, so the cumulative stop is a per-radius bounds test)
     tx = xf[:, None] + dirx * rad
     ty = yf[:, None] + diry * rad
-    probe_ok = (tx >= 0) & (ty >= 0) & (tx < w) & (ty < h) \
-        & (px >= MIN_MARGIN) & (py >= MIN_MARGIN) \
-        & (px < w - MIN_MARGIN) & (py < h - MIN_MARGIN)
+    in_image = (tx >= 0) & (ty >= 0) & (tx < w) & (ty < h)
     del tx, ty
+    probe_ok = in_image & (px >= MIN_MARGIN) & (py >= MIN_MARGIN) \
+        & (px < w - MIN_MARGIN) & (py < h - MIN_MARGIN)
+    texel = torch.where(probe_ok, py * w + px, -1)
     pxc = torch.clamp(px, min=0)
     pyc = torch.clamp(py, min=0)
     sx = fetch(nearest_strong[..., 0], pxc, pyc)
@@ -304,8 +341,24 @@ def _gen_anchors_chunk(cam, h, w, depth_map, nearest_strong, weak_x, weak_y,
     vx = sx.to(torch.float32) - xf[:, None]
     vy = sy.to(torch.float32) - yf[:, None]
     vn = torch.clamp(torch.sqrt(vx * vx + vy * vy), min=1e-20)
-    probe_ok &= (vx * dirx + vy * diry) / vn > cone_cos
-    del vx, vy, vn
+    probe_ok &= (vx * dirx + vy * diry) / vn > _cone_cos(rotate_time)
+    return in_image, probe_ok, sx, sy, texel
+
+
+def gen_anchors_chunk_plain(cam, h, w, depth_map, nearest_strong, weak_x,
+                            weak_y, rotate_time, ransac_threshold, depth_min,
+                            depth_max, raws: AnchorRaws) -> AnchorResult:
+    """K8's plain version: the anchors of one chunk of weak pixels as torch
+    ops, every probe evaluated (``probe_table``)."""
+    n = weak_x.shape[0]
+    dev = weak_x.device
+    xf = weak_x.to(torch.float32)
+    yf = weak_y.to(torch.float32)
+    D = 8 * rotate_time
+    Rn = len(_radius_schedule(RADIUS_BUDGET))
+    J = JITTER_SAMPLES
+    _, probe_ok, sx, sy, _ = probe_table(h, w, nearest_strong, weak_x, weak_y,
+                                      rotate_time, raws)
 
     # first accepted probe per direction (radius-major, then jitter order)
     flat_ok = probe_ok.reshape(n, D, Rn * J)
@@ -397,13 +450,27 @@ def gen_anchors(data, state: PMState, weak_x, weak_y, rotate_time: int,
     APD.cu:2685-2690). ``raws`` injects the jitter / RANSAC draws; without
     them they are drawn from ``generator``, chunk by chunk. The weak list
     is evaluated in chunks of ``chunk`` pixels; with injected draws the
-    result does not depend on it."""
+    result does not depend on it. On CUDA tensors each chunk is one launch
+    of K8, which runs a direction a lane of a warp: 8 * ``rotate_time``
+    must not exceed 32, on any device."""
+    if not 1 <= 8 * rotate_time <= kernels.MAX_DIRECTIONS:
+        raise ValueError(f"rotate_time {rotate_time} gives {8 * rotate_time}"
+                         f" directions; the anchor kernel takes at most "
+                         f"{kernels.MAX_DIRECTIONS} (a warp's lanes)")
     dev = weak_x.device
     nw = weak_x.shape[0]
     depth_min = geo.f32_scalar(depth_min, dev)
     depth_max = geo.f32_scalar(depth_max, dev)
     thr = geo.f32_scalar(ransac_threshold, dev)
-    depth_map = state.planes[..., 3]
+    if dev.type == "cpu":
+        def run(wx, wy, r):
+            return gen_anchors_chunk_plain(
+                data.ref_cam, data.img_h, data.img_w, state.planes[..., 3],
+                nearest_strong, wx, wy, rotate_time, thr, depth_min,
+                depth_max, r)
+    else:
+        run = _kernel_chunks(data, state, rotate_time, thr, depth_min,
+                             depth_max, nearest_strong)
     parts = []
     for lo in range(0, nw, chunk):
         sl = slice(lo, min(lo + chunk, nw))
@@ -412,16 +479,43 @@ def gen_anchors(data, state: PMState, weak_x, weak_y, rotate_time: int,
         else:
             r = AnchorRaws(raws.shift_x[sl], raws.shift_y[sl],
                            raws.triplets[:, sl])
-        parts.append(_gen_anchors_chunk(
-            data.ref_cam, data.img_h, data.img_w, depth_map, nearest_strong,
-            weak_x[sl], weak_y[sl], rotate_time, thr, depth_min, depth_max,
-            r))
+        parts.append(run(weak_x[sl], weak_y[sl], r))
     if not parts:
         return AnchorResult(
             torch.zeros((0, ANCHOR_NUM, 2), dtype=torch.int32, device=dev),
             torch.zeros((0,), dtype=torch.bool, device=dev),
             torch.zeros((0,), dtype=torch.int32, device=dev))
     return AnchorResult(*(torch.cat(f) for f in zip(*parts)))
+
+
+def _kernel_chunks(data, state: PMState, rotate_time: int, thr, depth_min,
+                   depth_max, nearest_strong):
+    """K8 over one chunk at a time: the tables and scalars of a
+    `gen_anchors` call, read to the host once (float32 values)."""
+    dev = state.planes.device
+    dirs, radii = _kernel_tables(rotate_time, str(dev))
+    cam = kernels.camera(data.ref_cam)
+    scalars = (float(np.float32(_cone_cos(rotate_time))), float(thr),
+               float(np.float32(float(depth_max))
+                     - np.float32(float(depth_min))))
+    ns = nearest_strong.contiguous()
+    planes = state.planes.contiguous()
+
+    def run(wx, wy, r):
+        return AnchorResult(*kernels.gen_anchors(
+            ns, planes, data.img_h, data.img_w, wx.contiguous(),
+            wy.contiguous(), r.shift_x.contiguous(), r.shift_y.contiguous(),
+            r.triplets, dirs, radii, JITTER_SAMPLES, cam, *scalars,
+            MIN_MARGIN))
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(rotate_time: int, device: str) -> tuple:
+    """K8's (D, 2) directions and (Rn,) radii, f32 on ``device``."""
+    return (torch.as_tensor(_direction_table(rotate_time), device=device),
+            torch.as_tensor(_radius_schedule(RADIUS_BUDGET)
+                            .astype(np.float32), device=device))
 
 
 def neighbor_update(state: PMState, weak_x, weak_y, reliable) -> PMState:
@@ -447,22 +541,42 @@ def ransac_fit_planes(data, state: PMState, weak_x, weak_y, anchors,
     WEAK pixel carries >= 6 anchors, so it never runs.
 
     ``triplets`` injects the (RANSAC_ITERS, Nw, 3) raw draws; without them
-    they are drawn from ``generator``."""
+    they are drawn from ``generator``. K9 on CUDA tensors."""
     n = weak_x.shape[0]
     dev = weak_x.device
     if triplets is None:
         triplets = ransac_draws(generator, n, dev)
+    if dev.type == "cpu":
+        return ransac_fit_planes_plain(data.ref_cam, state.planes, weak_x,
+                                       weak_y, anchors, triplets)
+    return kernels.fit_planes(state.planes.contiguous(), weak_x.contiguous(),
+                              weak_y.contiguous(), anchors.contiguous(),
+                              triplets, kernels.camera(data.ref_cam))
+
+
+def _length_f64(v) -> torch.Tensor:
+    """|v| of (..., 3) f32 rounded once: sqrt((v0^2 + v1^2) + v2^2) in
+    float64 (each square exact), then to float32."""
+    d = v.to(torch.float64)
+    return torch.sqrt(_dot3(d, d)).to(torch.float32)
+
+
+def ransac_fit_planes_plain(cam, planes, weak_x, weak_y, anchors,
+                            triplets) -> torch.Tensor:
+    """K9's plain version: `ransac_fit_planes` as torch ops on the
+    camera-frame ``planes`` (H, W, 4), every reduction that decides
+    something in a fixed order."""
+    n = weak_x.shape[0]
+    dev = weak_x.device
     xf = weak_x.to(torch.float32)
     yf = weak_y.to(torch.float32)
-    cam = data.ref_cam
 
     ax = anchors[:, 1:, 0]
     ay = anchors[:, 1:, 1]
     exists = (ax >= 0) & (ay >= 0)
     axf = ax.to(torch.float32)
     ayf = ay.to(torch.float32)
-    a_planes = fetch(state.planes, torch.clamp(ax, min=0),
-                     torch.clamp(ay, min=0))
+    a_planes = fetch(planes, torch.clamp(ax, min=0), torch.clamp(ay, min=0))
     pts = geo.backproject(cam, axf, ayf,
                           geo.depth_from_plane(cam, a_planes, axf, ayf))
     count = exists.sum(-1)
@@ -486,16 +600,21 @@ def ransac_fit_planes(data, state: PMState, weak_x, weak_y, anchors,
         plane, degen = _plane_from_triplet(pts, a, b, c)
         others = exists & (slots != a[:, None]) & (slots != b[:, None]) \
             & (slots != c[:, None])
-        cost = torch.where(others, _plane_dist(pts, plane), 0.0).sum(-1)
+        terms = torch.where(others, _plane_dist(pts, plane), 0.0)
+        # the other anchors' distances summed left to right
+        cost = terms[:, 0]
+        for k in range(1, ANCHOR_NUM - 1):
+            cost = cost + terms[:, k]
         better = distinct & tri & ~degen & enough & (cost < best_cost)
         best_plane = torch.where(better[:, None], plane, best_plane)
         best_cost = torch.where(better, cost, best_cost)
         has = has | better
 
-    # flip toward the camera (reference: APD.cu:2582-2594)
-    depth = geo.depth_from_plane(cam, fetch(state.planes, weak_x, weak_y),
-                                 xf, yf)
-    vd = geo.view_direction(cam, xf, yf, depth)
-    flip = (best_plane[:, :3] * vd).sum(-1) > 0
+    # flip toward the camera (reference: APD.cu:2582-2594): against the
+    # unit view direction, its length taken in float64
+    depth = geo.depth_from_plane(cam, fetch(planes, weak_x, weak_y), xf, yf)
+    view = geo.backproject(cam, xf, yf, depth)
+    vd = view / _length_f64(view)[:, None]
+    flip = _dot3(best_plane[:, :3], vd) > 0
     best_plane = torch.where(flip[:, None], -best_plane, best_plane)
     return torch.where(has[:, None], best_plane, 0.0)

@@ -29,6 +29,7 @@ from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
                          resize_bilinear, resize_nearest, scaled_size,
                          write_image)
 from ..ops.cost import CostData
+from ..ops.cuda import anchors as anchor_kernels
 from ..ops.cuda import ncc, sampler, strong, sweep, weak
 from ..tools import visualize
 from .patchmatch import pad_to_multiple, run_patchmatch
@@ -376,6 +377,24 @@ def _fuse(dense_folder, problems, params, export_color, cache, shard,
     print(f"Fusion wall {time.time() - t_fuse:.3f} s", flush=True)
 
 
+def print_launches(tag: str) -> None:
+    """The engine's last line: every kernel's launches in this process
+    (``tag`` names the rank under a process group)."""
+    # one write with its newline: ranks sharing a pipe interleave writes
+    print(f"Sampler kernel launches: {sampler.launches}, by site "
+          f"{json.dumps(sampler.site_launches, sort_keys=True)}, NCC kernel "
+          f"launches: {ncc.launches}, by site "
+          f"{json.dumps(ncc.site_launches, sort_keys=True)}, sweep kernel "
+          f"launches: {sweep.launches}, by mode "
+          f"{json.dumps(sweep.mode_launches, sort_keys=True)}, strong kernel "
+          f"launches: {strong.launches} for {strong.colours} colour updates"
+          f"{tag}, weak kernel launches: {weak.launches} for {weak.planes} "
+          f"planes, anchor kernel launches: K10 "
+          f"{anchor_kernels.jfa_launches}, K8 "
+          f"{anchor_kernels.anchor_launches}, K9 "
+          f"{anchor_kernels.fit_launches}\n", end="", flush=True)
+
+
 def run_scan(dense_folder, dataset: str = "General", *,
              device="cuda",
              only_fuse: bool = False, no_fuse: bool = False,
@@ -479,16 +498,7 @@ def run_scan(dense_folder, dataset: str = "General", *,
     print(f"Cost time: {(time.time() - t0) * 1000:.0f} ms", flush=True)
     avg = np.mean([p.used_time_ms for p in problems]) if problems else 0
     print(f"Average used time: {avg:.0f} ms", flush=True)
-    # one write with its newline: ranks sharing a pipe interleave writes
-    print(f"Sampler kernel launches: {sampler.launches}, by site "
-          f"{json.dumps(sampler.site_launches, sort_keys=True)}, NCC kernel "
-          f"launches: {ncc.launches}, by site "
-          f"{json.dumps(ncc.site_launches, sort_keys=True)}, sweep kernel "
-          f"launches: {sweep.launches}, by mode "
-          f"{json.dumps(sweep.mode_launches, sort_keys=True)}, strong kernel "
-          f"launches: {strong.launches} for {strong.colours} colour updates"
-          f"{tag}, weak kernel launches: {weak.launches} for {weak.planes} "
-          "planes\n", end="", flush=True)
+    print_launches(tag)
 
     if cache is not None and flush:
         cache.flush()

@@ -19,11 +19,12 @@ time) and idle share, the wall of the same pass run without the profiler
 launches of the fused strong NCC K2 by call site (the initial cost), of
 the strong sweep's colour update K3, of the fused disparity sweep K5 by
 mode (classify, refine), of the deformable NCC K6 by use (the weak sweep's
-candidates and probes, the initial cost's re-score) and of K1 by call
-site, each kernel's profiler time, the device and host time of the pass's
-stages (anchors, fit planes, the weak sweep, the deformable NCC, the
-classify and refine sweeps, ...), and the torch ops that hold the most
-device time.
+candidates and probes, the initial cost's re-score), of the APD setup's
+K10 (the nearest-strong flooding), K8 (anchor generation) and K9 (the
+fit-plane RANSAC) and of K1 by call site, each kernel's profiler time,
+the device and host time of the pass's stages (anchors, fit planes, the
+weak sweep, the deformable NCC, the classify and refine sweeps, ...), and
+the torch ops that hold the most device time.
 
     python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
         [--views 11] [--top 15]
@@ -50,6 +51,7 @@ from ..core import geometry as geo
 from ..core.platform import card_line
 from ..ops import anchors, filters, init, propagation
 from ..ops.cost import CostData
+from ..ops.cuda import anchors as kanchors
 from ..ops.cuda import ncc, sampler, strong, sweep, weak
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
@@ -127,6 +129,10 @@ def _k3_name(a, kw):
     return "K3 colour update"
 
 
+def _anchor_kernel(name):
+    return lambda a, kw: name
+
+
 def _k6_use(a, kw):
     if kw.get("view_weights") is not None:
         return "K6 probes"
@@ -142,7 +148,10 @@ def stage_ranges(kernel_events: dict):
                (ncc, "ncc_strong_fused", _k2_site),
                (strong, "strong_fused", _k3_name),
                (sweep, "sweep_fused", _k5_mode),
-               (weak, "weak_fused", _k6_use))
+               (weak, "weak_fused", _k6_use),
+               (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),
+               (kanchors, "gen_anchors", _anchor_kernel("K8 anchors")),
+               (kanchors, "fit_planes", _anchor_kernel("K9 fit planes")))
     saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES + kernels]
     try:
         for m, a, label in _STAGES:
@@ -166,7 +175,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     t0 = time.perf_counter()
     run()
     plain_wall = time.perf_counter() - t0
-    for mod in (sampler, ncc, strong, sweep, weak):
+    for mod in (sampler, ncc, strong, sweep, weak, kanchors):
         mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -202,6 +211,10 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k
              and "ncc_strong" not in k) / 1e6
     k6 = sum(t for k, t in kernels.items() if "weak_kernel" in k) / 1e6
+    anchor = {name: sum(t for k, t in kernels.items() if kernel in k) / 1e6
+              for name, kernel in (("k8_s", "gen_anchors"),
+                                   ("k9_s", "fit_planes"),
+                                   ("k10_s", "jfa_step"))}
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
     sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
                for site, ev in kernel_events.items()}
@@ -213,7 +226,10 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k3_s=k3,
                 k3_launches=strong.launches, k5_s=k5,
                 k5_launches=sweep.launches, k6_s=k6,
-                k6_launches=weak.launches, k1_launches=launches,
+                k6_launches=weak.launches, **anchor,
+                k8_launches=kanchors.anchor_launches,
+                k9_launches=kanchors.fit_launches,
+                k10_launches=kanchors.jfa_launches, k1_launches=launches,
                 site_launches=sites,
                 site_event_s={k: round(v, 6) for k, v in sites_s.items()},
                 stage_device_s={k: round(v, 6) for k, v in sorted(
@@ -234,13 +250,16 @@ def _report(r, card):
           f"{r['k2_launches']} launches, K3 {r['k3_s']:.3f} s over "
           f"{r['k3_launches']} launches, K5 {r['k5_s']:.3f} s over "
           f"{r['k5_launches']} launches, K6 {r['k6_s']:.3f} s over "
-          f"{r['k6_launches']} launches, K1 {r['k1_s']:.3f} s over "
+          f"{r['k6_launches']} launches, K8 {r['k8_s']:.4f} s over "
+          f"{r['k8_launches']} launches, K9 {r['k9_s']:.4f} s over "
+          f"{r['k9_launches']} launches, K10 {r['k10_s']:.4f} s over "
+          f"{r['k10_launches']} launches, K1 {r['k1_s']:.3f} s over "
           f"{r['k1_launches']} launches (profiler kernel time) [{card}]",
           flush=True)
     for site, t in r["site_event_s"].items():
         calls = r["site_launches"].get(site, 0)
-        kernel = site[:2] if site[:2] in ("K2", "K3", "K5", "K6") else "K1"
-        print(f"  {kernel}    {t:9.4f} s  {site}: {calls} calls, "
+        kernel = site.split()[0] if site[0] == "K" else "K1"
+        print(f"  {kernel:<5} {t:9.4f} s  {site}: {calls} calls, "
               f"{t / max(calls, 1) * 1e3:.4f} ms a call (CUDA events)")
     print(f"  unprofiled: wall {r['unprofiled_wall_s']:.3f} s, idle "
           f"{r['unprofiled_idle_share']:.1%} against the same device busy")

@@ -1760,6 +1760,448 @@ def weak_kernel_phase(scene, seed: int, device, card: str,
     return out
 
 
+# operations of the APD setup's kernels as the functions need them, counted
+# on the call's data. K10, a pixel a (step, neighbour) sub-pass: the
+# neighbour's coordinates (2) and bounds test (4), the acceptance (2), the
+# two squared distances (10), the choice (2).
+K10_OPS_PER_PIXEL_PASS = 20
+# K8: a probe walked (up to its direction's first accepted one, or every
+# probe whose test point is in the image): the offset (4), its length (5),
+# the position (8), the test point (4), 8 bounds tests, the snap's 2
+# tests, the cone (12); per RANSAC iteration of a pixel with >= 6 hits (no
+# fewer can be usable) 80 (the triangle test 44, the plane 30, the
+# centre's distance 6) and 9 a hit (its distance 7, the division and
+# test); a hit 16 (back-projection 6, the final distance, division, test
+# and boost 10) and 2 a direction for its rank.
+K8_OPS_PER_PROBE = 43
+K8_OPS_PER_ITERATION = 80
+K8_OPS_PER_ITERATION_HIT = 9
+K8_OPS_PER_HIT = 16
+# K9: an anchor 18 (depth from its plane 12, back-projection 6); per
+# iteration of a pixel with >= 3 anchors 74 (the triangle test 44, the
+# plane 30) and 9 an anchor (its distance 7, the selection, the sum); a
+# pixel 30 (its depth and back-projection 18, the float64 length's 6
+# operations counted twice, the flip's dot 5 minus one).
+K9_OPS_PER_ANCHOR = 18
+K9_OPS_PER_ITERATION = 74
+K9_OPS_PER_ITERATION_ANCHOR = 9
+K9_OPS_PER_PIXEL = 30
+ANCHOR_ROTATE_TIMES = (1, 2, 4)
+# the real scan's weak share a weak set of the map stands for (PERF.md §7)
+WEAK_SHARE = 0.15
+
+
+def apd_setup(scene, device):
+    """The APD scan's round-1 setup at full size (view 0): the weak plane
+    WEAK (confidence 40) in a STRONG field (200), the ground-truth depths
+    and normals as the state's planes (depths, as `gen_anchors` takes
+    them) and as camera-frame planes (as `ransac_fit_planes` takes them),
+    REFINE_INIT's parameters of the APD round and the depth range."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.state import PMState
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    data = types.SimpleNamespace(ref_cam=cams.view(0), img_h=HEIGHT,
+                                 img_w=WIDTH)
+    depth = torch.as_tensor(scene.depths[0], device=device)
+    normal = torch.as_tensor(scene.normals[0], device=device)
+    region = weak_region(depth)
+    params = next(sp.params for sp in cfg.build_schedule(
+        max(HEIGHT, WIDTH), base=APD_BASE) if sp.params.use_apd)
+    state = PMState.create(HEIGHT, WIDTH, scene.num_views - 1,
+                           device=device).replace(
+        planes=torch.cat([normal, depth[..., None]], -1).contiguous(),
+        weak=torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32),
+        confidence=torch.where(region, 40.0, 200.0))
+    cam_planes = filters.depth_normal_to_planes(data, depth,
+                                                normal).contiguous()
+    dmin = float(np.float32(scene.cameras[0].depth_min
+                            * cfg.DEPTH_MIN_FACTOR))
+    dmax = float(np.float32(scene.cameras[0].depth_max
+                            * cfg.DEPTH_MAX_FACTOR))
+    return types.SimpleNamespace(data=data, state=state,
+                                 cam_planes=cam_planes, params=params,
+                                 dmin=dmin, dmax=dmax)
+
+
+ANCHOR_ERRS = []   # max |kernel - plain| of every K8, K9, K10 check
+
+
+def same_bits(got, want) -> int:
+    """The elements where two tensors' bits differ (float32 compared as
+    int32: NaN payloads and -0 count); keeps the max abs difference over
+    the values finite in both in ANCHOR_ERRS."""
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape or dtype {tuple(got.shape)} "
+                             f"{got.dtype} against {tuple(want.shape)} "
+                             f"{want.dtype}")
+    g, w = got.double(), want.double()
+    ok = torch.isfinite(g) & torch.isfinite(w)
+    ANCHOR_ERRS.append(float((g[ok] - w[ok]).abs().max())
+                       if bool(ok.any()) else 0.0)
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return int((got != want).sum())
+
+
+def k10_check(weak, conf, valid, what: str):
+    """K10 against its plain version, bitwise; returns the map."""
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    got = anc.nearest_strong_jfa(weak, conf, valid)
+    want = anc.nearest_strong_jfa_plain(weak, conf, valid)
+    bad = same_bits(got, want)
+    h, w = weak.shape
+    log(f"  K10 {what} ({h}x{w}): {bad} of {got.numel()} values differ "
+        f"from the plain version; {int((got[..., 0] >= 0).sum())} pixels "
+        f"with a strong pixel")
+    if bad:
+        raise AssertionError(f"K10 {what}: {bad} values differ")
+    return got
+
+
+def k8_check(data, state, wx, wy, rt: int, thr, dmin, dmax, ns, raws,
+             what: str):
+    """K8 against its plain version, chunk by chunk (ANCHOR_CHUNK),
+    bitwise on the anchors, reliability and hit counts; returns K8's
+    result."""
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
+    dev = wx.device
+    before = kern.anchor_launches
+    got = anc.gen_anchors(data, state, wx, wy, rt, thr, dmin, dmax, ns,
+                          raws=raws)
+    launched = kern.anchor_launches - before
+    n = wx.numel()
+    f32 = [geo.f32_scalar(v, dev) for v in (thr, dmin, dmax)]
+    bad = {}
+    for lo in range(0, n, anc.ANCHOR_CHUNK):
+        sl = slice(lo, min(lo + anc.ANCHOR_CHUNK, n))
+        want = anc.gen_anchors_chunk_plain(
+            data.ref_cam, data.img_h, data.img_w, state.planes[..., 3], ns,
+            wx[sl], wy[sl], rt, *f32, anc.AnchorRaws(
+                raws.shift_x[sl], raws.shift_y[sl], raws.triplets[:, sl]))
+        for name, g, w_ in zip(want._fields, got, want):
+            bad[name] = bad.get(name, 0) + same_bits(g[sl], w_)
+    chunks = -(-n // anc.ANCHOR_CHUNK)
+    rel = got.reliable
+    log(f"  K8 {what}, rotate_time {rt} ({8 * rt} directions), {n} weak "
+        f"pixels in {launched} launches: differing {bad}; "
+        f"{int(rel.sum())} reliable, mean hits "
+        f"{float(got.hit_count.float().mean()) if n else 0:.2f}")
+    if any(bad.values()) or launched != chunks:
+        raise AssertionError(f"K8 {what}, rotate_time {rt}: differing "
+                             f"{bad}, {launched} launches for {chunks} "
+                             "chunks")
+    return got
+
+
+def k9_check(data, state, wx, wy, anchors, triplets, what: str):
+    """K9 against its plain version, bitwise; returns K9's fits."""
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    got = anc.ransac_fit_planes(data, state, wx, wy, anchors,
+                                triplets=triplets)
+    want = anc.ransac_fit_planes_plain(data.ref_cam, state.planes, wx, wy,
+                                       anchors, triplets)
+    bad = same_bits(got, want)
+    log(f"  K9 {what}: {wx.numel()} pixels, {bad} of {got.numel()} values "
+        f"differ from the plain version; "
+        f"{int((got[:, :3] != 0).any(1).sum())} fits")
+    if bad:
+        raise AssertionError(f"K9 {what}: {bad} values differ")
+    return got
+
+
+def k10_bound(h: int, w: int, launches: int) -> tuple:
+    nbytes = h * w * (4 + 4 + 1 + 8)
+    ops = h * w * launches * K10_OPS_PER_PIXEL_PASS
+    return bound_of(nbytes, ops)
+
+
+def k8_bound(data, ns, wx, wy, rt: int, raws) -> tuple:
+    """K8's least time on this chunk: the probes its directions need (up
+    to the first accepted one, or every probe whose test point lies in the
+    image), the hits, and the RANSAC of the pixels with >= 6 hits, counted
+    from the plain version's probe table; the jitter draws of the needed
+    probes, the nearest-strong texels they read and the hits' depths, the
+    texels and depths each once."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    n = wx.numel()
+    d = 8 * rt
+    h, w = data.img_h, data.img_w
+    in_image, ok, sx, sy, texel = anc.probe_table(h, w, ns, wx, wy, rt, raws)
+    ok = ok.reshape(n, d, -1)
+    found = ok.any(-1)
+    first = ok.to(torch.uint8).argmax(-1)
+    needed = found * (first + 1) + ~found * in_image.reshape(n, d, -1).sum(-1)
+    probes = int(needed.sum())
+    hits = found.sum(-1)
+    ransac = hits >= 6
+    hit_total = int(hits.sum())
+    ops = probes * K8_OPS_PER_PROBE + hit_total * (K8_OPS_PER_HIT + 2 * d) \
+        + anc.RANSAC_ITERS * (int(ransac.sum()) * K8_OPS_PER_ITERATION
+                              + int(hits[ransac].sum())
+                              * K8_OPS_PER_ITERATION_HIT)
+    texel = texel.reshape(n, d, -1)
+    read = (torch.arange(texel.shape[-1], device=texel.device) < needed[
+        ..., None]) & (texel >= 0)
+    texels = torch.zeros((1, h * w), dtype=torch.bool, device=texel.device)
+    mark_rows(texels, texel[None], read[None])
+    del texel, read
+    first = first[..., None]
+    hit_px = torch.gather(sy.reshape(n, d, -1), -1, first)[..., 0] * w \
+        + torch.gather(sx.reshape(n, d, -1), -1, first)[..., 0]
+    depths = torch.zeros((1, h * w), dtype=torch.bool, device=found.device)
+    mark_rows(depths, hit_px[None], found[None])
+    nbytes = n * (8 + 4 + 72 + 1 + 4) + int(ransac.sum()) * 600 \
+        + probes * 8 + int(texels.sum()) * 8 + int(depths.sum()) * 4
+    return bound_of(nbytes, ops) + (probes,)
+
+
+def k9_bound(anchors) -> tuple:
+    """K9's least time: the draws of the pixels with >= 3 anchors and the
+    planes of the distinct anchor pixels read once, the 50 iterations of
+    those pixels."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    a = anchors[:, 1:]
+    exists = (a >= 0).all(-1)
+    count = exists.sum(-1)
+    enough = count >= 3
+    n = anchors.shape[0]
+    ops = int(count.sum()) * K9_OPS_PER_ANCHOR + n * K9_OPS_PER_PIXEL \
+        + anc.RANSAC_ITERS * (int(enough.sum()) * K9_OPS_PER_ITERATION
+                              + int(count[enough].sum())
+                              * K9_OPS_PER_ITERATION_ANCHOR)
+    pixels = a[exists].long()
+    distinct = torch.unique(pixels[:, 1] * (int(pixels[:, 0].max()) + 1)
+                            + pixels[:, 0]).numel() if pixels.numel() else 0
+    nbytes = n * (8 + 72 + 16 + 16) + distinct * 16 \
+        + int(enough.sum()) * 600
+    return bound_of(nbytes, ops)
+
+
+def bound_of(nbytes: int, ops: int) -> tuple:
+    """(ms, "bytes" or "operations", bytes, operations) over the card's
+    memory rate and plain-f32 rate (integer and compare operations counted
+    at that rate too: the guide's table has no int32 rate)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
+    """K10, K8 and K9 against their plain versions on the card, bitwise:
+    on the APD scan's round-1 setup at full size (its weak plane's 163,060
+    weak pixels, confidence ties everywhere) and on a weak set of
+    WEAK_SHARE of the same map (random confidence; K8 over several
+    ANCHOR_CHUNKs), K8 at rotate_time 1, 2 and 4 on both, K9 on the
+    reliable pixels of each; then on the crafted cases of
+    ``testing.anchor_cases`` (confidence ties, no strong pixel, one strong
+    pixel, invalid strong pixels; degenerate, coincident, collinear and
+    too few anchors, tying fits; a flat depth map, weak pixels at the
+    border, too few strong pixels), the draws of the sharded fit (a column
+    slice), and torch's float32 cone comparison on the card. Times each
+    kernel warm with CUDA events against its plain version (the torch-op
+    composition it replaced: K8's and K10's are the parent's ops, K9's
+    differ only in the order of two sums) at the main path's shapes, with
+    its bound."""
+    import numpy as np
+    import torch
+
+    from apde_mvs_tpu_torch import convert
+    from apde_mvs_tpu_torch.config import STRONG, WEAK
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
+    from apde_mvs_tpu_torch.ops.state import PMState
+    from apde_mvs_tpu_torch.testing import anchor_cases as cases
+
+    log("==== K10, K8, K9: the APD setup's kernels against their plain "
+        "versions ====")
+    t_phase = time.perf_counter()
+    setup = apd_setup(scene, device)
+    p = setup.params
+    gen = torch.Generator(device=device).manual_seed(seed)
+    st = setup.state
+    rand = torch.rand((HEIGHT, WIDTH), generator=gen, device=device)
+    share = st.replace(
+        weak=torch.where(rand < WEAK_SHARE, WEAK, STRONG).to(torch.int32),
+        confidence=torch.randint(0, 256, (HEIGHT, WIDTH), generator=gen,
+                                 device=device).to(torch.float32))
+    out = {}
+    maps = {}
+    for key, s_, what in (("apd", st, "APD scan's weak plane, confidence "
+                           "40 / 200"),
+                          ("share", share, f"a {WEAK_SHARE:.0%} weak set, "
+                           "random confidence")):
+        maps[key] = k10_check(s_.weak, s_.confidence, s_.valid, what)
+    reliable = {}
+    for key, s_ in (("apd", st), ("share", share)):
+        wy, wx = torch.nonzero(s_.weak == WEAK, as_tuple=True)
+        wx, wy = wx.to(torch.int32), wy.to(torch.int32)
+        for rt in ANCHOR_ROTATE_TIMES:
+            raws = anc.anchor_raws(gen, wx.numel(), rt, device=device)
+            res = k8_check(setup.data, s_, wx, wy, rt, p.ransac_threshold,
+                           setup.dmin, setup.dmax, maps[key], raws,
+                           f"{key} weak list")
+            if rt == p.rotate_time:
+                keep = torch.nonzero(res.reliable, as_tuple=True)[0]
+                reliable[key] = (wx[keep], wy[keep], res.anchors[keep])
+                if key == "apd":
+                    out["k8_setup"] = (wx, wy, raws)
+            del raws, res
+    cam_state = st.replace(planes=setup.cam_planes)
+    for key, (x, y, a) in reliable.items():
+        tri = anc.ransac_draws(gen, x.numel(), device)
+        k9_check(setup.data, cam_state, x, y, a, tri,
+                 f"{key} reliable weak pixels")
+        # the sharded fit's draws: a column slice of the whole list's
+        wide = anc.ransac_draws(gen, 2 * x.numel() + 7, device)
+        k9_check(setup.data, cam_state, x, y, a,
+                 wide[:, 7:7 + x.numel()], f"{key}, a column slice of "
+                 "longer draws")
+
+    # crafted cases at the CPU tests' size
+    small = cases.data(device)
+    for name in cases.JFA_CASES:
+        weak, conf, valid = (torch.as_tensor(v, device=device)
+                             for v in cases.jfa_case(name, seed))
+        k10_check(weak, conf, valid, f"crafted {name}")
+    for name in ("scene",) + cases.GEN_CASES:
+        if name == "scene":
+            weak, conf, depth, valid = cases.scene(seed)
+            ns = None
+            wy_, wx_ = np.nonzero(weak == WEAK)
+        else:
+            g = cases.gen_case(name, seed)
+            weak, conf, depth, valid, ns, wx_, wy_ = g
+        s_ = PMState.create(cases.H, cases.W, 2, valid=torch.as_tensor(
+            valid, device=device), device=device).replace(
+            planes=torch.as_tensor(cases.depth_planes(depth),
+                                   device=device),
+            weak=torch.as_tensor(weak, device=device),
+            confidence=torch.as_tensor(conf, device=device))
+        ns = anc.nearest_strong_jfa_plain(s_.weak, s_.confidence, s_.valid) \
+            if ns is None else torch.as_tensor(ns, device=device)
+        for rt in ANCHOR_ROTATE_TIMES:
+            raws = convert.anchor_raws(**cases.draws(
+                np.random.default_rng(seed + rt), len(wx_), rt),
+                device=device)
+            k8_check(small, s_, convert.ints(wx_, device),
+                     convert.ints(wy_, device), rt, cases.THRESH,
+                     cases.DEPTH_MIN, cases.DEPTH_MAX, ns, raws,
+                     f"crafted {name}")
+    fc = cases.fit_crafted(seed)
+    s_ = PMState.create(cases.H, cases.W, 2, device=device).replace(
+        planes=torch.as_tensor(fc.planes, device=device))
+    k9_check(small, s_, convert.ints(fc.wx, device),
+             convert.ints(fc.wy, device), convert.ints(fc.anchors, device),
+             convert.ints(fc.triplets, device),
+             f"crafted {', '.join(cases.FIT_KINDS)}")
+    # the cone test: torch's float32 tensor > Python float on the card
+    # against K8's float32 comparison
+    for rt in ANCHOR_ROTATE_TIMES:
+        cc = anc._cone_cos(rt)
+        c32 = np.float32(cc)
+        vals = torch.as_tensor(np.array(
+            [np.nextafter(c32, np.float32(0)), c32,
+             np.nextafter(c32, np.float32(2))], np.float32), device=device)
+        if not torch.equal(vals > cc, vals > torch.tensor(c32,
+                                                          device=device)):
+            raise AssertionError(f"rotate_time {rt}: torch compares the "
+                                 "cone's cosine in another precision on "
+                                 "the card")
+    log("  the cone's comparison: float32 on the card at rotate_time 1, 2 "
+        "and 4")
+
+    # times at the main path's shapes: K10 a call (96 launches) on the APD
+    # map, K8 a chunk of the APD weak list at the pass's rotate_time, K9 a
+    # call on its reliable pixels
+    steps = anc.jfa_steps(HEIGHT, WIDTH)
+    ms = cuda_ms(lambda: kern.nearest_strong(st.weak, st.confidence,
+                                             st.valid, steps), 20)
+    plain_ms = cuda_ms(lambda: anc.nearest_strong_jfa_plain(
+        st.weak, st.confidence, st.valid), 3, 1)
+    bound = k10_bound(HEIGHT, WIDTH, 8 * len(steps))
+    out["K10"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                      bound_by=bound[1], library_ms=None,
+                      launches_a_call=8 * len(steps))
+    log(f"  K10 a call ({8 * len(steps)} launches, {HEIGHT}x{WIDTH}): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+        f"{bound[1]} ({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G "
+        f"operations) [{card}]")
+
+    wx, wy, raws = out.pop("k8_setup")
+    sl = slice(0, min(anc.ANCHOR_CHUNK, wx.numel()))
+    cx, cy = wx[sl].contiguous(), wy[sl].contiguous()
+    craws = anc.AnchorRaws(raws.shift_x[sl].contiguous(),
+                           raws.shift_y[sl].contiguous(),
+                           raws.triplets[:, sl])
+    dirs, radii = anc._kernel_tables(p.rotate_time, str(device))
+    cam = kern.camera(setup.data.ref_cam)
+    scal = (float(np.float32(anc._cone_cos(p.rotate_time))),
+            float(np.float32(p.ransac_threshold)),
+            float(np.float32(setup.dmax) - np.float32(setup.dmin)))
+    planes = st.planes.contiguous()
+    ns = maps["apd"]
+    ms = cuda_ms(lambda: kern.gen_anchors(
+        ns, planes, HEIGHT, WIDTH, cx, cy, craws.shift_x, craws.shift_y,
+        craws.triplets, dirs, radii, anc.JITTER_SAMPLES, cam, *scal,
+        anc.MIN_MARGIN), 20)
+    f32 = [geo.f32_scalar(v, device) for v in (p.ransac_threshold,
+                                               setup.dmin, setup.dmax)]
+    plain_ms = cuda_ms(lambda: anc.gen_anchors_chunk_plain(
+        setup.data.ref_cam, HEIGHT, WIDTH, st.planes[..., 3], ns, cx, cy,
+        p.rotate_time, *f32, craws), 3, 1)
+    bound = k8_bound(setup.data, ns, cx, cy, p.rotate_time, craws)
+    out["K8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], library_ms=None,
+                     pixels=cx.numel(), directions=8 * p.rotate_time)
+    log(f"  K8 a chunk ({cx.numel()} pixels, rotate_time {p.rotate_time}, "
+        f"{bound[4]} probes needed): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2] / 1e6:.2f} MB, "
+        f"{bound[3] / 1e9:.3f} G operations) [{card}]")
+    del craws, raws
+
+    x, y, a = reliable["apd"]
+    tri = anc.ransac_draws(gen, x.numel(), device)
+    ms = cuda_ms(lambda: kern.fit_planes(setup.cam_planes, x, y, a, tri,
+                                         cam), 20)
+    plain_ms = cuda_ms(lambda: anc.ransac_fit_planes_plain(
+        setup.data.ref_cam, setup.cam_planes, x, y, a, tri), 3, 1)
+    bound = k9_bound(a)
+    out["K9"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                     bound_by=bound[1], library_ms=None, pixels=x.numel())
+    log(f"  K9 a call ({x.numel()} reliable pixels): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G operations) "
+        f"[{card}]")
+    for name in ("K8", "K9", "K10"):
+        info = kern.kernel_info(name)
+        out[name]["regs"] = info["regs"]
+        log(f"  {name}: {info['regs']} registers, {info['local_bytes']} B "
+            f"local (spills), {info['blocks_per_sm']} resident blocks an "
+            f"SM [{card}]")
+    out["max_abs_err"] = max(ANCHOR_ERRS)
+    log(f"anchor kernel phase {time.perf_counter() - t_phase:.1f} s, "
+        f"{len(ANCHOR_ERRS)} outputs compared, max |kernel - plain| "
+        f"{out['max_abs_err']}")
+    return out
+
+
 class Tee(io.TextIOBase):
     """Stdout that is also kept: what an entry point prints is shown as it
     comes and parsed afterwards."""
@@ -1821,35 +2263,40 @@ def coloured_points(ply: Path, what: str) -> int:
 
 
 def reset_counts() -> None:
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
     from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
-    for mod in (sampler, ncc, strong, sweep, weak):
+    for mod in (sampler, ncc, strong, sweep, weak, kern):
         mod.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset, in this process: K1's
     and K2's by call site, K3's with the colour updates they served, K5's
-    by mode, K6's with the planes a pixel they evaluated."""
+    by mode, K6's with the planes a pixel they evaluated, and the APD
+    setup's K8, K9 and K10."""
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
     from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
                 k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
                 k3=strong.launches, k3_colours=strong.colours,
                 k3_sa=strong.sa_launches, k6=weak.launches,
-                k6_planes=weak.planes)
+                k6_planes=weak.planes, k8=kern.anchor_launches,
+                k9=kern.fit_launches, k10=kern.jfa_launches)
 
 
 def parsed_counts(match) -> dict:
     """``read_counts``'s dict from one LAUNCH_RE match of an engine's log;
-    raises where the line lacks K6's counts."""
-    if not match[10]:
-        raise AssertionError(f"engine launch line without K6's counts: "
-                             f"{match}")
+    raises where the line lacks K6's or the anchor kernels' counts."""
+    if not match[10] or not match[12]:
+        raise AssertionError(f"engine launch line without K6's or the "
+                             f"anchor kernels' counts: {match}")
     return dict(k1=int(match[0]), sites=json.loads(match[1]),
                 k2=int(match[2]), k2_sites=json.loads(match[3]),
                 k5=int(match[4]), k5_modes=json.loads(match[5]),
                 k3=int(match[6]), k3_colours=int(match[7]),
-                k6=int(match[10]), k6_planes=int(match[11]))
+                k6=int(match[10]), k6_planes=int(match[11]),
+                k10=int(match[12]), k8=int(match[13]), k9=int(match[14]))
 
 
 # K2's: the initial cost and the debug tool; the strong sweep runs in K3, the
@@ -1894,8 +2341,9 @@ def check_counts(what: str, c: dict, passes: bool = True,
     and the deformable NCC through K6, whose launches and planes fit two
     launches for 15 planes a weak-sweep chunk and one for one plane a
     re-score chunk, at least one of each chunk on a ``weak`` path (one that
-    runs APD passes); each kernel's launches add up over its sites or
-    modes."""
+    runs APD passes), whose APD setup must launch K10 (8 launches a jump
+    step), K8 and K9, which no other path launches; each kernel's launches
+    add up over its sites or modes."""
     split = k6_chunks(c)
     ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
         and split is not None \
@@ -1909,7 +2357,10 @@ def check_counts(what: str, c: dict, passes: bool = True,
             and c["k3"] > 0 and c["k3_colours"] > 0 \
             and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
     if weak:
-        ok = ok and min(split) > 0
+        ok = ok and min(split) > 0 and c["k8"] > 0 and c["k9"] > 0 \
+            and c["k10"] > 0 and c["k10"] % 8 == 0
+    else:
+        ok = ok and c["k8"] == c["k9"] == c["k10"] == 0
     if not ok:
         raise AssertionError(f"{what}: launches {json.dumps(c)}")
 
@@ -1922,8 +2373,10 @@ def counts_line(c: dict) -> str:
             f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
             f"K6 launches {c['k6']} for {c['k6_planes']} planes ("
             f"{split[0] if split else '?'} weak-sweep chunks, "
-            f"{split[1] if split else '?'} re-score chunks), K1 launches "
-            f"{c['k1']} by site {json.dumps(c['sites'], sort_keys=True)}")
+            f"{split[1] if split else '?'} re-score chunks), K10 launches "
+            f"{c['k10']}, K8 launches {c['k8']}, K9 launches {c['k9']}, K1 "
+            f"launches {c['k1']} by site "
+            f"{json.dumps(c['sites'], sort_keys=True)}")
 
 
 def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
@@ -2186,7 +2639,7 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
 
 
 KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K3": "strong",
-                  "K5": "sweep", "K6": "weak"}
+                  "K5": "sweep", "K6": "weak", "K8-K10": "anchors"}
 
 
 def build_race(card: str) -> dict:
@@ -2301,7 +2754,8 @@ LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), strong kernel launches: (\d+) for "
                        r"(\d+) colour updates(?:, rank (\d+) of (\d+))?"
                        r"(?:, weak kernel launches: (\d+) for (\d+) "
-                       r"planes)?")
+                       r"planes)?(?:, anchor kernel launches: K10 (\d+), "
+                       r"K8 (\d+), K9 (\d+))?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
@@ -2358,6 +2812,8 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
     launches["K2"] = sum(sites[r]["k2"] for r in range(RANKS))
     launches["K3"] = sum(sites[r]["k3"] for r in range(RANKS))
     launches["K6"] = sum(sites[r]["k6"] for r in range(RANKS))
+    for k in ("K8", "K9", "K10"):
+        launches[k] = sum(sites[r][k.lower()] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
     log(f"view-parallel scan: {wall:.3f} s for the torchrun subprocess; "
@@ -2430,6 +2886,8 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
           for mode in ("classify", "refine")}
     k1 = sum(sites[r]["k1"] for r in range(RANKS))
+    anchors = {k: sum(sites[r][k] for r in range(RANKS))
+               for k in ("k8", "k9", "k10")}
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
@@ -2442,7 +2900,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
     for root in roots.values():
         shutil.rmtree(root)
     return dict(diff=diff, errors=errs, wall_s=wall, serial_s=serial_s,
-                launches=launches, k3=k3, k5=k5, k1=k1,
+                launches=launches, k3=k3, k5=k5, k1=k1, **anchors,
                 k2_elsewhere=sum(k2_elsewhere(sites[r]["k2_sites"])
                                  for r in range(RANKS)),
                 passes=passes)
@@ -2559,6 +3017,7 @@ def main(argv=None) -> int:
 
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
     from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
     from apde_mvs_tpu_torch.testing import synthetic
 
@@ -2570,10 +3029,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1, K2, K3, K5 and K6 from this checkout -------------
+    # ---- setup: build K1-K3, K5, K6 and K8-K10 from this checkout ---------
     build_race(card)
     for name, mod in (("K1", sampler), ("K2", ncc), ("K3", strong),
-                      ("K5", sweep), ("K6", weak)):
+                      ("K5", sweep), ("K6", weak), ("K8-K10", kern)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -2615,6 +3074,7 @@ def main(argv=None) -> int:
     kw = weak_kernel_phase(apd_scene, args.seed, device, card,
                            textured=textured)
     del textured
+    ka = anchor_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2712,6 +3172,17 @@ def main(argv=None) -> int:
     if not ap["k3_sa"] > 0:
         raise AssertionError("the APD scan ran no K3 launch with an SA "
                              "window")
+    # K8, K9, K10: the APD setup of every APD pass (check_counts holds the
+    # APD scan and the exports pass at one launch of each at least, every
+    # other path at none)
+    anchor_paths = {k: dict(
+        round0=r0[k], apd=ap[k], exports=ex[k],
+        debug_point=ex["debug_point"][k],
+        view_parallel=vp["launches"][k.upper()], nccl=ag[k], batch=bt[k],
+        tile_route=tl[k]) for k in ("k8", "k9", "k10")}
+    log(f"K8 launches by path: {json.dumps(anchor_paths['k8'])}; K9: "
+        f"{json.dumps(anchor_paths['k9'])}; K10: "
+        f"{json.dumps(anchor_paths['k10'])} [{card}]")
     k1 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sampler.cu",
           "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38"}
     # K1 launches on no main path now: its rows' launches are every path's
@@ -2792,6 +3263,21 @@ def main(argv=None) -> int:
                               f"{sa_tag}{geo_tag})", **k6_src, launches=n,
                          max_abs_err=kw["k6_max_abs_err"],
                          **kw[key]))
+    a_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/anchors.cu"}
+    for key, what, replaces in (
+            ("K10", "K10 nearest-strong jump flooding, the APD scan's "
+             "round-1 map (600x800, 96 launches a call)", ":44-99"),
+            ("K8", f"K8 anchor generation, a chunk of the APD scan's weak "
+             f"list ({ka['K8']['pixels']} pixels, "
+             f"{ka['K8']['directions']} directions)", ":191-373"),
+            ("K9", f"K9 fit-plane RANSAC, the APD scan's reliable weak "
+             f"pixels ({ka['K9']['pixels']})", ":386-467")):
+        rows.append(dict(
+            name=what, **a_src,
+            replaces=f"apde_mvs_tpu/ops/anchors.py{replaces} "
+                     "(XLA-compiled jnp)",
+            launches=sum(anchor_paths[key.lower()].values()),
+            max_abs_err=ka["max_abs_err"], **ka[key]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
