@@ -17,7 +17,8 @@
 // geometric costs.
 //
 // Per (pixel, plane, view), in the order of the plain version
-// (ops/cuda/weak.py, `weak_plain`):
+// (ops/cuda/weak.py, `weak_plain`; steps 1-4 are weak_common.cuh's
+// `deformable_cost`, which K7, the weak sweep's chunk update, runs too):
 //  1. the plane homography (ncc_common.cuh's `plane_homography`) and the
 //     centre's out-of-image test against the real bounds: COST_MAX where
 //     the centre leaves the image (nothing else is needed then);
@@ -58,6 +59,8 @@
 // Arithmetic equals the plain PyTorch version bit for bit: every operation
 // is rounded on its own, in the order of the torch ops there
 // (ncc_common.cuh says how); the exponential is expf, as torch.exp's.
+// Since K7 the main path launches K6 only for the initial cost's re-score
+// (one plane a pixel); the weak sweep's candidates and probes run inside K7.
 //
 // Bound: operations, counted as chip_smoke.py counts them (K6_OPS_*,
 // `k6_bound`): per evaluated (pixel, plane, view) K2's 90 a pair and 38 a
@@ -75,6 +78,7 @@
 
 #include "geom_common.cuh"
 #include "ncc_common.cuh"
+#include "weak_common.cuh"
 
 namespace {
 
@@ -83,8 +87,6 @@ using namespace apde;
 // a view's row of K6's camera table: K5's (K2's 16 columns, then the
 // geometric columns); row S is the reference's
 constexpr int kWeakCamStride = kGeomCamStride;
-constexpr int kAnchors = 8;           // deformable anchors 1..8
-constexpr int kMainAnchorTaps = 9;    // cost.square_taps(5, 5)
 constexpr int kWarps = 4;             // a block's warps, a pixel each
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -257,6 +259,20 @@ __global__ void __launch_bounds__(kThreads) weak_kernel(const Params p) {
   const int nv = __popc(views);
   __syncwarp();
 
+  WeakAnchors an;
+  an.dx = s_adx;
+  an.dy = s_ady;
+  an.val = w_aval;
+  an.tw = w_atw;
+  an.x = w_ax;
+  an.y = w_ay;
+  an.sum_ref = w_asr;
+  an.sum_rr = w_asrr;
+  an.inv = w_ainv;
+  an.sel = w_sel;
+  an.valid = valid_bits;
+  an.positive = positive_bits;
+
   // ---- the pixel's (plane, view) pairs across the lanes ------------------
   float* my_cost = w_cost + lane;   // anchor a's cost at my_cost[32 a]
   for (int k = lane; k < P * nv; k += 32) {
@@ -271,57 +287,9 @@ __global__ void __launch_bounds__(kThreads) weak_kernel(const Params p) {
     float h[3][3];
     plane_homography(c, r, n0, n1, n2, w, h);
     const Q* __restrict__ tab = quads + s * view_elems;
-    float cost = kCostMax;
-    if (!out_of_image(h, x, y, p.img_w, p.img_h)) {
-      const float centre = window_cost<Q, kWeighted, kTaps>(
-          tab, h, x, y, T, cwin, p.width, p.quad_h);
-      // the anchors' costs and which of them count, in anchor order
-      unsigned counts = 0u;
-      float top = -INFINITY;
-#pragma unroll 1
-      for (int a = 0; a < kAnchors; ++a) {
-        if (!((valid_bits >> a) & 1u)) continue;
-        const float ax = w_ax[a];
-        const float ay = w_ay[a];
-        float v = kCostMax;
-        if (out_of_image(h, ax, ay, p.img_w, p.img_h)) {
-          if (!((w_sel[a] >> s) & 1u)) continue;
-        } else {
-          if (!((positive_bits >> a) & 1u)) continue;
-          PixelWindow awin;
-          awin.dx = s_adx;
-          awin.dy = s_ady;
-          awin.val = w_aval + a * TA;
-          awin.tw = w_atw + a * TA;
-          awin.sum_ref = w_asr[a];
-          awin.sum_rr = w_asrr[a];
-          awin.inv = w_ainv[a];
-          awin.empty = false;
-          v = window_cost<Q, kWeighted, kATaps>(tab, h, ax, ay, TA, awin,
-                                                 p.width, p.quad_h);
-        }
-        counts |= 1u << a;
-        my_cost[32 * a] = v;
-        top = v > top ? v : top;
-      }
-      cost = centre;
-      if (counts != 0u) {
-        // deformable._softmax_weighted: the sums in anchor order from +0
-        // (an anchor that does not count adds +0, which changes nothing)
-        float denom = 0.f, num = 0.f;
-#pragma unroll 1
-        for (int a = 0; a < kAnchors; ++a) {
-          if (!((counts >> a) & 1u)) continue;
-          const float v = my_cost[32 * a];
-          const float e = expf(sub(v, top));
-          denom = add(denom, e);
-          num = add(num, mul(e, v));
-        }
-        float anchored = dvd(num, clamp_min_keep_nan(denom, 1e-30f));
-        anchored = anchored > kCostMax ? kCostMax : anchored;
-        cost = add(mul(0.25f, centre), mul(0.75f, anchored));
-      }
-    }
+    const float cost = deformable_cost<Q, kWeighted, kTaps, kATaps>(
+        tab, h, x, y, T, TA, cwin, an, s, my_cost, p.width, p.quad_h,
+        p.img_w, p.img_h);
     const int64_t at = (b * P + pl) * S + s;
     p.out_ncc[at] = cost;
     if constexpr (kGeom) {

@@ -12,7 +12,9 @@ window sums) depend only on the pixel, so `WeakRefData.build` hoists them
 out of the per-candidate / per-view loops. `ncc_weak_planes` evaluates P
 planes per pixel against all S views in one launch of the deformable NCC
 kernel K6 (ops/cuda/weak.py), with the geometric cost K4 inside when asked
-for; `ncc_weak` is its one-plane form.
+for; `ncc_weak` is its one-plane form, the initial cost's re-score. The
+weak sweep builds the same reference side and runs K6's per-pair code
+inside its chunk-update kernel K7 (ops/cuda/weak_sweep.py).
 """
 
 from __future__ import annotations

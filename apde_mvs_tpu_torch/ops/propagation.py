@@ -9,7 +9,8 @@ APD.cu:1098-1692) become batched evaluations:
   launch of the kernel K3 (ops/cuda/strong.py);
 - the *weak* sweep runs once over a compacted weak-pixel list — weak
   pixels read only strong pixels' state (their anchors) and never each
-  other, so the reference's black/red split of the weak kernels is a no-op.
+  other, so the reference's black/red split of the weak kernels is a no-op;
+  a chunk's update is one launch of the kernel K7 (ops/cuda/weak_sweep.py).
 
 Semantic notes carried over deliberately:
 - invalid candidate regions contribute ~0 cost rows (the reference's C
@@ -33,13 +34,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import STRONG, WEAK
+from ..config import WEAK
 from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch
 from . import selection
-from .cost import COST_MAX, GEOM_COST_MAX, CostData
-from .deformable import WeakRefData, ncc_weak_planes
+from .cost import CostData
 from .state import PMState
 
 
@@ -295,116 +295,26 @@ def _weak_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
     """Anchor-candidate evaluation + fit-plane test + refinement for one
     flat batch of weak pixels (reference: CheckerboardPropagationWeak,
     APD.cu:1441-1615, and PlaneHypothesisRefinementWeak, :1008-1096).
-    Returns (planes_out, costs_out, sel_new, vw). Two launches of the
-    deformable NCC kernel K6 (`ops/cuda/weak.py`), with the geometric cost
-    K4 inside when the pass is geometric: the 10 candidate planes (8 anchor
-    candidates, the current plane, the fit plane) against every view, then
-    the 5 refinement probes against the views the selection weights."""
-    xf = x.to(torch.float32)
-    yf = y.to(torch.float32)
-    cam = data.ref_cam
-
-    wref = WeakRefData.build(data, xf, yf, anchors, state.selected, cfg)
-
-    a_x = anchors[:, 1:, 0]
-    a_y = anchors[:, 1:, 1]
-    exists = (a_x >= 0) & (a_y >= 0)
-    a_xc = torch.clamp(a_x, min=0)
-    a_yc = torch.clamp(a_y, min=0)
-    flags = exists & (fetch(state.weak, a_xc, a_yc) == STRONG)
-    cand_planes = fetch(state.planes, a_xc, a_yc)               # (B, 8, 4)
-    cur_plane = fetch(state.planes, x, y)
-    all_planes = torch.cat([cand_planes, cur_plane[:, None],
-                            fit_planes[:, None]], 1)            # (B, 10, 4)
-    geom = cfg.geom_consistency
-    all_costs, gcosts = ncc_weak_planes(data, wref, all_planes, cfg,
-                                        geom=geom)              # (B, 10, S)
-    cost_array = torch.where(flags[..., None], all_costs[:, :8], 0.0)
-    # C aggregate-init quirk (APD.cu:1464): a missing / non-strong anchor 0
-    # leaves cost_array[0][0] = 2.0 (see the strong body)
-    cost_array[:, 0, 0] = torch.where(flags[:, 0], cost_array[:, 0, 0], 2.0)
-
-    # priors from all existing anchors (the reference gates only on -1)
-    priors = selection.view_selection_priors(wref.anchor_sel, exists)
-    probs = selection.sampling_probabilities(cost_array, priors, iteration)
-    vw, temp_sel, wnorm = selection.monte_carlo_view_weights(draws.sel_u,
-                                                             probs)
-    has_views = wnorm > 0
-    inv_norm = torch.where(has_views, 1.0 / torch.clamp(wnorm, min=1e-20),
-                           0.0)
-
-    # geometric consistency here has no impetus gate; an invalid candidate
-    # pays the flat GEOM_COST_MAX (APD.cu:1556-1576, 1589-1599)
-    if geom:
-        total = cost_array + geom_factor * torch.where(
-            flags[..., None], gcosts[:, :8], GEOM_COST_MAX)
-        all_costs = all_costs[:, 8:] + geom_factor * gcosts[:, 8:]
-    else:
-        total = cost_array
-        all_costs = all_costs[:, 8:]
-    final_costs = (vw[:, None, :] * total).sum(-1) * inv_norm[:, None]
-    cost_recomputed = torch.where(
-        has_views, (vw * all_costs[:, 0]).sum(-1) * inv_norm, COST_MAX)
-
-    best = last_min_index(final_costs)[:, None]
-    best_plane = torch.gather(cand_planes, 1,
-                              best[:, :, None].expand(-1, 1, 4))[:, 0]
-    best_cost = torch.gather(final_costs, 1, best)[:, 0]
-    best_flag = torch.gather(flags, 1, best)[:, 0]
-    depth_before = geo.depth_from_plane(cam, best_plane, xf, yf)
-    adopt = best_flag & (depth_before >= depth_min) \
-        & (depth_before <= depth_max) & (best_cost < cost_recomputed) \
-        & has_views
-    plane_cur = torch.where(adopt[:, None], best_plane, cur_plane)
-    cost_cur = torch.where(adopt, best_cost, cost_recomputed)
-    sel_new = torch.where(adopt[:, None], temp_sel,
-                          fetch(state.selected, x, y))
-
-    # fit-plane test (reference: PlaneHypothesisRefinementWeak,
-    # APD.cu:1026-1052)
-    fit_ok = (fit_planes[:, :3] != 0.0).any(-1)
-    fit_cost = (vw * all_costs[:, 1]).sum(-1) * inv_norm
-    fit_depth = geo.depth_from_plane(cam, fit_planes, xf, yf)
-    take_fit = fit_ok & (fit_depth >= depth_min) & (fit_depth <= depth_max) \
-        & (fit_cost < cost_cur) & has_views
-    plane_cur = torch.where(take_fit[:, None], fit_planes, plane_cur)
-    cost_cur = torch.where(take_fit, fit_cost, cost_cur)
-
-    # random refinement, weighted over the Monte-Carlo-voted views
-    depth_cur = geo.depth_from_plane(cam, plane_cur, xf, yf)
-    r_depths, r_normals = refinement_from_raws(
-        draws.raws, cam, xf, yf, plane_cur, depth_cur, depth_min, depth_max)
-    r_planes = torch.stack([
-        geo.make_plane(cam, xf, yf, r_depths[:, i], r_normals[:, i])
-        for i in range(5)], 1)                                  # (B, 5, 4)
-    # only the weighted views: the others weigh 0 in every use of the costs
-    cvs, gvs = ncc_weak_planes(data, wref, r_planes, cfg, geom=geom,
-                               view_weights=vw)                 # (B, 5, S)
-    if geom:
-        cvs = cvs + geom_factor * gvs
-    r_costs = []
-    for i in range(5):
-        d_i = geo.depth_from_plane(cam, r_planes[:, i], xf, yf)
-        ok = (d_i >= depth_min) & (d_i <= depth_max) & has_views
-        r_costs.append(torch.where(ok, (vw * cvs[:, i]).sum(-1) * inv_norm,
-                                   math.inf))
-    r_costs = torch.stack(r_costs, 1)                           # (B, 5)
-    r_best = torch.argmin(r_costs, -1)[:, None]
-    r_cost = torch.gather(r_costs, 1, r_best)[:, 0]
-    r_plane = torch.gather(r_planes, 1,
-                           r_best[:, :, None].expand(-1, 1, 4))[:, 0]
-    # PlaneHypothesisRefinementWeak returns EARLY when the fit plane is all
-    # zeros (APD.cu:1029-1032): a weak pixel without a RANSAC fit gets
-    # neither the fit test nor random refinement
-    take_ref = (r_cost < cost_cur) & fit_ok
-    plane_cur = torch.where(take_ref[:, None], r_plane, plane_cur)
-    cost_cur = torch.where(take_ref, r_cost, cost_cur)
-
-    if cfg.refine_init:
-        commit = cost_cur < cost_recomputed - 0.1
-        return (torch.where(commit[:, None], plane_cur, cur_plane),
-                torch.where(commit, cost_cur, cost_recomputed), sel_new, vw)
-    return plane_cur, cost_cur, sel_new, vw
+    Returns (planes_out, costs_out, sel_new, vw): one call of the weak
+    sweep's chunk-update kernel K7 (`ops/cuda/weak_sweep.py`), which builds
+    the reference side and runs K6's deformable NCC (with the geometric cost
+    K4 when the pass is geometric) inside, its plain version on CPU
+    tensors. The depth bounds and the geometric factor are best Python
+    numbers (`propagate_weak` reads them once)."""
+    from .cuda.weak_sweep import weak_update_fused
+    draws = SweepDraws(draws.sel_u.contiguous(),
+                       RefineRaws(*(r.contiguous() for r in draws.raws)))
+    state = state.replace(planes=state.planes.contiguous(),
+                          selected=state.selected.contiguous(),
+                          weak=state.weak.contiguous())
+    return tuple(weak_update_fused(
+        data, state, x.contiguous(), y.contiguous(), anchors.contiguous(),
+        fit_planes.contiguous(), draws, strong_radius=cfg.strong_radius,
+        strong_increment=cfg.strong_increment, weak_radius=cfg.weak_radius,
+        weak_increment=cfg.weak_increment, use_sa=cfg.use_sa,
+        iteration=iteration, depth_min=depth_min, depth_max=depth_max,
+        geom_factor=geom_factor, geom=cfg.geom_consistency,
+        refine_init=cfg.refine_init))
 
 
 def propagate_weak(data: CostData, state: PMState, cfg: PropCfg, iteration,
@@ -427,9 +337,11 @@ def propagate_weak(data: CostData, state: PMState, cfg: PropCfg, iteration,
         return state
     if draws is None:
         draws = sweep_draws(generator, nw, dev)
-    depth_min = geo.f32_scalar(depth_min, dev)
-    depth_max = geo.f32_scalar(depth_max, dev)
-    geom_factor = geo.f32_scalar(geom_factor, dev)
+    # K7 takes the scalars as float32 values in Python floats, read here
+    # once a sweep (a device tensor's read waits for the device)
+    depth_min, depth_max, geom_factor = (
+        float(geo.f32_scalar(v, "cpu"))
+        for v in (depth_min, depth_max, geom_factor))
     sl, counts = (slice(0, nw), None) if shard is None \
         else shard.list_part(nw)
 

@@ -155,7 +155,6 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     """Stage 1. ``state`` is `prior_state`'s; returns (post-sweep state
     with planes = (world normal, depth), the pass's `WeakSet` or None)."""
     params = cfg.params
-    gf = geo.f32_scalar(params.geom_factor, data.device)
 
     # ---- APD setup: weak list, anchors, demotion --------------------------
     weak = None
@@ -184,17 +183,18 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     state = init_ops.initial_cost(
         data, state.replace(planes=planes), params,
         *(weak[:3] if weak is not None else ()), shard=shard)
-    # the colour update K3 takes its scalars as Python floats
-    strong_scalars = _sweep_constants(params, dmin, dmax)
+    # the colour update K3 and the weak sweep's K7 take their scalars as
+    # Python floats
+    gf, dmin_f, dmax_f = _sweep_constants(params, dmin, dmax)
     for it in range(params.max_iterations):
         for color in (0, 1):
             state = propagate_strong(data, state, cfg.prop, it, color,
-                                     *strong_scalars[1:], strong_scalars[0],
-                                     generator=gen, shard=shard)
+                                     dmin_f, dmax_f, gf, generator=gen,
+                                     shard=shard)
         if weak is not None and weak.sweep[0].numel() > 0:
             fit = _fit_planes(data, state, weak.sweep, gen, shard)
             state = propagate_weak(data, state, cfg.prop, it, *weak.sweep,
-                                   fit, dmin, dmax, gf, generator=gen,
+                                   fit, dmin_f, dmax_f, gf, generator=gen,
                                    shard=shard)
     state = state.replace(planes=filters.planes_to_depth_normal(
         data, state.planes))
@@ -234,9 +234,9 @@ def sweepable(data: CostData, state: PMState) -> torch.Tensor:
 
 def _sweep_constants(params, dmin, dmax) -> tuple:
     """The geometric factor and the depth bounds as Python floats (float32
-    values) for the launches of the sweep kernel K5 and the colour-update
-    kernel K3: read once a stage, not once a chunk or colour, so no launch
-    waits on the device."""
+    values) for the launches of the sweep kernel K5, the colour-update
+    kernel K3 and the weak sweep's K7: read once a stage, not once a chunk
+    or colour, so no launch waits on the device."""
     return tuple(float(geo.f32_scalar(v, "cpu"))
                  for v in (params.geom_factor, dmin, dmax))
 

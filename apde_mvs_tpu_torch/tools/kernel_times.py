@@ -1,5 +1,5 @@
 """Device times of K2, K5, the strong sweep's colour update (K3) and the
-weak sweep's chunk (K6) at the main path's shapes, for comparing two
+weak sweep's chunk (K7, K6) at the main path's shapes, for comparing two
 checkouts of the port on one card.
 
 The shapes are chip_smoke.py's, on view 0 of the 11-view 600x800 synthetic
@@ -29,10 +29,13 @@ scene (seed 0), u8 quad tables:
   checkouts against this one);
 - the weak sweep's body, ``propagation._weak_body``, on one chunk of the
   APD scan chip_smoke.py runs (``weak_chunk``: round 1 at 600x800, 6 views,
-  the SA mask, REFINE_ITER's geometric cost): two K6 launches in a
-  checkout that has K6, 30 K1 launches and ~14,000 torch ops in one from
-  before; and K6 alone on the chunk's 10 candidate planes (every view) and
-  5 probes (the weighted views), where the checkout has it.
+  the SA mask, REFINE_ITER's geometric cost): one K7 launch in a checkout
+  that has K7, two K6 launches and ~250 torch ops in one from before it, 30
+  K1 launches and ~14,000 torch ops in one from before K6; beside it, where
+  the checkout has them, K7 alone (``weak_sweep.weak_update_fused``), the
+  body K7 replaced (``weak_composition.weak_body_composition``) and K6
+  alone on the chunk's 10 candidate planes (every view) and 5 probes (the
+  weighted views).
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
 events). The script imports the package by absolute name, so it times the
@@ -391,6 +394,33 @@ def weak_times(dev, out: dict, seed: int = 0) -> None:
         wc.anchors, wc.fit, wc.depth_min, wc.depth_max, wc.geom_factor), 5)
     print(f"weak body: {out['weak body']:.4f} ms {what}", flush=True)
     try:
+        from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+        from apde_mvs_tpu_torch.testing.weak_composition import \
+            weak_body_composition
+    except ImportError:
+        print("no K7 in this checkout", flush=True)
+    else:
+        cfg_ = wc.cfg
+        kw = dict(strong_radius=cfg_.strong_radius,
+                  strong_increment=cfg_.strong_increment,
+                  weak_radius=cfg_.weak_radius,
+                  weak_increment=cfg_.weak_increment, use_sa=cfg_.use_sa,
+                  iteration=wc.iteration, depth_min=wc.depth_min,
+                  depth_max=wc.depth_max, geom_factor=wc.geom_factor,
+                  geom=True, refine_init=False)
+        out["K7"] = cuda_ms(lambda: weak_sweep.weak_update_fused(
+            wc.data, wc.state, wc.x, wc.y, wc.anchors, wc.fit, wc.draws,
+            **kw), 20)
+        print(f"K7: {out['K7']:.4f} ms {what}", flush=True)
+        scalars = [geo.f32_scalar(v, dev) for v in (
+            wc.depth_min, wc.depth_max, wc.geom_factor)]
+        out["weak body composition"] = cuda_ms(
+            lambda: weak_body_composition(
+                wc.data, wc.state, wc.cfg, wc.iteration, wc.draws, wc.x,
+                wc.y, wc.anchors, wc.fit, *scalars), 5)
+        print(f"weak body composition (two K6 launches and ~250 torch ops): "
+              f"{out['weak body composition']:.4f} ms {what}", flush=True)
+    try:
         from apde_mvs_tpu_torch.ops.cuda import weak
         from apde_mvs_tpu_torch.ops.deformable import contiguous_ref
     except ImportError:
@@ -412,15 +442,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--weak_only", action="store_true",
-                    help="time only the weak sweep's chunk and K6")
+                    help="time only the weak sweep's chunk, K7 and K6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     dev = torch.device("cuda", 0)
     card = card_line()
     libs = []
-    kernels = (("weak", "K6"),) if args.weak_only else (
-        ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3"), ("weak", "K6"))
+    kernels = (("weak", "K6"), ("weak_sweep", "K7")) if args.weak_only else (
+        ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3"), ("weak", "K6"),
+        ("weak_sweep", "K7"))
     for name, kernel in kernels:
         try:
             mod = importlib.import_module(

@@ -18,12 +18,14 @@ time) and idle share, the wall of the same pass run without the profiler
 (just before), the device time (CUDA events around each launch) and
 launches of the fused strong NCC K2 by call site (the initial cost), of
 the strong sweep's colour update K3, of the fused disparity sweep K5 by
-mode (classify, refine), of the deformable NCC K6 by use (the weak sweep's
-candidates and probes, the initial cost's re-score), of the APD setup's
+mode (classify, refine), of the weak sweep's chunk update K7, of the
+deformable NCC K6 by use (on the main path only the initial cost's
+re-score), of the APD setup's
 K10 (the nearest-strong flooding), K8 (anchor generation) and K9 (the
 fit-plane RANSAC) and of K1 by call site, each kernel's profiler time,
 the device and host time of the pass's stages (anchors, fit planes, the
-weak sweep, the deformable NCC, the classify and refine sweeps, ...), and
+weak sweep, the re-score's deformable NCC, the classify and refine
+sweeps, ...), and
 the torch ops that hold the most device time.
 
     python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
@@ -49,10 +51,10 @@ import torch
 from .. import config as cfg
 from ..core import geometry as geo
 from ..core.platform import card_line
-from ..ops import anchors, filters, init, propagation
+from ..ops import anchors, filters, init
 from ..ops.cost import CostData
 from ..ops.cuda import anchors as kanchors
-from ..ops.cuda import ncc, sampler, strong, sweep, weak
+from ..ops.cuda import ncc, sampler, strong, sweep, weak, weak_sweep
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
@@ -72,7 +74,6 @@ _STAGES = (
     (init, "initial_cost", "initial_cost"),
     (full_pass, "propagate_strong", "propagate_strong"),
     (full_pass, "propagate_weak", "propagate_weak"),
-    (propagation, "ncc_weak_planes", "ncc_weak_planes"),
     (init, "ncc_weak", "ncc_weak"),
     (filters, "depth_to_weak", "depth_to_weak"),
     (filters, "local_refine", "local_refine"),
@@ -133,6 +134,10 @@ def _anchor_kernel(name):
     return lambda a, kw: name
 
 
+def _k7_name(a, kw):
+    return "K7 chunk update"
+
+
 def _k6_use(a, kw):
     if kw.get("view_weights") is not None:
         return "K6 probes"
@@ -142,13 +147,14 @@ def _k6_use(a, kw):
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site), K3, K5 (by mode) and K6 (by use) into
+    K2 and K1 (by call site), K3, K5 (by mode), K6 (by use) and K7 into
     ``kernel_events``; restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
                (strong, "strong_fused", _k3_name),
                (sweep, "sweep_fused", _k5_mode),
                (weak, "weak_fused", _k6_use),
+               (weak_sweep, "weak_update_fused", _k7_name),
                (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),
                (kanchors, "gen_anchors", _anchor_kernel("K8 anchors")),
                (kanchors, "fit_planes", _anchor_kernel("K9 fit planes")))
@@ -175,7 +181,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     t0 = time.perf_counter()
     run()
     plain_wall = time.perf_counter() - t0
-    for mod in (sampler, ncc, strong, sweep, weak, kanchors):
+    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, kanchors):
         mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -211,6 +217,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k
              and "ncc_strong" not in k) / 1e6
     k6 = sum(t for k, t in kernels.items() if "weak_kernel" in k) / 1e6
+    k7 = sum(t for k, t in kernels.items() if "weak_update_kernel" in k) / 1e6
     anchor = {name: sum(t for k, t in kernels.items() if kernel in k) / 1e6
               for name, kernel in (("k8_s", "gen_anchors"),
                                    ("k9_s", "fit_planes"),
@@ -226,7 +233,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 k1_s=k1, k2_s=k2, k2_launches=ncc.launches, k3_s=k3,
                 k3_launches=strong.launches, k5_s=k5,
                 k5_launches=sweep.launches, k6_s=k6,
-                k6_launches=weak.launches, **anchor,
+                k6_launches=weak.launches, k7_s=k7,
+                k7_launches=weak_sweep.launches, **anchor,
                 k8_launches=kanchors.anchor_launches,
                 k9_launches=kanchors.fit_launches,
                 k10_launches=kanchors.jfa_launches, k1_launches=launches,
@@ -250,7 +258,8 @@ def _report(r, card):
           f"{r['k2_launches']} launches, K3 {r['k3_s']:.3f} s over "
           f"{r['k3_launches']} launches, K5 {r['k5_s']:.3f} s over "
           f"{r['k5_launches']} launches, K6 {r['k6_s']:.3f} s over "
-          f"{r['k6_launches']} launches, K8 {r['k8_s']:.4f} s over "
+          f"{r['k6_launches']} launches, K7 {r['k7_s']:.4f} s over "
+          f"{r['k7_launches']} launches, K8 {r['k8_s']:.4f} s over "
           f"{r['k8_launches']} launches, K9 {r['k9_s']:.4f} s over "
           f"{r['k9_launches']} launches, K10 {r['k10_s']:.4f} s over "
           f"{r['k10_launches']} launches, K1 {r['k1_s']:.3f} s over "

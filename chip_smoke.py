@@ -47,7 +47,17 @@ composition it replaced (``testing.weak_composition``: two K1 launches and
 textured windows and on the weak plane's nearly textureless ones, both
 held to the plain version taken in float64 (K6 no farther from it on
 average than the composition), and timed against it at the candidates,
-the probes, the re-score and with square windows. The paths:
+the probes, the re-score and with square windows; K7, the weak sweep's
+chunk update with K6's deformable NCC and the geometric cost inside and
+the reference side built in the kernel, bitwise on the same chunk
+(planes, costs, selections, view weights) in REFINE_INIT and in a
+geometric REFINE_ITER pass, SA and square windows, u8 and f32 tables,
+selection draws weighting one view or many, every plane NaN, 1 and 32
+source views, a ragged batch and one pixel, timed a chunk against its
+plain version and the torch-op body it replaced
+(``testing.weak_composition.weak_body_composition``: two K6 launches and
+~250 torch ops), the share of the pixels where that body differs printed
+as a diagnostic. The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -92,10 +102,10 @@ launch, all at the initial cost's and debug_point's sites, none at the
 strong sweep's), its classify and refine sweeps through K5 (at least one
 launch of each mode on a path that runs a pass), its strong sweeps through
 K3 (on a path that runs a pass at least one launch, at most two a colour
-update; the APD scan at least one with an SA window) and its deformable
-NCC through K6 (two launches for 15 planes a weak-sweep chunk, one for one
-plane a re-score chunk; the APD scan and the exports pass at least one of
-each); no path may launch K1.
+update; the APD scan at least one with an SA window), its weak sweep
+through K7 (a launch a weak-sweep chunk) and its initial cost's re-score
+through K6 (one plane a launch; the APD scan and the exports pass at least
+one chunk of each); no path may launch K1.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -204,6 +214,22 @@ K6_OPS_PER_LIVE_PAIR = 20
 K6_OPS_PER_TESTED_ANCHOR = 18
 K6_OPS_PER_ANCHOR_WINDOW = 15
 K6_OPS_PER_COUNTING_ANCHOR = 6
+# operations of the weak sweep's chunk update K7 as the function needs
+# them, beside K6's for every evaluated pair of both phases (the flagged
+# candidates, the current plane and a fit plane with a normal against every
+# view; the 5 hypotheses against the weighted views of a pixel with a fit)
+# and K4's 115 a pair and 36 a (pixel, evaluated plane): per (pixel, view)
+# 84 for the selection (K3's 80 with 8 anchors' votes for 4 neighbours');
+# per (pixel, weighted view) 30 (a product and an add for each of the 8
+# candidates', the current and fit planes' and the 5 hypotheses' sums); per
+# pixel 250 (the anchors' masks, the adoption, the fit test, the 5
+# hypotheses' normals, rotation, norms, planes and depths, the commit); per
+# (pixel, reference tap) 4 (the weight-value product, its square, the two
+# sums), 36 + 8 x 9 taps a pixel.
+K7_SELECT_OPS_PER_VIEW = 84
+K7_OPS_PER_WEIGHTED_PAIR = 30
+K7_OPS_PER_PIXEL = 250
+K7_OPS_PER_REF_TAP = 4
 
 
 def log(msg: str) -> None:
@@ -1369,40 +1395,33 @@ def weak_region(depth):
     return depth < depth.mean() * 0.95
 
 
-def k6_bound(data, wref, planes, params, vw, geom: bool) -> tuple:
-    """The least time the card could take for one K6 call: its f32
-    operations over the plain-f32 rate, counted on this call's data (the
-    evaluated pairs: every view, or the weighted ones; the windows of the
-    pairs whose centre stays in the image; the anchors each such pair
-    tests, computes and counts), against the bytes of its inputs and
-    outputs over the memory rate: the reference side, planes and weights
-    read once, and of the quad tables the rows that those centre and
-    anchor windows touch, with the geometric cost of the source depth maps
-    the texels its pairs read, each once (the windows warped as the
-    composition warps them, ``weak_taps``). Returns (ms, "bytes" or
-    "operations", bytes, operations)."""
-    import torch
-
+def deformable_work(data, wref, planes, params, evaluated, geom: bool,
+                    rows, texels) -> int:
+    """The f32 operations K6's deformable NCC needs for the (pixel, plane,
+    view) pairs ``evaluated`` (P, S, B) bool of ``planes`` (B, P, 4),
+    counted on this data (every evaluated pair; the windows of the pairs
+    whose centre stays in the image; the anchors each such pair tests,
+    computes and counts; with ``geom`` K4's 115 a pair), without K4's 36 a
+    (pixel, plane); marks in ``rows`` (S, width x quad_h) the quad-table
+    rows those centre and anchor windows touch and, with ``geom``, in
+    ``texels`` (S, dh x dw) the source depth texels its pairs read (the
+    windows warped as the composition warps them, ``weak_taps``)."""
     from apde_mvs_tpu_torch.core import geometry as geo
     from apde_mvs_tpu_torch.core.sampling import quad_coords, trunc_index
     from apde_mvs_tpu_torch.testing.weak_composition import weak_taps
-    b, p = planes.shape[:2]
-    s = data.num_src
-    dev = planes.device
-    evaluated = torch.ones((s, b), dtype=torch.bool, device=dev) \
-        if vw is None else (vw > 0).T
     sel = wref.anchor_sel.permute(2, 0, 1)                      # (S, B, 8)
-    rows = torch.zeros((s, data.width * data.quad_h), dtype=torch.bool,
-                       device=dev)
     dh, dw = data.src_depths.shape[-2:]
-    texels = torch.zeros((s, dh * dw), dtype=torch.bool, device=dev)
-    live = tested = computed = counting = 0
-    for c in range(p):
+    pairs = live = tested = computed = counting = 0
+    for c in range(planes.shape[1]):
+        ev = evaluated[c]
+        if not bool(ev.any()):
+            continue
         plane = planes[:, c]
         tp = weak_taps(data, wref, plane, params)
-        on = evaluated & ~tp.center_oob
+        on = ev & ~tp.center_oob
         test = on[..., None] & wref.anchor_valid
         comp = test & ~tp.anchor_oob & (wref.wsum > 0)
+        pairs += int(ev.sum())
         live += int(on.sum())
         tested += int(test.sum())
         computed += int(comp.sum())
@@ -1420,18 +1439,42 @@ def k6_bound(data, wref, planes, params, vw, geom: bool) -> tuple:
                                            wref.y))
             sx, sy, _ = geo.project(data.src_views, xw)
             mark_rows(texels, trunc_index(sy, dh) * dw + trunc_index(sx, dw),
-                      evaluated)
-    weighted = wref.tap_w is not None
-    per_tap = K2_OPS_PER_TAP + (2 if weighted else 0)
+                      ev)
+    per_tap = K2_OPS_PER_TAP + (2 if wref.tap_w is not None else 0)
     t = wref.center_win.tap_val.shape[1]
     ta = wref.tap_val.shape[2]
-    ops = int(evaluated.sum()) * p * (K6_OPS_PER_PAIR + (
-        K5_GEOM_OPS_PER_PAIR if geom else 0)) \
+    return pairs * (K6_OPS_PER_PAIR + (K5_GEOM_OPS_PER_PAIR if geom else 0)) \
         + live * (K6_OPS_PER_LIVE_PAIR + t * per_tap) \
         + tested * K6_OPS_PER_TESTED_ANCHOR \
         + computed * (K6_OPS_PER_ANCHOR_WINDOW + ta * per_tap) \
-        + counting * K6_OPS_PER_COUNTING_ANCHOR \
+        + counting * K6_OPS_PER_COUNTING_ANCHOR
+
+
+def k6_bound(data, wref, planes, params, vw, geom: bool) -> tuple:
+    """The least time the card could take for one K6 call: its f32
+    operations over the plain-f32 rate, counted on this call's data
+    (``deformable_work``: the evaluated pairs, every view or the weighted
+    ones), against the bytes of its inputs and outputs over the memory
+    rate: the reference side, planes and weights read once, and of the quad
+    tables the rows that those centre and anchor windows touch, with the
+    geometric cost of the source depth maps the texels its pairs read, each
+    once. Returns (ms, "bytes" or "operations", bytes, operations)."""
+    import torch
+    b, p = planes.shape[:2]
+    s = data.num_src
+    dev = planes.device
+    evaluated = torch.ones((s, b), dtype=torch.bool, device=dev) \
+        if vw is None else (vw > 0).T
+    rows = torch.zeros((s, data.width * data.quad_h), dtype=torch.bool,
+                       device=dev)
+    dh, dw = data.src_depths.shape[-2:]
+    texels = torch.zeros((s, dh * dw), dtype=torch.bool, device=dev)
+    ops = deformable_work(data, wref, planes, params,
+                          evaluated.expand(p, s, b), geom, rows, texels) \
         + (b * p * K5_GEOM_OPS_PER_PIXEL if geom else 0)
+    weighted = wref.tap_w is not None
+    t = wref.center_win.tap_val.shape[1]
+    ta = wref.tap_val.shape[2]
     w = 2 if weighted else 1
     per_pixel = 4 * (2 + w * t + 3 + 8 * (2 + w * ta + 3)) + 8 + 8 * s
     nbytes = b * (per_pixel + 16 * p + (4 * s if vw is not None else 0)) \
@@ -1573,10 +1616,255 @@ def k6_times(data, wref, planes, params, geom: bool, vw, what: str,
                 library_ms=None)
 
 
-def weak_kernel_phase(scene, seed: int, device, card: str,
+def k7_kwargs(wc, sa: bool, geom: bool, refine_init: bool) -> dict:
+    """``weak_sweep.weak_update_fused``'s keywords for the weak chunk ``wc``
+    (``tools.kernel_times.weak_chunk``) in one pass form."""
+    cfg = wc.cfg
+    return dict(strong_radius=cfg.strong_radius,
+                strong_increment=cfg.strong_increment,
+                weak_radius=cfg.weak_radius,
+                weak_increment=cfg.weak_increment, use_sa=sa,
+                iteration=wc.iteration, depth_min=wc.depth_min,
+                depth_max=wc.depth_max, geom_factor=wc.geom_factor,
+                geom=geom, refine_init=refine_init)
+
+
+def k7_bound(data, state, x, y, anchors, fit, draws, kw: dict) -> tuple:
+    """The least time the card could take for one K7 call: its f32
+    operations over the plain-f32 rate, counted on this call's data (the
+    pairs of both phases as ``deformable_work`` counts them, with the
+    hypotheses the plain version's ``weak_stage_plain`` gives; the
+    selection, the weighted sums, the per-pixel steps and the reference
+    side), against the bytes of its inputs and outputs over the memory
+    rate: the pixels, anchors, fit planes and draws, the state at the
+    distinct cells the pixels and their anchors read, the reference image
+    (and segment ids) at the distinct window taps, the quad-table rows and
+    depth texels the evaluated pairs read, each once, and the four outputs.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cost import square_taps
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    from apde_mvs_tpu_torch.ops.propagation import PropCfg
+    b, s = x.numel(), data.num_src
+    dev = x.device
+    geom = kw["geom"]
+    st = weak_sweep.weak_stage_plain(
+        data, state, x, y, anchors, fit, draws,
+        **{k: v for k, v in kw.items() if k != "refine_init"})
+    params = PropCfg(weak_radius=kw["weak_radius"],
+                     weak_increment=kw["weak_increment"])
+    rows = torch.zeros((s, data.width * data.quad_h), dtype=torch.bool,
+                       device=dev)
+    dh, dw = data.src_depths.shape[-2:]
+    texels = torch.zeros((s, dh * dw), dtype=torch.bool, device=dev)
+    every = torch.ones((s, b), dtype=torch.bool, device=dev)
+    slots = torch.cat([st.flags, torch.ones_like(st.fit_ok)[:, None],
+                       st.fit_ok[:, None]], 1).T[:, None] & every  # (10,S,B)
+    planes0 = torch.cat([torch.zeros((b, 8, 4), device=dev),
+                         st.cur_plane[:, None], fit[:, None]], 1)
+    cand = anchors[:, 1:].clamp(min=0).long()
+    planes0[:, :8] = state.planes[cand[..., 1], cand[..., 0]]
+    weighted = (st.vw > 0).T & st.fit_ok                        # (S, B)
+    ops = deformable_work(data, st.wref, planes0, params, slots, geom, rows,
+                          texels) \
+        + deformable_work(data, st.wref, st.hypotheses, params,
+                          weighted.expand(5, s, b), geom, rows, texels)
+    if geom:
+        ops += K5_GEOM_OPS_PER_PIXEL * (int(slots.any(1).sum())
+                                        + 5 * int(weighted.any(0).sum()))
+    t = len(square_taps(kw["strong_radius"], kw["strong_increment"]))
+    ta = len(square_taps(kw["weak_radius"], kw["weak_increment"]))
+    ops += b * (s * K7_SELECT_OPS_PER_VIEW + K7_OPS_PER_PIXEL
+                + (t + 8 * ta) * K7_OPS_PER_REF_TAP) \
+        + int((st.vw > 0).sum()) * K7_OPS_PER_WEIGHTED_PAIR
+    # the state's cells and the reference taps read, each once
+    w = data.width
+    cells = torch.cat([y.long() * w + x.long(),
+                       (cand[..., 1] * w + cand[..., 0]).reshape(-1)])
+    n_cells = int(torch.unique(cells).numel())
+    sa = kw["use_sa"] and data.sa_mask is not None
+    taps = []
+    for (r, inc), cx, cy in (
+            ((kw["strong_radius"], kw["strong_increment"]), x[:, None],
+             y[:, None]),
+            ((kw["weak_radius"], kw["weak_increment"]), cand[..., 0, None],
+             cand[..., 1, None])):
+        off = torch.as_tensor(square_taps(r, inc), device=dev)
+        tx = (cx + off[:, 0]).clamp(0, w - 1)
+        ty = (cy + off[:, 1]).clamp(0, data.height - 1)
+        taps.append((ty.long() * w + tx.long()).reshape(-1))
+    n_taps = int(torch.unique(torch.cat(taps)).numel())
+    nbytes = b * (8 + 72 + 16 + 4 * (15 + 8) + 16 + 4 + 5 * s) \
+        + n_cells * (16 + 4 + s) + n_taps * 4 * (2 if sa else 1) \
+        + int(rows.sum()) * 4 * data.src_quads.element_size() \
+        + (s + 1) * 40 * 4 + (4 * int(texels.sum()) if geom else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def k7_check(data, state, x, y, anchors, fit, draws, kw: dict,
+             what: str) -> float:
+    """K7 against its plain version on the card: bitwise, every output.
+    Returns the max abs difference read from the two (over non-NaN costs
+    and planes)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    got = weak_sweep.weak_update_fused(data, state, x, y, anchors, fit,
+                                       draws, **kw)
+    want = weak_sweep.weak_update_plain(data, state, x, y, anchors, fit,
+                                        draws, **kw)
+    torch.cuda.synchronize()
+    bad = {}
+    for name, g, w in zip(got._fields, got, want):
+        same = g.shape == w.shape and torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w)
+        if not same:
+            bad[name] = int((g != w).reshape(g.shape[0], -1).any(-1).sum()) \
+                if g.shape == w.shape else -1
+    if bad:
+        raise AssertionError(f"K7 {what}: pixels differing from the plain "
+                             f"version by output {bad}")
+    views = (want.view_weights > 0).sum(-1).float()
+    old = state.planes[y.long(), x.long()]
+    moved = ((want.planes != old)
+             & ~(torch.isnan(want.planes) & torch.isnan(old))).any(-1)
+    log(f"  K7 {what} ({x.numel()} pixels, {data.num_src} views): bitwise "
+        f"equal to the plain version; {float(views.mean()):.2f} views "
+        f"weighted a pixel, {float((views == 0).float().mean()):.4f} of the "
+        f"pixels none; {float(moved.float().mean()):.3f} of the planes "
+        "changed")
+    errs = [float((g - w)[~torch.isnan(w)].abs().max()) if bool(
+        (~torch.isnan(w)).any()) else 0.0
+        for g, w in ((got.costs, want.costs), (got.planes, want.planes))]
+    return max(errs)
+
+
+def k7_times(wc, data, kw: dict, what: str, card: str) -> dict:
+    """K7's, the plain version's and the composition's (the body it
+    replaced, ``testing.weak_composition.weak_body_composition``: two K6
+    launches and ~250 torch ops) mean times a chunk (CUDA events, warm);
+    as a diagnostic, not a gate, the share of the pixels where K7 and the
+    composition differ (view weights or selections, or a cost or plane
+    more than 2e-5 apart: on these flat u8 windows the float32 NCC is noise
+    of either order of the sums, ROADMAP Queue 3); and the bound."""
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    from apde_mvs_tpu_torch.testing.weak_composition import \
+        weak_body_composition
+    args = (data, wc.state, wc.x, wc.y, wc.anchors, wc.fit, wc.draws)
+    cfg = wc.cfg._replace(use_sa=kw["use_sa"], geom_consistency=kw["geom"],
+                          refine_init=kw["refine_init"])
+    scalars = [geo.f32_scalar(kw[k], wc.x.device)
+               for k in ("depth_min", "depth_max", "geom_factor")]
+
+    def comp():
+        return weak_body_composition(data, wc.state, cfg, kw["iteration"],
+                                     wc.draws, wc.x, wc.y, wc.anchors,
+                                     wc.fit, *scalars)
+    got = weak_sweep.weak_update_fused(*args, **kw)
+    bad = strong_mismatch(comp(), got)
+    share = float(bad.float().mean())
+    log(f"  K7 {what} against the composition (a diagnostic): "
+        f"{int(bad.sum())} of {bad.numel()} pixels differ ({share:.5f})")
+    ms = cuda_ms(lambda: weak_sweep.weak_update_fused(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: weak_sweep.weak_update_plain(*args, **kw), 2,
+                       1)
+    comp_ms = cuda_ms(comp, 5, 1)
+    bound, by, nbytes, ops = k7_bound(*args, kw)
+    log(f"  K7 {what}: {ms:.4f} ms a chunk, plain {plain_ms:.4f} ms, "
+        f"composition {comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                composition_ms=comp_ms, composition_differ=share,
+                library_ms=None)
+
+
+def weak_sweep_phase(scene, wc, seed: int, device, card: str) -> dict:
+    """K7, the weak sweep's chunk update, against its plain version on the
+    card, bitwise (planes, costs, selections, view weights), on the APD
+    scan's weak chunk (``tools.kernel_times.weak_chunk``: 22,034 reliable
+    weak pixels, 5 views, anchors and fit planes made on the card): in
+    REFINE_INIT (no geometric cost, the 0.1 commit) and in a geometric
+    REFINE_ITER pass, each with SA and square windows, with u8 and f32
+    tables; selection draws that weight one view or many; the current
+    planes NaN; 1 and 32 source views; a ragged batch and one pixel; then
+    its times a chunk against the plain version and the composition it
+    replaced in both pass forms, with the share of the pixels where the
+    composition differs printed beside them. ``wc`` is the chunk."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops.cost import CostData
+    from apde_mvs_tpu_torch.ops.propagation import RefineRaws, SweepDraws
+    from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views, \
+        strong_draws
+
+    b = wc.x.numel()
+    S = wc.data.num_src
+    log(f"K7 on the weak chunk: {b} pixels, {S} views, 10 plane slots and "
+        "5 hypotheses a pixel in one launch, the reference side built in "
+        "the kernel")
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
+    imgs = torch.as_tensor(scene.images, device=device)
+    f32 = CostData.build(cams.view(0), cams.map(lambda a: a[1:]), imgs[0],
+                         imgs[1:], src_depths=wc.data.src_depths,
+                         sampler_u8=False, sa_mask=wc.data.sa_mask)
+    errs, out = [], {}
+
+    def check(what, data=None, state=None, sl=slice(None), draws=None,
+              **form):
+        kw = k7_kwargs(wc, **form)
+        d = draws or wc.draws
+        if sl != slice(None):
+            d = SweepDraws(d.sel_u[sl].contiguous(), RefineRaws(
+                *(r[sl].contiguous() for r in d.raws)))
+        tag = (f"{'SA' if form['sa'] else 'square'}, "
+               f"{'REFINE_INIT' if form['refine_init'] else 'REFINE_ITER'}"
+               f"{', geometric' if form['geom'] else ''}")
+        errs.append(k7_check(data or wc.data, state or wc.state,
+                             wc.x[sl].contiguous(), wc.y[sl].contiguous(),
+                             wc.anchors[sl].contiguous(),
+                             wc.fit[sl].contiguous(), d, kw,
+                             f"{what} ({tag})"))
+    forms = [dict(sa=sa, geom=not ri, refine_init=ri)
+             for ri in (True, False) for sa in (True, False)]
+    for form in forms:
+        check("u8", **form)
+        check("f32", data=f32, **form)
+    for pattern in ("one", "spread"):
+        check(f"u8, selection {pattern}",
+              draws=strong_draws(b, pattern, seed, device), **forms[2])
+    nan_state = wc.state.replace(planes=torch.full_like(wc.state.planes,
+                                                        float("nan")))
+    check("u8, every plane NaN", state=nan_state, **forms[2])
+    for n_views in (1, 32):
+        data_n, idx = cycled_views(wc.data, n_views)
+        state_n = wc.state.replace(
+            selected=wc.state.selected[..., idx].contiguous())
+        for form in (forms[0], forms[3]):
+            check(f"u8, {n_views} views (the {S} cycled)", data=data_n,
+                  state=state_n, sl=slice(0, 4096), **form)
+    for sl, what in ((slice(0, 1001), "a ragged batch of 1001 pixels"),
+                     (slice(b // 2, b // 2 + 1), "one pixel")):
+        check(f"u8, {what}", sl=sl, **forms[2])
+    out["max_abs_err"] = max(errs)
+    for key, form, what in (("refine_init", forms[0], "SA, REFINE_INIT"),
+                            ("refine_iter", forms[2],
+                             "SA, REFINE_ITER, geometric")):
+        out[key] = k7_times(wc, wc.data, k7_kwargs(wc, **form),
+                            f"u8, {what}", card)
+    return out
+
+
+def weak_kernel_phase(scene, wc, seed: int, device, card: str,
                       textured) -> dict:
     """K1 at the deformable NCC's two old call sites, and K6 against its
-    plain version, on one weak-sweep chunk of the APD scan's round 1
+    plain version, on one weak-sweep chunk ``wc`` of the APD scan's round 1
     (``tools.kernel_times.weak_chunk``: the weak plane's reliable pixels,
     anchors and fit planes generated on the card, the ground-truth state,
     REFINE_ITER's SA windows and geometric cost). K1 samples the centre
@@ -1608,19 +1896,8 @@ def weak_kernel_phase(scene, seed: int, device, card: str,
     from apde_mvs_tpu_torch.tools.kernel_times import weak_chunk
 
     H, W = scene.images.shape[1:]
-    t0 = time.perf_counter()
-    wc = weak_chunk(scene, device, seed)
-    torch.cuda.synchronize()
     x, y = wc.x.float(), wc.y.float()
     b = x.numel()
-    have = (wc.anchors[:, 1:, 0] >= 0).sum(-1)
-    log(f"weak chunk: {b} reliable weak pixels of the APD scan's view 0, "
-        f"{float(have.float().mean()):.2f} anchors a pixel, "
-        f"{float((wc.fit == 0).all(-1).float().mean()):.3f} without a fit "
-        f"plane, {float((wc.vw > 0).sum(-1).float().mean()):.2f} views "
-        f"weighted a pixel; built in {time.perf_counter() - t0:.1f} s")
-    if b == 0:
-        raise AssertionError("no weak pixel found anchors")
     S = wc.data.num_src
     cams = geo.CameraArrays.from_cameras(scene.cameras, device=device)
     imgs = torch.as_tensor(scene.images, device=device)
@@ -2264,39 +2541,44 @@ def coloured_points(ply: Path, what: str) -> int:
 
 def reset_counts() -> None:
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
-    for mod in (sampler, ncc, strong, sweep, weak, kern):
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
+                                             weak, weak_sweep)
+    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, kern):
         mod.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last reset, in this process: K1's
     and K2's by call site, K3's with the colour updates they served, K5's
-    by mode, K6's with the planes a pixel they evaluated, and the APD
-    setup's K8, K9 and K10."""
+    by mode, K6's with the planes a pixel they evaluated, K7's with the
+    weak-sweep chunks they updated, and the APD setup's K8, K9 and K10."""
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
+                                             weak, weak_sweep)
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
                 k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
                 k3=strong.launches, k3_colours=strong.colours,
                 k3_sa=strong.sa_launches, k6=weak.launches,
-                k6_planes=weak.planes, k8=kern.anchor_launches,
+                k6_planes=weak.planes, k7=weak_sweep.launches,
+                k7_chunks=weak_sweep.chunks, k8=kern.anchor_launches,
                 k9=kern.fit_launches, k10=kern.jfa_launches)
 
 
 def parsed_counts(match) -> dict:
     """``read_counts``'s dict from one LAUNCH_RE match of an engine's log;
-    raises where the line lacks K6's or the anchor kernels' counts."""
-    if not match[10] or not match[12]:
-        raise AssertionError(f"engine launch line without K6's or the "
-                             f"anchor kernels' counts: {match}")
+    raises where the line lacks K6's, K7's or the anchor kernels'
+    counts."""
+    if not match[10] or not match[12] or not match[14]:
+        raise AssertionError(f"engine launch line without K6's, K7's or "
+                             f"the anchor kernels' counts: {match}")
     return dict(k1=int(match[0]), sites=json.loads(match[1]),
                 k2=int(match[2]), k2_sites=json.loads(match[3]),
                 k5=int(match[4]), k5_modes=json.loads(match[5]),
                 k3=int(match[6]), k3_colours=int(match[7]),
                 k6=int(match[10]), k6_planes=int(match[11]),
-                k10=int(match[12]), k8=int(match[13]), k9=int(match[14]))
+                k7=int(match[12]), k7_chunks=int(match[13]),
+                k10=int(match[14]), k8=int(match[15]), k9=int(match[16]))
 
 
 # K2's: the initial cost and the debug tool; the strong sweep runs in K3, the
@@ -2305,22 +2587,21 @@ def parsed_counts(match) -> dict:
 K2_SITES = ("init", "debug_point")
 # K3 launches a colour update may take at most (it takes one)
 K3_LAUNCHES_A_COLOUR = 2
-# K6: a weak-sweep chunk is two launches for 15 planes a pixel (the 10
-# candidates, the 5 probes), an initial cost's re-score chunk one launch
-# for one plane
-K6_CHUNK_LAUNCHES, K6_CHUNK_PLANES = 2, 15
+# K7 launches a weak-sweep chunk may take at least (it takes one); K6 is
+# launched only for the initial cost's re-score, one plane a chunk: its
+# candidate and probe forms run inside K7
+K7_LAUNCHES_A_CHUNK = 1
 
 
 def k6_chunks(c: dict) -> tuple:
-    """(weak-sweep chunks, re-score chunks) that K6's launches and planes
-    in a count make up; None where they fit no such split."""
-    extra = c["k6_planes"] - c["k6"]
-    per = K6_CHUNK_PLANES - K6_CHUNK_LAUNCHES
-    if extra < 0 or extra % per:
+    """(weak-sweep chunks, re-score chunks) in a count: K7's chunks, and
+    K6's launches where each evaluated one plane a pixel; None where K7
+    took fewer than K7_LAUNCHES_A_CHUNK launches a chunk or K6 evaluated
+    more than one plane in a launch."""
+    if c["k6_planes"] != c["k6"] \
+            or c["k7"] < K7_LAUNCHES_A_CHUNK * c["k7_chunks"]:
         return None
-    chunks = extra // per
-    rescores = c["k6"] - K6_CHUNK_LAUNCHES * chunks
-    return (chunks, rescores) if rescores >= 0 else None
+    return c["k7_chunks"], c["k6"]
 
 
 def k2_elsewhere(k2_sites: dict) -> int:
@@ -2338,12 +2619,12 @@ def check_counts(what: str, c: dict, passes: bool = True,
     least one classify launch, and on a path that runs a pass at least one
     refine launch), on a path that runs a pass the strong sweep through K3
     (at least one launch, at most K3_LAUNCHES_A_COLOUR a colour update),
-    and the deformable NCC through K6, whose launches and planes fit two
-    launches for 15 planes a weak-sweep chunk and one for one plane a
-    re-score chunk, at least one of each chunk on a ``weak`` path (one that
-    runs APD passes), whose APD setup must launch K10 (8 launches a jump
-    step), K8 and K9, which no other path launches; each kernel's launches
-    add up over its sites or modes."""
+    the weak sweep through K7 (at least one launch a weak-sweep chunk) and
+    the initial cost's re-score through K6 (one plane a launch), at least
+    one of each on a ``weak`` path (one that runs APD passes), whose APD
+    setup must launch K10 (8 launches a jump step), K8 and K9, which no
+    other path launches; each kernel's launches add up over its sites or
+    modes."""
     split = k6_chunks(c)
     ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
         and split is not None \
@@ -2371,8 +2652,8 @@ def counts_line(c: dict) -> str:
             f"{json.dumps(c['k2_sites'], sort_keys=True)}, K3 launches "
             f"{c['k3']} for {c['k3_colours']} colour updates, K5 launches "
             f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
+            f"K7 launches {c['k7']} for {c['k7_chunks']} weak-sweep chunks, "
             f"K6 launches {c['k6']} for {c['k6_planes']} planes ("
-            f"{split[0] if split else '?'} weak-sweep chunks, "
             f"{split[1] if split else '?'} re-score chunks), K10 launches "
             f"{c['k10']}, K8 launches {c['k8']}, K9 launches {c['k9']}, K1 "
             f"launches {c['k1']} by site "
@@ -2639,7 +2920,8 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
 
 
 KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K3": "strong",
-                  "K5": "sweep", "K6": "weak", "K8-K10": "anchors"}
+                  "K5": "sweep", "K6": "weak", "K7": "weak_sweep",
+                  "K8-K10": "anchors"}
 
 
 def build_race(card: str) -> dict:
@@ -2677,25 +2959,31 @@ def build_race(card: str) -> dict:
 
 
 def kernel_report(card: str) -> None:
-    """A diagnostic: the main path's K2, K3, K5 and K6 instantiations (u8
-    tables, 36-tap square and SA star windows, 10 views; K6's 36-tap centre
-    and 9-tap anchor windows with SA weights and the geometric cost, and
-    without either) with their registers, local-memory (spill) bytes and
-    resident blocks an SM from the CUDA runtime, and each of the four
-    libraries' SASS instructions a window tap by opcode class
+    """A diagnostic: the main path's K2, K3, K5, K6 and K7 instantiations
+    (u8 tables, 36-tap square and SA star windows, 10 views; K6's and K7's
+    36-tap centre and 9-tap anchor windows with SA weights and the
+    geometric cost, and without either) with their registers, local-memory
+    (spill) bytes and resident blocks an SM from the CUDA runtime, and each
+    of the five libraries' SASS instructions a window tap by opcode class
     (``tools/sass_taps.py``: static instructions of the tap loop, the
     divisions' slow-path calls included; K6's 9-tap anchor windows unroll
     whole and have no loop), or a note where ``cuobjdump`` is missing."""
-    from apde_mvs_tpu_torch.ops.cuda import ncc, strong, sweep, weak
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, strong, sweep, weak,
+                                             weak_sweep)
     from apde_mvs_tpu_torch.tools import sass_taps
-    kernels = (("K2", ncc), ("K3", strong), ("K5", sweep), ("K6", weak))
+    kernels = (("K2", ncc), ("K3", strong), ("K5", sweep), ("K6", weak),
+               ("K7", weak_sweep))
     for form, sa in (("SA weights, geometric cost", True),
                      ("square, no geometric cost", False)):
-        info = weak.kernel_info(True, sa, sa, 36, 9, FULL_VIEWS - 1)
-        log(f"K6 u8, {form}, 36 + 8 x 9 taps, {FULL_VIEWS - 1} views: "
-            f"{info['regs']} registers, {info['local_bytes']} B local "
-            f"(spills), {info['blocks_per_sm']} resident blocks an SM "
-            f"[{card}]")
+        for name, info in (
+                ("K6", weak.kernel_info(True, sa, sa, 36, 9,
+                                        FULL_VIEWS - 1)),
+                ("K7", weak_sweep.kernel_info(True, sa, sa,
+                                              FULL_VIEWS - 1))):
+            log(f"{name} u8, {form}, 36 + 8 x 9 taps, {FULL_VIEWS - 1} "
+                f"views: {info['regs']} registers, {info['local_bytes']} B "
+                f"local (spills), {info['blocks_per_sm']} resident blocks "
+                f"an SM [{card}]")
     for name, mod in kernels[:3]:
         for form, sa in (("square", False), ("SA star", True)):
             # K3 builds its window (radius 5, increment 2) itself
@@ -2754,8 +3042,9 @@ LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\{[^}]*\}), strong kernel launches: (\d+) for "
                        r"(\d+) colour updates(?:, rank (\d+) of (\d+))?"
                        r"(?:, weak kernel launches: (\d+) for (\d+) "
-                       r"planes)?(?:, anchor kernel launches: K10 (\d+), "
-                       r"K8 (\d+), K9 (\d+))?")
+                       r"planes)?(?:, weak sweep kernel launches: (\d+) for "
+                       r"(\d+) chunks)?(?:, anchor kernel launches: K10 "
+                       r"(\d+), K8 (\d+), K9 (\d+))?")
 
 
 def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
@@ -2812,6 +3101,7 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
     launches["K2"] = sum(sites[r]["k2"] for r in range(RANKS))
     launches["K3"] = sum(sites[r]["k3"] for r in range(RANKS))
     launches["K6"] = sum(sites[r]["k6"] for r in range(RANKS))
+    launches["K7"] = sum(sites[r]["k7"] for r in range(RANKS))
     for k in ("K8", "K9", "K10"):
         launches[k] = sum(sites[r][k.lower()] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
@@ -3018,8 +3308,10 @@ def main(argv=None) -> int:
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import ncc, sampler, strong, sweep, weak
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
+                                             weak, weak_sweep)
     from apde_mvs_tpu_torch.testing import synthetic
+    from apde_mvs_tpu_torch.tools.kernel_times import weak_chunk
 
     t_all = time.perf_counter()
     card = card_line()
@@ -3029,10 +3321,11 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1-K3, K5, K6 and K8-K10 from this checkout ---------
+    # ---- setup: build K1-K3, K5-K7 and K8-K10 from this checkout ---------
     build_race(card)
     for name, mod in (("K1", sampler), ("K2", ncc), ("K3", strong),
-                      ("K5", sweep), ("K6", weak), ("K8-K10", kern)):
+                      ("K5", sweep), ("K6", weak), ("K7", weak_sweep),
+                      ("K8-K10", kern)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -3071,9 +3364,22 @@ def main(argv=None) -> int:
     textured = synthetic.make_scene(
         num_views=args.apd_views, height=HEIGHT, width=WIDTH, baseline=0.12,
         focal=1.25 * WIDTH, with_foreground=True, plane_tilt=(0.0, 0.0))
-    kw = weak_kernel_phase(apd_scene, args.seed, device, card,
+    t0 = time.perf_counter()
+    wc = weak_chunk(apd_scene, device, args.seed)
+    torch.cuda.synchronize()
+    have = (wc.anchors[:, 1:, 0] >= 0).sum(-1)
+    log(f"weak chunk: {wc.x.numel()} reliable weak pixels of the APD scan's "
+        f"view 0, {float(have.float().mean()):.2f} anchors a pixel, "
+        f"{float((wc.fit == 0).all(-1).float().mean()):.3f} without a fit "
+        f"plane, {float((wc.vw > 0).sum(-1).float().mean()):.2f} views "
+        f"weighted a pixel; built in {time.perf_counter() - t0:.1f} s")
+    if wc.x.numel() == 0:
+        raise AssertionError("no weak pixel found anchors")
+    kw = weak_kernel_phase(apd_scene, wc, args.seed, device, card,
                            textured=textured)
     del textured
+    k7 = weak_sweep_phase(apd_scene, wc, args.seed, device, card)
+    del wc
     ka = anchor_kernel_phase(apd_scene, args.seed, device, card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3133,12 +3439,17 @@ def main(argv=None) -> int:
                     debug_point=ex["debug_point"]["k6"],
                     view_parallel=vp["launches"]["K6"], nccl=ag["k6"],
                     batch=bt["k6"])
+    k7_paths = dict(round0=r0["k7"], apd=ap["k7"], exports=ex["k7"],
+                    debug_point=ex["debug_point"]["k7"],
+                    view_parallel=vp["launches"]["K7"], nccl=ag["k7"],
+                    batch=bt["k7"])
     k6_split = [k6_chunks(c) for c in (ap, ex)]
-    k6_chunk_launches = sum(c for c, _ in k6_split)
+    weak_chunks = sum(c for c, _ in k6_split)
     k6_rescores = sum(r for _, r in k6_split)
-    log(f"K6 launches by path: {json.dumps(k6_paths)}; the APD scan and the "
-        f"exports pass: {k6_chunk_launches} weak-sweep chunks (a candidates "
-        f"and a probes launch each), {k6_rescores} re-score chunks; K1 "
+    log(f"K7 launches by path: {json.dumps(k7_paths)}; K6 launches by path: "
+        f"{json.dumps(k6_paths)}; the APD scan and the exports pass: "
+        f"{weak_chunks} weak-sweep chunks (one K7 launch each), "
+        f"{k6_rescores} re-score chunks (one K6 launch each); K1 "
         f"launches on every path {k1_launches} [{card}]")
     k2_paths = dict(round0=r0["k2"], apd=ap["k2"], exports=ex["k2"],
                     debug_point=ex["debug_point"]["k2"],
@@ -3244,25 +3555,37 @@ def main(argv=None) -> int:
                           "sites, with apde_mvs_tpu/ops/deformable.py:124-198"
                           " and cost.py:418 (XLA-compiled jnp)"}
     # the main paths' weak windows are all SA's: the square's row counts
-    # no launch
+    # no launch; the weak sweep's candidates and probes run inside K7, so
+    # their rows count none either (K6's forms held as K1 is)
     for key, what, n in (
             ("candidates", "weak-sweep chunk, 10 candidate planes, every "
-             "view", k6_chunk_launches),
-            ("probes", "weak-sweep chunk, 5 probes, weighted views",
-             k6_chunk_launches),
+             "view", 0),
+            ("probes", "weak-sweep chunk, 5 probes, weighted views", 0),
             ("rescore", "initial cost's re-score chunk, 1 plane",
              k6_rescores),
             ("candidates_square", "weak-sweep chunk, 10 candidate planes, "
              "every view, square windows", 0)):
-        # a weak-sweep chunk runs K6 with the geometric cost in a geometric
-        # pass and without it in REFINE_INIT: its launches count both forms
-        geo_tag = "" if key == "rescore" else (
-            ", geometric cost; launches with and without it")
+        geo_tag = "" if key == "rescore" else ", geometric cost"
         sa_tag = "" if key == "candidates_square" else ", SA"
         rows.append(dict(name=f"K6 deformable NCC, {what} (u8 quads"
                               f"{sa_tag}{geo_tag})", **k6_src, launches=n,
                          max_abs_err=kw["k6_max_abs_err"],
                          **kw[key]))
+    k7_src = {"route": "cuda",
+              "source": "apde_mvs_tpu_torch/csrc/weak_sweep.cu",
+              "replaces": "apde_mvs_tpu/ops/propagation.py:739 (_weak_body, "
+                          "XLA-compiled jnp; K6's weak-sweep forms inside)"}
+    # a weak-sweep chunk is one K7 launch, geometric in REFINE_ITER and not
+    # in REFINE_INIT: each form's row counts the launches of both
+    for key, what in (("refine_iter", "REFINE_ITER (SA, geometric cost)"),
+                      ("refine_init", "REFINE_INIT (SA, no geometric "
+                                      "cost)")):
+        rows.append(dict(name=f"K7 weak sweep chunk update, the APD scan's "
+                              f"weak chunk, {what}; launches of both forms "
+                              "(u8 quads)", **k7_src,
+                         launches=sum(k7_paths.values()),
+                         max_abs_err=k7["max_abs_err"],
+                         **k7[key]))
     a_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/anchors.cu"}
     for key, what, replaces in (
             ("K10", "K10 nearest-strong jump flooding, the APD scan's "

@@ -419,18 +419,26 @@ def test_engine_line_reports_the_anchor_kernels(capsys):
 
 def test_chip_smoke_parses_the_engine_line(capsys):
     """chip_smoke.py reads a subprocess engine's launches, the anchor
-    kernels' among them, from this line."""
+    kernels' and the weak sweep's K7 among them, from this line."""
     import chip_smoke
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
     from apde_mvs_tpu_torch.pipeline import driver
     kern.reset_launches()
+    weak_sweep.reset_launches()
     kern.jfa_launches, kern.anchor_launches, kern.fit_launches = 192, 9, 6
+    weak_sweep.launches, weak_sweep.chunks = 7, 7
     try:
         driver.print_launches(", rank 1 of 2")
     finally:
         kern.reset_launches()
+        weak_sweep.reset_launches()
     (m,) = chip_smoke.LAUNCH_RE.findall(capsys.readouterr().out)
     c = chip_smoke.parsed_counts(m)
     assert (c["k10"], c["k8"], c["k9"]) == (192, 9, 6)
+    assert (c["k7"], c["k7_chunks"]) == (7, 7)
+    # a weak path: one K7 launch a chunk, K6 one plane a launch
+    assert chip_smoke.k6_chunks(dict(c, k6=3, k6_planes=3)) == (7, 3)
+    assert chip_smoke.k6_chunks(dict(c, k6=2, k6_planes=30)) is None
 
 
 def _check_sharded_setup(device) -> tuple:

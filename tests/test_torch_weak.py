@@ -4,9 +4,10 @@ against the torch-op composition it replaced
 (``testing.weak_composition``: two K1 launches and ~575 torch ops a plane,
 the torch-op ``cost.geom_cost``); P planes in one call against P calls of
 one; the probes' rule that only weighted views are evaluated; the
-wrapper's CPU contract; the weak sweep's and the initial cost's route
-through it; and, on a card, the kernel against its plain version bit for
-bit.
+wrapper's CPU contract; the initial cost's route through it and the weak
+sweep's around it (its candidates and probes run inside K7 since K7,
+tests/test_torch_weak_sweep.py); and, on a card, the kernel against its
+plain version bit for bit.
 
 Cases run on the 24x32 synthetic scene with 4 source views of
 tests/test_torch_deformable.py, every other pixel weak, seeded anchors
@@ -43,6 +44,7 @@ from apde_mvs_tpu_torch.ops import init as tinit
 from apde_mvs_tpu_torch.ops import propagation as tprop
 from apde_mvs_tpu_torch.ops.cuda import sampler as k1
 from apde_mvs_tpu_torch.ops.cuda import weak as k6
+from apde_mvs_tpu_torch.ops.cuda import weak_sweep as k7
 from apde_mvs_tpu_torch.ops.state import PMState
 from apde_mvs_tpu_torch.testing import synthetic
 from apde_mvs_tpu_torch.testing.kernel_cases import (VIEW_PATTERNS,
@@ -410,22 +412,25 @@ def _sweep_state(c: Case) -> PMState:
 
 
 def _fail(*a, **kw):
-    pytest.fail("the weak path reached K1 or the torch-op geometric cost")
+    pytest.fail("the weak path reached K1, K6 or the torch-op geometric "
+                "cost")
 
 
 def test_weak_sweep_makes_two_k6_calls_a_chunk(monkeypatch):
-    """propagate_weak calls K6's wrapper twice a chunk: the 10 candidates
-    against every view, then the 5 probes against the weighted views; it
-    never reaches K1 or the torch-op geometric cost."""
+    """The weak sweep's route through its kernels. Before K7 a chunk was
+    two K6 calls (the 10 candidates, the 5 probes); since K7
+    (ops/cuda/weak_sweep.py) took the chunk update, propagate_weak calls
+    K7's wrapper once a chunk and K6's not at all, and never reaches K1 or
+    the torch-op geometric cost. The test keeps its name from before K7."""
     c = _case("sa-u8-geom")
     calls = []
-    fused = k6.weak_fused
+    fused = k7.weak_update_fused
 
     def counted(*a, **kw):
-        calls.append((a[2].shape[1], kw["view_weights"] is not None,
-                      kw["geom"]))
+        calls.append((a[2].numel(), kw["geom"], kw["use_sa"]))
         return fused(*a, **kw)
-    monkeypatch.setattr(k6, "weak_fused", counted)
+    monkeypatch.setattr(k7, "weak_update_fused", counted)
+    monkeypatch.setattr(k6, "weak_fused", _fail)
     monkeypatch.setattr(k1, "sample_packed", _fail)
     monkeypatch.setattr(tcost, "geom_cost", _fail)
     monkeypatch.setattr(tprop, "geom_cost", _fail, raising=False)
@@ -438,8 +443,7 @@ def test_weak_sweep_makes_two_k6_calls_a_chunk(monkeypatch):
     out = tprop.propagate_weak(
         c.data, state, c.cfg, 1, c.x, c.y, c.anchors, fit, dmin, dmax, GF,
         generator=torch.Generator().manual_seed(0), chunk=37)
-    chunks = math.ceil(n / 37)
-    assert calls == [(10, False, True), (5, True, True)] * chunks
+    assert calls == [(min(37, n - lo), True, True) for lo in range(0, n, 37)]
     moved = (out.planes != state.planes).any(-1)
     assert int(moved.sum()) > 10 and bool(moved[state.weak == STRONG].sum()
                                           == 0)
@@ -502,12 +506,15 @@ def test_k6_matches_plain_on_card(cuda_device, name):
 
 @pytest.mark.cuda
 def test_weak_sweep_launches_k6_twice_a_chunk_on_card(cuda_device):
-    """On CUDA tensors a chunk is two K6 launches and no K1 launch; the
-    sweep equals the same sweep on the CPU to the JAX parity tests'
-    tolerance (planes and costs 2e-5, view weights and selections exact, at
-    most 0.5% of the pixels flipped on a float tie)."""
+    """On CUDA tensors a chunk was two K6 launches before K7; since K7 it
+    is one K7 launch, no K6 and no K1 launch (the test keeps its name from
+    before K7). The sweep equals the same sweep on the CPU to the JAX
+    parity tests' tolerance (planes and costs 2e-5, view weights and
+    selections exact, at most 0.5% of the pixels flipped on a float
+    tie)."""
     outs = []
     k6.reset_launches()
+    k7.reset_launches()
     k1.reset_launches()
     for dev in (cuda_device, torch.device("cpu")):
         c = _case("sa-u8-geom", dev)
@@ -525,7 +532,8 @@ def test_weak_sweep_launches_k6_twice_a_chunk_on_card(cuda_device):
             scene.cameras[0].depth_min, scene.cameras[0].depth_max, GF,
             draws=draws, chunk=37))
     torch.cuda.synchronize()
-    assert k6.launches == 2 * math.ceil(n / 37) and k1.launches == 0
+    assert k7.launches == k7.chunks == math.ceil(n / 37) \
+        and k6.launches == 0 and k1.launches == 0
     got, want = outs[0], outs[1]
     bad = (got.view_weights.cpu() != want.view_weights).any(-1) \
         | (got.selected.cpu() != want.selected).any(-1) \
