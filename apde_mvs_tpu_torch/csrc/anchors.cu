@@ -46,24 +46,33 @@
 // is taken in float64 and rounded once. Bound: bytes (the 50 draws of a
 // pixel, 600 B, dominate).
 //
-// K8 (`gen_anchors`): a warp a weak pixel, a lane a direction (D =
-// 8 rotate_time <= 32). Each lane walks its direction's probes in the flat
-// order of the plain version (radius-major, then jitter) and stops at the
-// first accepted one, reading the jitter draws only up to it; a radius
-// whose un-jittered test point has left the image ends the walk (every
-// later radius's test point lies farther out, so no later probe can be
-// accepted). Hit counts and
-// RANSAC inlier counts are warp ballots, the n-th valid hit the n-th set
-// bit of the hits' ballot, the triplet's points shuffled from their lanes;
-// the best support plane is the one with the most inliers (at least 6,
-// more than the best's, starting at 3), ties to the nearer centre, the
-// first iteration kept on a tie. The anchors are the 8 smallest of
-// `dist - is_abc` over the inliers, ties to the lower direction (a stable
-// argsort's order), each lane's rank counted against the others by
-// shuffles. Bound: bytes (the RANSAC draws, the probes' jitter draws and
-// the nearest-strong texels they read, each once) against operations (the
-// probes and the 50 iterations over D lanes); the warp's lanes run in lock
-// step, so a pixel costs its longest walk.
+// K8 (`gen_anchors`): a warp a weak pixel, its D = 8 rotate_time <= 32
+// directions each given L = 32 / D lanes (a lane a direction would leave
+// half the warp idle at D = 16, pay a chain of dependent loads a probe, and
+// run the RANSAC's 50 dependent iterations a pixel one after another).
+//  - The walk: lane g of a direction's group takes radii g, g + L, ...; a
+//    step tests L radii at once, each radius's 4 jitter draws loaded as one
+//    vector a step ahead and its 4 probes' nearest-strong texels loaded
+//    together, and the group keeps the lowest radius that accepted a probe
+//    (the first in jitter order) or left the image: the plain version's
+//    first accepted probe in its flat order (radius-major, then jitter),
+//    with its early end at a radius whose un-jittered test point has left
+//    the image (every later one lies farther out). The draws must be 4 a
+//    radius (JITTER_SAMPLES) in 16-byte aligned rows; others are refused.
+//  - The hits: lane d holds direction d's; hit counts are ballots.
+//  - The RANSAC, only where 6 hits or more make a plane usable: a lane an
+//    iteration, 32 at a time, the hits compacted (lane k holds the k-th), so
+//    a draw's rank picks its hit by a shuffle (_nth_valid) and each lane
+//    counts its plane's inliers over the hits; then every lane takes the
+//    usable iterations in iteration order: the most inliers (at least 6,
+//    more than the best's, starting at 3), ties to the nearer centre, the
+//    first iteration kept on a tie.
+//  - The ranking: the 8 smallest of `dist - is_abc` over the inliers, ties
+//    to the lower direction (a stable argsort's order), each lane's rank
+//    counted against the others by shuffles.
+// Bound: bytes (the RANSAC draws, the probes' jitter draws and the
+// nearest-strong texels they read, each once) against operations (the
+// probes and the 50 iterations over the hits).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,6 +93,7 @@ constexpr int kJfaThreads = 256;
 constexpr int kFitThreads = 128;
 constexpr int kGenWarps = 4;
 constexpr int kGenThreads = kGenWarps * 32;
+constexpr int kJitter = 4;          // JITTER_SAMPLES: a radius's draws
 
 // core.sampling.fetch of channel ``channel`` of an f32 (H, W, stride) map
 // at (x, y): 0 outside the map
@@ -267,7 +277,7 @@ struct GenParams {
   int margin;              // probes keep this far from the image's edges
   const float* dirs;       // (D, 2) unit directions
   const float* radii;      // (Rn,)
-  int n, d, rn, j;
+  int n, d, rn;
   float fx, fy, cx, cy;
   float cone_cos;          // the cone's cosine, rounded to float32
   float thr;               // the RANSAC threshold
@@ -277,6 +287,46 @@ struct GenParams {
   int* hit_count;          // (N,)
 };
 
+// One probe of the walk (`probe_table`'s arithmetic): the offset of jitter
+// draw (sx, sy) from the direction's 20-pixel step, its length clamped at
+// 1e-20, the probe at ``rad`` along it truncated toward zero; whether it
+// keeps ``margin`` from the image's edges.
+__device__ __forceinline__ bool probe_at(const GenParams& p, float xf,
+                                         float yf, float dx20, float dy20,
+                                         float rad, int sx, int sy, int* px,
+                                         int* py) {
+  const float pdx = add(dx20, static_cast<float>(sx));
+  const float pdy = add(dy20, static_cast<float>(sy));
+  const float pn = clamp_min_keep_nan(
+      __fsqrt_rn(add(mul(pdx, pdx), mul(pdy, pdy))), 1e-20f);
+  *px = static_cast<int>(add(xf, mul(dvd(pdx, pn), rad)));
+  *py = static_cast<int>(add(yf, mul(dvd(pdy, pn), rad)));
+  return !(*px < p.margin || *py < p.margin || *px >= p.img_w - p.margin ||
+           *py >= p.img_h - p.margin);
+}
+
+// the nearest-strong texel a probe snaps to: fetch's (0, 0) past the map
+__device__ __forceinline__ int2 snap(const GenParams& p, int px, int py) {
+  return (px < p.w && py < p.h)
+             ? p.ns[static_cast<int64_t>(py) * p.w + px]
+             : make_int2(0, 0);
+}
+
+// whether the snapped strong pixel s lies in the direction's angular cone
+__device__ __forceinline__ bool in_cone(const GenParams& p, int2 s, float xf,
+                                        float yf, float dirx, float diry) {
+  if (s.x < 0 || s.y < 0) return false;
+  const float vx = sub(static_cast<float>(s.x), xf);
+  const float vy = sub(static_cast<float>(s.y), yf);
+  const float vn = clamp_min_keep_nan(
+      __fsqrt_rn(add(mul(vx, vx), mul(vy, vy))), 1e-20f);
+  return dvd(add(mul(vx, dirx), mul(vy, diry)), vn) > p.cone_cos;
+}
+
+// kPart, for timing only (``part`` of `apde_gen_anchors`; the main path
+// runs 0): 1 stops after the probe walk, 2 after the RANSAC, each writing
+// what it computed so that none of it is left out.
+template <int kPart>
 __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kGenWarps + (threadIdx.x >> 5);
@@ -284,60 +334,105 @@ __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
   const int wxi = p.wx[i], wyi = p.wy[i];
   const float xf = static_cast<float>(wxi);
   const float yf = static_cast<float>(wyi);
-  const bool active = lane < p.d;
+  const int D = p.d;
 
-  // the probe walk: the first accepted probe of this lane's direction
+  // ---- the probe walk: L = 32 / D lanes a direction, lane ``in_group``
+  // of a direction's group taking radii in_group, in_group + L, ...
+  const int L = kMaxDirections / D;
+  const int dir = lane / L;
+  const int in_group = lane - dir * L;
+  const unsigned group = ((L == 32 ? kFull : (1u << L) - 1u)) << (dir * L);
+  bool done = dir >= D;   // lanes past the directions walk nothing
   bool found = false;
   int hx = -1, hy = -1;
   float dirx = 0.f, diry = 0.f;
-  if (active) {
-    dirx = __ldg(p.dirs + 2 * lane);
-    diry = __ldg(p.dirs + 2 * lane + 1);
-    const int64_t row = static_cast<int64_t>(i) * p.d * p.rn * p.j +
-                        static_cast<int64_t>(lane) * p.rn * p.j;
-    const float wf = static_cast<float>(p.img_w);
-    const float hf = static_cast<float>(p.img_h);
-    const float dx20 = mul(dirx, 20.f), dy20 = mul(diry, 20.f);
-    for (int r = 0; r < p.rn && !found; ++r) {
-      const float rad = __ldg(p.radii + r);
+  int64_t row = 0;
+  if (!done) {
+    dirx = __ldg(p.dirs + 2 * dir);
+    diry = __ldg(p.dirs + 2 * dir + 1);
+    row = (static_cast<int64_t>(i) * D + dir) * p.rn * kJitter;
+  }
+  const float wf = static_cast<float>(p.img_w);
+  const float hf = static_cast<float>(p.img_h);
+  const float dx20 = mul(dirx, 20.f), dy20 = mul(diry, 20.f);
+  int4 nx4 = make_int4(0, 0, 0, 0), ny4 = nx4;
+  if (!done && in_group < p.rn) {
+    nx4 = __ldg(reinterpret_cast<const int4*>(p.shift_x + row) + in_group);
+    ny4 = __ldg(reinterpret_cast<const int4*>(p.shift_y + row) + in_group);
+  }
+  for (int r0 = 0; !__all_sync(kFull, done); r0 += L) {
+    const int r = r0 + in_group;
+    bool got = false, out = false;
+    int2 s_got = make_int2(-1, -1);
+    int4 cx4 = nx4, cy4 = ny4;
+    if (!done && r + L < p.rn) {   // the next step's draws
+      nx4 = __ldg(reinterpret_cast<const int4*>(p.shift_x + row) + r + L);
+      ny4 = __ldg(reinterpret_cast<const int4*>(p.shift_y + row) + r + L);
+    }
+    if (!done) {
+      // a radius past the schedule, or whose un-jittered test point has
+      // left the image, ends the walk: the radii rise and rounding is
+      // monotone, so no later test point returns to the image
+      const float rad = r < p.rn ? __ldg(p.radii + r) : 0.f;
       const float tx = add(xf, mul(dirx, rad));
       const float ty = add(yf, mul(diry, rad));
-      // the radii rise and rounding is monotone: no later test point
-      // returns to the image
-      if (!(tx >= 0.f && ty >= 0.f && tx < wf && ty < hf)) break;
-      for (int jj = 0; jj < p.j; ++jj) {
-        const int64_t f = row + static_cast<int64_t>(r) * p.j + jj;
-        const float pdx = add(dx20, static_cast<float>(__ldg(p.shift_x + f)));
-        const float pdy = add(dy20, static_cast<float>(__ldg(p.shift_y + f)));
-        const float pn = clamp_min_keep_nan(
-            __fsqrt_rn(add(mul(pdx, pdx), mul(pdy, pdy))), 1e-20f);
-        const int px = static_cast<int>(add(xf, mul(dvd(pdx, pn), rad)));
-        const int py = static_cast<int>(add(yf, mul(dvd(pdy, pn), rad)));
-        if (px < p.margin || py < p.margin || px >= p.img_w - p.margin ||
-            py >= p.img_h - p.margin) {
-          continue;
+      out = r >= p.rn || !(tx >= 0.f && ty >= 0.f && tx < wf && ty < hf);
+      if (!out) {
+        // the radius's 4 probes, their texels loaded together, then the
+        // first accepted in jitter order
+        const int sxs[4] = {cx4.x, cx4.y, cx4.z, cx4.w};
+        const int sys[4] = {cy4.x, cy4.y, cy4.z, cy4.w};
+        int2 s[4];
+        bool keep[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          int px, py;
+          keep[jj] = probe_at(p, xf, yf, dx20, dy20, rad, sxs[jj], sys[jj],
+                              &px, &py);
+          s[jj] = keep[jj] ? snap(p, px, py) : make_int2(-1, -1);
         }
-        int2 s = make_int2(0, 0);   // fetch's fill past the map
-        if (px < p.w && py < p.h) {
-          s = p.ns[static_cast<int64_t>(py) * p.w + px];
-        }
-        if (s.x < 0 || s.y < 0) continue;
-        // the angular cone against the origin direction
-        const float vx = sub(static_cast<float>(s.x), xf);
-        const float vy = sub(static_cast<float>(s.y), yf);
-        const float vn = clamp_min_keep_nan(
-            __fsqrt_rn(add(mul(vx, vx), mul(vy, vy))), 1e-20f);
-        if (dvd(add(mul(vx, dirx), mul(vy, diry)), vn) > p.cone_cos) {
-          found = true;
-          hx = s.x;
-          hy = s.y;
-          break;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (!got && keep[jj] && in_cone(p, s[jj], xf, yf, dirx, diry)) {
+            got = true;
+            s_got = s[jj];
+          }
         }
       }
     }
+    // the group's lowest radius that accepted a probe or ended the walk
+    // decides, as the walk one radius at a time would
+    const unsigned g_got = __ballot_sync(kFull, got) & group;
+    const unsigned g_end = (__ballot_sync(kFull, out) & group) | g_got;
+    const int first = g_end ? __ffs(g_end) - 1 : lane;
+    const int sx_w = __shfl_sync(kFull, s_got.x, first);
+    const int sy_w = __shfl_sync(kFull, s_got.y, first);
+    if (!done && ((g_got >> first) & 1u)) {
+      found = true;
+      hx = sx_w;
+      hy = sy_w;
+    }
+    done = done || g_end != 0u;
+  }
+
+  // ---- the hits: lane d < D holds direction d's --------------------------
+  {
+    const int src = lane < D ? lane * L : lane;
+    found = __shfl_sync(kFull, found, src) && lane < D;
+    hx = __shfl_sync(kFull, hx, src);
+    hy = __shfl_sync(kFull, hy, src);
   }
   const uint32_t hits = __ballot_sync(kFull, found);
   const int count = __popc(hits);
+  if constexpr (kPart == 1) {
+    if (lane < D) {
+      reinterpret_cast<int2*>(p.anchors)[static_cast<int64_t>(i) *
+                                         (kSlots + 1) + lane % 9] =
+          make_int2(hx, hy);
+    }
+    if (lane == 0) p.hit_count[i] = count;
+    return;
+  }
 
   // camera-frame points of the hits, and of the pixel, at the stored depth
   const float hxf = static_cast<float>(hx), hyf = static_cast<float>(hy);
@@ -347,65 +442,126 @@ __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
   backproject(p.fx, p.fy, p.cx, p.cy, xf, yf,
               fetch_f(p.planes, 4, 3, p.h, p.w, wxi, wyi), centre);
 
-  // RANSAC for a support plane through >= 6 hits whose triangle holds p
+  // ---- RANSAC for a support plane through >= 6 hits whose triangle holds
+  // the pixel: a lane an iteration, 32 at a time, each counting its
+  // plane's inliers over the hits; then every lane takes the usable
+  // iterations' results in iteration order. The hits are compacted (lane k
+  // < count holds the k-th, direction ``hit_dir``), so a draw's rank picks
+  // its hit as _nth_valid does. Fewer than 6 hits leave no iteration
+  // usable: skipped.
   int best_count = 3;
   float best_cdist = INFINITY;
   float best[4] = {0.f, 0.f, 0.f, 0.f};
   int abc[3] = {-1, -1, -1};
   bool has = false;
-  const int cmax = count < 1 ? 1 : count;
-  const int* t = p.triplets + static_cast<int64_t>(i) * 3;
-  for (int it = 0; it < p.iters; ++it, t += p.trip_stride) {
-    const int a = nth_valid(hits, py_mod(__ldg(t), cmax));
-    const int b = nth_valid(hits, py_mod(__ldg(t + 1), cmax));
-    const int c = nth_valid(hits, py_mod(__ldg(t + 2), cmax));
-    const bool distinct = a != b && b != c && a != c;
-    float A[3], B[3], C[3];
+  if (count >= 6) {
+    int hit_dir = 0;
+    if (lane < count) {
+      uint32_t m = hits;
+      for (int k = 0; k < lane; ++k) m &= m - 1u;
+      hit_dir = __ffs(m) - 1;
+    }
+    float hp[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) hp[k] = __shfl_sync(kFull, pt[k], hit_dir);
+    const float hpx = __shfl_sync(kFull, hxf, hit_dir);
+    const float hpy = __shfl_sync(kFull, hyf, hit_dir);
+    const int* t = p.triplets + static_cast<int64_t>(i) * 3;
+    for (int it0 = 0; it0 < p.iters; it0 += 32) {
+      const int it = it0 + lane;
+      const bool live = it < p.iters;
+      int t0 = 0, t1 = 0, t2 = 0;
+      if (live) {
+        const int* tc = t + it * p.trip_stride;
+        t0 = __ldg(tc);
+        t1 = __ldg(tc + 1);
+        t2 = __ldg(tc + 2);
+      }
+      const int a = py_mod(t0, count);
+      const int b = py_mod(t1, count);
+      const int c = py_mod(t2, count);
+      const bool distinct = a != b && b != c && a != c;
+      float A[3], B[3], Cp[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        A[k] = __shfl_sync(kFull, hp[k], a);
+        B[k] = __shfl_sync(kFull, hp[k], b);
+        Cp[k] = __shfl_sync(kFull, hp[k], c);
+      }
+      const bool tri = point_in_triangle(
+          __shfl_sync(kFull, hpx, a), __shfl_sync(kFull, hpy, a),
+          __shfl_sync(kFull, hpx, b), __shfl_sync(kFull, hpy, b),
+          __shfl_sync(kFull, hpx, c), __shfl_sync(kFull, hpy, c), xf, yf);
+      float plane[4];
+      const bool degen = plane_from_triplet(A, B, Cp, plane);
+      int n_in = 0;
+      for (int k = 0; k < count; ++k) {
+        const float q[3] = {__shfl_sync(kFull, hp[0], k),
+                            __shfl_sync(kFull, hp[1], k),
+                            __shfl_sync(kFull, hp[2], k)};
+        n_in += dvd(plane_dist(q, plane), p.depth_diff) < p.thr ? 1 : 0;
+      }
+      const bool usable = live && distinct && tri && !degen && n_in >= 6;
+      const float cdist = plane_dist(centre, plane);
+      for (uint32_t u = __ballot_sync(kFull, usable); u != 0u; u &= u - 1u) {
+        const int from = __ffs(u) - 1;
+        const int n = __shfl_sync(kFull, n_in, from);
+        const float cd = __shfl_sync(kFull, cdist, from);
+        float pl[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pl[k] = __shfl_sync(kFull, plane[k], from);
+        const int ka = __shfl_sync(kFull, a, from);
+        const int kb = __shfl_sync(kFull, b, from);
+        const int kc = __shfl_sync(kFull, c, from);
+        if (n > best_count || (n == best_count && cd < best_cdist)) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) best[k] = pl[k];
+          best_cdist = cd;
+          best_count = n;
+          abc[0] = ka;
+          abc[1] = kb;
+          abc[2] = kc;
+          has = true;
+        }
+      }
+    }
+    // the triangle's ranks as directions
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      A[k] = __shfl_sync(kFull, pt[k], a);
-      B[k] = __shfl_sync(kFull, pt[k], b);
-      C[k] = __shfl_sync(kFull, pt[k], c);
-    }
-    const bool tri = point_in_triangle(
-        __shfl_sync(kFull, hxf, a), __shfl_sync(kFull, hyf, a),
-        __shfl_sync(kFull, hxf, b), __shfl_sync(kFull, hyf, b),
-        __shfl_sync(kFull, hxf, c), __shfl_sync(kFull, hyf, c), xf, yf);
-    float plane[4];
-    const bool degen = plane_from_triplet(A, B, C, plane);
-    const bool inlier =
-        found && dvd(plane_dist(pt, plane), p.depth_diff) < p.thr;
-    const int n_in = __popc(__ballot_sync(kFull, inlier));
-    const bool usable = distinct && tri && !degen && n_in >= 6;
-    const float cdist = plane_dist(centre, plane);
-    if (usable && (n_in > best_count ||
-                   (n_in == best_count && cdist < best_cdist))) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) best[k] = plane[k];
-      best_cdist = cdist;
-      best_count = n_in;
-      abc[0] = a;
-      abc[1] = b;
-      abc[2] = c;
-      has = true;
+      const int d = __shfl_sync(kFull, hit_dir, abc[k] < 0 ? 0 : abc[k]);
+      abc[k] = abc[k] < 0 ? -1 : d;
     }
   }
+  if constexpr (kPart == 2) {
+    if (lane < 4) {
+      reinterpret_cast<float*>(p.anchors)[static_cast<int64_t>(i) * 18 +
+                                          lane] = best[lane];
+    }
+    if (lane < 3) {
+      p.anchors[static_cast<int64_t>(i) * 18 + 4 + lane] = abc[lane];
+    }
+    if (lane == 0) {
+      p.hit_count[i] = best_count;
+      p.reliable[i] = has ? 1 : 0;
+    }
+    return;
+  }
 
-  // rank the hits by plane distance (the triangle's members boosted by
+  // ---- rank the hits by plane distance (the triangle's members boosted by
   // -1), keep the 8 smallest, ties to the lower direction
   const float dist = plane_dist(pt, best);
   const bool is_inlier = found && dvd(dist, p.depth_diff) < p.thr;
   const bool is_abc = lane == abc[0] || lane == abc[1] || lane == abc[2];
   const float weight = is_inlier ? sub(dist, is_abc ? 1.f : 0.f) : INFINITY;
   int rank = 0;
-  for (int k = 0; k < p.d; ++k) {
+  for (int k = 0; k < D; ++k) {
     const float other = __shfl_sync(kFull, weight, k);
     rank += other < weight || (other == weight && k < lane);
   }
   const bool reliable = count > 3 && has;
   int2* out = reinterpret_cast<int2*>(p.anchors) +
               static_cast<int64_t>(i) * (kSlots + 1);
-  if (active && rank < kSlots) {
+  if (lane < D && rank < kSlots) {
     out[1 + rank] = (reliable && isfinite(weight)) ? make_int2(hx, hy)
                                                    : make_int2(-1, -1);
   }
@@ -430,7 +586,7 @@ int apde_anchor_kernel_info(int which, int* regs, int* local_bytes,
                             int* blocks_per_sm) {
   const void* kernel = which == 0   ? (const void*)jfa_step
                        : which == 1 ? (const void*)fit_planes
-                                    : (const void*)gen_anchors;
+                                    : (const void*)gen_anchors<0>;
   const int threads =
       which == 0 ? kJfaThreads : (which == 1 ? kFitThreads : kGenThreads);
   cudaFuncAttributes attr;
@@ -513,7 +669,11 @@ int apde_fit_planes(const void* planes, int h, int w, const void* wx,
 }
 
 // K8: the anchors of N weak pixels over D directions (D <= 32), probes
-// ``margin`` from the edges, ``iters`` RANSAC iterations.
+// ``margin`` from the edges, ``iters`` RANSAC iterations; j jitter draws a
+// radius (4 only, the rows 16-byte aligned: else cudaErrorInvalidValue,
+// nothing launched). ``part`` is 0 on
+// the main path; 1 and 2 run the timing-only forms that end after the
+// probe walk and after the RANSAC (the kernel's kPart).
 int apde_gen_anchors(const void* ns, const void* planes, int h, int w,
                      int img_h, int img_w, const void* wx, const void* wy,
                      const void* shift_x, const void* shift_y,
@@ -522,8 +682,12 @@ int apde_gen_anchors(const void* ns, const void* planes, int h, int w,
                      int n, int d, int rn, int j, float fx, float fy,
                      float cx, float cy, float cone_cos, float thr,
                      float depth_diff, void* anchors, void* reliable,
-                     void* hit_count, void* stream) {
-  if (d < kSlots || d > kMaxDirections || rn < 1 || j < 1) {
+                     void* hit_count, int part, void* stream) {
+  if (part < 0 || part > 2) return static_cast<int>(cudaErrorInvalidValue);
+  // a radius's 4 draws are read as one aligned vector
+  if (d < kSlots || d > kMaxDirections || rn < 1 || j != kJitter ||
+      reinterpret_cast<uintptr_t>(shift_x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(shift_y) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -547,7 +711,6 @@ int apde_gen_anchors(const void* ns, const void* planes, int h, int w,
   p.n = n;
   p.d = d;
   p.rn = rn;
-  p.j = j;
   p.fx = fx;
   p.fy = fy;
   p.cx = cx;
@@ -560,7 +723,10 @@ int apde_gen_anchors(const void* ns, const void* planes, int h, int w,
   p.hit_count = static_cast<int*>(hit_count);
   const unsigned int grid =
       static_cast<unsigned int>((n + kGenWarps - 1) / kGenWarps);
-  gen_anchors<<<grid, kGenThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using Gen = void (*)(GenParams);
+  const Gen forms[3] = {gen_anchors<0>, gen_anchors<1>, gen_anchors<2>};
+  forms[part]<<<grid, kGenThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

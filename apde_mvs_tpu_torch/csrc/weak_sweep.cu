@@ -198,7 +198,12 @@ __device__ __forceinline__ int segment_id(const int* __restrict__ sa, int x,
              : 0;
 }
 
-template <typename Q, bool kSA, bool kGeom, bool kMain>
+// kStop, for timing only (``stop`` of `apde_weak_sweep`; the main path
+// runs 0): 1 stops after the reference side (step 1), 2 after the
+// selection, the adoption and the fit-plane test (steps 2-6), 3 after the
+// refinement hypotheses (step 7 but its pairs), each writing what it
+// computed to the outputs so that none of it is left out
+template <typename Q, bool kSA, bool kGeom, bool kMain, int kStop = 0>
 __global__ void __launch_bounds__(kThreads)
 weak_update_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -406,6 +411,21 @@ weak_update_kernel(const Params p) {
     cwin.inv = dvd(1.f, static_cast<float>(T));
     cwin.empty = false;
   }
+  if constexpr (kStop == 1) {
+    __syncwarp();
+    if (lane == 0) {
+      float acc = add(add(cwin.sum_ref, cwin.sum_rr), cwin.inv);
+      unsigned sel = 0u;
+      for (int a = 0; a < kAnchors; ++a) {
+        acc = add(acc, add(add(w_asr[a], w_asrr[a]), w_ainv[a]));
+        sel ^= w_sel[a];
+      }
+      p.costs_out[b] = acc;
+      p.planes_out[4 * b] = __uint_as_float(
+          exist_bits ^ valid_bits ^ flags ^ positive_bits ^ sel);
+    }
+    return;
+  }
   // an unflagged candidate's row: 0, and 2 at [0][0] (the aggregate-init
   // quirk)
   if (lane < S) {
@@ -514,6 +534,18 @@ weak_update_kernel(const Params p) {
         plane_cur[j] = take_fit ? fit[j] : plane_cur[j];
       }
       cost_cur = take_fit ? fit_cost : cost_cur;
+      if constexpr (kStop == 2) {
+        if (lane == 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p.planes_out[4 * b + j] = plane_cur[j];
+          p.costs_out[b] = cost_cur;
+        }
+        if (lane < S) {
+          p.sel_out[b * S + lane] = sel_new ? 1 : 0;
+          p.vw_out[b * S + lane] = my_vw;
+        }
+        return;
+      }
 
       // ---- 7. the refinement hypotheses (refinement_from_raws) -----------
       const RefineDraws draws = {p.u_rand, p.gauss, p.u_pert, p.angles};
@@ -521,6 +553,11 @@ weak_update_kernel(const Params p) {
                                       plane_cur, p.depth_min, p.depth_max,
                                       has, lane, w_hyp);
       __syncwarp();
+      if constexpr (kStop == 3) {
+        if (lane < kHyps * 4) p.vw_out[b * S + lane % S] = w_hyp[lane];
+        if (lane == 0) p.costs_out[b] = __uint_as_float(ok_mask);
+        return;
+      }
     }
 
     // ---- 3. (phase 0) and 7. (phase 1): the (plane, view) pairs ----------
@@ -616,6 +653,22 @@ Kernel pick(bool quads_u8, bool sa, bool geom, bool main_windows) {
             : pick_form<float, false>(geom, main_windows);
 }
 
+// the timing-only forms (kStop 1, 2, 3) of the main path's windows, u8
+// tables
+template <int kStop>
+Kernel pick_stop(bool sa, bool geom) {
+  return sa ? (geom ? weak_update_kernel<uint8_t, true, true, true, kStop>
+                    : weak_update_kernel<uint8_t, true, false, true, kStop>)
+            : (geom ? weak_update_kernel<uint8_t, false, true, true, kStop>
+                    : weak_update_kernel<uint8_t, false, false, true, kStop>);
+}
+
+Kernel pick_timing(int stop, bool sa, bool geom) {
+  return stop == 1   ? pick_stop<1>(sa, geom)
+         : stop == 2 ? pick_stop<2>(sa, geom)
+                     : pick_stop<3>(sa, geom);
+}
+
 bool is_main(int c_radius, int c_increment, int a_radius, int a_increment) {
   return c_radius == kMainRadius && c_increment == kMainIncrement &&
          a_radius == kMainRadius && a_increment == kMainAnchorIncrement;
@@ -688,6 +741,11 @@ int apde_weak_sweep_kernel_info(int quads_u8, int sa, int geom, int c_radius,
   return 0;
 }
 
+// K7 on a chunk of num_pix weak pixels. ``stop`` is 0 on the main path;
+// 1, 2 and 3 run the timing-only forms of the main path's windows with u8
+// tables that end after the reference side, after the selection, the
+// adoption and the fit-plane test, and after the refinement hypotheses
+// (the kernel's kStop).
 int apde_weak_sweep(const void* quads, int quads_u8, const void* cams,
                     const void* src_depths, int depth_h, int depth_w,
                     float geom_factor, const void* planes,
@@ -701,7 +759,8 @@ int apde_weak_sweep(const void* quads, int quads_u8, const void* cams,
                     float depth_min, float depth_max, int refine_init,
                     void* planes_out, void* costs_out, void* sel_out,
                     void* vw_out, int64_t num_pix, int num_views, int width,
-                    int quad_h, int img_w, int img_h, void* stream) {
+                    int quad_h, int img_w, int img_h, int stop,
+                    void* stream) {
   if (num_pix <= 0) return static_cast<int>(cudaGetLastError());
   if (num_views < 1 || num_views > kMaxViews || c_radius < 0 ||
       c_increment < 1 || a_radius < 0 || a_increment < 1) {
@@ -756,9 +815,14 @@ int apde_weak_sweep(const void* quads, int quads_u8, const void* cams,
   p.img_h = static_cast<float>(img_h);
   const bool with_sa = p.sa != nullptr;
   const bool geom = p.src_depths != nullptr;
-  const Kernel kernel =
-      pick(quads_u8 != 0, with_sa, geom,
-           is_main(c_radius, c_increment, a_radius, a_increment));
+  const bool main_windows =
+      is_main(c_radius, c_increment, a_radius, a_increment);
+  if (stop != 0 && (stop < 0 || stop > 3 || !main_windows || !quads_u8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Kernel kernel = stop != 0 ? pick_timing(stop, with_sa, geom)
+                                  : pick(quads_u8 != 0, with_sa, geom,
+                                         main_windows);
   const size_t bytes = smem_bytes(num_views, c_radius, c_increment, a_radius,
                                   a_increment, with_sa, geom);
   const cudaError_t err = prepare(kernel, bytes);

@@ -6,11 +6,12 @@ Replace the torch-op compositions of ``ops/anchors.py`` (the JAX package's
 XLA-compiled ``apde_mvs_tpu/ops/anchors.py``: ``nearest_strong_jfa``
 :44-99, ``gen_anchors`` :191-373, ``ransac_fit_planes`` :386-467): K10 is
 one launch a (step, neighbour) sub-pass of the flooding (96 at 600x800),
-K8 one launch a chunk of weak pixels (a warp a pixel, a lane a direction),
-K9 one launch a call (a thread a pixel). What bounds them on the H100:
-bytes (K9: the 50 RANSAC draws of a pixel; K8: those and the probes'
-jitter draws and nearest-strong texels), operations for K10's flooding;
-the source says what each design does about it.
+K8 one launch a chunk of weak pixels (a warp a pixel: 32 / D lanes a
+direction walk its radii, then a lane a RANSAC iteration over the
+compacted hits), K9 one launch a call (a thread a pixel). What bounds
+them on the H100: bytes (K9: the 50 RANSAC draws of a pixel; K8: those
+and the probes' jitter draws and nearest-strong texels), operations for
+K10's flooding; the source says what each design does about it.
 
 The plain versions stay in ``ops/anchors.py`` (``nearest_strong_jfa_plain``,
 ``gen_anchors_chunk_plain``, ``ransac_fit_planes_plain``), which picks
@@ -18,7 +19,8 @@ between them and these wrappers by the tensors' device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel here or raises; these
 wrappers raise on any other device. Every kernel equals its plain version
 bit for bit on the card. ``jfa_launches``, ``anchor_launches`` and
-``fit_launches`` count kernel launches.
+``fit_launches`` count kernel launches; ``gen_anchors_timing`` runs K8's
+timing-only forms (``tools/kernel_split.py``), which count none.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def library() -> _build.Built:
     lib.apde_gen_anchors.argtypes = (
         [ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i64, i32,
          i32, ptr, ptr, i32, i32, i32, i32] + [f32] * 7
-        + [ptr, ptr, ptr, ptr])
+        + [ptr, ptr, ptr, i32, ptr])
     for fn in (lib.apde_jfa, lib.apde_fit_planes, lib.apde_gen_anchors):
         fn.restype = i32
     consts = (lib.apde_anchor_max_directions, lib.apde_anchor_slots)
@@ -205,7 +207,7 @@ def gen_anchors(nearest_strong_map: torch.Tensor, planes: torch.Tensor,
                 shift_y: torch.Tensor, triplets: torch.Tensor,
                 dirs: torch.Tensor, radii: torch.Tensor, jitter: int,
                 cam: Camera, cone_cos: float, threshold: float,
-                depth_diff: float, margin: int) -> tuple:
+                depth_diff: float, margin: int, _part: int = 0) -> tuple:
     """K8: (anchors (N, 9, 2) int32, reliable (N,) bool, hit counts (N,)
     int32) of the weak pixels (``weak_x``, ``weak_y``) (N,) int32 over the
     D directions ``dirs`` (D, 2) f32 (8 <= D <= 32) and the radii
@@ -214,7 +216,10 @@ def gen_anchors(nearest_strong_map: torch.Tensor, planes: torch.Tensor,
     (H, W, 4) f32, the jitter draws (N, D * Rn * jitter) int32 and the
     RANSAC draws (iterations, N, 3) int32. ``cone_cos``, ``threshold`` and
     ``depth_diff`` are float32 values; ``img_h`` x ``img_w`` bounds the
-    probes, which keep ``margin`` from its edges."""
+    probes, which keep ``margin`` from its edges. The kernel reads a
+    radius's ``jitter`` draws as one 16-byte vector: it refuses (raises)
+    any ``jitter`` but JITTER_SAMPLES (4) and draws not 16-byte aligned.
+    ``_part`` is for `gen_anchors_timing` only."""
     dev = _cuda_device(planes)
     n = weak_x.shape[0]
     d, rn = dirs.shape[0], radii.shape[0]
@@ -240,12 +245,23 @@ def gen_anchors(nearest_strong_map: torch.Tensor, planes: torch.Tensor,
     if n == 0:
         return anchors, reliable, hits
     global anchor_launches
-    anchor_launches += 1
     _raise_on(library().lib.apde_gen_anchors(
         nearest_strong_map.data_ptr(), planes.data_ptr(), h, w, img_h, img_w,
         weak_x.data_ptr(), weak_y.data_ptr(), shift_x.data_ptr(),
         shift_y.data_ptr(), triplets.data_ptr(), stride, iters, margin,
-        dirs.data_ptr(), radii.data_ptr(), n, d, rn, jitter, *cam, cone_cos, threshold,
-        depth_diff, anchors.data_ptr(), reliable.data_ptr(), hits.data_ptr(),
-        _stream(dev)), "apde_gen_anchors")
+        dirs.data_ptr(), radii.data_ptr(), n, d, rn, jitter, *cam, cone_cos,
+        threshold, depth_diff, anchors.data_ptr(), reliable.data_ptr(),
+        hits.data_ptr(), _part, _stream(dev)), "apde_gen_anchors")
+    if not _part:
+        anchor_launches += 1
     return anchors, reliable, hits
+
+
+def gen_anchors_timing(part: int, *args, **kw) -> tuple:
+    """For measuring where K8's time goes, never on the main path: the
+    kernel run up to a stage. ``part`` 1 ends after the probe walk, 2 after
+    the RANSAC; the outputs hold what the stage computed, not the anchors.
+    Counts no launch."""
+    if part not in (1, 2):
+        raise ValueError(f"part must be 1 or 2, got {part}")
+    return gen_anchors(*args, **kw, _part=part)

@@ -23,6 +23,8 @@ pixel's reference side from ``data.ref_image`` (and, under SA,
 pixels, their anchors and fit planes and the draws, and only the four
 outputs are written. What bounds it on the H100: operations (K6's for
 every evaluated pair, K4's, the selection's and the hypotheses').
+``weak_update_timing`` runs timing-only forms that stop after a stage, for
+``tools/kernel_split.py``.
 
 The plain version fixes every operation's order: the reference side of
 ``deformable.WeakRefData.build`` with its sums in tap order
@@ -99,7 +101,7 @@ def library() -> _build.Built:
         [ptr, i32, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, i32, i32, ptr,
          ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
          ptr, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr,
-         ctypes.c_int64, i32, i32, i32, i32, i32, ptr])
+         ctypes.c_int64, i32, i32, i32, i32, i32, i32, ptr])
     lib.apde_weak_sweep.restype = i32
     for fn in (lib.apde_weak_sweep_max_views, lib.apde_weak_sweep_cam_stride,
                lib.apde_weak_sweep_num_samples):
@@ -400,7 +402,8 @@ def weak_update_fused(data, state, x, y, anchors, fit_planes, draws, *,
                       strong_radius: int, strong_increment: int,
                       weak_radius: int, weak_increment: int, use_sa: bool,
                       iteration, depth_min, depth_max, geom_factor,
-                      geom: bool, refine_init: bool) -> WeakOutputs:
+                      geom: bool, refine_init: bool,
+                      _stop: int = 0) -> WeakOutputs:
     """The weak sweep's update of a chunk of weak pixels (x, y) (B,) int32
     against every source view of ``data`` (a ``cost.CostData``): their
     ``anchors`` (B, 9, 2) int32 (x, y), -1 where missing, slot 0 the pixel
@@ -415,7 +418,7 @@ def weak_update_fused(data, state, x, y, anchors, fit_planes, draws, *,
     ``refine_init`` is REFINE_INIT's commit rule. The depth bounds and the
     geometric factor are best Python numbers: a device tensor's value is
     read back, which waits for the device. Every tensor must be contiguous
-    on CUDA."""
+    on CUDA. ``_stop`` is for `weak_update_timing` only."""
     windows = (strong_radius, strong_increment, weak_radius, weak_increment)
     b, sa, tensors = _check_args(data, state, x, y, anchors, fit_planes,
                                  draws, windows, use_sa, geom)
@@ -462,8 +465,9 @@ def weak_update_fused(data, state, x, y, anchors, fit_planes, draws, *,
         return out
     raws = draws.raws
     global launches, chunks
-    launches += 1
-    chunks += 1
+    if not _stop:
+        launches += 1
+        chunks += 1
     ncc._raise_on(lib.apde_weak_sweep(
         quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
         depths.data_ptr() if geom else None,
@@ -478,7 +482,21 @@ def weak_update_fused(data, state, x, y, anchors, fit_planes, draws, *,
         _f32(depth_min), _f32(depth_max), int(refine_init),
         out.planes.data_ptr(), out.costs.data_ptr(),
         out.selected.data_ptr(), out.view_weights.data_ptr(), b, s,
-        data.width, data.quad_h, data.img_w, data.img_h,
+        data.width, data.quad_h, data.img_w, data.img_h, _stop,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_weak_sweep")
     return out
+
+
+def weak_update_timing(stop: int, *args, **kw) -> WeakOutputs:
+    """For measuring where K7's time goes, never on the main path: the
+    kernel run up to a stage, on CUDA tensors with the main path's windows
+    and u8 tables. ``stop`` 1 ends after the reference side, 2 after the
+    selection, the adoption and the fit-plane test, 3 after the refinement
+    hypotheses; the outputs hold what the stage computed, not the update.
+    Counts no launch."""
+    if stop not in (1, 2, 3):
+        raise ValueError(f"stop must be 1, 2 or 3, got {stop}")
+    if args[0].src_quads.device.type != "cuda":
+        raise ValueError("weak_update_timing runs the kernel only")
+    return weak_update_fused(*args, **kw, _stop=stop)

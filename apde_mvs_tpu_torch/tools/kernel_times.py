@@ -1,6 +1,6 @@
-"""Device times of K2, K5, the strong sweep's colour update (K3) and the
-weak sweep's chunk (K7, K6) at the main path's shapes, for comparing two
-checkouts of the port on one card.
+"""Device times of K2, K5, the strong sweep's colour update (K3), the weak
+sweep's chunk (K7, K6) and the APD setup's kernels (K8, K9, K10) at the
+main path's shapes, for comparing two checkouts of the port on one card.
 
 The shapes are chip_smoke.py's, on view 0 of the 11-view 600x800 synthetic
 scene (seed 0), u8 quad tables:
@@ -35,14 +35,26 @@ scene (seed 0), u8 quad tables:
   the checkout has them, K7 alone (``weak_sweep.weak_update_fused``), the
   body K7 replaced (``weak_composition.weak_body_composition``) and K6
   alone on the chunk's 10 candidate planes (every view) and 5 probes (the
-  weighted views).
+  weighted views); K7 also in REFINE_INIT, with square windows (every
+  valid anchor counts) and on the first chunk a real APD REFINE_INIT pass
+  hands it (``real_pass_chunks``: the 11-view APD scene of
+  ``tools/profile_pass.py --pass apd``, the priors of a FIRST_INIT pass of
+  the same view), in both pass forms;
+- K8 at a 16,384-pixel chunk of the APD scan's weak list at the APD
+  round's rotate_time (2: 16 directions) and at the chunk a real APD pass
+  hands it, and the chunk's jitter and RANSAC draw table
+  (``anchors.anchor_raws``); K10 a call on the APD scan's map (96
+  launches); K9 a call on the weak chunk's reliable pixels.
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
-events). The script imports the package by absolute name, so it times the
-checkout found first on ``sys.path``: run it from another checkout's root
-with that root on ``PYTHONPATH`` to time that checkout's kernels.
+events); the weak path's kernels also give their device time
+(torch.profiler's, ``... device``), free of the host's time a call. The
+script imports the package by absolute name, so it times the checkout
+found first on ``sys.path``: run it from another checkout's root with
+that root on ``PYTHONPATH`` to time that checkout's kernels.
 
-    python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] [--weak_only]
+    python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] \
+        [--weak_only]
     cd OTHER && PYTHONPATH=$PWD python /path/to/kernel_times.py --tag other
 
 Needs a CUDA device. The last line is one JSON object: the tag, the card,
@@ -52,9 +64,12 @@ the libraries' file names and the times in ms.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import inspect
 import json
+import sys
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -64,10 +79,12 @@ from apde_mvs_tpu_torch import config as cfg
 from apde_mvs_tpu_torch.core import checkerboard as cb
 from apde_mvs_tpu_torch.core import geometry as geo
 from apde_mvs_tpu_torch.core.platform import card_line
+from apde_mvs_tpu_torch.ops import anchors as anc
 from apde_mvs_tpu_torch.ops import filters
 from apde_mvs_tpu_torch.ops.cost import (CostData, contiguous_window,
                                          initial_cost_and_selection,
                                          ncc_strong, precompute_ref_window)
+from apde_mvs_tpu_torch.ops.cuda import anchors as kern
 from apde_mvs_tpu_torch.ops.cuda import ncc, sweep
 from apde_mvs_tpu_torch.ops.state import PMState
 from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
@@ -79,6 +96,8 @@ CYCLED = 32
 # chip_smoke.py's APD scan: its views, its pyramid base (round 1 at full
 # size) and the weak plane of benchmarks/fullres_stress.py's scene
 APD_VIEWS = 6
+# tools/profile_pass.py's views: its APD pass is the real pass timed here
+PASS_VIEWS = 11
 APD_BASE = 400
 WEAK_REGION = (-0.3, 0.3, -0.2, 0.2)
 
@@ -277,6 +296,165 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
               "geometric)", flush=True)
 
 
+def device_ms(fn, iters: int, kernel: str, tries: int = 3) -> float:
+    """The mean device time of the kernels whose name holds ``kernel``
+    over ``iters`` calls of ``fn`` (torch.profiler): free of the host's
+    time a call, which CUDA events around a short kernel also hold. A
+    profile that caught none of them (the profiler has lost a window's
+    kernel records on the card) is taken again, ``tries`` times at most,
+    then the time is NaN: not measured."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total += getattr(evt, "self_device_time_total",
+                                 getattr(evt, "self_cuda_time_total", 0.0))
+                count += evt.count
+        if count:
+            return total / count / 1e3
+    print(f"device_ms: the profiler saw no {kernel} kernel in {tries} "
+          "profiles: not measured", file=sys.stderr, flush=True)
+    return float("nan")
+
+
+def apd_scene(views: int = APD_VIEWS):
+    """chip_smoke.py's APD scene at 600x800."""
+    return synthetic.make_scene(num_views=views, height=HEIGHT, width=WIDTH,
+                                baseline=0.12, focal=1.25 * WIDTH,
+                                weak_region=WEAK_REGION)
+
+
+def _cloned(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return dataclasses.replace(v, **{
+            f.name: _cloned(getattr(v, f.name)) for f in dataclasses.fields(v)
+            if isinstance(getattr(v, f.name), torch.Tensor)})
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_cloned(a) for a in v))
+    return v
+
+
+def real_pass_chunks(dev, views: int = PASS_VIEWS
+                     ) -> types.SimpleNamespace:
+    """The first K7 chunk and the first K8 chunk of a real APD REFINE_INIT
+    pass of view 0, ``tools/profile_pass.py --pass apd``'s pass: the APD
+    scene with ``views`` views (its default 11), priors from a FIRST_INIT
+    pass of the same view at full size, source depths the ground truth,
+    the SA mask the weak plane; each as the positional and keyword
+    arguments of its wrapper, captured at the call; and ``k8_plain``, the
+    pass's reference camera, RANSAC threshold and depth bounds, which K8's
+    plain version takes in place of the wrapper's host scalars."""
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    from apde_mvs_tpu_torch.pipeline import patchmatch
+    scene = apd_scene(views)
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
+    imgs = torch.as_tensor(scene.images, device=dev)
+    region = scene.depths[0] < scene.depths[0].mean() * 0.95
+    data = CostData.build(
+        cams.view(0), cams.map(lambda a: a[1:]), imgs[0], imgs[1:],
+        src_depths=torch.as_tensor(scene.depths[1:], device=dev),
+        sampler_u8=True, sa_mask=torch.as_tensor(region, device=dev))
+    schedule = cfg.build_schedule(max(HEIGHT, WIDTH), "General",
+                                  base=APD_BASE)
+    dmin = scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR
+    dmax = scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR
+    first = patchmatch.run_patchmatch(data, schedule[0].params,
+                                      depth_min=dmin, depth_max=dmax, seed=1)
+    prior = dict(prior_depth=first.depth, prior_normal=first.normal,
+                 prior_weak=first.weak.astype(np.int32),
+                 prior_confidence=first.confidence.astype(np.float32))
+    spec = next(s for s in schedule if s.params.state == "refine_init")
+    got = {}
+
+    def capture(mod, name, key):
+        fn = getattr(mod, name)
+
+        def run(*a, **kw):
+            if key not in got:
+                got[key] = (tuple(_cloned(v) for v in a),
+                            {k: _cloned(v) for k, v in kw.items()})
+            return fn(*a, **kw)
+        return fn, run
+    saved = []
+    for mod, name, key in ((weak_sweep, "weak_update_fused", "k7"),
+                           (kern, "gen_anchors", "k8")):
+        fn, run = capture(mod, name, key)
+        saved.append((mod, name, fn))
+        setattr(mod, name, run)
+    try:
+        patchmatch.run_patchmatch(data, spec.params, depth_min=dmin,
+                                  depth_max=dmax, seed=1, **prior)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    n_weak = int((first.weak == cfg.WEAK).sum())
+    return types.SimpleNamespace(
+        k7=got.get("k7"), k8=got.get("k8"), prior_weak=n_weak,
+        k8_plain=(data.ref_cam, spec.params.ransac_threshold, dmin, dmax))
+
+
+def k7_kwargs(wc, sa: bool, geom: bool, refine_init: bool) -> dict:
+    """``weak_update_fused``'s keywords for ``kernel_times.weak_chunk``'s
+    chunk in one pass form."""
+    c = wc.cfg
+    return dict(strong_radius=c.strong_radius,
+                strong_increment=c.strong_increment,
+                weak_radius=c.weak_radius, weak_increment=c.weak_increment,
+                use_sa=sa, iteration=wc.iteration, depth_min=wc.depth_min,
+                depth_max=wc.depth_max, geom_factor=wc.geom_factor,
+                geom=geom, refine_init=refine_init)
+
+
+def k8_chunk(scene, dev, seed: int = 0) -> tuple:
+    """(args, kwargs) of ``kern.gen_anchors`` at chip_smoke.py's K8 chunk:
+    the first ANCHOR_CHUNK pixels of the APD scan's weak list (the weak
+    plane WEAK at confidence 40 in a STRONG field at 200, the ground-truth
+    depths), the APD round's rotate_time and threshold, seeded draws."""
+    depth = torch.as_tensor(scene.depths[0], device=dev)
+    normal = torch.as_tensor(scene.normals[0], device=dev)
+    region = depth < depth.mean() * 0.95
+    params = next(sp.params for sp in cfg.build_schedule(
+        max(HEIGHT, WIDTH), base=APD_BASE) if sp.params.use_apd)
+    weak = torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32)
+    conf = torch.where(region, 40.0, 200.0)
+    valid = torch.ones_like(region)
+    ns = anc.nearest_strong_jfa(weak, conf, valid)
+    wy, wx = torch.nonzero(region, as_tuple=True)
+    n = min(anc.ANCHOR_CHUNK, wx.numel())
+    wx = wx[:n].to(torch.int32).contiguous()
+    wy = wy[:n].to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rt = params.rotate_time
+    raws = anc.anchor_raws(gen, n, rt, device=dev)
+    cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
+    dirs, radii = anc._kernel_tables(rt, str(dev))
+    dmin = np.float32(scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR)
+    dmax = np.float32(scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR)
+    planes = torch.cat([normal, depth[..., None]], -1).contiguous()
+    return ((ns, planes, HEIGHT, WIDTH, wx, wy, raws.shift_x, raws.shift_y,
+             raws.triplets, dirs, radii, anc.JITTER_SAMPLES,
+             kern.camera(cams.view(0)),
+             float(np.float32(anc._cone_cos(rt))),
+             float(np.float32(params.ransac_threshold)),
+             float(dmax - dmin), anc.MIN_MARGIN), {})
+
+
+def draw_table_ms(dev, n: int, rotate_time: int, iters: int = 20) -> float:
+    """The jitter and RANSAC draws of one K8 chunk (``anc.anchor_raws``)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cuda_ms(lambda: anc.anchor_raws(gen, n, rotate_time, device=dev),
+                   iters)
+
+
 class WeakChunk(NamedTuple):
     """One weak-sweep chunk: ``_weak_body``'s arguments, and K6's inputs."""
 
@@ -309,7 +487,6 @@ def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
     source depths). The probes are the refinement hypotheses of the
     current planes, the view weights those of ``_weak_body``'s selection.
     Uses only what checkouts from before K6 have too."""
-    from apde_mvs_tpu_torch.ops import anchors as anc
     from apde_mvs_tpu_torch.ops import propagation
     H, W = scene.images.shape[1:]
     S = scene.num_views - 1
@@ -380,13 +557,19 @@ def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
                      dmax, gf, candidates, probes, vw)
 
 
-def weak_times(dev, out: dict, seed: int = 0) -> None:
+def timed(out: dict, name: str, fn, iters: int, kernel: str,
+          what: str) -> None:
+    """``fn``'s mean time a call by CUDA events into out[name] and its
+    kernel's device time (profiler) into out[name + " device"]."""
+    out[name] = cuda_ms(fn, iters)
+    out[name + " device"] = device_ms(fn, iters, kernel)
+    print(f"{name}: {out[name]:.4f} ms, device {out[name + ' device']:.4f} "
+          f"ms {what}", flush=True)
+
+
+def weak_times(scene, wc, real, dev, out: dict) -> None:
     from apde_mvs_tpu_torch.ops import propagation
     from apde_mvs_tpu_torch.ops.deformable import WeakRefData
-    scene = synthetic.make_scene(num_views=APD_VIEWS, height=HEIGHT,
-                                 width=WIDTH, baseline=0.12,
-                                 focal=1.25 * WIDTH, weak_region=WEAK_REGION)
-    wc = weak_chunk(scene, dev, seed)
     S = wc.data.num_src
     what = f"({S} views x {wc.x.numel()} weak pixels, geometric, SA)"
     out["weak body"] = cuda_ms(lambda: propagation._weak_body(
@@ -408,10 +591,25 @@ def weak_times(dev, out: dict, seed: int = 0) -> None:
                   iteration=wc.iteration, depth_min=wc.depth_min,
                   depth_max=wc.depth_max, geom_factor=wc.geom_factor,
                   geom=True, refine_init=False)
-        out["K7"] = cuda_ms(lambda: weak_sweep.weak_update_fused(
-            wc.data, wc.state, wc.x, wc.y, wc.anchors, wc.fit, wc.draws,
-            **kw), 20)
-        print(f"K7: {out['K7']:.4f} ms {what}", flush=True)
+        args = (wc.data, wc.state, wc.x, wc.y, wc.anchors, wc.fit, wc.draws)
+        for name, kw_, what_ in (
+                ("K7", kw, what),
+                ("K7 REFINE_INIT", dict(kw, geom=False, refine_init=True),
+                 what.replace("geometric", "REFINE_INIT")),
+                ("K7 square", dict(kw, use_sa=False),
+                 what.replace("SA", "square windows"))):
+            timed(out, name, lambda: weak_sweep.weak_update_fused(
+                *args, **kw_), 20, "weak_update_kernel", what_)
+        if real.k7 is not None:
+            a, kw_ = real.k7
+            for name, form in (("K7 real pass", dict(geom=False,
+                                                     refine_init=True)),
+                               ("K7 real pass REFINE_ITER",
+                                dict(geom=True, refine_init=False))):
+                timed(out, name, lambda: weak_sweep.weak_update_fused(
+                    *a, **dict(kw_, **form)), 20, "weak_update_kernel",
+                    f"({a[0].num_src} views x {a[2].numel()} weak pixels of "
+                    "a real APD pass's first chunk)")
         scalars = [geo.f32_scalar(v, dev) for v in (
             wc.depth_min, wc.depth_max, wc.geom_factor)]
         out["weak body composition"] = cuda_ms(
@@ -438,20 +636,54 @@ def weak_times(dev, out: dict, seed: int = 0) -> None:
               f"{what}", flush=True)
 
 
+def anchor_times(scene, wc, real, dev, out: dict, seed: int = 0) -> None:
+    """K8 at chip_smoke.py's chunk and at a real APD pass's, the draw table
+    of a chunk, K10 a call on the APD scan's map and K9 a call on the weak
+    chunk's reliable pixels (camera-frame planes)."""
+    args, _ = k8_chunk(scene, dev, seed)
+    n, rt = args[4].numel(), args[9].shape[0] // 8
+    what = f"({n} pixels, {8 * rt} directions)"
+    timed(out, "K8", lambda: kern.gen_anchors(*args), 20, "gen_anchors",
+          what)
+    if real.k8 is not None:
+        a, kw = real.k8
+        timed(out, "K8 real pass", lambda: kern.gen_anchors(*a, **kw), 20,
+              "gen_anchors", f"({a[4].numel()} pixels of a real APD pass)")
+    out["K8 draw table"] = draw_table_ms(dev, n, rt)
+    print(f"K8 draw table: {out['K8 draw table']:.4f} ms {what}",
+          flush=True)
+    depth = torch.as_tensor(scene.depths[0], device=dev)
+    region = depth < depth.mean() * 0.95
+    weak = torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32)
+    conf = torch.where(region, 40.0, 200.0)
+    valid = torch.ones_like(region)
+    steps = anc.jfa_steps(HEIGHT, WIDTH)
+    timed(out, "K10", lambda: kern.nearest_strong(weak, conf, valid, steps),
+          20, "jfa_step", f"({HEIGHT}x{WIDTH}, {8 * len(steps)} launches)")
+    out["K10 device"] *= 8 * len(steps)    # a call's launches
+    tri = anc.ransac_draws(torch.Generator(device=dev).manual_seed(seed),
+                           wc.x.numel(), dev)
+    cam = kern.camera(wc.data.ref_cam)
+    timed(out, "K9", lambda: kern.fit_planes(
+        wc.state.planes, wc.x, wc.y, wc.anchors, tri, cam), 20, "fit_planes",
+        f"({wc.x.numel()} reliable weak pixels)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--weak_only", action="store_true",
-                    help="time only the weak sweep's chunk, K7 and K6")
+                    help="time only the weak path's kernels: the weak "
+                         "sweep's chunk, K7, K6, K8, K9 and K10")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
     dev = torch.device("cuda", 0)
     card = card_line()
     libs = []
-    kernels = (("weak", "K6"), ("weak_sweep", "K7")) if args.weak_only else (
-        ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3"), ("weak", "K6"),
-        ("weak_sweep", "K7"))
+    weak_path = (("weak", "K6"), ("weak_sweep", "K7"), ("anchors", "K8-K10"))
+    kernels = weak_path if args.weak_only else (
+        ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3")) + weak_path
     for name, kernel in kernels:
         try:
             mod = importlib.import_module(
@@ -467,7 +699,12 @@ def main(argv=None) -> int:
         k2_times(scene, dev, out)
         k5_times(scene, dev, out)
         colour_update_times(scene, dev, out)
-    weak_times(dev, out)
+        del scene
+    scene = apd_scene()
+    wc = weak_chunk(scene, dev)
+    real = real_pass_chunks(dev)
+    weak_times(scene, wc, real, dev, out)
+    anchor_times(scene, wc, real, dev, out)
     print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
     return 0
 

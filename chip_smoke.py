@@ -53,11 +53,17 @@ the reference side built in the kernel, bitwise on the same chunk
 (planes, costs, selections, view weights) in REFINE_INIT and in a
 geometric REFINE_ITER pass, SA and square windows, u8 and f32 tables,
 selection draws weighting one view or many, every plane NaN, 1 and 32
-source views, a ragged batch and one pixel, timed a chunk against its
-plain version and the torch-op body it replaced
+source views, a ragged batch and one pixel, and on the first chunk a real
+APD pass hands it in both pass forms, timed a chunk against its plain
+version and the torch-op body it replaced
 (``testing.weak_composition.weak_body_composition``: two K6 launches and
 ~250 torch ops), the share of the pixels where that body differs printed
-as a diagnostic. The paths:
+as a diagnostic, and with square windows and on the real pass's chunk;
+K10, K8 and K9 bitwise on the APD scan's setup (K8 at rotate_time 1, 2
+and 4; unaligned jitter draws refused) and crafted cases, K8
+also timed on a real pass's chunk and beside its draw table; and where a
+K7 and a K8 launch spend their device time, stage by stage
+(``tools/kernel_split.py``). The paths:
 
 - the round-0 scan: FIRST_INIT + 3 REFINE_ITER passes over every view of a
   textured synthetic scan, then fusion;
@@ -1784,18 +1790,22 @@ def k7_times(wc, data, kw: dict, what: str, card: str) -> dict:
                 library_ms=None)
 
 
-def weak_sweep_phase(scene, wc, seed: int, device, card: str) -> dict:
+def weak_sweep_phase(scene, wc, real, seed: int, device, card: str) -> dict:
     """K7, the weak sweep's chunk update, against its plain version on the
     card, bitwise (planes, costs, selections, view weights), on the APD
     scan's weak chunk (``tools.kernel_times.weak_chunk``: 22,034 reliable
     weak pixels, 5 views, anchors and fit planes made on the card): in
     REFINE_INIT (no geometric cost, the 0.1 commit) and in a geometric
-    REFINE_ITER pass, each with SA and square windows, with u8 and f32
-    tables; selection draws that weight one view or many; the current
-    planes NaN; 1 and 32 source views; a ragged batch and one pixel; then
-    its times a chunk against the plain version and the composition it
+    REFINE_ITER pass, each with SA and square windows (every valid anchor
+    counting), with u8 and f32 tables; selection draws that weight one
+    view or many; the current planes NaN; 1 and 32 source views; a ragged
+    batch and one pixel; and on the first chunk a real APD pass hands K7
+    (``real``: ``tools.kernel_times.real_pass_chunks``) in both pass forms;
+    then its times a chunk against the plain version and the composition it
     replaced in both pass forms, with the share of the pixels where the
-    composition differs printed beside them. ``wc`` is the chunk."""
+    composition differs printed beside them, and against the plain version
+    with square windows and on the real pass's chunk. ``wc`` is the
+    chunk."""
     import torch
 
     from apde_mvs_tpu_torch.core import geometry as geo
@@ -1852,13 +1862,59 @@ def weak_sweep_phase(scene, wc, seed: int, device, card: str) -> dict:
     for sl, what in ((slice(0, 1001), "a ragged batch of 1001 pixels"),
                      (slice(b // 2, b // 2 + 1), "one pixel")):
         check(f"u8, {what}", sl=sl, **forms[2])
+    a, kw_real = real.k7
+    for form in (dict(geom=False, refine_init=True),
+                 dict(geom=True, refine_init=False)):
+        tag = "REFINE_INIT" if form["refine_init"] \
+            else "REFINE_ITER, geometric"
+        errs.append(k7_check(*a, dict(kw_real, **form),
+                             f"a real APD pass's first chunk (SA, {tag})"))
     out["max_abs_err"] = max(errs)
     for key, form, what in (("refine_init", forms[0], "SA, REFINE_INIT"),
                             ("refine_iter", forms[2],
                              "SA, REFINE_ITER, geometric")):
         out[key] = k7_times(wc, wc.data, k7_kwargs(wc, **form),
                             f"u8, {what}", card)
+    for key, args, kw, what in (
+            ("square", (wc.data, wc.state, wc.x, wc.y, wc.anchors, wc.fit,
+                        wc.draws), k7_kwargs(wc, **forms[3]),
+             "square windows, REFINE_ITER, geometric"),
+            ("real_pass", a, dict(kw_real, geom=True, refine_init=False),
+             "a real APD pass's first chunk, SA, REFINE_ITER, geometric")):
+        out[key] = k7_plain_times(args, kw, f"u8, {what}", card)
     return out
+
+
+def measured(ms: float, what: str) -> float:
+    """``ms``, a device time the profiler took; a NaN (no kernel record
+    caught: not measured) fails the run."""
+    if ms != ms:
+        raise AssertionError(f"{what}: not measured (the profiler caught "
+                             "no kernel record)")
+    return ms
+
+
+def k7_plain_times(args, kw: dict, what: str, card: str) -> dict:
+    """K7's and its plain version's mean times a chunk (CUDA events, warm)
+    on the chunk ``args``, K7's device time (profiler) and the bound."""
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    from apde_mvs_tpu_torch.tools.kernel_times import device_ms
+
+    def run():
+        return weak_sweep.weak_update_fused(*args, **kw)
+    ms = cuda_ms(run, 20)
+    dev_ms = measured(device_ms(run, 20, "weak_update_kernel"),
+                      f"K7's device time, {what}")
+    plain_ms = cuda_ms(lambda: weak_sweep.weak_update_plain(*args, **kw), 2,
+                       1)
+    bound, by, nbytes, ops = k7_bound(*args, kw)
+    log(f"  K7 {what} ({args[2].numel()} pixels): {ms:.4f} ms a chunk "
+        f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+        f"GFLOP) [{card}]")
+    return dict(ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, pixels=args[2].numel())
 
 
 def weak_kernel_phase(scene, wc, seed: int, device, card: str,
@@ -2181,6 +2237,35 @@ def k8_check(data, state, wx, wy, rt: int, thr, dmin, dmax, ns, raws,
     return got
 
 
+def k8_refuses_unaligned(data, state, wx, wy, rt: int, thr, dmin, dmax, ns,
+                         raws):
+    """K8 reads a radius's 4 jitter draws as one 16-byte vector: draws 4
+    bytes past a 16-byte boundary must fail the call, nothing launched."""
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
+    sl = slice(0, min(anc.ANCHOR_CHUNK, wx.numel()))
+    odd = []
+    for r in (raws.shift_x, raws.shift_y):
+        o = r.new_empty(r[sl].numel() + 1)[1:].view(r[sl].shape)
+        o.copy_(r[sl])
+        assert o.data_ptr() % 16 == 4
+        odd.append(o)
+    before = kern.anchor_launches
+    try:
+        anc.gen_anchors(data, state, wx[sl], wy[sl], rt, thr, dmin, dmax, ns,
+                        raws=anc.AnchorRaws(*odd, raws.triplets[:, sl]))
+    except RuntimeError as e:
+        if "apde_gen_anchors" not in str(e):
+            raise
+    else:
+        raise AssertionError("K8 took jitter draws 4 bytes past a 16-byte "
+                             "boundary")
+    if kern.anchor_launches != before:
+        raise AssertionError("K8 counted a launch it refused")
+    log(f"  K8 refuses jitter draws 4 bytes past a 16-byte boundary "
+        f"(rotate_time {rt})")
+
+
 def k9_check(data, state, wx, wy, anchors, triplets, what: str):
     """K9 against its plain version, bitwise; returns K9's fits."""
     from apde_mvs_tpu_torch.ops import anchors as anc
@@ -2279,7 +2364,7 @@ def bound_of(nbytes: int, ops: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
+def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
     """K10, K8 and K9 against their plain versions on the card, bitwise:
     on the APD scan's round-1 setup at full size (its weak plane's 163,060
     weak pixels, confidence ties everywhere) and on a weak set of
@@ -2290,11 +2375,14 @@ def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
     pixel, invalid strong pixels; degenerate, coincident, collinear and
     too few anchors, tying fits; a flat depth map, weak pixels at the
     border, too few strong pixels), the draws of the sharded fit (a column
-    slice), and torch's float32 cone comparison on the card. Times each
+    slice), K8's refusal of jitter draws not 16-byte aligned and torch's
+    float32 cone comparison on the card. Times each
     kernel warm with CUDA events against its plain version (the torch-op
     composition it replaced: K8's and K10's are the parent's ops, K9's
-    differ only in the order of two sums) at the main path's shapes, with
-    its bound."""
+    differ only in the order of two sums) at the main path's shapes, K8
+    also at the chunk a real APD pass hands it (``real``:
+    ``tools.kernel_times.real_pass_chunks``) and beside its chunk's draw
+    table, with its bound."""
     import numpy as np
     import torch
 
@@ -2305,6 +2393,7 @@ def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
     from apde_mvs_tpu_torch.ops.state import PMState
     from apde_mvs_tpu_torch.testing import anchor_cases as cases
+    from apde_mvs_tpu_torch.tools.kernel_times import draw_table_ms
 
     log("==== K10, K8, K9: the APD setup's kernels against their plain "
         "versions ====")
@@ -2339,6 +2428,9 @@ def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
                 reliable[key] = (wx[keep], wy[keep], res.anchors[keep])
                 if key == "apd":
                     out["k8_setup"] = (wx, wy, raws)
+                    k8_refuses_unaligned(setup.data, s_, wx, wy, rt,
+                                         p.ransac_threshold, setup.dmin,
+                                         setup.dmax, maps[key], raws)
             del raws, res
     cam_state = st.replace(planes=setup.cam_planes)
     for key, (x, y, a) in reliable.items():
@@ -2444,14 +2536,56 @@ def anchor_kernel_phase(scene, seed: int, device, card: str) -> dict:
         setup.data.ref_cam, HEIGHT, WIDTH, st.planes[..., 3], ns, cx, cy,
         p.rotate_time, *f32, craws), 3, 1)
     bound = k8_bound(setup.data, ns, cx, cy, p.rotate_time, craws)
+    draws_ms = draw_table_ms(device, cx.numel(), p.rotate_time)
     out["K8"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                      bound_by=bound[1], library_ms=None,
-                     pixels=cx.numel(), directions=8 * p.rotate_time)
+                     pixels=cx.numel(), directions=8 * p.rotate_time,
+                     draws_ms=draws_ms)
     log(f"  K8 a chunk ({cx.numel()} pixels, rotate_time {p.rotate_time}, "
         f"{bound[4]} probes needed): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2] / 1e6:.2f} MB, "
-        f"{bound[3] / 1e9:.3f} G operations) [{card}]")
+        f"{bound[3] / 1e9:.3f} G operations); the chunk's jitter and "
+        f"RANSAC draw table (torch.randint) {draws_ms:.4f} ms [{card}]")
     del craws, raws
+    # a real APD pass's chunk, with the pass's own camera, threshold and
+    # depth bounds for the plain version (the wrapper's host scalars must
+    # be theirs)
+    a, kw = real.k8
+    ref_cam, thr, dmin, dmax = real.k8_plain
+    if (kern.camera(ref_cam) != a[12]
+            or float(np.float32(thr)) != a[14]
+            or float(np.float32(dmax) - np.float32(dmin)) != a[15]):
+        raise AssertionError("K8, a real APD pass's chunk: the captured "
+                             "scalars are not the pass's")
+    ra = anc.AnchorRaws(a[6], a[7], a[8])
+    rt = a[9].shape[0] // 8
+    f32r = [geo.f32_scalar(v, device) for v in (thr, dmin, dmax)]
+
+    def plain_real():
+        return anc.gen_anchors_chunk_plain(ref_cam, a[2], a[3], a[1][..., 3],
+                                           a[0], a[4], a[5], rt, *f32r, ra)
+    got = kern.gen_anchors(*a, **kw)
+    want = plain_real()
+    n_errs = len(ANCHOR_ERRS)
+    bad = {name: same_bits(g, w_)
+           for name, g, w_ in zip(want._fields, got, want)}
+    real_err = max(ANCHOR_ERRS[n_errs:])
+    log(f"  K8 a real APD pass's chunk, rotate_time {rt}: differing {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"K8, a real APD pass's chunk: differing {bad}")
+    del got, want
+    ms = cuda_ms(lambda: kern.gen_anchors(*a, **kw), 20)
+    plain_ms = cuda_ms(plain_real, 3, 1)
+    bound = k8_bound(setup.data, a[0], a[4], a[5], rt, ra)
+    out["K8_real"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1], library_ms=None,
+                          max_abs_err=real_err, pixels=a[4].numel(),
+                          directions=8 * rt)
+    log(f"  K8 a real APD pass's chunk ({a[4].numel()} pixels, rotate_time "
+        f"{rt}, {bound[4]} probes needed): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G operations) "
+        f"[{card}]")
 
     x, y, a = reliable["apd"]
     tri = anc.ransac_draws(gen, x.numel(), device)
@@ -3311,7 +3445,9 @@ def main(argv=None) -> int:
     from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
                                              weak, weak_sweep)
     from apde_mvs_tpu_torch.testing import synthetic
-    from apde_mvs_tpu_torch.tools.kernel_times import weak_chunk
+    from apde_mvs_tpu_torch.tools import kernel_split
+    from apde_mvs_tpu_torch.tools.kernel_times import (real_pass_chunks,
+                                                       weak_chunk)
 
     t_all = time.perf_counter()
     card = card_line()
@@ -3378,9 +3514,26 @@ def main(argv=None) -> int:
     kw = weak_kernel_phase(apd_scene, wc, args.seed, device, card,
                            textured=textured)
     del textured
-    k7 = weak_sweep_phase(apd_scene, wc, args.seed, device, card)
+    t0 = time.perf_counter()
+    real = real_pass_chunks(device)
+    log(f"a real APD pass of view 0 (profile_pass.py's: 11 views, priors of "
+        f"a FIRST_INIT pass): K7's first chunk {real.k7[0][2].numel()} "
+        f"pixels, K8's {real.k8[0][4].numel()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    k7 = weak_sweep_phase(apd_scene, wc, real, args.seed, device, card)
     del wc
-    ka = anchor_kernel_phase(apd_scene, args.seed, device, card)
+    ka = anchor_kernel_phase(apd_scene, real, args.seed, device, card)
+    # step 0's split of K7 and K8 (tools/kernel_split.py): where a launch's
+    # device time goes, stage by stage, at the chunks above
+    log("==== K7 and K8 split by stage (tools/kernel_split.py) ====")
+    split = kernel_split.report(apd_scene, device, card, args.seed,
+                                log=log, real=real)
+    for kernel, chunks in split.items():
+        for chunk, r in chunks.items():
+            for key, v in r.items():
+                if key.endswith("ms"):
+                    measured(v, f"{kernel} split, {chunk}, {key}")
+    del real
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3577,15 +3730,24 @@ def main(argv=None) -> int:
                           "XLA-compiled jnp; K6's weak-sweep forms inside)"}
     # a weak-sweep chunk is one K7 launch, geometric in REFINE_ITER and not
     # in REFINE_INIT: each form's row counts the launches of both
-    for key, what in (("refine_iter", "REFINE_ITER (SA, geometric cost)"),
-                      ("refine_init", "REFINE_INIT (SA, no geometric "
-                                      "cost)")):
-        rows.append(dict(name=f"K7 weak sweep chunk update, the APD scan's "
-                              f"weak chunk, {what}; launches of both forms "
-                              "(u8 quads)", **k7_src,
+    for key, what in (("refine_iter", "the APD scan's weak chunk, "
+                                      "REFINE_ITER (SA, geometric cost)"),
+                      ("refine_init", "the APD scan's weak chunk, "
+                                      "REFINE_INIT (SA, no geometric "
+                                      "cost)"),
+                      ("real_pass", "a real APD pass's first chunk, "
+                                    "REFINE_ITER (SA, geometric cost)")):
+        rows.append(dict(name=f"K7 weak sweep chunk update, {what}; "
+                              "launches of both forms (u8 quads)", **k7_src,
                          launches=sum(k7_paths.values()),
                          max_abs_err=k7["max_abs_err"],
                          **k7[key]))
+    # the main paths' weak windows are SA's: the square's row counts none
+    rows.append(dict(name="K7 weak sweep chunk update, the APD scan's weak "
+                          "chunk with square windows (every valid anchor "
+                          "counts), REFINE_ITER (geometric cost, u8 quads)",
+                     **k7_src, launches=0, max_abs_err=k7["max_abs_err"],
+                     **k7["square"]))
     a_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/anchors.cu"}
     for key, what, replaces in (
             ("K10", "K10 nearest-strong jump flooding, the APD scan's "
@@ -3593,14 +3755,17 @@ def main(argv=None) -> int:
             ("K8", f"K8 anchor generation, a chunk of the APD scan's weak "
              f"list ({ka['K8']['pixels']} pixels, "
              f"{ka['K8']['directions']} directions)", ":191-373"),
+            ("K8_real", f"K8 anchor generation, a real APD pass's chunk "
+             f"({ka['K8_real']['pixels']} pixels, "
+             f"{ka['K8_real']['directions']} directions)", ":191-373"),
             ("K9", f"K9 fit-plane RANSAC, the APD scan's reliable weak "
              f"pixels ({ka['K9']['pixels']})", ":386-467")):
         rows.append(dict(
             name=what, **a_src,
             replaces=f"apde_mvs_tpu/ops/anchors.py{replaces} "
                      "(XLA-compiled jnp)",
-            launches=sum(anchor_paths[key.lower()].values()),
-            max_abs_err=ka["max_abs_err"], **ka[key]))
+            launches=sum(anchor_paths[key.split("_")[0].lower()].values()),
+            **{"max_abs_err": ka["max_abs_err"], **ka[key]}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -195,6 +195,40 @@ def test_gen_anchors_plain_matches_jax(rt):
     assert tres.hit_count.numpy().max() <= 8 * rt
 
 
+def _long_walks(seed: int = 0) -> tuple:
+    """The scene with a weak block most of the map wide, every fifth of its
+    pixels listed: probes walk several radii before a strong pixel takes
+    them."""
+    weak, conf, depth, valid = cases.scene(seed)
+    weak[8:56, 8:68] = WEAK
+    wy, wx = np.nonzero(weak == WEAK)
+    return weak, conf, depth, valid, wx[::5], wy[::5]
+
+
+@pytest.mark.parametrize("rt", (2, 4))
+def test_gen_anchors_plain_matches_jax_on_long_walks(rt):
+    """Walks over many radii (K8 tests 32 / D radii a step, a direction's
+    lanes each taking every (32 / D)-th radius) and pixels with 6 hits or
+    more (K8's RANSAC runs a lane an iteration over the compacted hits),
+    at 16 and 32 directions."""
+    J = _jax()
+    weak, conf, depth, valid, wx, wy = _long_walks()
+    raws = cases.draws(np.random.default_rng(13 + rt), len(wx), rt)
+    tres, jres, tns = _gen_both(J, weak, conf, depth, valid, wx, wy, rt,
+                                raws)
+    _assert_anchors_match(tres, jres)
+    in_image, ok, _, _, _ = tanc.probe_table(
+        H, W, tns, convert.ints(wx, "cpu"), convert.ints(wy, "cpu"), rt,
+        convert.anchor_raws(**raws, device="cpu"))
+    ok = ok.reshape(len(wx), 8 * rt, -1)
+    first = ok.to(torch.uint8).argmax(-1).float()
+    # a radius holds 4 probes: the first accepted lies 3 radii out or more
+    # for a quarter of the found directions
+    assert float((first[ok.any(-1)] >= 12).float().mean()) > 0.25
+    hits = tres.hit_count.numpy()
+    assert (hits >= 6).mean() > 0.5 and tres.reliable.numpy().any()
+
+
 @pytest.mark.parametrize("name", cases.GEN_CASES)
 def test_gen_anchors_crafted_match_jax(name):
     """Crafted cases at 16 directions. On the flat depth map every hit lies
@@ -550,6 +584,52 @@ def test_k8_matches_plain_on_card(cuda_device, rt):
                           raws)
     for g, w in zip(got, want):
         assert _bits_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rt", (2, 4))
+def test_k8_long_walks_match_plain_on_card(cuda_device, rt):
+    weak, conf, depth, valid, wx, wy = _long_walks()
+    raws = cases.draws(np.random.default_rng(13 + rt), len(wx), rt)
+    got, want = _card_gen(cuda_device, weak, conf, depth, valid, wx, wy, rt,
+                          raws)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["unaligned", "jitter 2"])
+def test_k8_refuses_draws_it_cannot_read_as_vectors(cuda_device, how):
+    """K8 reads a radius's 4 jitter draws as one 16-byte vector: draws 4
+    bytes past a 16-byte boundary, or 2 draws a radius, fail the call and
+    count no launch."""
+    dev = cuda_device
+    weak, conf, depth, valid = cases.scene()
+    wy, wx = np.nonzero(weak == WEAK)
+    rt = 2
+    raws = cases.draws(np.random.default_rng(9), len(wx), rt)
+    ts = _tstate(weak, conf, cases.depth_planes(depth), valid, dev)
+    ns = tanc.nearest_strong_jfa_plain(ts.weak, ts.confidence, ts.valid)
+    tr = convert.anchor_raws(**raws, device=dev)
+    jitter = tanc.JITTER_SAMPLES
+    if how == "unaligned":
+        sx, sy = (r.new_empty(r.numel() + 1)[1:].view(r.shape).copy_(r)
+                  for r in (tr.shift_x, tr.shift_y))
+        assert sx.data_ptr() % 16 and sy.data_ptr() % 16
+    else:
+        jitter = 2
+        sx, sy = (r.reshape(len(wx), -1, 4)[..., :2].reshape(len(wx), -1)
+                  .contiguous() for r in (tr.shift_x, tr.shift_y))
+    dirs, radii = tanc._kernel_tables(rt, str(dev))
+    before = kern.anchor_launches
+    with pytest.raises(RuntimeError, match="apde_gen_anchors"):
+        kern.gen_anchors(ns, ts.planes.contiguous(), H, W,
+                         convert.ints(wx, dev), convert.ints(wy, dev), sx, sy,
+                         tr.triplets, dirs, radii, jitter,
+                         kern.camera(cases.data(dev).ref_cam), 0.5, 1.0, 1.0,
+                         tanc.MIN_MARGIN)
+    torch.cuda.synchronize()
+    assert kern.anchor_launches == before
 
 
 @pytest.mark.cuda

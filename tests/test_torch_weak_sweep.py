@@ -257,6 +257,29 @@ def test_plain_matches_jax(name):
     """``weak_update_plain`` on the whole weak list of the weak-sweep
     parity fixture against the JAX ``propagate_weak`` under its draws, at
     the pixels still WEAK (the others the sweep leaves alone)."""
+    _plain_against_jax(name)
+
+
+@pytest.mark.parametrize("name", ["photometric", "sa"])
+def test_plain_matches_jax_at_ten_views(name, monkeypatch):
+    """The same at 10 source views (the fixture's scene with 11 views): a
+    pixel's phase-0 pairs pass 64, so K7 runs them in three or more rounds
+    of 32, and the anchors count in the NCC (square windows; SA windows
+    with several segments, where a pixel in no segment weighs every
+    anchor)."""
+    pytest.importorskip("apde_mvs_tpu.ops.propagation")
+    import test_torch_propagation as tp
+    monkeypatch.setattr(tp, "V", 11)
+    st = _plain_against_jax(name)
+    pairs = (st.flags.sum(-1) + 1 + st.fit_ok.long()) * 10
+    assert float((pairs > 64).float().mean()) > 0.5
+    assert float(st.wref.anchor_valid.float().mean()) > 0.5
+    assert bool((st.wref.wsum > 0).any())
+
+
+def _plain_against_jax(name):
+    """test_plain_matches_jax's comparison; returns the plain version's
+    stage."""
     pytest.importorskip("apde_mvs_tpu.ops.propagation")
     import jax
     import jax.numpy as jnp
@@ -305,6 +328,14 @@ def test_plain_matches_jax(name):
                        {k: v[live] for k, v in want.items()})
     assert bad.mean() <= MAX_FLIP, f"{bad.sum()} of {bad.size} pixels differ"
     assert live.sum() > 50
+    return k7.weak_stage_plain(
+        td, ts, convert.ints(wx, "cpu"), convert.ints(wy, "cpu"),
+        convert.ints(anchors, "cpu"), convert.floats(fit, "cpu"), draws,
+        strong_radius=tcfg.strong_radius,
+        strong_increment=tcfg.strong_increment,
+        weak_radius=tcfg.weak_radius, weak_increment=tcfg.weak_increment,
+        use_sa=tcfg.use_sa, iteration=iteration, depth_min=dmin,
+        depth_max=dmax, geom_factor=0.2, geom=tcfg.geom_consistency)
 
 
 # ---------------------------------------------------------------------------
