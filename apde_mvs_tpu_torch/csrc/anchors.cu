@@ -14,7 +14,7 @@
 // ~25 ops, K8 as every probe of every weak pixel (2,432 columns a pixel at
 // rotate_time 4) and a 50-iteration loop of ~60 ops, K9 as a 50-iteration
 // loop of ~40 ops: ~11,000 small launches an APD pass, each issued by the
-// host. Here K10 is 96 launches (one a sub-pass), K8 one a chunk of weak
+// host. Here K10 is one cooperative launch a call, K8 one a chunk of weak
 // pixels and K9 one a call.
 //
 // Every float operation is rounded on its own (ncc_common.cuh's mul / add
@@ -22,29 +22,58 @@
 // versions in ops/anchors.py, and every comparison is the plain version's,
 // so each kernel equals its plain version bit for bit.
 //
-// K10 (`jfa_step`): a thread a pixel. Inside one step the plain version
-// relaxes the 8 neighbours in turn, each against the map the previous
-// neighbours have already rewritten everywhere, so a pixel cannot replay
-// the chain alone: each (step, neighbour) is a sub-pass of its own, one
-// launch reading one map and writing the other (ping-pong), the (dy, dx)
-// order and the extra step of 1 kept. A candidate is taken where it is a
-// strong pixel (x >= 0) with confidence >= the pixel's and nearer, or as
-// near with higher confidence than the current best; (-1, -1) fills
-// outside the image. The first sub-pass reads the initial map (each strong
-// pixel itself, else (-1, -1)) straight from the state; the last maps
-// strong pixels to themselves. Integer work and exact float compares.
-// Bound: bytes for the map's single read and write, operations (about 20
-// a pixel a sub-pass) for the flooding: a few us of the card's time
-// against 96 launches.
+// K10 (`jfa_phases`): inside one step the plain version relaxes the 8
+// neighbours in turn, each against the map the previous neighbours have
+// already rewritten everywhere, so a pixel cannot replay its chain alone.
+// The design keeps every sub-pass's read of the previous map in one launch
+// a call, where the host issued 96 launches at 600x800 before:
+//  - the live sub-passes only (`jfa_schedule`, ops/anchors.py): one in
+//    which no neighbour lies in the map returns its input;
+//  - folding: at fold f, pixel (x, y) is residue (x mod f, y mod f) and
+//    folded point (x div f, y div f); a step that is a multiple of f
+//    relaxes each residue's sub-grid against itself, apart from every
+//    other residue. The phases (`jfa_phases`, ops/cuda/anchors.py): runs
+//    of long steps folded by their smallest while the folded map fits one
+//    tile whole (512..32 at 600x800: 40 sub-passes in one phase), each
+//    other step above 1 alone, folded by itself, then the two steps of 1
+//    (the short-range tail) together at fold 1;
+//  - a phase runs tile by tile in shared memory: a block loads its tile's
+//    footprint, the tile plus a halo of the phase's whole reach on each
+//    side (3 x the sum of its folded steps), or the residues' whole folded
+//    extents where they fit (no halo: a neighbour past them is outside the
+//    map), then runs the phase's sub-passes in order, each reading one
+//    buffer and writing the other, and writes its tile. A map entry is the
+//    strong pixel's coordinates as int16 halves and its confidence, so a
+//    relaxation reads nothing outside shared memory; cells outside the map
+//    hold (-1, -1) and a NaN confidence, which takes no candidate, so
+//    every cell relaxes every sub-pass and the halo's, outside the region
+//    still valid, compute what no valid cell reads;
+//  - the phases run as one cooperative launch, a grid sync between phases
+//    (ping-pong between two maps of entries; the last phase writes the (H,
+//    W, 2) map with the strong pixels rewritten).
+// A candidate is taken where it is a strong pixel (x >= 0) with confidence
+// >= the pixel's and nearer, or as near with higher confidence than the
+// current best. Integer work and exact float compares. Bound: operations
+// (about 20 a pixel a live sub-pass); the halos, the folded extents'
+// rounding and the idle threads of a footprint narrower than the block
+// add work, a grid sync a phase.
 //
-// K9 (`fit_planes`): a thread a weak pixel, its 8 anchors' camera-frame
-// points in registers, the 50 iterations in a loop: three ranks from the
-// draws, the n-th valid anchors, the point-in-triangle test, the plane,
-// the cost as the distances of the other valid anchors summed in slot
-// order; the strictly lower cost is taken, so the first minimum wins.
-// Then the flip toward the camera against the view direction, whose length
-// is taken in float64 and rounded once. Bound: bytes (the 50 draws of a
-// pixel, 600 B, dominate).
+// K9 (`fit_planes`): a warp a weak pixel, a lane a RANSAC iteration (lanes
+// 0..31, then the rest): lanes 0-7 compute the 8 anchors' camera-frame
+// points and each rank's anchor slot (_nth_valid) once and share them
+// through shared memory; each lane takes its iteration's three ranks from
+// the draws (the remainder by a multiplier set up once a pixel), their
+// slots, the point-in-triangle test, the plane, the cost as the distances
+// of the other valid anchors summed in slot order. The plain version takes
+// the strictly lower cost from +inf in iteration order, so the fit is the
+// least (cost, iteration) over the usable iterations whose cost is below
+// +inf (NaN and +inf never taken, the first of equal costs kept): a
+// butterfly over the lanes, then against the earlier rounds' best. A
+// block's pixels are consecutive, so an iteration's draws for them are one
+// contiguous run: the block stages up to 64 iterations' runs in shared
+// memory. Then the flip toward the camera against the view direction,
+// whose length is taken in float64 and rounded once. Bound: bytes (the
+// draws, 12 B an iteration a pixel, dominate).
 //
 // K8 (`gen_anchors`): a warp a weak pixel, its D = 8 rotate_time <= 32
 // directions each given L = 32 / D lanes (a lane a direction would leave
@@ -74,7 +103,10 @@
 // nearest-strong texels they read, each once) against operations (the
 // probes and the 50 iterations over the hits).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -85,12 +117,11 @@
 namespace {
 
 using namespace apde;
+namespace cg = cooperative_groups;
 
 constexpr int kSlots = 8;           // ANCHOR_NUM - 1 anchors besides self
 constexpr int kMaxDirections = 32;  // a warp's lanes
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kJfaThreads = 256;
-constexpr int kFitThreads = 128;
 constexpr int kGenWarps = 4;
 constexpr int kGenThreads = kGenWarps * 32;
 constexpr int kJitter = 4;          // JITTER_SAMPLES: a radius's draws
@@ -107,55 +138,239 @@ __device__ __forceinline__ float fetch_f(const float* __restrict__ map,
 __device__ __forceinline__ int clamp0(int v) { return v < 0 ? 0 : v; }
 
 // ---------------------------------------------------------------------------
-// K10: one (step, neighbour) sub-pass of the jump flooding
+// K10: the jump flooding, phases of sub-passes run tile by tile
 // ---------------------------------------------------------------------------
 
-// the initial map at (x, y): the pixel itself where it is ``strong`` (the
+constexpr int kJfaThreads = 512;
+constexpr int kJfaX = 128;       // a tile's footprint columns at most
+constexpr int kJfaMaxSteps = 17;              // powers of two to 2^15, then 1
+constexpr int kJfaMaxSub = 8 * kJfaMaxSteps;  // sub-passes
+constexpr int kJfaMaxSide = 32767;            // int16 coordinates
+constexpr int kJfaRows = 32;       // a tile's footprint rows at most
+
+// A phase's tiles along one axis, in folded units (a unit is ``fold``
+// pixels): 2^c_log2 consecutive residues a tile, ``t`` output points of
+// each, ``lo`` / ``hi`` halo points before / after them (0 where the tile
+// takes a residue's whole folded extent).
+struct JfaAxis {
+  int c_log2, lo, hi, t;
+  int tiles;    // tiles over the folded extent
+  int groups;   // residue groups: ceil(fold / 2^c_log2)
+  int span;     // lo + t + hi
+};
+
+struct JfaPhase {
+  int fold;          // the common step of its sub-passes
+  int first, count;  // its sub-passes in JfaParams::ox / oy
+  JfaAxis x, y;
+  int items;         // tiles: x.groups * x.tiles * y.groups * y.tiles
+};
+
+struct JfaParams {
+  const int* weak;
+  const float* conf;
+  const uint8_t* valid;
+  int strong, h, w;
+  int2* buf[2];      // (H * W) entries: phase k writes buf[k & 1]
+  int2* out;         // (H, W, 2): the last phase's
+  int n_phases;
+  JfaPhase ph[kJfaMaxSteps];
+  signed char ox[kJfaMaxSub], oy[kJfaMaxSub];   // offsets, folded units
+};
+
+// A map entry: the strong pixel (x, y) as int16 halves of .x ((-1, -1) is
+// -1) and its confidence's bits in .y, so a relaxation reads no
+// confidence from the global map
+__device__ __forceinline__ int jfa_pack(int x, int y) {
+  return static_cast<int>((static_cast<unsigned>(x) & 0xffffu) |
+                          (static_cast<unsigned>(y) << 16));
+}
+__device__ __forceinline__ int jfa_x(int v) {
+  return static_cast<int>(static_cast<unsigned>(v) << 16) >> 16;
+}
+__device__ __forceinline__ int jfa_y(int v) { return v >> 16; }
+
+// the initial map at pixel q = (x, y): itself where it is ``strong`` (the
 // STRONG code) and valid
-__device__ __forceinline__ int2 initial(const int* __restrict__ weak,
-                                        const uint8_t* __restrict__ valid,
-                                        int strong, int64_t p, int x, int y) {
-  return (__ldg(weak + p) == strong && __ldg(valid + p) != 0)
-             ? make_int2(x, y)
-             : make_int2(-1, -1);
+__device__ __forceinline__ int2 jfa_initial(const JfaParams& p, int64_t q,
+                                            int x, int y) {
+  return (__ldg(p.weak + q) == p.strong && __ldg(p.valid + q) != 0)
+             ? make_int2(jfa_pack(x, y), __float_as_int(__ldg(p.conf + q)))
+             : make_int2(-1, 0);
 }
 
-__global__ void __launch_bounds__(kJfaThreads)
-    jfa_step(const int2* __restrict__ in, int2* __restrict__ out,
-             const int* __restrict__ weak, const float* __restrict__ conf,
-             const uint8_t* __restrict__ valid, int strong, int h, int w,
-             int ox, int oy, int last) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kJfaThreads +
-                    threadIdx.x;
-  if (p >= static_cast<int64_t>(h) * w) return;
-  const int x = static_cast<int>(p % w);
-  const int y = static_cast<int>(p / w);
-  const int2 b = in ? in[p] : initial(weak, valid, strong, p, x, y);
-  const int nx = x + ox, ny = y + oy;
-  int2 c = make_int2(-1, -1);
-  if (nx >= 0 && nx < w && ny >= 0 && ny < h) {
-    const int64_t q = static_cast<int64_t>(ny) * w + nx;
-    c = in ? in[q] : initial(weak, valid, strong, q, nx, ny);
+// one relaxation of pixel (x, y) (confidence ``own``) holding ``b`` against
+// the neighbour's ``c``: `jfa_step`'s rule
+__device__ __forceinline__ int2 jfa_relax(int2 b, int2 c, int x, int y,
+                                          float own) {
+  const int cx = jfa_x(c.x);
+  if (cx < 0) return b;
+  const float c_conf = __int_as_float(c.y);
+  if (!(c_conf >= own)) return b;
+  const int bx = jfa_x(b.x);
+  if (bx < 0) return c;   // no best yet: any candidate is nearer
+  const int cy = jfa_y(c.x), by = jfa_y(b.x);
+  const int d_cand = (cx - x) * (cx - x) + (cy - y) * (cy - y);
+  const int d_best = (bx - x) * (bx - x) + (by - y) * (by - y);
+  if (d_cand < d_best) return c;
+  if (d_cand == d_best && c_conf > __int_as_float(b.y)) return c;
+  return b;
+}
+
+// A block's threads over a tile's footprint, per phase: thread t the
+// column t mod fx (residue column mod 2^x.c_log2, folded point column div
+// 2^x.c_log2) and the rows t div fx, + kJfaThreads div fx, ... (rows
+// likewise over the y axis's residues and points). Shared memory: two
+// buffers of entries, the one a sub-pass reads its neighbours from and
+// the one it writes, and the cells' own confidences. A cell outside the
+// map holds (-1, -1) and a NaN confidence, which accepts no candidate, so
+// every cell relaxes every sub-pass: those outside the shrinking valid
+// region compute what no valid cell reads.
+__global__ void __launch_bounds__(kJfaThreads, 2)
+    jfa_phases(const __grid_constant__ JfaParams p) {
+  extern __shared__ int2 jfa_sm[];
+  for (int k = 0; k < p.n_phases; ++k) {
+    if (k > 0) cg::this_grid().sync();
+    const JfaPhase& ph = p.ph[k];
+    const int2* in = k == 0 ? nullptr : p.buf[(k - 1) & 1];
+    int2* dst = p.buf[k & 1];
+    const bool last = k == p.n_phases - 1;
+    const int fold = ph.fold;
+    const int cxl = ph.x.c_log2, cyl = ph.y.c_log2;
+    const int cym = (1 << cyl) - 1;
+    const int fx = ph.x.span << cxl;       // footprint width, <= kJfaX
+    const int rows = ph.y.span << cyl;     // footprint rows, <= kJfaRows
+    const int row_step = kJfaThreads / fx;
+    const int tx = threadIdx.x % fx;
+    const int ty = threadIdx.x / fx;       // rows ty, ty + row_step, ...
+    const bool col = ty < row_step;
+    const int rcx = tx & ((1 << cxl) - 1);
+    const int u = tx >> cxl;
+    int2* const A0 = jfa_sm;
+    int2* const B0 = jfa_sm + fx * rows;
+    float* const own = reinterpret_cast<float*>(jfa_sm + 2 * fx * rows);
+    for (int item = blockIdx.x; item < ph.items; item += gridDim.x) {
+      int r = item;
+      const int tile_x = r % ph.x.tiles;
+      r /= ph.x.tiles;
+      const int gx = r % ph.x.groups;
+      r /= ph.x.groups;
+      const int tile_y = r % ph.y.tiles;
+      const int gy = r / ph.y.tiles;
+      const int rx = (gx << cxl) + rcx;
+      const int fi = tile_x * ph.x.t - ph.x.lo + u;
+      const int x = rx + fi * fold;
+      const bool x_in = col && rx < fold && fi >= 0 && x < p.w;
+      const int ry0 = gy << cyl;
+      const int fj0 = tile_y * ph.y.t - ph.y.lo;
+      int2* A = A0;
+      int2* B = B0;
+      if (col) {
+        for (int row = ty; row < rows; row += row_step) {
+          const int ry = ry0 + (row & cym);
+          const int fj = fj0 + (row >> cyl);
+          const int y = ry + fj * fold;
+          int2 v = make_int2(-1, 0);
+          float o = __int_as_float(0x7fc00000);   // NaN: outside the map
+          if (x_in && ry < fold && fj >= 0 && y < p.h) {
+            const int64_t q = static_cast<int64_t>(y) * p.w + x;
+            v = in ? __ldcg(in + q) : jfa_initial(p, q, x, y);
+            o = __ldg(p.conf + q);
+          }
+          A[row * fx + tx] = v;
+          own[row * fx + tx] = o;
+        }
+      }
+      __syncthreads();
+      for (int s = ph.first; s < ph.first + ph.count; ++s) {
+        const int dx = p.ox[s], dy = p.oy[s];
+        if (col) {
+          const bool n_col = u + dx >= 0 && u + dx < ph.x.span;
+          const int noff = dy * (1 << cyl) * fx + dx * (1 << cxl);
+          for (int row = ty; row < rows; row += row_step) {
+            const int v = row >> cyl;
+            const int y = ry0 + (row & cym) + (fj0 + v) * fold;
+            const int idx = row * fx + tx;
+            const int2 c = (n_col && v + dy >= 0 && v + dy < ph.y.span)
+                               ? A[idx + noff]
+                               : make_int2(-1, 0);
+            B[idx] = jfa_relax(A[idx], c, x, y, own[idx]);
+          }
+        }
+        __syncthreads();
+        int2* t = A;
+        A = B;
+        B = t;
+      }
+      // the tile's output points
+      if (x_in && u >= ph.x.lo && u < ph.x.lo + ph.x.t) {
+        for (int row = ty; row < rows; row += row_step) {
+          const int v = row >> cyl;
+          const int ry = ry0 + (row & cym);
+          const int y = ry + (fj0 + v) * fold;
+          if (v < ph.y.lo || v >= ph.y.lo + ph.y.t || ry >= fold ||
+              fj0 + v < 0 || y >= p.h) {
+            continue;
+          }
+          const int64_t q = static_cast<int64_t>(y) * p.w + x;
+          const int2 val = A[row * fx + tx];
+          if (last) {
+            const bool self =
+                __ldg(p.weak + q) == p.strong && __ldg(p.valid + q) != 0;
+            p.out[q] = self ? make_int2(x, y)
+                            : make_int2(jfa_x(val.x), jfa_y(val.x));
+          } else {
+            __stcg(dst + q, val);
+          }
+        }
+      }
+      __syncthreads();   // before the next tile's load
+    }
   }
-  const float own = __ldg(conf + p);
-  const float c_conf = fetch_f(conf, 1, 0, h, w, clamp0(c.x), clamp0(c.y));
-  const bool cand_ok = c.x >= 0 && c_conf >= own;
-  const int d_cand = (c.x - x) * (c.x - x) + (c.y - y) * (c.y - y);
-  const float b_conf = fetch_f(conf, 1, 0, h, w, clamp0(b.x), clamp0(b.y));
-  const int d_best = b.x >= 0 ? (b.x - x) * (b.x - x) + (b.y - y) * (b.y - y)
-                              : 0x7fffffff;
-  const bool better =
-      cand_ok && (d_cand < d_best || (d_cand == d_best && c_conf > b_conf));
-  int2 r = better ? c : b;
-  if (last && __ldg(weak + p) == strong && __ldg(valid + p) != 0) {
-    r = make_int2(x, y);
+}
+
+// shared memory of a phase's tile: two buffers of entries and the own
+// confidences
+static size_t jfa_smem(const JfaPhase& ph) {
+  const size_t cells = static_cast<size_t>(ph.x.span << ph.x.c_log2) *
+                       (ph.y.span << ph.y.c_log2);
+  return cells * (2 * sizeof(int2) + sizeof(float));
+}
+
+// A phase's tiles along one axis of ``extent`` pixels: a residue's whole
+// folded extent where it fits ``budget`` cells (as many residues as fit,
+// a power of two), else one residue a tile with the phase's halo.
+static bool jfa_axis(int fold, int extent, int lo, int hi, int budget,
+                     JfaAxis* a) {
+  const int n = (extent + fold - 1) / fold;
+  if (n <= budget) {
+    int c = 0;
+    while ((2 << c) <= fold && (2 << c) * n <= budget) ++c;
+    a->c_log2 = c;
+    a->lo = a->hi = 0;
+    a->t = n;
+    a->tiles = 1;
+  } else {
+    if (budget <= lo + hi) return false;
+    a->c_log2 = 0;
+    a->lo = lo;
+    a->hi = hi;
+    a->t = budget - lo - hi;
+    a->tiles = (n + a->t - 1) / a->t;
   }
-  out[p] = r;
+  a->groups = (fold + (1 << a->c_log2) - 1) >> a->c_log2;
+  a->span = a->lo + a->t + a->hi;
+  return true;
 }
 
 // ---------------------------------------------------------------------------
-// K9: the fit-plane RANSAC, a thread a weak pixel
+// K9: the fit-plane RANSAC, a warp a weak pixel, a lane an iteration
 // ---------------------------------------------------------------------------
+
+constexpr int kFitWarps = 16;                 // weak pixels a block
+constexpr int kFitThreads = kFitWarps * 32;
+constexpr int kFitRow = 3 * kFitWarps + 1;    // a staged iteration, padded
+constexpr int kFitStaged = 64;                // iterations staged at once
 
 struct FitParams {
   const float* planes;     // (H, W, 4) camera-frame planes
@@ -187,61 +402,123 @@ __device__ __forceinline__ float4 fetch_plane(const float* __restrict__ pl,
                static_cast<int64_t>(y) * w + x);
 }
 
-__global__ void __launch_bounds__(kFitThreads) fit_planes(FitParams p) {
-  const int i = blockIdx.x * kFitThreads + threadIdx.x;
-  if (i >= p.n) return;
-  const float xf = static_cast<float>(p.wx[i]);
-  const float yf = static_cast<float>(p.wy[i]);
-  float ax[kSlots], ay[kSlots], pts[kSlots][3];
+__global__ void __launch_bounds__(kFitThreads, 3) fit_planes(FitParams p) {
+  __shared__ int draws[kFitStaged * kFitRow];   // the block's draws
+  __shared__ float pts[kFitWarps][kSlots][3];
+  __shared__ float axy[kFitWarps][2][kSlots];
+  __shared__ int slot_of[kFitWarps][kSlots];   // a rank's anchor slot
+  const int lane = threadIdx.x & 31;
+  const int wi = threadIdx.x >> 5;
+  const int i0 = blockIdx.x * kFitWarps;
+  const int np = min(kFitWarps, p.n - i0);   // the block's pixels
+  const int i = i0 + wi;
+  const bool pixel = wi < np;                // uniform over the warp
+  float xf = 0.f, yf = 0.f;
+  float4 own = make_float4(0.f, 0.f, 0.f, 0.f);
   uint32_t exists = 0;
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int2 a = reinterpret_cast<const int2*>(p.anchors)[
-        static_cast<int64_t>(i) * (kSlots + 1) + 1 + k];
-    if (a.x >= 0 && a.y >= 0) exists |= 1u << k;
-    ax[k] = static_cast<float>(a.x);
-    ay[k] = static_cast<float>(a.y);
-    const float4 pl =
-        fetch_plane(p.planes, p.h, p.w, clamp0(a.x), clamp0(a.y));
-    const float depth = plane_depth(p.fx, p.fy, p.cx, p.cy, ax[k], ay[k],
-                                    pl.x, pl.y, pl.z, pl.w);
-    backproject(p.fx, p.fy, p.cx, p.cy, ax[k], ay[k], depth, pts[k]);
+  if (pixel) {
+    const int wxi = p.wx[i], wyi = p.wy[i];
+    xf = static_cast<float>(wxi);
+    yf = static_cast<float>(wyi);
+    if (lane == 0) own = fetch_plane(p.planes, p.h, p.w, wxi, wyi);
+    // the anchors' camera-frame points, lane k < 8 slot k's
+    bool have = false;
+    if (lane < kSlots) {
+      const int2 a = reinterpret_cast<const int2*>(p.anchors)[
+          static_cast<int64_t>(i) * (kSlots + 1) + 1 + lane];
+      have = a.x >= 0 && a.y >= 0;
+      const float ax = static_cast<float>(a.x);
+      const float ay = static_cast<float>(a.y);
+      const float4 pl =
+          fetch_plane(p.planes, p.h, p.w, clamp0(a.x), clamp0(a.y));
+      const float depth = plane_depth(p.fx, p.fy, p.cx, p.cy, ax, ay, pl.x,
+                                      pl.y, pl.z, pl.w);
+      backproject(p.fx, p.fy, p.cx, p.cy, ax, ay, depth, pts[wi][lane]);
+      axy[wi][0][lane] = ax;
+      axy[wi][1][lane] = ay;
+    }
+    exists = __ballot_sync(kFull, have);
+    // _nth_valid of every rank a draw can give (below max(count, 1))
+    if (lane < kSlots) slot_of[wi][lane] = nth_valid<kSlots>(exists, lane);
+    __syncwarp();
   }
   const int count = __popc(exists);
   const bool enough = count >= 3;
   const int cmax = count < 1 ? 1 : count;
+  const Remainder rem(cmax);
+  const float* ax = axy[wi][0];
+  const float* ay = axy[wi][1];
+  const int* slot = slot_of[wi];
 
   float best_cost = INFINITY;
   float best[4] = {0.f, 0.f, 0.f, 0.f};
   bool has = false;
-  const int* t = p.triplets + static_cast<int64_t>(i) * 3;
-  for (int it = 0; it < p.iters; ++it, t += p.trip_stride) {
-    const int a = nth_valid(exists, py_mod(t[0], cmax));
-    const int b = nth_valid(exists, py_mod(t[1], cmax));
-    const int c = nth_valid(exists, py_mod(t[2], cmax));
-    const bool distinct = a != b && b != c && a != c;
-    const bool tri = point_in_triangle(ax[a], ay[a], ax[b], ay[b], ax[c],
-                                       ay[c], xf, yf);
-    float plane[4];
-    const bool degen = plane_from_triplet(pts[a], pts[b], pts[c], plane);
-    // the other valid anchors' distances, summed in slot order
-    float cost = 0.f;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const bool other = ((exists >> k) & 1u) && k != a && k != b && k != c;
-      const float term = other ? plane_dist(pts[k], plane) : 0.f;
-      cost = k == 0 ? term : add(cost, term);
+  for (int s0 = 0; s0 < p.iters; s0 += kFitStaged) {
+    // up to kFitStaged iterations' draws of the block's pixels: an
+    // iteration's are one contiguous run of np x 3
+    const int sn = min(kFitStaged, p.iters - s0);
+    const int run = 3 * np;
+    __syncthreads();
+    for (int e = threadIdx.x; e < sn * run; e += kFitThreads) {
+      const int it = e / run;
+      const int j = e - it * run;
+      draws[it * kFitRow + j] = __ldg(
+          p.triplets + static_cast<int64_t>(s0 + it) * p.trip_stride +
+          static_cast<int64_t>(i0) * 3 + j);
     }
-    if (distinct && tri && !degen && enough && cost < best_cost) {
+    __syncthreads();
+    if (!pixel) continue;
+    for (int r0 = 0; r0 < sn; r0 += 32) {
+      const bool live = r0 + lane < sn;
+      int t0 = 0, t1 = 0, t2 = 0;
+      if (live) {
+        const int* t = draws + (r0 + lane) * kFitRow + 3 * wi;
+        t0 = t[0];
+        t1 = t[1];
+        t2 = t[2];
+      }
+      const int a = slot[rem(t0)];
+      const int b = slot[rem(t1)];
+      const int c = slot[rem(t2)];
+      float plane[4];
+      const bool ok = pick_plane(a, b, c, ax[a], ay[a], ax[b], ay[b], ax[c],
+                                 ay[c], xf, yf, pts[wi][a], pts[wi][b],
+                                 pts[wi][c], plane);
+      // the other valid anchors' distances, summed in slot order
+      float cost = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) best[k] = plane[k];
-      best_cost = cost;
-      has = true;
+      for (int k = 0; k < kSlots; ++k) {
+        const bool other =
+            ((exists >> k) & 1u) && k != a && k != b && k != c;
+        const float term = other ? plane_dist(pts[wi][k], plane) : 0.f;
+        cost = k == 0 ? term : add(cost, term);
+      }
+      // the least (cost, iteration) over the usable iterations below +inf
+      float key = (live && ok && enough && cost < INFINITY) ? cost : INFINITY;
+      int src = lane;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float k2 = __shfl_xor_sync(kFull, key, off);
+        const int s2 = __shfl_xor_sync(kFull, src, off);
+        if (k2 < key || (k2 == key && s2 < src)) {
+          key = k2;
+          src = s2;
+        }
+      }
+      float pl[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pl[k] = __shfl_sync(kFull, plane[k], src);
+      if (key < best_cost) {   // an earlier round keeps an equal cost
+#pragma unroll
+        for (int k = 0; k < 4; ++k) best[k] = pl[k];
+        best_cost = key;
+        has = true;
+      }
     }
   }
+  if (!pixel || lane != 0) return;
 
   // flip toward the camera (reference: APD.cu:2582-2594)
-  const float4 own = fetch_plane(p.planes, p.h, p.w, p.wx[i], p.wy[i]);
   const float depth = plane_depth(p.fx, p.fy, p.cx, p.cy, xf, yf, own.x,
                                   own.y, own.z, own.w);
   float vd[3];
@@ -480,7 +757,6 @@ __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
       const int a = py_mod(t0, count);
       const int b = py_mod(t1, count);
       const int c = py_mod(t2, count);
-      const bool distinct = a != b && b != c && a != c;
       float A[3], B[3], Cp[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -488,12 +764,12 @@ __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
         B[k] = __shfl_sync(kFull, hp[k], b);
         Cp[k] = __shfl_sync(kFull, hp[k], c);
       }
-      const bool tri = point_in_triangle(
-          __shfl_sync(kFull, hpx, a), __shfl_sync(kFull, hpy, a),
-          __shfl_sync(kFull, hpx, b), __shfl_sync(kFull, hpy, b),
-          __shfl_sync(kFull, hpx, c), __shfl_sync(kFull, hpy, c), xf, yf);
       float plane[4];
-      const bool degen = plane_from_triplet(A, B, Cp, plane);
+      const bool ok = pick_plane(
+          a, b, c, __shfl_sync(kFull, hpx, a), __shfl_sync(kFull, hpy, a),
+          __shfl_sync(kFull, hpx, b), __shfl_sync(kFull, hpy, b),
+          __shfl_sync(kFull, hpx, c), __shfl_sync(kFull, hpy, c), xf, yf, A,
+          B, Cp, plane);
       int n_in = 0;
       for (int k = 0; k < count; ++k) {
         const float q[3] = {__shfl_sync(kFull, hp[0], k),
@@ -501,7 +777,7 @@ __global__ void __launch_bounds__(kGenThreads) gen_anchors(GenParams p) {
                             __shfl_sync(kFull, hp[2], k)};
         n_in += dvd(plane_dist(q, plane), p.depth_diff) < p.thr ? 1 : 0;
       }
-      const bool usable = live && distinct && tri && !degen && n_in >= 6;
+      const bool usable = live && ok && n_in >= 6;
       const float cdist = plane_dist(centre, plane);
       for (uint32_t u = __ballot_sync(kFull, usable); u != 0u; u &= u - 1u) {
         const int from = __ffs(u) - 1;
@@ -580,20 +856,33 @@ int apde_anchor_max_directions() { return kMaxDirections; }
 
 int apde_anchor_slots() { return kSlots; }
 
+int apde_jfa_tile_cols() { return kJfaX; }
+
+int apde_jfa_tile_rows() { return kJfaRows; }
+
 // A kernel's registers, local memory (spills) and resident blocks an SM
-// (which: 0 K10, 1 K9, 2 K8); returns the first error.
+// (which: 0 K10, with a whole tile's shared memory; 1 K9, 2 K8); returns
+// the first error.
 int apde_anchor_kernel_info(int which, int* regs, int* local_bytes,
                             int* blocks_per_sm) {
-  const void* kernel = which == 0   ? (const void*)jfa_step
+  const void* kernel = which == 0   ? (const void*)jfa_phases
                        : which == 1 ? (const void*)fit_planes
                                     : (const void*)gen_anchors<0>;
   const int threads =
       which == 0 ? kJfaThreads : (which == 1 ? kFitThreads : kGenThreads);
+  const size_t smem =
+      which == 0 ? (2 * sizeof(int2) + sizeof(float)) * kJfaX * kJfaRows
+                 : 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && smem > 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                        threads, 0);
+                                                        threads, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
@@ -601,43 +890,108 @@ int apde_anchor_kernel_info(int which, int* regs, int* local_bytes,
   return 0;
 }
 
-// K10: the n_steps x 8 sub-passes, ping-pong between ``scratch`` and
-// ``out`` so that the last lands in ``out`` (both (H, W, 2) int32).
-// ``steps`` is a host array; ``strong`` the STRONG code of ``weak``.
+// K10 over the live sub-passes (steps[i], dx[i], dy[i]), i < n_sub, in
+// the phases (folds[k], firsts[k], counts[k]), k < n_phases: each phase's
+// sub-passes consecutive, each step a multiple of its fold, its reach
+// inside a tile's kJfaX x kJfaRows footprint, all in one cooperative
+// launch. ``scratch`` holds the two maps of entries ((2, H, W, 2) int32),
+// ``out`` the result. A map side above 32,767, a phase that does not fit
+// its tiles or a refused launch returns an error, and nothing is launched.
 int apde_jfa(const void* weak, const void* conf, const void* valid,
-             int strong, int h, int w, const int* steps, int n_steps,
-             void* out, void* scratch, void* stream) {
-  if (h < 0 || w < 0 || n_steps < 1) {
+             int strong, int h, int w, const int* steps, const int* dx,
+             const int* dy, int n_sub, const int* folds, const int* firsts,
+             const int* counts, int n_phases, void* out, void* scratch,
+             void* stream) {
+  if (h < 0 || w < 0 || h > kJfaMaxSide || w > kJfaMaxSide || n_sub < 0 ||
+      n_sub > kJfaMaxSub || n_phases < 1 || n_phases > kJfaMaxSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t pixels = static_cast<int64_t>(h) * w;
-  if (pixels == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned int grid =
-      static_cast<unsigned int>((pixels + kJfaThreads - 1) / kJfaThreads);
-  const int total = 8 * n_steps;
-  int2* bufs[2] = {static_cast<int2*>(out), static_cast<int2*>(scratch)};
-  const int2* in = nullptr;
-  int k = 0;
-  for (int s = 0; s < n_steps; ++s) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      for (int dx = -1; dx <= 1; ++dx) {
-        if (dx == 0 && dy == 0) continue;
-        // the sub-passes left after this one decide its buffer: the last
-        // (0 left) writes ``out``
-        int2* dst = bufs[(total - 1 - k) & 1];
-        jfa_step<<<grid, kJfaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            in, dst, static_cast<const int*>(weak),
-            static_cast<const float*>(conf),
-            static_cast<const uint8_t*>(valid), strong, h, w, dx * steps[s],
-            dy * steps[s], k == total - 1);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-        in = dst;
-        ++k;
+  if (static_cast<int64_t>(h) * w == 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  JfaParams p;
+  p.weak = static_cast<const int*>(weak);
+  p.conf = static_cast<const float*>(conf);
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.strong = strong;
+  p.h = h;
+  p.w = w;
+  p.buf[0] = static_cast<int2*>(scratch);
+  p.buf[1] = static_cast<int2*>(scratch) + static_cast<int64_t>(h) * w;
+  p.out = static_cast<int2*>(out);
+  p.n_phases = n_phases;
+  size_t smem = 0;
+  int items = 0, next = 0;
+  for (int k = 0; k < n_phases; ++k) {
+    JfaPhase& ph = p.ph[k];
+    ph.fold = folds[k];
+    ph.first = firsts[k];
+    ph.count = counts[k];
+    if (ph.fold < 1 || ph.first != next || ph.count < 0 ||
+        ph.first + ph.count > n_sub) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    next += ph.count;
+    int lo_x = 0, hi_x = 0, lo_y = 0, hi_y = 0;
+    for (int s = ph.first; s < ph.first + ph.count; ++s) {
+      if (steps[s] < 1 || steps[s] % ph.fold != 0 || dx[s] < -1 ||
+          dx[s] > 1 || dy[s] < -1 || dy[s] > 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
       }
+      const int unit = steps[s] / ph.fold;
+      if (unit > 127) return static_cast<int>(cudaErrorInvalidValue);
+      p.ox[s] = static_cast<signed char>(dx[s] * unit);
+      p.oy[s] = static_cast<signed char>(dy[s] * unit);
+      lo_x += std::max(0, -dx[s] * unit);
+      hi_x += std::max(0, dx[s] * unit);
+      lo_y += std::max(0, -dy[s] * unit);
+      hi_y += std::max(0, dy[s] * unit);
+    }
+    if (!jfa_axis(ph.fold, w, lo_x, hi_x, kJfaX, &ph.x) ||
+        !jfa_axis(ph.fold, h, lo_y, hi_y, kJfaRows, &ph.y)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t n_items = static_cast<int64_t>(ph.x.groups) * ph.x.tiles *
+                            ph.y.groups * ph.y.tiles;
+    if (n_items > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+    ph.items = static_cast<int>(n_items);
+    items = std::max(items, ph.items);
+    smem = std::max(smem, jfa_smem(ph));
+  }
+  if (next != n_sub) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      jfa_phases, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // resident blocks of the card: asked once a (device, shared memory)
+  static int cached_dev = -1, cached_blocks = 0;
+  static size_t cached_smem = 0;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev != cached_dev || smem != cached_smem)) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, jfa_phases, kJfaThreads, smem);
+    }
+    if (err == cudaSuccess) {
+      cached_dev = dev;
+      cached_smem = smem;
+      cached_blocks = per_sm * sms;
     }
   }
-  return 0;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cached_blocks < 1) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  const int grid = std::min(items, cached_blocks);
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(jfa_phases),
+                                    dim3(grid), dim3(kJfaThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K9: the fit planes of N weak pixels over ``iters`` RANSAC iterations.
@@ -645,6 +999,7 @@ int apde_fit_planes(const void* planes, int h, int w, const void* wx,
                     const void* wy, const void* anchors, const void* triplets,
                     int64_t trip_stride, int iters, int n, float fx, float fy,
                     float cx, float cy, void* out, void* stream) {
+  if (iters < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   FitParams p;
   p.planes = static_cast<const float*>(planes);
@@ -663,7 +1018,7 @@ int apde_fit_planes(const void* planes, int h, int w, const void* wx,
   p.cy = cy;
   p.out = static_cast<float*>(out);
   const unsigned int grid =
-      static_cast<unsigned int>((n + kFitThreads - 1) / kFitThreads);
+      static_cast<unsigned int>((n + kFitWarps - 1) / kFitWarps);
   fit_planes<<<grid, kFitThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 // The RANSAC pieces shared by K8 (anchor generation) and K9 (fit-plane
 // RANSAC) in anchors.cu, so the two cannot drift apart: the remainder that
-// turns a raw draw into a rank, the n-th valid slot of a mask, the
+// turns a raw draw into a rank (and its K9 form with the divisor set up
+// once), the n-th valid slot of a mask, the
 // reference's point-in-triangle test, the unit plane through three
-// camera-frame points and its distance to a point, and the camera-frame
-// back-projection of a pixel at a depth.
+// camera-frame points, an iteration's picks tested and their plane, the
+// plane's distance to a point, and the camera-frame back-projection of a
+// pixel at a depth.
 //
 // Each is written in the operation order of the plain versions in
 // ops/anchors.py (`_point_in_triangle`, `_plane_from_triplet`,
@@ -28,16 +30,39 @@ __device__ __forceinline__ int py_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// _nth_valid: the index of the n-th (0-based) set bit of ``mask``; 0 where
-// there is none
-__device__ __forceinline__ int nth_valid(uint32_t mask, int n) {
-  for (int i = 0; i < 32; ++i) {
-    if ((mask >> i) & 1u) {
-      if (n == 0) return i;
-      --n;
-    }
+// torch.remainder of an int32 by a divisor m in 1..8 (a weak pixel's
+// anchors), set up once: for 0 <= a < 2^30 the quotient by the multiplier
+// ceil(2^32 / m) is exact or one too large, which the remainder's sign
+// shows (the error is below a / 2^32 < 1/4); otherwise py_mod
+struct Remainder {
+  int m;
+  unsigned mult;
+  __device__ __forceinline__ explicit Remainder(int d)
+      : m(d), mult(static_cast<unsigned>(0xffffffffu / d + 1u)) {}
+  __device__ __forceinline__ int operator()(int a) const {
+    if (a < 0 || a >= (1 << 30) || m > 8) return py_mod(a, m);
+    if (m == 1) return 0;
+    const int r = a - static_cast<int>(__umulhi(a, mult)) * m;
+    return r < 0 ? r + m : r;
   }
-  return 0;
+};
+
+// _nth_valid: the index of the n-th (0-based) set bit of ``mask`` (bits
+// below kBits only); 0 where there is none. Branch-free over the bits, so
+// a warp's lanes do not diverge on their ranks
+template <int kBits>
+__device__ __forceinline__ int nth_valid(uint32_t mask, int n) {
+  int at = 0;
+  bool found = false;
+#pragma unroll
+  for (int i = 0; i < kBits; ++i) {
+    const bool set = (mask >> i) & 1u;
+    const bool hit = set && n == 0 && !found;
+    at = hit ? i : at;
+    found = found || hit;
+    n -= set ? 1 : 0;
+  }
+  return at;
 }
 
 // _dot3: (a0 b0 + a1 b1) + a2 b2
@@ -102,6 +127,22 @@ __device__ __forceinline__ bool plane_from_triplet(const float A[3],
   }
   plane[3] = -dot3(n, A);
   return degenerate;
+}
+
+// One RANSAC iteration's picks a, b, c (pixels (ax, ay), ... and
+// camera-frame points A, B, C): whether they are distinct, hold the pixel
+// (px, py) in their triangle and span a plane (not degenerate), and the
+// unit plane through their points (K8 and K9 both take an iteration so)
+__device__ __forceinline__ bool pick_plane(int a, int b, int c, float ax,
+                                           float ay, float bx, float by,
+                                           float cx, float cy, float px,
+                                           float py, const float A[3],
+                                           const float B[3], const float C[3],
+                                           float plane[4]) {
+  const bool distinct = a != b && b != c && a != c;
+  const bool tri = point_in_triangle(ax, ay, bx, by, cx, cy, px, py);
+  const bool degen = plane_from_triplet(A, B, C, plane);
+  return distinct && tri && !degen;
 }
 
 // _plane_dist: |n . p + w|

@@ -83,15 +83,45 @@ def jfa_steps(h: int, w: int) -> list:
     return steps
 
 
+JFA_NEIGHBOURS = tuple((dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                       if dx or dy)   # a step's sub-passes, in order
+
+
+@functools.lru_cache(maxsize=64)
+def jfa_schedule(h: int, w: int) -> tuple:
+    """The flooding's live sub-passes for an (h, w) map: (step, dx, dy) in
+    the plain version's order (``jfa_steps``, then ``JFA_NEIGHBOURS``),
+    leaving out each sub-pass in which no pixel's neighbour lies in the map
+    (|dx| * step >= w or |dy| * step >= h): there every candidate is (-1,
+    -1) and the sub-pass returns its input. The first live sub-pass still
+    reads the initial map and the strong pixels are still rewritten after
+    the last (K10 does both), so flooding over this schedule equals
+    flooding over every sub-pass."""
+    return tuple((s, dx, dy) for s in jfa_steps(h, w)
+                 for dx, dy in JFA_NEIGHBOURS
+                 if abs(dx) * s < w and abs(dy) * s < h)
+
+
+def host_camera(cam) -> Optional[kernels.Camera]:
+    """``cam``'s (a ``geometry.CameraArrays`` of one camera) intrinsics for
+    K8 and K9, read to the host: a read that waits on the card, so a pass
+    makes it once and hands it to `gen_anchors` and `ransac_fit_planes`.
+    None where ``cam`` lies on the CPU, whose plain versions take it as
+    it is."""
+    return None if cam.K.device.type == "cpu" else kernels.camera(cam)
+
+
 def nearest_strong_jfa(weak: torch.Tensor, confidence: torch.Tensor,
                        valid: torch.Tensor) -> torch.Tensor:
     """(H, W) maps -> (H, W, 2) int32 coords of the nearest STRONG pixel with
     confidence >= own (ties prefer higher confidence); (-1, -1) when none.
-    STRONG pixels map to themselves. K10 on CUDA tensors."""
+    STRONG pixels map to themselves. K10 on CUDA tensors, over the live
+    sub-passes (``jfa_schedule``)."""
     if weak.device.type == "cpu":
         return nearest_strong_jfa_plain(weak, confidence, valid)
     return kernels.nearest_strong(weak.contiguous(), confidence.contiguous(),
-                                  valid.contiguous(), jfa_steps(*weak.shape))
+                                  valid.contiguous(),
+                                  jfa_schedule(*weak.shape))
 
 
 def nearest_strong_jfa_plain(weak: torch.Tensor, confidence: torch.Tensor,
@@ -442,7 +472,8 @@ def gen_anchors(data, state: PMState, weak_x, weak_y, rotate_time: int,
                 nearest_strong: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 raws: Optional[AnchorRaws] = None,
-                chunk: int = ANCHOR_CHUNK) -> AnchorResult:
+                chunk: int = ANCHOR_CHUNK,
+                cam: Optional[kernels.Camera] = None) -> AnchorResult:
     """Anchor generation for the compacted weak list (reference: GenAnchors).
 
     `state.planes[..., 3]` must hold depths (this op runs before the
@@ -452,25 +483,28 @@ def gen_anchors(data, state: PMState, weak_x, weak_y, rotate_time: int,
     is evaluated in chunks of ``chunk`` pixels; with injected draws the
     result does not depend on it. On CUDA tensors each chunk is one launch
     of K8, which runs a direction a lane of a warp: 8 * ``rotate_time``
-    must not exceed 32, on any device."""
+    must not exceed 32, on any device. ``cam`` is ``data.ref_cam``'s
+    intrinsics read to the host once a pass (``host_camera``); without
+    it K8's launches read them here. With ``depth_min``, ``depth_max`` and
+    ``ransac_threshold`` as Python floats no host read waits on the
+    card."""
     if not 1 <= 8 * rotate_time <= kernels.MAX_DIRECTIONS:
         raise ValueError(f"rotate_time {rotate_time} gives {8 * rotate_time}"
                          f" directions; the anchor kernel takes at most "
                          f"{kernels.MAX_DIRECTIONS} (a warp's lanes)")
     dev = weak_x.device
     nw = weak_x.shape[0]
-    depth_min = geo.f32_scalar(depth_min, dev)
-    depth_max = geo.f32_scalar(depth_max, dev)
-    thr = geo.f32_scalar(ransac_threshold, dev)
     if dev.type == "cpu":
+        f32 = [geo.f32_scalar(v, dev)
+               for v in (ransac_threshold, depth_min, depth_max)]
+
         def run(wx, wy, r):
             return gen_anchors_chunk_plain(
                 data.ref_cam, data.img_h, data.img_w, state.planes[..., 3],
-                nearest_strong, wx, wy, rotate_time, thr, depth_min,
-                depth_max, r)
+                nearest_strong, wx, wy, rotate_time, *f32, r)
     else:
-        run = _kernel_chunks(data, state, rotate_time, thr, depth_min,
-                             depth_max, nearest_strong)
+        run = _kernel_chunks(data, state, rotate_time, ransac_threshold,
+                             depth_min, depth_max, nearest_strong, cam)
     parts = []
     for lo in range(0, nw, chunk):
         sl = slice(lo, min(lo + chunk, nw))
@@ -489,13 +523,15 @@ def gen_anchors(data, state: PMState, weak_x, weak_y, rotate_time: int,
 
 
 def _kernel_chunks(data, state: PMState, rotate_time: int, thr, depth_min,
-                   depth_max, nearest_strong):
+                   depth_max, nearest_strong, cam):
     """K8 over one chunk at a time: the tables and scalars of a
     `gen_anchors` call, read to the host once (float32 values)."""
     dev = state.planes.device
     dirs, radii = _kernel_tables(rotate_time, str(dev))
-    cam = kernels.camera(data.ref_cam)
-    scalars = (float(np.float32(_cone_cos(rotate_time))), float(thr),
+    if cam is None:
+        cam = kernels.camera(data.ref_cam)
+    scalars = (float(np.float32(_cone_cos(rotate_time))),
+               float(np.float32(float(thr))),
                float(np.float32(float(depth_max))
                      - np.float32(float(depth_min))))
     ns = nearest_strong.contiguous()
@@ -530,8 +566,8 @@ def neighbor_update(state: PMState, weak_x, weak_y, reliable) -> PMState:
 
 def ransac_fit_planes(data, state: PMState, weak_x, weak_y, anchors,
                       generator: Optional[torch.Generator] = None,
-                      triplets: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      triplets: Optional[torch.Tensor] = None,
+                      cam: Optional[kernels.Camera] = None) -> torch.Tensor:
     """Per-iteration support-plane fit from a weak pixel's anchors
     (reference: RANSACToGetFitPlane, APD.cu:2486-2598). Runs on
     camera-frame planes; returns (Nw, 4) fit planes (zeros when no fit).
@@ -541,7 +577,11 @@ def ransac_fit_planes(data, state: PMState, weak_x, weak_y, anchors,
     WEAK pixel carries >= 6 anchors, so it never runs.
 
     ``triplets`` injects the (RANSAC_ITERS, Nw, 3) raw draws; without them
-    they are drawn from ``generator``. K9 on CUDA tensors."""
+    they are drawn from ``generator``. K9 on CUDA tensors, with ``cam``,
+    ``data.ref_cam``'s intrinsics read to the host once a pass
+    (``host_camera``): a fit inside the iteration loop then reads no
+    device tensor on the host; without ``cam`` K9's launch reads them
+    here."""
     n = weak_x.shape[0]
     dev = weak_x.device
     if triplets is None:
@@ -549,9 +589,11 @@ def ransac_fit_planes(data, state: PMState, weak_x, weak_y, anchors,
     if dev.type == "cpu":
         return ransac_fit_planes_plain(data.ref_cam, state.planes, weak_x,
                                        weak_y, anchors, triplets)
+    if cam is None:
+        cam = kernels.camera(data.ref_cam)
     return kernels.fit_planes(state.planes.contiguous(), weak_x.contiguous(),
                               weak_y.contiguous(), anchors.contiguous(),
-                              triplets, kernels.camera(data.ref_cam))
+                              triplets, cam)
 
 
 def _length_f64(v) -> torch.Tensor:

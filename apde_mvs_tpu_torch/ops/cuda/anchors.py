@@ -5,10 +5,13 @@ generation, the fit-plane RANSAC and the nearest-strong jump flooding
 Replace the torch-op compositions of ``ops/anchors.py`` (the JAX package's
 XLA-compiled ``apde_mvs_tpu/ops/anchors.py``: ``nearest_strong_jfa``
 :44-99, ``gen_anchors`` :191-373, ``ransac_fit_planes`` :386-467): K10 is
-one launch a (step, neighbour) sub-pass of the flooding (96 at 600x800),
-K8 one launch a chunk of weak pixels (a warp a pixel: 32 / D lanes a
-direction walk its radii, then a lane a RANSAC iteration over the
-compacted hits), K9 one launch a call (a thread a pixel). What bounds
+one cooperative launch a call over the flooding's live sub-passes
+(``jfa_phases``: runs of long steps folded by their smallest step, each
+other step folded by itself, then the steps of 1 together, each phase
+run tile by tile in shared memory, a grid sync between phases), K8 one
+launch a chunk of weak pixels (a warp a pixel: 32 / D lanes a direction
+walk its radii, then a lane a RANSAC iteration over the compacted hits),
+K9 one launch a call (a warp a pixel, a lane an iteration). What bounds
 them on the H100: bytes (K9: the 50 RANSAC draws of a pixel; K8: those
 and the probes' jitter draws and nearest-strong texels), operations for
 K10's flooding; the source says what each design does about it.
@@ -35,12 +38,14 @@ from ...config import ANCHOR_NUM, STRONG
 from . import build as _build
 from .ncc import _raise_on, read_kernel_info
 
-jfa_launches = 0      # K10 launches since the last reset (8 a step)
+jfa_launches = 0      # K10 launches since the last reset (one a call)
 anchor_launches = 0   # K8 launches (one a chunk)
 fit_launches = 0      # K9 launches (one a call)
 
 MAX_DIRECTIONS = 32   # K8 runs a direction a lane of one warp
 SLOTS = ANCHOR_NUM - 1  # anchors besides the pixel itself
+MAX_SIDE = 32767      # K10 packs a pixel's coordinates as int16
+TILE_COLS, TILE_ROWS = 128, 32   # a K10 tile's footprint, halo included
 _SOURCES = ("anchors.cu",)
 _KERNELS = {"K10": 0, "K9": 1, "K8": 2}
 
@@ -69,9 +74,9 @@ def library() -> _build.Built:
     i32 = ctypes.c_int
     i64 = ctypes.c_int64
     f32 = ctypes.c_float
-    lib.apde_jfa.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                             ctypes.POINTER(ctypes.c_int), i32, ptr, ptr,
-                             ptr]
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.apde_jfa.argtypes = [ptr, ptr, ptr, i32, i32, i32, ints, ints, ints,
+                             i32, ints, ints, ints, i32, ptr, ptr, ptr]
     lib.apde_fit_planes.argtypes = ([ptr, i32, i32, ptr, ptr, ptr, ptr, i64,
                                      i32, i32] + [f32] * 4 + [ptr, ptr])
     lib.apde_gen_anchors.argtypes = (
@@ -80,15 +85,17 @@ def library() -> _build.Built:
         + [ptr, ptr, ptr, i32, ptr])
     for fn in (lib.apde_jfa, lib.apde_fit_planes, lib.apde_gen_anchors):
         fn.restype = i32
-    consts = (lib.apde_anchor_max_directions, lib.apde_anchor_slots)
+    consts = (lib.apde_anchor_max_directions, lib.apde_anchor_slots,
+              lib.apde_jfa_tile_cols, lib.apde_jfa_tile_rows)
     for fn in consts:
         fn.argtypes = []
         fn.restype = i32
     lib.apde_anchor_kernel_info.argtypes = [i32, ptr, ptr, ptr]
     lib.apde_anchor_kernel_info.restype = i32
-    if tuple(fn() for fn in consts) != (MAX_DIRECTIONS, SLOTS):
-        raise RuntimeError("csrc/anchors.cu's direction limit or slots "
-                           "differ from the wrapper's")
+    if tuple(fn() for fn in consts) != (MAX_DIRECTIONS, SLOTS, TILE_COLS,
+                                        TILE_ROWS):
+        raise RuntimeError("csrc/anchors.cu's direction limit, slots or "
+                           "K10 tile differ from the wrapper's")
     return built
 
 
@@ -100,7 +107,9 @@ def kernel_info(name: str) -> dict:
 
 
 def camera(cam) -> Camera:
-    """A ``geometry.CameraArrays`` (one camera)'s intrinsics on the host."""
+    """A ``geometry.CameraArrays`` (one camera)'s intrinsics on the host: a
+    read that waits on the card where ``cam`` lies there, so a pass makes
+    it once (``anchors.host_camera``) and hands it to K8 and K9."""
     k = cam.K.detach().to("cpu", torch.float32)
     return Camera(float(k[0, 0]), float(k[1, 1]), float(k[0, 2]),
                   float(k[1, 2]))
@@ -148,29 +157,89 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def jfa_phases(schedule: Sequence[tuple], h: int, w: int) -> list:
+    """K10's phases over ``schedule``'s sub-passes ((step, dx, dy) in
+    order, a step's neighbours in ``JFA_NEIGHBOURS`` order) on an (h, w)
+    map: (fold, first, count). The steps above 1 run folded: a run of them
+    folded by its last (smallest) step while the map so folded fits one
+    tile whole (TILE_COLS x TILE_ROWS folded points: no halo), a step whose
+    folded map does not fit alone, folded by itself (its tiles with a
+    halo); the steps of 1 (the short-range tail) together at fold 1; one
+    empty phase where the schedule is empty."""
+    from ..anchors import JFA_NEIGHBOURS
+    order = {n: i for i, n in enumerate(JFA_NEIGHBOURS)}
+    steps = []      # (step, first, count): a step's sub-passes
+    for i, (step, dx, dy) in enumerate(schedule):
+        if (steps and steps[-1][0] == step
+                and order[(dx, dy)] > order[schedule[i - 1][1:]]):
+            steps[-1][2] += 1
+        else:
+            steps.append([step, i, 1])
+
+    def whole(fold: int) -> bool:
+        return -(-w // fold) <= TILE_COLS and -(-h // fold) <= TILE_ROWS
+    phases = []
+    i = 0
+    while i < len(steps) and steps[i][0] > 1:
+        fold, first, count = steps[i]
+        i += 1
+        while (whole(fold) and i < len(steps) and steps[i][0] > 1
+               and whole(steps[i][0])):
+            fold = steps[i][0]
+            count += steps[i][2]
+            i += 1
+        phases.append((fold, first, count))
+    if i < len(steps) or not phases:
+        first = steps[i][1] if i < len(steps) else len(schedule)
+        phases.append((1, first, len(schedule) - first))
+    return phases
+
+
+@functools.lru_cache(maxsize=64)
+def _jfa_plan(schedule: tuple, h: int, w: int) -> tuple:
+    """`apde_jfa`'s schedule and phase arguments as C arrays, built once a
+    (schedule, map shape)."""
+    def ints(vals):
+        return (ctypes.c_int * max(len(vals), 1))(*vals)
+    phases = jfa_phases(schedule, h, w)
+    steps, dxs, dys = ((ints(v) for v in zip(*schedule)) if schedule
+                       else (ints([]),) * 3)
+    folds, firsts, counts = (ints(v) for v in zip(*phases))
+    return (steps, dxs, dys, len(schedule), folds, firsts, counts,
+            len(phases))
+
+
 def nearest_strong(weak: torch.Tensor, confidence: torch.Tensor,
-                   valid: torch.Tensor, steps: Sequence[int]) -> torch.Tensor:
+                   valid: torch.Tensor,
+                   schedule: Sequence[tuple]) -> torch.Tensor:
     """K10: the (H, W, 2) int32 nearest-strong map of ``weak`` (H, W)
     int32, ``confidence`` (H, W) f32 and ``valid`` (H, W) bool, flooded
-    with the jump ``steps`` in order, 8 neighbours a step."""
+    over ``schedule``'s sub-passes ((step, dx, dy) in order, dx and dy in
+    -1..1: ``anchors.jfa_schedule``) in ``jfa_phases(schedule, h, w)``, as
+    one cooperative launch. Refuses (raises) a map side above MAX_SIDE; a
+    launch the driver refuses raises too."""
     dev = _cuda_device(weak)
     h, w = weak.shape
     _check("weak", weak, (h, w), torch.int32, dev)
     _check("confidence", confidence, (h, w), torch.float32, dev)
     _check("valid", valid, (h, w), torch.bool, dev, 1)
-    if not steps or min(steps) < 1:
-        raise ValueError(f"jump steps must be >= 1, got {list(steps)}")
+    if max(h, w) > MAX_SIDE:
+        raise ValueError(f"a {h}x{w} map: K10 packs coordinates as int16, "
+                         f"a side of at most {MAX_SIDE}")
+    if any(s < 1 or abs(dx) > 1 or abs(dy) > 1 for s, dx, dy in schedule):
+        raise ValueError(f"sub-passes must be (step >= 1, dx, dy in -1..1),"
+                         f" got {list(schedule)}")
     out = torch.empty((h, w, 2), dtype=torch.int32, device=dev)
     if h * w == 0:
         return out
-    scratch = torch.empty_like(out)
-    host_steps = (ctypes.c_int * len(steps))(*steps)
-    global jfa_launches
-    jfa_launches += 8 * len(steps)
+    # two maps of entries: a strong pixel's coordinates and confidence
+    scratch = torch.empty((2, h, w, 2), dtype=torch.int32, device=dev)
     _raise_on(library().lib.apde_jfa(
         weak.data_ptr(), confidence.data_ptr(), valid.data_ptr(), STRONG, h,
-        w, host_steps, len(steps), out.data_ptr(), scratch.data_ptr(),
-        _stream(dev)), "apde_jfa")
+        w, *_jfa_plan(tuple(schedule), h, w), out.data_ptr(),
+        scratch.data_ptr(), _stream(dev)), "apde_jfa")
+    global jfa_launches
+    jfa_launches += 1
     return out
 
 

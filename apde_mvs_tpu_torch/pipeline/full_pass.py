@@ -103,14 +103,16 @@ def prior_state(data: CostData, cfg: PassStatic, *, prior_depth=None,
     return state
 
 
-def _anchors(data, state, wx, wy, params, dmin, dmax, ns, gen, shard):
-    """`gen_anchors` over the weak list. With a shard, every rank draws each
-    serial chunk's raws in turn and scores the part of the chunk inside its
-    own slice, then the results are all-gathered."""
+def _anchors(data, state, wx, wy, params, dmin, dmax, ns, gen, shard,
+             cam=None):
+    """`gen_anchors` over the weak list (``cam``: the reference camera's
+    intrinsics on the host). With a shard, every rank draws each serial
+    chunk's raws in turn and scores the part of the chunk inside its own
+    slice, then the results are all-gathered."""
     if shard is None:
         return anchor_ops.gen_anchors(
             data, state, wx, wy, params.rotate_time, params.ransac_threshold,
-            dmin, dmax, ns, generator=gen)
+            dmin, dmax, ns, generator=gen, cam=cam)
     n = wx.shape[0]
     sl, counts = shard.list_part(n)
     parts = []
@@ -125,28 +127,29 @@ def _anchors(data, state, wx, wy, params, dmin, dmax, ns, gen, shard):
                 params.ransac_threshold, dmin, dmax, ns,
                 raws=anchor_ops.AnchorRaws(
                     raws.shift_x[a - lo:b - lo], raws.shift_y[a - lo:b - lo],
-                    raws.triplets[:, a - lo:b - lo])))
+                    raws.triplets[:, a - lo:b - lo]), cam=cam))
     if not parts:
         parts = [anchor_ops.gen_anchors(data, state, wx[:0], wy[:0],
                                         params.rotate_time,
                                         params.ransac_threshold, dmin, dmax,
-                                        ns, raws=None)]
+                                        ns, raws=None, cam=cam)]
     return anchor_ops.AnchorResult(*(shard.gather(torch.cat(f), counts)
                                      for f in zip(*parts)))
 
 
-def _fit_planes(data, state, sweep_list, gen, shard):
-    """The iteration's fit-plane RANSAC over the reliable weak pixels; with
-    a shard, over this rank's slice of the whole list's draws."""
+def _fit_planes(data, state, sweep_list, gen, shard, cam=None):
+    """The iteration's fit-plane RANSAC over the reliable weak pixels
+    (``cam``: the reference camera's intrinsics on the host); with a shard,
+    over this rank's slice of the whole list's draws."""
     if shard is None:
         return anchor_ops.ransac_fit_planes(data, state, *sweep_list,
-                                            generator=gen)
+                                            generator=gen, cam=cam)
     n = sweep_list[0].shape[0]
     triplets = anchor_ops.ransac_draws(gen, n, data.device)
     sl, counts = shard.list_part(n)
     fit = anchor_ops.ransac_fit_planes(data, state,
                                        *(a[sl] for a in sweep_list),
-                                       triplets=triplets[:, sl])
+                                       triplets=triplets[:, sl], cam=cam)
     return shard.gather(fit, counts)
 
 
@@ -155,6 +158,11 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     """Stage 1. ``state`` is `prior_state`'s; returns (post-sweep state
     with planes = (world normal, depth), the pass's `WeakSet` or None)."""
     params = cfg.params
+    # the colour update K3, the weak sweep's K7 and the APD setup's K8 take
+    # their scalars as Python floats, K8 and K9 the reference camera's
+    # intrinsics: read once a pass, so that no launch waits on the device
+    gf, dmin_f, dmax_f = _sweep_constants(params, dmin, dmax)
+    cam = None
 
     # ---- APD setup: weak list, anchors, demotion --------------------------
     weak = None
@@ -163,10 +171,11 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
         if wx.numel() > 0:
             wx = wx.to(torch.int32)
             wy = wy.to(torch.int32)
+            cam = anchor_ops.host_camera(data.ref_cam)
             ns = anchor_ops.nearest_strong_jfa(state.weak, state.confidence,
                                                state.valid)
-            res = _anchors(data, state, wx, wy, params, dmin, dmax, ns, gen,
-                           shard)
+            res = _anchors(data, state, wx, wy, params, dmin_f, dmax_f, ns,
+                           gen, shard, cam)
             state = anchor_ops.neighbor_update(state, wx, wy, res.reliable)
             # demoted pixels are no longer WEAK: the fit and the weak sweep
             # (which write WEAK pixels only) run over the reliable ones
@@ -183,24 +192,34 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     state = init_ops.initial_cost(
         data, state.replace(planes=planes), params,
         *(weak[:3] if weak is not None else ()), shard=shard)
-    # the colour update K3 and the weak sweep's K7 take their scalars as
-    # Python floats
-    gf, dmin_f, dmax_f = _sweep_constants(params, dmin, dmax)
-    for it in range(params.max_iterations):
-        for color in (0, 1):
-            state = propagate_strong(data, state, cfg.prop, it, color,
-                                     dmin_f, dmax_f, gf, generator=gen,
-                                     shard=shard)
-        if weak is not None and weak.sweep[0].numel() > 0:
-            fit = _fit_planes(data, state, weak.sweep, gen, shard)
-            state = propagate_weak(data, state, cfg.prop, it, *weak.sweep,
-                                   fit, dmin_f, dmax_f, gf, generator=gen,
-                                   shard=shard)
+    state = _iterations(data, state, cfg, weak, (dmin_f, dmax_f, gf), cam,
+                        gen, shard)
     state = state.replace(planes=filters.planes_to_depth_normal(
         data, state.planes))
     for color in (0, 1):
         state = filters.median_filter_color(state, color)
     return state, weak
+
+
+def _iterations(data: CostData, state: PMState, cfg: PassStatic, weak,
+                consts: tuple, cam, gen: torch.Generator, shard) -> PMState:
+    """Stage 1's iterations: the strong sweep's two colours, then [APD] the
+    fit-plane RANSAC and the weak sweep. ``consts`` are `_sweep_constants`'
+    depth bounds and geometric factor, ``cam`` the reference camera's
+    intrinsics on the host (`anchor_ops.host_camera`; None without APD or
+    on the CPU), both read once a pass."""
+    dmin_f, dmax_f, gf = consts
+    for it in range(cfg.params.max_iterations):
+        for color in (0, 1):
+            state = propagate_strong(data, state, cfg.prop, it, color,
+                                     dmin_f, dmax_f, gf, generator=gen,
+                                     shard=shard)
+        if weak is not None and weak.sweep[0].numel() > 0:
+            fit = _fit_planes(data, state, weak.sweep, gen, shard, cam)
+            state = propagate_weak(data, state, cfg.prop, it, *weak.sweep,
+                                   fit, dmin_f, dmax_f, gf, generator=gen,
+                                   shard=shard)
+    return state
 
 
 def _row_chunks(fn, mask: torch.Tensor, shard, fill: torch.Tensor):
@@ -235,8 +254,8 @@ def sweepable(data: CostData, state: PMState) -> torch.Tensor:
 def _sweep_constants(params, dmin, dmax) -> tuple:
     """The geometric factor and the depth bounds as Python floats (float32
     values) for the launches of the sweep kernel K5, the colour-update
-    kernel K3 and the weak sweep's K7: read once a stage, not once a chunk
-    or colour, so no launch waits on the device."""
+    kernel K3, the weak sweep's K7 and the anchor kernel K8: read once a
+    stage, not once a chunk or colour, so no launch waits on the device."""
     return tuple(float(geo.f32_scalar(v, "cpu"))
                  for v in (params.geom_factor, dmin, dmax))
 

@@ -4,7 +4,8 @@ scene with a strong field, holes, weak blobs and random confidence, its
 jitter and RANSAC draws at any ``rotate_time``, and crafted cases —
 confidence ties and maps with no strong pixel for the flooding;
 collinear, coincident and degenerate anchors, pixels with fewer than 3
-anchors and triangles whose RANSAC costs tie for the fit; a flat depth
+anchors, triangles whose RANSAC costs tie and anchors whose costs are
++inf or NaN for the fit; a flat depth
 map (every anchor weight ties), weak pixels at the probes' border and
 maps with too few strong pixels for anchor generation. All numpy, made
 from a seed. One copy for the CPU tests and ``chip_smoke.py``."""
@@ -132,9 +133,10 @@ def jfa_case(name: str, seed: int = 0, h: int = H, w: int = W) -> tuple:
         if name == "ties":
             conf = rng.choice(np.float32([0, 128, 255]), (h, w))
     elif name == "one_strong":
-        weak[h - 2, 1] = STRONG
+        corner = (max(h - 2, 0), min(1, w - 1))
+        weak[corner] = STRONG
         conf = rng.integers(0, 256, (h, w)).astype(np.float32)
-        conf[h - 2, 1] = 255.0
+        conf[corner] = 255.0
     elif name != "no_strong":
         raise ValueError(f"unknown flooding case {name!r}")
     return weak, conf.astype(np.float32), valid
@@ -232,6 +234,58 @@ def fit_crafted(seed: int = 0, h: int = H, w: int = W) -> FitCase:
     anchors = np.stack(anchors)
     return FitCase(planes, np.int32(wx), np.int32(wy), anchors,
                    triplets(rng, len(wx)))
+
+
+# the crafted selections of ``fit_ties``, one a pixel, in order
+TIE_KINDS = ("flat", "three_late", "three", "inf_anchor", "nan_anchor",
+             "two")
+
+
+def fit_ties(seed: int = 0, h: int = H, w: int = W) -> FitCase:
+    """Weak pixels that hold the fit's selection rule (the strictly lower
+    cost from +inf in iteration order: the first of equal costs, never a
+    NaN or +inf cost): ``flat`` (8 anchors on a fronto-parallel patch:
+    every usable iteration costs exactly 0), ``three_late`` (3 anchors,
+    every cost 0, the draws unusable (0, 0, 0) before iteration 31, 32, 33
+    or 40 in turn: the first usable one falls at either side of a warp's
+    32 lanes and later ones tie with it), ``three`` (3 anchors, random
+    draws), ``inf_anchor`` / ``nan_anchor`` (8 anchors, one at an infinite
+    or NaN depth: every triangle without it costs +inf or NaN, every one
+    with it is degenerate) and ``two`` (fewer than 3 anchors). The other
+    pixels' planes are (0, 0, -1, depth) over the noisy scene's depths."""
+    rng = np.random.default_rng(seed)
+    _, _, depth, _ = scene(seed, h=h, w=w)
+    depth = depth.copy()
+    depth[: h // 2, : w // 3] = 4.0          # the flat patch
+    planes = depth_planes(depth)
+    late = (31, 32, 33, 40)
+    wx, wy, anchors, starts = [], [], [], []
+    for i in range(4 * len(TIE_KINDS)):
+        kind = TIE_KINDS[i % len(TIE_KINDS)]
+        if kind == "flat":
+            x = int(rng.integers(6, w // 3 - 6))
+            y = int(rng.integers(6, h // 2 - 6))
+        else:
+            x = int(rng.integers(w // 3 + 6, w - 8))
+            y = int(rng.integers(8, h - 8))
+        k = {"three_late": 3, "three": 3, "two": 2}.get(kind, 8)
+        pts = _ring(x, y, k, 4 + i % 2, rng.random())
+        a = np.full((8, 2), -1, np.int32)
+        for slot, (px, py) in enumerate(pts):
+            a[slot] = (px, py)
+        if kind in ("inf_anchor", "nan_anchor"):
+            px, py = pts[3]
+            planes[py, px, 3] = np.inf if kind == "inf_anchor" else np.nan
+        anchors.append(np.concatenate([[[x, y]], a]).astype(np.int32))
+        wx.append(x)
+        wy.append(y)
+        starts.append(late[(i // len(TIE_KINDS)) % len(late)]
+                      if kind == "three_late" else 0)
+    tri = triplets(rng, len(wx))
+    for j, start in enumerate(starts):
+        tri[:start, j] = 0                   # (0, 0, 0): not distinct
+    return FitCase(planes, np.int32(wx), np.int32(wy), np.stack(anchors),
+                   tri)
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,10 @@ scene (seed 0), u8 quad tables:
 - K8 at a 16,384-pixel chunk of the APD scan's weak list at the APD
   round's rotate_time (2: 16 directions) and at the chunk a real APD pass
   hands it, and the chunk's jitter and RANSAC draw table
-  (``anchors.anchor_raws``); K10 a call on the APD scan's map (96
-  launches); K9 a call on the weak chunk's reliable pixels.
+  (``anchors.anchor_raws``); K10 a call on the APD scan's map and on a
+  real pass's (its device time a call's launches summed, as its wrapper
+  counts them); K9 a call on the weak chunk's reliable pixels and on a real pass's first
+  fit, beside its draw table (``anchors.ransac_draws``).
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
 events); the weak path's kernels also give their device time
@@ -296,15 +298,19 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
               "geometric)", flush=True)
 
 
-def device_ms(fn, iters: int, kernel: str, tries: int = 3) -> float:
+def device_ms(fn, iters: int, kernel: str, tries: int = 3,
+              launches_a_call: int = 0) -> float:
     """The mean device time of the kernels whose name holds ``kernel``
-    over ``iters`` calls of ``fn`` (torch.profiler): free of the host's
-    time a call, which CUDA events around a short kernel also hold. A
-    profile that caught none of them (the profiler has lost a window's
-    kernel records on the card) is taken again, ``tries`` times at most,
-    then the time is NaN: not measured."""
+    over ``iters`` calls of ``fn`` (torch.profiler), a launch's, or with
+    ``launches_a_call`` a call's (every launch of the call summed): free
+    of the host's time a call, which CUDA events around a short kernel
+    also hold. A profile that caught none of them, or with
+    ``launches_a_call`` not ``iters`` times that many (the profiler has
+    lost a window's kernel records on the card), is taken again,
+    ``tries`` times at most, then the time is NaN: not measured."""
     fn()
     torch.cuda.synchronize()
+    want = iters * launches_a_call
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -317,11 +323,19 @@ def device_ms(fn, iters: int, kernel: str, tries: int = 3) -> float:
                 total += getattr(evt, "self_device_time_total",
                                  getattr(evt, "self_cuda_time_total", 0.0))
                 count += evt.count
-        if count:
-            return total / count / 1e3
-    print(f"device_ms: the profiler saw no {kernel} kernel in {tries} "
-          "profiles: not measured", file=sys.stderr, flush=True)
+        if count and (not want or count == want):
+            return total / (iters if want else count) / 1e3
+    print(f"device_ms: the profiler saw {count} {kernel} kernel(s) in the "
+          f"last of {tries} profiles, {want or 'some'} wanted: not measured",
+          file=sys.stderr, flush=True)
     return float("nan")
+
+
+def k10_launches(fn) -> int:
+    """K10's launches in one call of ``fn``, by its wrapper's count."""
+    before = kern.jfa_launches
+    fn()
+    return kern.jfa_launches - before
 
 
 def apd_scene(views: int = APD_VIEWS):
@@ -343,17 +357,23 @@ def _cloned(v):
     return v
 
 
-def real_pass_chunks(dev, views: int = PASS_VIEWS
-                     ) -> types.SimpleNamespace:
-    """The first K7 chunk and the first K8 chunk of a real APD REFINE_INIT
-    pass of view 0, ``tools/profile_pass.py --pass apd``'s pass: the APD
-    scene with ``views`` views (its default 11), priors from a FIRST_INIT
-    pass of the same view at full size, source depths the ground truth,
-    the SA mask the weak plane; each as the positional and keyword
-    arguments of its wrapper, captured at the call; and ``k8_plain``, the
-    pass's reference camera, RANSAC threshold and depth bounds, which K8's
-    plain version takes in place of the wrapper's host scalars."""
-    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+class RealPass(NamedTuple):
+    """A real APD REFINE_INIT pass of view 0 (``real_pass_inputs``)."""
+
+    data: CostData
+    params: object        # the pass's PatchMatchParams
+    depth_min: float
+    depth_max: float
+    prior: dict           # run_patchmatch's prior_* arguments
+    prior_weak: int       # WEAK pixels of the prior
+
+
+def real_pass_inputs(dev, views: int = PASS_VIEWS) -> RealPass:
+    """``tools/profile_pass.py --pass apd``'s pass: the APD scene with
+    ``views`` views (its default 11), priors from a FIRST_INIT pass of the
+    same view at full size, source depths the ground truth, the SA mask the
+    weak plane; run it with ``patchmatch.run_patchmatch(data, params,
+    depth_min=, depth_max=, seed=1, **prior)``."""
     from apde_mvs_tpu_torch.pipeline import patchmatch
     scene = apd_scene(views)
     cams = geo.CameraArrays.from_cameras(scene.cameras, device=dev)
@@ -373,6 +393,23 @@ def real_pass_chunks(dev, views: int = PASS_VIEWS
                  prior_weak=first.weak.astype(np.int32),
                  prior_confidence=first.confidence.astype(np.float32))
     spec = next(s for s in schedule if s.params.state == "refine_init")
+    return RealPass(data, spec.params, dmin, dmax, prior,
+                    int((first.weak == cfg.WEAK).sum()))
+
+
+def real_pass_chunks(dev, views: int = PASS_VIEWS
+                     ) -> types.SimpleNamespace:
+    """The first K7 chunk, the first K8 chunk, the first K9 call and the
+    K10 call of a real APD REFINE_INIT pass of view 0 (``real_pass_inputs``),
+    each as the positional and keyword arguments of its wrapper, captured
+    at the call (``k7``, ``k8``, ``k9``, ``k10``; None where the checkout
+    has no such wrapper), the pass (``inputs``); and ``k8_plain``, the
+    pass's reference camera, RANSAC threshold and depth bounds, which K8's
+    plain version takes in place of the wrapper's host scalars (K9's
+    takes the camera)."""
+    from apde_mvs_tpu_torch.ops.cuda import weak_sweep
+    from apde_mvs_tpu_torch.pipeline import patchmatch
+    rp = real_pass_inputs(dev, views)
     got = {}
 
     def capture(mod, name, key):
@@ -386,20 +423,23 @@ def real_pass_chunks(dev, views: int = PASS_VIEWS
         return fn, run
     saved = []
     for mod, name, key in ((weak_sweep, "weak_update_fused", "k7"),
-                           (kern, "gen_anchors", "k8")):
+                           (kern, "gen_anchors", "k8"),
+                           (kern, "fit_planes", "k9"),
+                           (kern, "nearest_strong", "k10")):
         fn, run = capture(mod, name, key)
         saved.append((mod, name, fn))
         setattr(mod, name, run)
     try:
-        patchmatch.run_patchmatch(data, spec.params, depth_min=dmin,
-                                  depth_max=dmax, seed=1, **prior)
+        patchmatch.run_patchmatch(rp.data, rp.params, depth_min=rp.depth_min,
+                                  depth_max=rp.depth_max, seed=1, **rp.prior)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    n_weak = int((first.weak == cfg.WEAK).sum())
     return types.SimpleNamespace(
-        k7=got.get("k7"), k8=got.get("k8"), prior_weak=n_weak,
-        k8_plain=(data.ref_cam, spec.params.ransac_threshold, dmin, dmax))
+        k7=got.get("k7"), k8=got.get("k8"), k9=got.get("k9"),
+        k10=got.get("k10"), inputs=rp, prior_weak=rp.prior_weak,
+        k8_plain=(rp.data.ref_cam, rp.params.ransac_threshold, rp.depth_min,
+                  rp.depth_max))
 
 
 def k7_kwargs(wc, sa: bool, geom: bool, refine_init: bool) -> dict:
@@ -558,11 +598,13 @@ def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
 
 
 def timed(out: dict, name: str, fn, iters: int, kernel: str,
-          what: str) -> None:
+          what: str, launches_a_call: int = 0) -> None:
     """``fn``'s mean time a call by CUDA events into out[name] and its
-    kernel's device time (profiler) into out[name + " device"]."""
+    kernel's device time (profiler; a call's of ``launches_a_call``
+    launches where given) into out[name + " device"]."""
     out[name] = cuda_ms(fn, iters)
-    out[name + " device"] = device_ms(fn, iters, kernel)
+    out[name + " device"] = device_ms(fn, iters, kernel,
+                                      launches_a_call=launches_a_call)
     print(f"{name}: {out[name]:.4f} ms, device {out[name + ' device']:.4f} "
           f"ms {what}", flush=True)
 
@@ -657,16 +699,37 @@ def anchor_times(scene, wc, real, dev, out: dict, seed: int = 0) -> None:
     weak = torch.where(region, cfg.WEAK, cfg.STRONG).to(torch.int32)
     conf = torch.where(region, 40.0, 200.0)
     valid = torch.ones_like(region)
-    steps = anc.jfa_steps(HEIGHT, WIDTH)
-    timed(out, "K10", lambda: kern.nearest_strong(weak, conf, valid, steps),
-          20, "jfa_step", f"({HEIGHT}x{WIDTH}, {8 * len(steps)} launches)")
-    out["K10 device"] *= 8 * len(steps)    # a call's launches
-    tri = anc.ransac_draws(torch.Generator(device=dev).manual_seed(seed),
-                           wc.x.numel(), dev)
+    # a call over the live sub-passes (a parent without them: every step)
+    plan = anc.jfa_schedule(HEIGHT, WIDTH) if hasattr(anc, "jfa_schedule") \
+        else anc.jfa_steps(HEIGHT, WIDTH)
+
+    def k10():
+        return kern.nearest_strong(weak, conf, valid, plan)
+    launches = k10_launches(k10)
+    timed(out, "K10", k10, 20, "jfa",
+          f"({HEIGHT}x{WIDTH}, {launches} launches)",
+          launches_a_call=launches)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tri = anc.ransac_draws(gen, wc.x.numel(), dev)
     cam = kern.camera(wc.data.ref_cam)
     timed(out, "K9", lambda: kern.fit_planes(
         wc.state.planes, wc.x, wc.y, wc.anchors, tri, cam), 20, "fit_planes",
         f"({wc.x.numel()} reliable weak pixels)")
+    out["K9 draw table"] = cuda_ms(lambda: anc.ransac_draws(
+        gen, wc.x.numel(), dev), 20)
+    print(f"K9 draw table: {out['K9 draw table']:.4f} ms (torch.randint, "
+          f"({anc.RANSAC_ITERS}, {wc.x.numel()}, 3))", flush=True)
+    if real.k9 is not None:
+        a, kw = real.k9
+        timed(out, "K9 real pass", lambda: kern.fit_planes(*a, **kw), 20,
+              "fit_planes", f"({a[1].numel()} reliable weak pixels of a "
+              "real APD pass)")
+    if real.k10 is not None:
+        a, kw = real.k10
+        launches = k10_launches(lambda: kern.nearest_strong(*a, **kw))
+        timed(out, "K10 real pass", lambda: kern.nearest_strong(*a, **kw),
+              20, "jfa", f"(a real APD pass's map, {launches} launches)",
+              launches_a_call=launches)
 
 
 def main(argv=None) -> int:

@@ -221,7 +221,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     anchor = {name: sum(t for k, t in kernels.items() if kernel in k) / 1e6
               for name, kernel in (("k8_s", "gen_anchors"),
                                    ("k9_s", "fit_planes"),
-                                   ("k10_s", "jfa_step"))}
+                                   ("k10_s", "jfa_"))}
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
     sites_s = {site: sum(s.elapsed_time(e) for s, e in ev) / 1e3
                for site, ev in kernel_events.items()}

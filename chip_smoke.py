@@ -61,7 +61,12 @@ version and the torch-op body it replaced
 as a diagnostic, and with square windows and on the real pass's chunk;
 K10, K8 and K9 bitwise on the APD scan's setup (K8 at rotate_time 1, 2
 and 4; unaligned jitter draws refused) and crafted cases, K8
-also timed on a real pass's chunk and beside its draw table; and where a
+also timed on a real pass's chunk and beside its draw table, K10 and K9
+also bitwise and timed on a real pass's map and first fit (K9 beside its
+draw table, K10 with its launches a call and live sub-passes); the
+synchronising calls around a real APD pass's iteration loop, with K9's
+camera read in the loop as before and once a pass as now (fails if a fit
+in the loop still reads it); and where a
 K7 and a K8 launch spend their device time, stage by stage
 (``tools/kernel_split.py``). The paths:
 
@@ -2164,6 +2169,9 @@ def apd_setup(scene, device):
 
 
 ANCHOR_ERRS = []   # max |kernel - plain| of every K8, K9, K10 check
+K10_A_CALL = []    # K10's launches a call as anchor_kernel_phase counted
+#                    them on its 600x800 maps (check_counts holds the main
+#                    paths' calls to them)
 
 
 def same_bits(got, want) -> int:
@@ -2282,9 +2290,12 @@ def k9_check(data, state, wx, wy, anchors, triplets, what: str):
     return got
 
 
-def k10_bound(h: int, w: int, launches: int) -> tuple:
+def k10_bound(h: int, w: int, sub_passes: int) -> tuple:
+    """K10's least time on an (h, w) map: its ``sub_passes`` live
+    sub-passes' operations (whatever its launches), the maps read and the
+    result written once."""
     nbytes = h * w * (4 + 4 + 1 + 8)
-    ops = h * w * launches * K10_OPS_PER_PIXEL_PASS
+    ops = h * w * sub_passes * K10_OPS_PER_PIXEL_PASS
     return bound_of(nbytes, ops)
 
 
@@ -2376,13 +2387,16 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
     too few anchors, tying fits; a flat depth map, weak pixels at the
     border, too few strong pixels), the draws of the sharded fit (a column
     slice), K8's refusal of jitter draws not 16-byte aligned and torch's
-    float32 cone comparison on the card. Times each
+    float32 cone comparison on the card; K10 and K9 also on a real APD
+    pass's map and first fit (``real.k10``, ``real.k9``). Times each
     kernel warm with CUDA events against its plain version (the torch-op
     composition it replaced: K8's and K10's are the parent's ops, K9's
     differ only in the order of two sums) at the main path's shapes, K8
     also at the chunk a real APD pass hands it (``real``:
     ``tools.kernel_times.real_pass_chunks``) and beside its chunk's draw
-    table, with its bound."""
+    table, K10 and K9 also at the real pass's (K9 beside its draw table),
+    each with its bound (K10's over its live sub-passes, whatever its
+    launches)."""
     import numpy as np
     import torch
 
@@ -2496,22 +2510,49 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
     log("  the cone's comparison: float32 on the card at rotate_time 1, 2 "
         "and 4")
 
-    # times at the main path's shapes: K10 a call (96 launches) on the APD
-    # map, K8 a chunk of the APD weak list at the pass's rotate_time, K9 a
-    # call on its reliable pixels
-    steps = anc.jfa_steps(HEIGHT, WIDTH)
-    ms = cuda_ms(lambda: kern.nearest_strong(st.weak, st.confidence,
-                                             st.valid, steps), 20)
-    plain_ms = cuda_ms(lambda: anc.nearest_strong_jfa_plain(
-        st.weak, st.confidence, st.valid), 3, 1)
-    bound = k10_bound(HEIGHT, WIDTH, 8 * len(steps))
-    out["K10"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                      bound_by=bound[1], library_ms=None,
-                      launches_a_call=8 * len(steps))
-    log(f"  K10 a call ({8 * len(steps)} launches, {HEIGHT}x{WIDTH}): "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
-        f"{bound[1]} ({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G "
-        f"operations) [{card}]")
+    # a real APD pass's K10 map and first K9 fit (the pass's own camera)
+    a, kw = real.k10
+    maps["real"] = k10_check(a[0], a[1], a[2], "a real APD pass's map")
+    if tuple(a[3]) != anc.jfa_schedule(*a[0].shape):
+        raise AssertionError("K10, a real APD pass: not the map's schedule")
+    a9, kw9 = real.k9
+    ref_cam = real.k8_plain[0]
+    if kern.camera(ref_cam) != a9[5]:
+        raise AssertionError("K9, a real APD pass's fit: the captured "
+                             "camera is not the pass's")
+    got = kern.fit_planes(*a9, **kw9)
+    bad = same_bits(got, anc.ransac_fit_planes_plain(ref_cam, *a9[:5]))
+    log(f"  K9 a real APD pass's first fit: {a9[1].numel()} pixels, {bad} "
+        f"of {got.numel()} values differ from the plain version; "
+        f"{int((got[:, :3] != 0).any(1).sum())} fits")
+    if bad:
+        raise AssertionError(f"K9, a real APD pass's fit: {bad} values "
+                             "differ")
+
+    # times at the main path's shapes: K10 a call on the APD map and on a
+    # real pass's, K8 a chunk of the APD weak list at the pass's
+    # rotate_time, K9 a call on its reliable pixels and a real pass's fit
+    for key, (w_, c_, v_) in (("K10", (st.weak, st.confidence, st.valid)),
+                              ("K10_real", a[:3])):
+        h_, wd_ = w_.shape
+        schedule = anc.jfa_schedule(h_, wd_)
+        before = kern.jfa_launches
+        kern.nearest_strong(w_, c_, v_, schedule)
+        launches = kern.jfa_launches - before
+        K10_A_CALL.append(launches)
+        ms = cuda_ms(lambda: kern.nearest_strong(w_, c_, v_, schedule), 20)
+        plain_ms = cuda_ms(lambda: anc.nearest_strong_jfa_plain(w_, c_, v_),
+                           3, 1)
+        bound = k10_bound(h_, wd_, len(schedule))
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1], library_ms=None,
+                        launches_a_call=launches, sub_passes=len(schedule))
+        log(f"  {key} a call ({h_}x{wd_}: {launches} launch(es) a call, "
+            f"{len(schedule)} live sub-passes of "
+            f"{8 * len(anc.jfa_steps(h_, wd_))}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G operations) "
+            f"[{card}]")
 
     wx, wy, raws = out.pop("k8_setup")
     sl = slice(0, min(anc.ANCHOR_CHUNK, wx.numel()))
@@ -2589,17 +2630,24 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
 
     x, y, a = reliable["apd"]
     tri = anc.ransac_draws(gen, x.numel(), device)
-    ms = cuda_ms(lambda: kern.fit_planes(setup.cam_planes, x, y, a, tri,
-                                         cam), 20)
-    plain_ms = cuda_ms(lambda: anc.ransac_fit_planes_plain(
-        setup.data.ref_cam, setup.cam_planes, x, y, a, tri), 3, 1)
-    bound = k9_bound(a)
-    out["K9"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                     bound_by=bound[1], library_ms=None, pixels=x.numel())
-    log(f"  K9 a call ({x.numel()} reliable pixels): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-        f"({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G operations) "
-        f"[{card}]")
+    for key, args, ref_cam in (
+            ("K9", (setup.cam_planes, x, y, a, tri, cam),
+             setup.data.ref_cam),
+            ("K9_real", a9, real.k8_plain[0])):
+        ms = cuda_ms(lambda: kern.fit_planes(*args), 20)
+        plain_ms = cuda_ms(lambda: anc.ransac_fit_planes_plain(
+            ref_cam, *args[:5]), 3, 1)
+        bound = k9_bound(args[3])
+        draws_ms = cuda_ms(lambda: anc.ransac_draws(gen, args[1].numel(),
+                                                    device), 20)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1], library_ms=None,
+                        pixels=args[1].numel(), draws_ms=draws_ms)
+        log(f"  {key} a call ({args[1].numel()} reliable pixels): {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+            f"{bound[1]} ({bound[2] / 1e6:.2f} MB, {bound[3] / 1e9:.3f} G "
+            f"operations); its draw table (torch.randint) {draws_ms:.4f} ms "
+            f"[{card}]")
     for name in ("K8", "K9", "K10"):
         info = kern.kernel_info(name)
         out[name]["regs"] = info["regs"]
@@ -2611,6 +2659,81 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
         f"{len(ANCHOR_ERRS)} outputs compared, max |kernel - plain| "
         f"{out['max_abs_err']}")
     return out
+
+
+def sync_phase(rp, card: str) -> dict:
+    """The synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``)
+    around a real APD pass's iteration loop (``full_pass._iterations``;
+    ``rp``: ``tools.kernel_times.real_pass_inputs``), by call site: with
+    each fit reading the reference camera from the card, as K9's wrapper
+    did before the camera was read once a pass ("before"), and on the main
+    path ("after"). Fails if a fit in the loop still reads the camera, or
+    if the check does not see the read it should."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from apde_mvs_tpu_torch.pipeline import full_pass, patchmatch
+    log("==== synchronising calls in an APD pass's iteration loop ====")
+    inner = full_pass._iterations
+    port = REPO / "apde_mvs_tpu_torch"
+    sites = {}
+
+    def watched(label):
+        def run(data, state, cfg, weak, consts, cam, gen, shard):
+            calls = collections.Counter()
+
+            def show(message, category, filename, lineno, file=None,
+                     line=None):
+                if "synchroniz" not in str(message):
+                    return
+                frames = [f for f in traceback.extract_stack()
+                          if Path(f.filename).resolve().is_relative_to(port)]
+                f = frames[-1] if frames else None
+                calls[f"{Path(f.filename).resolve().relative_to(REPO)}:"
+                      f"{f.lineno} {f.name}" if f
+                      else f"{filename}:{lineno}"] += 1
+            torch.cuda.synchronize()
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return inner(data, state, cfg, weak, consts,
+                                 None if label == "before" else cam, gen,
+                                 shard)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    sites[label] = calls
+        return run
+    try:
+        for label in ("before", "after"):
+            full_pass._iterations = watched(label)
+            patchmatch.run_patchmatch(rp.data, rp.params,
+                                      depth_min=rp.depth_min,
+                                      depth_max=rp.depth_max, seed=1,
+                                      **rp.prior)
+    finally:
+        full_pass._iterations = inner
+    camera = {}
+    for label in ("before", "after"):
+        calls = sites[label]
+        camera[label] = sum(n for site, n in calls.items()
+                            if site.endswith(" camera"))
+        log(f"  {label}: {sum(calls.values())} synchronising calls in "
+            f"{rp.params.max_iterations} iterations, the camera read "
+            f"{camera[label]}: " + "; ".join(
+                f"{site} x{n}" for site, n in sorted(calls.items())))
+    if camera["after"]:
+        raise AssertionError("a fit in the APD iteration loop still reads "
+                             "the reference camera from the card")
+    if camera["before"] < rp.params.max_iterations:
+        raise AssertionError("the sync check did not see a fit's camera "
+                             "read")
+    log(f"  K9's camera: read once a pass, none in the loop [{card}]")
+    return {k: dict(v) for k, v in sites.items()}
 
 
 class Tee(io.TextIOBase):
@@ -2745,6 +2868,38 @@ def k2_elsewhere(k2_sites: dict) -> int:
     return sum(n for site, n in k2_sites.items() if site not in K2_SITES)
 
 
+@contextlib.contextmanager
+def counted_k10_calls():
+    """Counts the K10 calls of the main path run inside: the calls of
+    ``ops.anchors.nearest_strong_jfa`` (the APD setup's and the anchor
+    exports'), each with the K10 launches it made by the wrapper's count.
+    Yields the list of launches a call."""
+    from apde_mvs_tpu_torch.ops import anchors as anc
+    from apde_mvs_tpu_torch.ops.cuda import anchors as kern
+    fn = anc.nearest_strong_jfa
+    calls = []
+
+    def counted(*args, **kwargs):
+        before = kern.jfa_launches
+        out = fn(*args, **kwargs)
+        calls.append(kern.jfa_launches - before)
+        return out
+    anc.nearest_strong_jfa = counted
+    try:
+        yield calls
+    finally:
+        anc.nearest_strong_jfa = fn
+
+
+def k10_calls_ok(c: dict) -> bool:
+    """A weak path's K10 launches: at least one call, each call with the
+    launches K10_A_CALL measured (one count there), and they sum to the
+    path's K10 count."""
+    calls = c.get("k10_calls", [])
+    return bool(calls) and len(set(K10_A_CALL)) == 1 \
+        and set(calls) == set(K10_A_CALL) and sum(calls) == c["k10"]
+
+
 def check_counts(what: str, c: dict, passes: bool = True,
                  weak: bool = False) -> None:
     """The initial cost's NCC went through K2 (at least one launch, every
@@ -2756,9 +2911,10 @@ def check_counts(what: str, c: dict, passes: bool = True,
     the weak sweep through K7 (at least one launch a weak-sweep chunk) and
     the initial cost's re-score through K6 (one plane a launch), at least
     one of each on a ``weak`` path (one that runs APD passes), whose APD
-    setup must launch K10 (8 launches a jump step), K8 and K9, which no
-    other path launches; each kernel's launches add up over its sites or
-    modes."""
+    setup must launch K10 (in ``c["k10_calls"]`` calls, each with the
+    launches ``anchor_kernel_phase`` counted a call, K10_A_CALL), K8 and
+    K9, which no other path launches; each kernel's launches add up over
+    its sites or modes."""
     split = k6_chunks(c)
     ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
         and split is not None \
@@ -2773,7 +2929,7 @@ def check_counts(what: str, c: dict, passes: bool = True,
             and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
     if weak:
         ok = ok and min(split) > 0 and c["k8"] > 0 and c["k9"] > 0 \
-            and c["k10"] > 0 and c["k10"] % 8 == 0
+            and k10_calls_ok(c)
     else:
         ok = ok and c["k8"] == c["k9"] == c["k10"] == 0
     if not ok:
@@ -2782,6 +2938,7 @@ def check_counts(what: str, c: dict, passes: bool = True,
 
 def counts_line(c: dict) -> str:
     split = k6_chunks(c)
+    k10_in = f" in {len(c['k10_calls'])} calls" if "k10_calls" in c else ""
     return (f"K2 launches {c['k2']} by site "
             f"{json.dumps(c['k2_sites'], sort_keys=True)}, K3 launches "
             f"{c['k3']} for {c['k3_colours']} colour updates, K5 launches "
@@ -2789,7 +2946,8 @@ def counts_line(c: dict) -> str:
             f"K7 launches {c['k7']} for {c['k7_chunks']} weak-sweep chunks, "
             f"K6 launches {c['k6']} for {c['k6_planes']} planes ("
             f"{split[1] if split else '?'} re-score chunks), K10 launches "
-            f"{c['k10']}, K8 launches {c['k8']}, K9 launches {c['k9']}, K1 "
+            f"{c['k10']}{k10_in}, K8 launches {c['k8']}, K9 launches "
+            f"{c['k9']}, K1 "
             f"launches {c['k1']} by site "
             f"{json.dumps(c['sites'], sort_keys=True)}")
 
@@ -2808,10 +2966,11 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    text = run_main(apd.main, ["--dense_folder", root, "--dataset",
-                               "General"] + list(cli_args))
+    with counted_k10_calls() as k10_calls:
+        text = run_main(apd.main, ["--dense_folder", root, "--dataset",
+                                   "General"] + list(cli_args))
     wall = time.perf_counter() - t0
-    c = read_counts()
+    c = dict(read_counts(), k10_calls=k10_calls)
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(passes) != n_passes:
@@ -2935,13 +3094,14 @@ def exports_phase(root: Path, num_views: int, seed: int, out_dir: Path,
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    text = run_main(apd.main, [
-        "--dense_folder", root, "--dataset", "General", "--seed", seed,
-        "--pyramid_base", APD_BASE, "--start_iteration", 7,
-        "--export_anchor", "true", "--export_curve", "true",
-        "--no_fuse", "true"])
+    with counted_k10_calls() as k10_calls:
+        text = run_main(apd.main, [
+            "--dense_folder", root, "--dataset", "General", "--seed", seed,
+            "--pyramid_base", APD_BASE, "--start_iteration", 7,
+            "--export_anchor", "true", "--export_curve", "true",
+            "--no_fuse", "true"])
     wall = time.perf_counter() - t0
-    c = read_counts()
+    c = dict(read_counts(), k10_calls=k10_calls)
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     weak = [int(ln.split()[2]) for ln in text.splitlines()
             if ln.startswith("Weak count:")]
@@ -3520,6 +3680,7 @@ def main(argv=None) -> int:
         f"a FIRST_INIT pass): K7's first chunk {real.k7[0][2].numel()} "
         f"pixels, K8's {real.k8[0][4].numel()}; "
         f"{time.perf_counter() - t0:.1f} s")
+    sync_phase(real.inputs, card)
     k7 = weak_sweep_phase(apd_scene, wc, real, args.seed, device, card)
     del wc
     ka = anchor_kernel_phase(apd_scene, real, args.seed, device, card)
@@ -3750,8 +3911,14 @@ def main(argv=None) -> int:
                      **k7["square"]))
     a_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/anchors.cu"}
     for key, what, replaces in (
-            ("K10", "K10 nearest-strong jump flooding, the APD scan's "
-             "round-1 map (600x800, 96 launches a call)", ":44-99"),
+            ("K10", f"K10 nearest-strong jump flooding, the APD scan's "
+             f"round-1 map (600x800, {ka['K10']['launches_a_call']} "
+             f"launch(es) a call over {ka['K10']['sub_passes']} live "
+             "sub-passes)", ":44-99"),
+            ("K10_real", f"K10 nearest-strong jump flooding, a real APD "
+             f"pass's map (600x800, {ka['K10_real']['launches_a_call']} "
+             f"launch(es) a call over {ka['K10_real']['sub_passes']} live "
+             "sub-passes)", ":44-99"),
             ("K8", f"K8 anchor generation, a chunk of the APD scan's weak "
              f"list ({ka['K8']['pixels']} pixels, "
              f"{ka['K8']['directions']} directions)", ":191-373"),
@@ -3759,7 +3926,9 @@ def main(argv=None) -> int:
              f"({ka['K8_real']['pixels']} pixels, "
              f"{ka['K8_real']['directions']} directions)", ":191-373"),
             ("K9", f"K9 fit-plane RANSAC, the APD scan's reliable weak "
-             f"pixels ({ka['K9']['pixels']})", ":386-467")):
+             f"pixels ({ka['K9']['pixels']})", ":386-467"),
+            ("K9_real", f"K9 fit-plane RANSAC, a real APD pass's first fit "
+             f"({ka['K9_real']['pixels']} pixels)", ":386-467")):
         rows.append(dict(
             name=what, **a_src,
             replaces=f"apde_mvs_tpu/ops/anchors.py{replaces} "

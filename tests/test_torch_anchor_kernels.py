@@ -16,10 +16,18 @@ the first of equally costly fits wins, the float32 cone comparison, the
 refusal of more than 32 directions, and that CPU tensors take the plain
 versions and launch nothing.
 
-On a card: each kernel against its plain version bit for bit, and the
-public functions' launches. The card part imports no JAX, so on a machine
-with a card and without the JAX package's imports it runs with
-``--noconftest`` (the JAX parity tests then skip):
+Also on the CPU: K10's schedule of live sub-passes (flooding over it
+equals flooding over every sub-pass, the plain version and the JAX package
+at maps where a step equals or nearly equals a side) and its phases; the
+fit's selection rule on crafted ties, +inf and NaN costs.
+
+On a card: each kernel against its plain version bit for bit (K10 at
+maps inside one tile, past a tile and 600x800, one launch a call; K9 at
+7, 33 and 50 iterations and on column slices), and the public functions'
+launches and the camera they read once a pass.
+The card part imports no JAX, so on a machine with a card and without
+the JAX package's imports it runs with ``--noconftest`` (the JAX parity
+tests then skip):
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_anchor_kernels.py
@@ -136,9 +144,96 @@ def test_jfa_steps_at_600x800():
     assert 8 * len(steps) == 96
 
 
-# ---------------------------------------------------------------------------
-# K8's plain version
-# ---------------------------------------------------------------------------
+def _flood_numpy(weak, conf, valid, schedule):
+    """The flooding in numpy over ``schedule``'s sub-passes only: each
+    relaxes the whole map against the one the previous sub-pass left
+    (neighbours outside the map (-1, -1)), then the strong pixels map to
+    themselves."""
+    h, w = weak.shape
+    ys, xs = np.mgrid[0:h, 0:w]
+    strong = (weak == STRONG) & valid
+    bx = np.where(strong, xs, -1)
+    by = np.where(strong, ys, -1)
+    for step, dx, dy in schedule:
+        nx, ny = xs + dx * step, ys + dy * step
+        inside = (nx >= 0) & (nx < w) & (ny >= 0) & (ny < h)
+        nxc, nyc = np.clip(nx, 0, w - 1), np.clip(ny, 0, h - 1)
+        cx = np.where(inside, bx[nyc, nxc], -1)
+        cy = np.where(inside, by[nyc, nxc], -1)
+        c_conf = conf[np.maximum(cy, 0), np.maximum(cx, 0)]
+        b_conf = conf[np.maximum(by, 0), np.maximum(bx, 0)]
+        d_cand = (cx - xs) ** 2 + (cy - ys) ** 2
+        d_best = np.where(bx >= 0, (bx - xs) ** 2 + (by - ys) ** 2,
+                          np.iinfo(np.int32).max)
+        better = (cx >= 0) & (c_conf >= conf) & (
+            (d_cand < d_best) | ((d_cand == d_best) & (c_conf > b_conf)))
+        bx = np.where(better, cx, bx)
+        by = np.where(better, cy, by)
+    return np.stack([np.where(strong, xs, bx), np.where(strong, ys, by)],
+                    -1).astype(np.int32)
+
+
+# map shapes where a step equals or nearly equals a side: the sub-passes
+# of every step that reaches past a side are dead
+SCHEDULE_SHAPES = ((64, 80), (1, 80), (64, 1), (64, 64), (65, 129))
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in SCHEDULE_SHAPES])
+@pytest.mark.parametrize("name", cases.JFA_CASES)
+def test_jfa_schedule_floods_as_every_sub_pass(name, shape):
+    """K10 runs only ``jfa_schedule``'s live sub-passes: flooding over
+    them equals the plain version (every sub-pass) and the JAX package bit
+    for bit."""
+    J = _jax()
+    h, w = shape
+    weak, conf, valid = cases.jfa_case(name, h=h, w=w)
+    schedule = tanc.jfa_schedule(h, w)
+    every = [(s, dx, dy) for s in tanc.jfa_steps(h, w)
+             for dx, dy in tanc.JFA_NEIGHBOURS]
+    assert len(schedule) < len(every)
+    got = _flood_numpy(weak, conf, valid, schedule)
+    np.testing.assert_array_equal(got, _flood_numpy(weak, conf, valid,
+                                                    every))
+    np.testing.assert_array_equal(got, tanc.nearest_strong_jfa_plain(
+        torch.as_tensor(weak), torch.as_tensor(conf),
+        torch.as_tensor(valid)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(J.anc.nearest_strong_jfa(
+        J.jnp.asarray(weak), J.jnp.asarray(conf), J.jnp.asarray(valid))))
+
+
+def test_jfa_schedule_and_phases_at_600x800():
+    """At 600x800 the 8 sub-passes of step 1024 are dead (88 live of 96);
+    at the tests' 64x80 those of step 128 and 6 of step 64's. K10 runs
+    the steps 512..32 as one phase folded by 32 (the folded map, 25 x 19,
+    fits a tile whole), each step from 16 to 2 alone, folded by itself,
+    and the two steps of 1 together at fold 1, all in one cooperative
+    launch a call."""
+    schedule = tanc.jfa_schedule(600, 800)
+    assert len(schedule) == 88 and schedule[0][0] == 512
+    assert len(tanc.jfa_steps(H, W)) == 9
+    assert len(tanc.jfa_schedule(H, W)) == 8 * 9 - 8 - 6
+    assert tanc.jfa_schedule(1, 1) == ()
+    phases = kern.jfa_phases(schedule, 600, 800)
+    assert phases == [(32, 0, 40), (16, 40, 8), (8, 48, 8), (4, 56, 8),
+                      (2, 64, 8), (1, 72, 16)]
+    # a map that fits a tile folded by 2: one phase but the tail
+    assert kern.jfa_phases(tanc.jfa_schedule(H, W), H, W) == [
+        (2, 0, 42), (1, 42, 16)]
+    assert kern.jfa_phases((), 1, 1) == [(1, 0, 0)]
+    for shape in ((600, 800), (H, W), (1, 80), (65, 129)):
+        sch = tanc.jfa_schedule(*shape)
+        ph = kern.jfa_phases(sch, *shape)
+        assert sum(c for _, _, c in ph) == len(sch)
+        assert ph[0][1] == 0 and all(
+            f0 + c0 == f1 for (_, f0, c0), (_, f1, _) in zip(ph, ph[1:]))
+        assert all(sch[i][0] % fold == 0 for fold, first, count in ph
+                   for i in range(first, first + count))
+        # the short-range tail: the steps of 1 at fold 1, whose reach (3
+        # each way) fits a tile with its halo
+        assert ph[-1][0] == 1 and all(
+            sch[i][0] == 1 for i in range(ph[-1][1], len(sch)))
+
 
 def _gen_both(J, weak, conf, depth, valid, wx, wy, rt, raws, ns=None):
     """(plain AnchorResult, JAX AnchorResult, the nearest-strong map)."""
@@ -349,6 +444,32 @@ def test_fit_planes_crafted_match_jax():
     assert has[kinds == "ring"].all() and has[kinds == "three"].all()
 
 
+def _tie_kinds(n: int) -> np.ndarray:
+    return np.array([cases.TIE_KINDS[i % len(cases.TIE_KINDS)]
+                     for i in range(n)])
+
+
+def test_fit_planes_ties_and_non_finite_costs_match_jax():
+    """The selection rule's crafted pixels (``anchor_cases.fit_ties``):
+    exact ties, the first usable iteration at either side of a warp's 32
+    lanes, costs of +inf and NaN, fewer than 3 anchors: the same fits as
+    the JAX package; no fit where every cost is +inf or NaN."""
+    J = _jax()
+    c = cases.fit_ties()
+    tfit, jfit = _fit_both(J, c.planes, c.wx, c.wy, c.anchors, c.triplets)
+    has = _assert_fits_match(tfit, jfit)
+    kinds = _tie_kinds(len(c.wx))
+    for kind in ("inf_anchor", "nan_anchor", "two"):
+        assert not has[kinds == kind].any(), kind
+        assert (tfit[kinds == kind] == 0).all(), kind
+    assert has[kinds == "flat"].all() and has[kinds == "three_late"].all()
+    # a fronto-parallel fit: every tied orientation flips to the same
+    # plane but for the signs of its zeros
+    np.testing.assert_array_equal(np.abs(tfit[kinds == "flat"]),
+                                  [[0, 0, 1, 4]] * int((kinds == "flat")
+                                                       .sum()))
+
+
 def test_fit_planes_first_of_equal_costs_wins():
     """Three anchors: every usable iteration redraws the same triangle in
     some vertex order, at cost 0 (no other anchor). The fit is the first
@@ -421,12 +542,19 @@ def test_cpu_tensors_take_the_plain_versions():
             kern.fit_launches) == (0, 0, 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kern.nearest_strong(ts.weak, ts.confidence, ts.valid,
-                            tanc.jfa_steps(H, W))
+                            tanc.jfa_schedule(H, W))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kern.fit_planes(ts.planes, twx, twy, res.anchors, tri,
                         kern.camera(cases.data().ref_cam))
     assert (kern.jfa_launches, kern.anchor_launches,
             kern.fit_launches) == (0, 0, 0)
+
+
+def test_host_camera_is_none_on_cpu():
+    """A pass reads the reference camera to the host once for K8 and K9;
+    on the CPU there is nothing to read: the plain versions take the
+    camera's tensors, and the pass hands them None."""
+    assert tanc.host_camera(cases.data().ref_cam) is None
 
 
 def test_profile_pass_times_the_anchor_kernels_and_restores_them():
@@ -542,12 +670,34 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", cases.JFA_CASES)
 def test_k10_matches_plain_on_card(cuda_device, name):
+    """One launch a call (a cooperative launch over every phase)."""
     weak, conf, valid = (torch.as_tensor(a, device=cuda_device)
                          for a in cases.jfa_case(name))
     before = kern.jfa_launches
     got = tanc.nearest_strong_jfa(weak, conf, valid)
     torch.cuda.synchronize()
-    assert kern.jfa_launches == before + 8 * len(tanc.jfa_steps(H, W))
+    assert kern.jfa_launches == before + 1
+    assert tanc.host_camera(cases.data(cuda_device).ref_cam) == kern.camera(
+        cases.data().ref_cam)
+    assert _bits_equal(got, tanc.nearest_strong_jfa_plain(weak, conf,
+                                                          valid))
+
+
+# a map inside one tile, one that is no multiple of the tiles (a side past
+# a tile's 128 columns) and the APD scan's
+CARD_SHAPES = ((20, 30), (97, 201), (600, 800))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES + SCHEDULE_SHAPES[1:],
+                         ids=[f"{h}x{w}" for h, w in
+                              CARD_SHAPES + SCHEDULE_SHAPES[1:]])
+@pytest.mark.parametrize("name", cases.JFA_CASES)
+def test_k10_shapes_match_plain_on_card(cuda_device, name, shape):
+    h, w = shape
+    weak, conf, valid = (torch.as_tensor(a, device=cuda_device)
+                         for a in cases.jfa_case(name, h=h, w=w))
+    got = tanc.nearest_strong_jfa(weak, conf, valid)
     assert _bits_equal(got, tanc.nearest_strong_jfa_plain(weak, conf,
                                                           valid))
 
@@ -644,11 +794,11 @@ def test_k8_crafted_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["crafted", "scene"])
+@pytest.mark.parametrize("what", ["crafted", "ties", "scene"])
 def test_k9_matches_plain_on_card(cuda_device, what):
     dev = cuda_device
-    if what == "crafted":
-        c = cases.fit_crafted()
+    if what in ("crafted", "ties"):
+        c = cases.fit_crafted() if what == "crafted" else cases.fit_ties()
         planes, wx, wy, anchors, tri = c
     else:
         weak, conf, depth, valid = cases.scene()
@@ -682,13 +832,60 @@ def test_k9_matches_plain_on_card(cuda_device, what):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("iters", [7, 33, 50])
+def test_k9_iterations_match_plain_on_card(cuda_device, iters):
+    """K9 takes its iterations from the draws: ``iters`` rows equal the
+    plain version's 50 with the rows past ``iters`` unusable (0, 0, 0);
+    on the crafted and the selection's pixels, also on a column slice of
+    longer draws."""
+    dev = cuda_device
+    for c in (cases.fit_crafted(), cases.fit_ties()):
+        ts = _tstate(np.full((H, W), WEAK, np.int32),
+                     np.ones((H, W), np.float32), c.planes,
+                     np.ones((H, W), bool), dev)
+        args = (convert.ints(c.wx, dev), convert.ints(c.wy, dev),
+                convert.ints(c.anchors, dev))
+        n = len(c.wx)
+        wide = np.concatenate([c.triplets, c.triplets[::-1]], 1)[:, :n + 5]
+        for tri in (c.triplets, wide[:, 5:]):
+            padded = tri.copy()
+            padded[iters:] = 0
+            before = kern.fit_launches
+            got = tanc.ransac_fit_planes(cases.data(dev), ts, *args,
+                                         triplets=convert.ints(
+                                             tri, dev)[:iters])
+            torch.cuda.synchronize()
+            assert kern.fit_launches == before + 1
+            want = tanc.ransac_fit_planes_plain(
+                cases.data(dev).ref_cam, ts.planes, *args,
+                convert.ints(padded, dev))
+            assert _bits_equal(got, want)
+        part = convert.ints(wide, dev)[:iters, 5:]
+        assert part.stride(0) == wide.shape[1] * 3
+        assert _bits_equal(
+            tanc.ransac_fit_planes(cases.data(dev), ts, *args, triplets=part),
+            tanc.ransac_fit_planes_plain(cases.data(dev).ref_cam, ts.planes,
+                                         *args, convert.ints(np.concatenate(
+                                             [wide[:iters, 5:], np.zeros(
+                                                 (50 - iters, n, 3),
+                                                 np.int32)]), dev)))
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take_on_card(cuda_device):
     dev = cuda_device
     weak, conf, depth, valid = cases.scene()
     ts = _tstate(weak, conf, cases.depth_planes(depth), valid, dev)
     with pytest.raises(TypeError):
         kern.nearest_strong(ts.weak.long(), ts.confidence, ts.valid,
-                            tanc.jfa_steps(H, W))
+                            tanc.jfa_schedule(H, W))
+    # K10 packs coordinates as int16
+    wide = torch.zeros((1, kern.MAX_SIDE + 1), dtype=torch.int32, device=dev)
+    before = kern.jfa_launches
+    with pytest.raises(ValueError, match="int16"):
+        kern.nearest_strong(wide, wide.float(), wide.bool(),
+                            tanc.jfa_schedule(*wide.shape))
+    assert kern.jfa_launches == before
     ns = tanc.nearest_strong_jfa(ts.weak, ts.confidence, ts.valid)
     wx = convert.ints([10, 11], dev)
     raws = convert.anchor_raws(**cases.draws(np.random.default_rng(0), 2, 2),
