@@ -117,10 +117,30 @@ def clamped_fetch(arr: torch.Tensor, xi, yi):
 
 def fetch(arr: torch.Tensor, xi, yi, fill=0):
     """Integer fetch from a 2-D (or 2-D + trailing dims) array with
-    out-of-bounds fill."""
+    out-of-bounds fill. The result keeps ``arr``'s dtype, and the fill goes
+    to the device as a kernel argument: no host copy, which would wait for
+    the device."""
     h, w = arr.shape[:2]
     inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
     v = clamped_fetch(arr, xi, yi)
     inb = inb.reshape(inb.shape + (1,) * (arr.ndim - 2))
-    return torch.where(inb, v, torch.as_tensor(fill, dtype=arr.dtype,
-                                               device=arr.device))
+    if arr.dtype == torch.bool:
+        fill = bool(fill)
+    elif not arr.dtype.is_floating_point:
+        fill = int(fill)
+    return v.masked_fill(~inb, fill)
+
+
+_constants: dict = {}   # (key, device) -> the table on that device
+
+
+def device_constant(key, make, device) -> torch.Tensor:
+    """``torch.as_tensor(make())`` on ``device``, copied from the host once
+    a (key, device) and kept: a host copy made at every call waits for the
+    device. The table is shared, so callers never write to it."""
+    device = torch.device(device)
+    table = _constants.get((key, device))
+    if table is None:
+        table = _constants[(key, device)] = torch.as_tensor(make(),
+                                                            device=device)
+    return table

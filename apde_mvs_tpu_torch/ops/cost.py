@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from ..core import geometry as geo
-from ..core.sampling import clamped_fetch, fetch, pack_bilinear, \
-    pack_bilinear_u8, texel_fetch
+from ..core.sampling import clamped_fetch, device_constant, fetch, \
+    pack_bilinear, pack_bilinear_u8, texel_fetch
 
 COST_MAX = 2.0
 GEOM_COST_MAX = 3.0
@@ -158,7 +158,8 @@ def ref_window_taps(data: CostData, x, y, radius: int, increment: int,
     or (B, T) per pixel, the (B, T) clamped reference values and the
     (B, T) 0/1 weights, None for the plain square (see
     `precompute_ref_window`)."""
-    sq = torch.as_tensor(square_taps(radius, increment), device=x.device)
+    sq = device_constant(("square_taps", radius, increment),
+                         lambda: square_taps(radius, increment), x.device)
     xi = x.to(torch.int32)
     yi = y.to(torch.int32)
     if not use_sa or data.sa_mask is None:
@@ -168,7 +169,7 @@ def ref_window_taps(data: CostData, x, y, radius: int, increment: int,
                 None)
     if sq.shape[0] != 36:
         raise ValueError("SA mixing assumes 36-tap square windows")
-    st = torch.as_tensor(star_taps(), device=x.device)        # (36, 2)
+    st = device_constant("star_taps", star_taps, x.device)   # (36, 2)
     center_sa = fetch(data.sa_mask, xi, yi)                   # (B,)
     tx = xi[..., None] + st[:, 0]
     ty = yi[..., None] + st[:, 1]

@@ -11,7 +11,12 @@ injected uniforms), the adoption of the best candidate, the 5 refinement
 hypotheses from the injected draws, each costed over the selected views
 (with the geometric cost K4 when it is on), and the REFINE_INIT commit.
 ``propagation._strong_body`` is one call of ``strong_fused``; the torch-op
-body it replaced is ``testing/strong_composition.py``.
+body it replaced is ``testing/strong_composition.py``. In its commit form
+(``commit=True``, ``propagation.propagate_strong``'s serial route) the
+kernel also commits: it writes the active pixels' (not WEAK, valid)
+outputs into fresh copies of the state's maps, in place of the JAX
+package's commit (``propagate_strong``, apde_mvs_tpu/ops/propagation.py
+:429-460) as torch ops; ``commit_maps_plain`` is its plain version.
 
 The kernel (``csrc/strong.cu``) runs the whole update in one launch: a warp
 a pixel, its (plane, view) pairs across the lanes; it builds each pixel's
@@ -47,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ...config import WEAK
 from ...core import geometry as geo
 from ...core.sampling import fetch
 from .. import selection
@@ -96,8 +102,8 @@ def library() -> _build.Built:
     lib.apde_strong.argtypes = (
         [ptr, i32, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, i32, i32, i32,
          i32, ptr, ptr, ptr, i32, ptr, i32, i32, f32, ptr, ptr, ptr, ptr,
-         ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ctypes.c_int64,
-         i32, i32, i32, i32, i32, ptr])
+         ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+         ctypes.c_int64, i32, i32, i32, i32, i32, ptr])
     lib.apde_strong.restype = i32
     for fn in (lib.apde_strong_max_views, lib.apde_strong_cam_stride,
                lib.apde_strong_num_samples):
@@ -376,15 +382,37 @@ def strong_plain(data, state, x, y, draws, *, radius, increment, use_sa,
     return StrongOutputs(plane_cur, cost_cur, sel_new, vw)
 
 
+def commit_maps_plain(state, x, y, out: StrongOutputs) -> StrongOutputs:
+    """The commit of a colour update's outputs ``out`` for pixels (x, y):
+    fresh copies of the state's planes, costs, selections and view weights
+    with ``out`` written at the active pixels (weak state not WEAK, valid),
+    as ``propagation.propagate_strong``'s ``put`` writes them; every other
+    cell keeps its value."""
+    active = (fetch(state.weak, x, y) != WEAK) & fetch(state.valid, x, y)
+    cells = y.long() * state.costs.shape[1] + x.long()
+
+    def put(full, vals):
+        new = full.clone()
+        flat = new.view((-1,) + tuple(full.shape[2:]))
+        keep = active.reshape(active.shape + (1,) * (vals.ndim - 1))
+        flat[cells] = torch.where(keep, vals, flat[cells])
+        return new
+    return StrongOutputs(put(state.planes, out.planes),
+                         put(state.costs, out.costs),
+                         put(state.selected, out.selected),
+                         put(state.view_weights, out.view_weights))
+
+
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
 
 def _check_args(data, state, x, y, draws, radius, increment, use_sa,
-                geom: bool) -> tuple:
+                geom: bool, commit: bool = False) -> tuple:
     """K2's checks of the quad tables, then the window, the reference image
-    and segment ids, the pixels, the state, the draws and the source depths,
-    on every device. Returns (B, T, SA on, {name: tensor})."""
+    and segment ids, the pixels, the state (with ``commit`` the view
+    weights, weak states and valid mask too), the draws and the source
+    depths, on every device. Returns (B, T, SA on, {name: tensor})."""
     if x.ndim != 1 or y.shape != x.shape:
         raise ValueError(f"pixels x {tuple(x.shape)}, y {tuple(y.shape)}: "
                          "need (B,) and (B,)")
@@ -410,6 +438,8 @@ def _check_args(data, state, x, y, draws, radius, increment, use_sa,
         "sel_u": (draws.sel_u, (b, NUM_SAMPLES)),
         "u_rand": (raws.u_rand, (b,)), "g": (raws.g, (b, 3)),
         "u_pert": (raws.u_pert, (b,)), "angles": (raws.angles, (b, 3))}
+    if commit:
+        want["view_weights"] = (state.view_weights, grid + (s,))
     if geom:
         depths = data.src_depths
         if depths.ndim != 3:
@@ -420,6 +450,9 @@ def _check_args(data, state, x, y, draws, radius, increment, use_sa,
     ncc._check_tensors(want, dev)
     others = {"x": (x, (b,), torch.int32), "y": (y, (b,), torch.int32),
               "selected": (state.selected, grid + (s,), torch.bool)}
+    if commit:
+        others["weak"] = (state.weak, grid, torch.int32)
+        others["valid"] = (state.valid, grid, torch.bool)
     if sa:
         others["sa_mask"] = (data.sa_mask, image, torch.int32)
     for name, (a, shape, dtype) in others.items():
@@ -438,8 +471,8 @@ def _check_args(data, state, x, y, draws, radius, increment, use_sa,
 def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
                  use_sa: bool, iteration, depth_min, depth_max, geom_factor,
                  geom: bool, refine_init: bool,
-                 row_bounds: Optional[Tuple[int, int]] = None
-                 ) -> StrongOutputs:
+                 row_bounds: Optional[Tuple[int, int]] = None,
+                 commit: bool = False) -> StrongOutputs:
     """The strong sweep's colour update of pixels (x, y) (B,) int32, all of
     one checkerboard colour, against every source view of ``data`` (a
     ``cost.CostData``): ``state`` (a ``PMState``) gives the costs, planes
@@ -451,18 +484,22 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
     plane and the hypotheses adds ``geom_factor`` times the geometric cost
     against ``data.src_depths``; ``refine_init`` is REFINE_INIT's commit
     rule; ``row_bounds`` (lo, hi) the rows a candidate region may use (the
-    state arrays' own by default). Every tensor must be contiguous on
+    state arrays' own by default). With ``commit`` the result is the
+    committed maps (``commit_maps_plain``'s: copies of the state's planes,
+    costs, selections and view weights, the outputs written at the active
+    pixels), which K3 writes itself. Every tensor must be contiguous on
     CUDA."""
     b, t, sa, tensors = _check_args(data, state, x, y, draws, radius,
-                                    increment, use_sa, geom)
+                                    increment, use_sa, geom, commit)
     quads = data.src_quads
     if quads.device.type == "cpu":
-        return strong_plain(data, state, x, y, draws, radius=radius,
-                            increment=increment, use_sa=use_sa,
-                            iteration=iteration, depth_min=depth_min,
-                            depth_max=depth_max, geom_factor=geom_factor,
-                            geom=geom, refine_init=refine_init,
-                            row_bounds=row_bounds)
+        out = strong_plain(data, state, x, y, draws, radius=radius,
+                           increment=increment, use_sa=use_sa,
+                           iteration=iteration, depth_min=depth_min,
+                           depth_max=depth_max, geom_factor=geom_factor,
+                           geom=geom, refine_init=refine_init,
+                           row_bounds=row_bounds)
+        return commit_maps_plain(state, x, y, out) if commit else out
     if quads.device.type != "cuda":
         raise ValueError(f"unsupported device {quads.device}")
     for name, a in tensors.items():
@@ -487,11 +524,16 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
     lo, hi = (0, gh - 1) if row_bounds is None else row_bounds
     threshold, fallback = selection.selection_thresholds(iteration)
     depths = data.src_depths
-    out = StrongOutputs(
-        torch.empty((b, 4), dtype=torch.float32, device=quads.device),
-        torch.empty((b,), dtype=torch.float32, device=quads.device),
-        torch.empty((b, s), dtype=torch.bool, device=quads.device),
-        torch.empty((b, s), dtype=torch.float32, device=quads.device))
+    if commit:
+        out = StrongOutputs(state.planes.clone(), state.costs.clone(),
+                            state.selected.clone(),
+                            state.view_weights.clone())
+    else:
+        out = StrongOutputs(
+            torch.empty((b, 4), dtype=torch.float32, device=quads.device),
+            torch.empty((b,), dtype=torch.float32, device=quads.device),
+            torch.empty((b, s), dtype=torch.bool, device=quads.device),
+            torch.empty((b, s), dtype=torch.float32, device=quads.device))
     if b == 0:
         return out
     raws = draws.raws
@@ -512,7 +554,9 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
         raws.u_pert.data_ptr(), raws.angles.data_ptr(), threshold, fallback,
         _f32(depth_min), _f32(depth_max), int(refine_init),
         out.planes.data_ptr(), out.costs.data_ptr(),
-        out.selected.data_ptr(), out.view_weights.data_ptr(), b, s,
+        out.selected.data_ptr(), out.view_weights.data_ptr(),
+        state.weak.data_ptr() if commit else None,
+        state.valid.data_ptr() if commit else None, b, s,
         data.width, data.quad_h, data.img_w, data.img_h,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_strong")

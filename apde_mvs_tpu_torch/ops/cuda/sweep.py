@@ -31,9 +31,20 @@ s = 0 .. S-1 (torch's ``.sum`` has a device-dependent order). The kernel
 computes the same sequence with every operation rounded on its own, so the
 two agree bit for bit on the card.
 
+The stage form (``stage_fused``, ``filters.depth_to_weak`` and
+``filters.local_refine`` on the main path) is the whole JAX function in
+one launch, with no torch op around it: the setup from the state's maps
+(``filters._sweep_scalars``, its sums in view order), the reference window
+built in the kernel as K3 builds it (``strong.window_plain``), the sweep,
+and the decision rule (``filters._classify_peaks``: the int32 classes, and
+the curve on request; ``filters._refine_depths``: the new depths). Its
+plain version is ``stage_plain``. The sweep form (``sweep_fused``) takes a
+chunk's per-pixel inputs and window and writes the costs.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback. ``launches`` counts kernel launches, and
-``mode_launches`` splits them into "classify" and "refine".
+raises — there is no fallback. ``launches`` counts kernel launches of
+either form, and ``mode_launches`` splits them into "classify" and
+"refine".
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 from ...config import RELIABLE_CURVE_SAMPLE_NUM
+from ...core.sampling import device_constant, fetch
 from ..cost import COST_MAX, geom_cost
 from . import build as _build
 from . import ncc
@@ -96,6 +108,13 @@ def library() -> _build.Built:
         ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32, f32, i32, i32, i32,
         ptr, ctypes.c_int64, i32, i32, i32, i32, i32, i32, ptr]
     lib.apde_sweep.restype = i32
+    lib.apde_sweep_stage.argtypes = [
+        ptr, i32, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+        i32, ptr, ptr, i32, ptr, i32, i32, f32, f32, f32, i32, f32, i32, ptr,
+        ptr, ptr, ctypes.c_int64, i32, i32, i32, i32, i32, ptr]
+    lib.apde_sweep_stage.restype = i32
+    lib.apde_sweep_stage_kernel_info.argtypes = [i32] * 4 + [ptr] * 3
+    lib.apde_sweep_stage_kernel_info.restype = i32
     for fn in (lib.apde_sweep_max_views, lib.apde_sweep_cam_stride):
         fn.argtypes = []
         fn.restype = i32
@@ -117,6 +136,14 @@ def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
     return ncc.read_kernel_info(library().lib.apde_sweep_kernel_info,
                                 quads_u8, pixel_offsets, weighted, num_taps,
                                 num_views)
+
+
+def stage_kernel_info(quads_u8: bool, sa: bool, num_taps: int,
+                      num_views: int) -> dict:
+    """The same for the stage form's instantiation (SA window or the
+    square)."""
+    return ncc.read_kernel_info(library().lib.apde_sweep_stage_kernel_info,
+                                quads_u8, sa, num_taps, num_views)
 
 
 def camera_table(data) -> torch.Tensor:
@@ -142,6 +169,22 @@ def cached_camera_table(data) -> torch.Tensor:
     return ncc.cache_per_data(_tables, data, camera_table)
 
 
+def view_distances(data) -> torch.Tensor:
+    """(S,) f32 distances |c_ref - c_src| of the source cameras from the
+    reference's, whose selection-gated mean is a pixel's baseline."""
+    return torch.linalg.vector_norm(
+        data.ref_cam.c[None, :] - data.src_cams.c, dim=-1).contiguous()
+
+
+_distances: dict = {}   # id(CostData) -> (weak reference, distances)
+
+
+def cached_view_distances(data) -> torch.Tensor:
+    """``view_distances(data)``, computed once per CostData object and
+    dropped with it."""
+    return ncc.cache_per_data(_distances, data, view_distances)
+
+
 def _f32(v) -> float:
     """A scalar parameter as the float32 value the sweep computes with."""
     return float(np.float32(float(v)))
@@ -155,8 +198,9 @@ def probe_depths(fx, disp, base_line, offsets) -> torch.Tensor:
     """(B, len(offsets)) depths at the disparity offsets from the current
     disparity: f * baseline / (disp + offset), 1e-20 for a zero
     denominator (reference: APD.cu:2165-2171)."""
-    d = disp[:, None] + torch.as_tensor(offsets, dtype=torch.float32,
-                                        device=disp.device)
+    d = disp[:, None] + device_constant(
+        ("probe_offsets", tuple(offsets)),
+        lambda: np.asarray(offsets, np.float32), disp.device)
     return (fx * base_line)[:, None] / torch.where(d != 0, d, 1e-20)
 
 
@@ -289,3 +333,171 @@ def sweep_fused(data, px: SweepPixels, win, *, refine: bool, geom: bool,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_sweep")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The stage form: DepthToWeak and LocalRefine whole
+# ---------------------------------------------------------------------------
+
+# DepthToWeak's margin: pixels within it come out UNKNOWN (the pipeline
+# skips them)
+MIN_MARGIN = 6
+
+
+def stage_plain(data, state, x, y, *, refine: bool, radius: int,
+                increment: int, use_sa: bool, geom: bool, geom_factor,
+                depth_min, depth_max, weak_peak_radius=0,
+                return_curve: bool = False):
+    """DepthToWeak (``refine`` False: (int32 classes (B,), the (B, 61)
+    curve with ``return_curve`` or None)) or LocalRefine (the (B,) new
+    depths) of pixels (x, y) int32 as torch ops, in the stage kernel's
+    operation order: ``filters._sweep_scalars``' setup (its sums in view
+    order), ``strong.window_plain``'s window, ``sweep_plain``, then
+    ``filters._classify_peaks`` or ``filters._refine_depths``."""
+    from .. import filters
+    from .strong import window_plain
+    xf, yf = x.to(torch.float32), y.to(torch.float32)
+    sc = filters._sweep_scalars(data, state, x, y)
+    win = window_plain(data, xf, yf, radius, increment, use_sa)
+    px = SweepPixels(xf, yf, sc.plane_cam, sc.disp, sc.base_line, sc.vw,
+                     sc.wnorm)
+    costs = sweep_plain(data, px, win, refine=refine, geom=geom,
+                        geom_factor=geom_factor, depth_min=depth_min,
+                        depth_max=depth_max)
+    if refine:
+        ok = sc.ok & (sc.wnorm > 0) & fetch(state.valid, x, y)
+        return torch.where(ok, filters._refine_depths(data, sc, costs),
+                           sc.depth)
+    weak = filters._classify_peaks(data, state, x, y, costs,
+                                   weak_peak_radius, sc.ok)
+    return weak, (costs if return_curve else None)
+
+
+def _check_stage_args(data, state, x, y, radius, increment, use_sa,
+                      geom: bool) -> tuple:
+    """The view limit and quad tables, the window's radius and increment,
+    the pixels, the state's maps, the reference image and segment ids and
+    the source depths, on every device. Returns (B, T, SA on, {name:
+    tensor})."""
+    from ..cost import square_taps
+    if x.ndim != 1 or y.shape != x.shape:
+        raise ValueError(f"pixels x {tuple(x.shape)}, y {tuple(y.shape)}: "
+                         "need (B,) and (B,)")
+    b = x.shape[0]
+    ncc.check_tables(data)
+    if int(radius) != radius or int(increment) != increment or radius < 0 \
+            or increment < 1:
+        raise ValueError(f"window radius {radius}, increment {increment}: "
+                         "need integers >= 0 and >= 1")
+    t = len(square_taps(int(radius), int(increment)))
+    sa = bool(use_sa) and data.sa_mask is not None
+    if sa and t != 36:
+        raise ValueError("SA mixing assumes 36-tap square windows")
+    s = data.num_src
+    grid = tuple(state.planes.shape[:2])
+    image = (data.height, data.width)
+    want = {"planes": (state.planes, grid + (4,), torch.float32),
+            "view_weights": (state.view_weights, grid + (s,),
+                             torch.float32),
+            "selected": (state.selected, grid + (s,), torch.bool),
+            "valid": (state.valid, grid, torch.bool),
+            "x": (x, (b,), torch.int32), "y": (y, (b,), torch.int32),
+            "ref_image": (data.ref_image, image, torch.float32)}
+    if sa:
+        want["sa_mask"] = (data.sa_mask, image, torch.int32)
+    if geom:
+        depths = data.src_depths
+        if depths.ndim != 3:
+            raise ValueError(f"src_depths must be (S, H, W), got "
+                             f"{tuple(depths.shape)}")
+        want["src_depths"] = (depths, (s,) + tuple(depths.shape[1:]),
+                              torch.float32)
+    dev = data.src_quads.device
+    for name, (a, shape, dtype) in want.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} is {tuple(a.shape)}, expected {shape}")
+        if a.dtype != dtype:
+            raise TypeError(f"{name} has dtype {a.dtype}, expected {dtype}")
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, the quad tables on "
+                             f"{dev}")
+    return b, t, sa, {name: a for name, (a, _, _) in want.items()}
+
+
+def stage_fused(data, state, x, y, *, refine: bool, radius: int,
+                increment: int, use_sa: bool, geom: bool, geom_factor,
+                depth_min, depth_max, weak_peak_radius=0,
+                return_curve: bool = False):
+    """DepthToWeak (``refine`` False) or LocalRefine (``refine``) of pixels
+    (x, y) (B,) int32 from the state's maps (a ``PMState``: planes as
+    (world normal, depth), selections, view weights, valid mask) against
+    every source view of ``data``: the setup, the reference window of
+    (``radius``, ``increment``, ``use_sa``) and the decision rule in one
+    launch of the stage form, its result ``stage_plain``'s. The scalars
+    are best Python numbers (a device tensor's value is read back, which
+    waits for the device). Every tensor must be contiguous on CUDA."""
+    b, t, sa, tensors = _check_stage_args(data, state, x, y, radius,
+                                          increment, use_sa, geom)
+    kw = dict(refine=refine, radius=radius, increment=increment,
+              use_sa=use_sa, geom=geom, geom_factor=geom_factor,
+              depth_min=depth_min, depth_max=depth_max,
+              weak_peak_radius=weak_peak_radius, return_curve=return_curve)
+    quads = data.src_quads
+    if quads.device.type == "cpu":
+        return stage_plain(data, state, x, y, **kw)
+    if quads.device.type != "cuda":
+        raise ValueError(f"unsupported device {quads.device}")
+    for name, a in tensors.items():
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not quads.is_contiguous():
+        raise ValueError("quads must be contiguous")
+    if quads.data_ptr() % (4 * quads.element_size()):
+        raise ValueError("quad table rows must be aligned to their size")
+    lib = library().lib
+    smem = lib.apde_sweep_smem_bytes(data.num_src, t, int(sa), int(sa))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {t}-tap window needs {smem} B of shared memory "
+                         f"a block, more than {SMEM_LIMIT}")
+    cams = cached_camera_table(data)
+    dists = cached_view_distances(data)
+    for name, a in (("cameras", cams), ("distances", dists)):
+        if a.device != quads.device:
+            raise ValueError(f"{name} on {a.device}, the quad tables on "
+                             f"{quads.device}")
+    dev = quads.device
+    weak = curve = depth = None
+    if refine:
+        depth = torch.empty((b,), dtype=torch.float32, device=dev)
+    else:
+        weak = torch.empty((b,), dtype=torch.int32, device=dev)
+        if return_curve:
+            curve = torch.empty((b, len(CLASSIFY_OFFSETS)),
+                                dtype=torch.float32, device=dev)
+    result = depth if refine else (weak, curve)
+    if b == 0:
+        return result
+    global launches
+    launches += 1
+    mode = "refine" if refine else "classify"
+    mode_launches[mode] = mode_launches.get(mode, 0) + 1
+    depths = data.src_depths
+    gh, gw = state.planes.shape[:2]
+    ncc._raise_on(lib.apde_sweep_stage(
+        quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
+        depths.data_ptr() if geom else None,
+        depths.shape[1] if geom else 0, depths.shape[2] if geom else 0,
+        _f32(geom_factor), x.data_ptr(), y.data_ptr(),
+        state.planes.data_ptr(), state.selected.data_ptr(),
+        state.view_weights.data_ptr(), state.valid.data_ptr(), gh, gw,
+        dists.data_ptr(), data.ref_image.data_ptr(), data.height,
+        data.sa_mask.data_ptr() if sa else None, int(radius),
+        int(increment), float(np.float32(1.0) / np.float32(t)),
+        _f32(depth_min), _f32(depth_max), int(refine),
+        _f32(weak_peak_radius), MIN_MARGIN,
+        None if refine else weak.data_ptr(),
+        None if curve is None else curve.data_ptr(),
+        depth.data_ptr() if refine else None, b, data.num_src, data.width,
+        data.quad_h, data.img_w, data.img_h,
+        torch.cuda.current_stream(dev).cuda_stream), "apde_sweep_stage")
+    return result

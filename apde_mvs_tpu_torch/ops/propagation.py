@@ -197,25 +197,31 @@ WeakDraws = SweepDraws
 
 def _strong_body(data: CostData, state: PMState, cfg: PropCfg, iteration,
                  draws: SweepDraws, x, y, depth_min, depth_max, geom_factor,
-                 row_bounds=None):
+                 row_bounds=None, commit: bool = False):
     """Candidate evaluation + view selection + refinement for one flat batch
-    of same-color pixels. Returns (planes_out, costs_out, sel_new, vw):
-    one call of the colour-update kernel K3 (`ops/cuda/strong.py`), which
-    builds the reference window itself, its plain version on CPU
-    tensors."""
+    of same-color pixels. Returns (planes_out, costs_out, sel_new, vw), or
+    with ``commit`` the committed (planes, costs, selected, view_weights)
+    maps: one call of the colour-update kernel K3 (`ops/cuda/strong.py`),
+    which builds the reference window itself and in the commit form writes
+    the active pixels' outputs into copies of the maps, its plain version
+    on CPU tensors."""
     from .cuda.strong import strong_fused
     draws = SweepDraws(draws.sel_u.contiguous(),
                        RefineRaws(*(r.contiguous() for r in draws.raws)))
     state = state.replace(costs=state.costs.contiguous(),
                           planes=state.planes.contiguous(),
                           selected=state.selected.contiguous())
+    if commit:
+        state = state.replace(view_weights=state.view_weights.contiguous(),
+                              weak=state.weak.contiguous(),
+                              valid=state.valid.contiguous())
     return tuple(strong_fused(
         data, state, x.contiguous(), y.contiguous(), draws,
         radius=cfg.strong_radius, increment=cfg.strong_increment,
         use_sa=cfg.use_sa, iteration=iteration, depth_min=depth_min, depth_max=depth_max,
         geom_factor=geom_factor,
         geom=cfg.geom_consistency and cfg.use_impetus,
-        refine_init=cfg.refine_init, row_bounds=row_bounds))
+        refine_init=cfg.refine_init, row_bounds=row_bounds, commit=commit))
 
 
 def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
@@ -226,13 +232,15 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
     """One color's strong sweep over the whole image. ``draws`` are the
     sweep's random draws (pixels in `color_coords` raster order); without
     them they are taken from ``generator``, all of them, on every rank.
+    Only active pixels (not WEAK, valid) change: K3 commits them itself.
 
     ``shard`` (a `parallel.tile_pass.RowShard`) evaluates only its rank's
     rows, with their slice of the draws, and all-gathers the outputs
-    before the commit, so every rank commits the serial sweep's result.
-    ``row_bounds`` as in `checkerboard_candidates`. The depth bounds and
-    the geometric factor are best Python numbers: K3 reads a device
-    tensor's value back, which waits for the device."""
+    before the commit (K3's plain version, `strong.commit_maps_plain`), so
+    every rank commits the serial sweep's result. ``row_bounds`` as in `checkerboard_candidates`. The
+    depth bounds and the geometric factor are best Python numbers: K3 reads
+    a device tensor's value back, which waits for the device."""
+    from .cuda.strong import StrongOutputs, commit_maps_plain
     h, w = state.costs.shape
     dev = state.costs.device
     xs2, ys2 = cb.color_coords(h, w, color, device=dev)
@@ -241,37 +249,20 @@ def propagate_strong(data: CostData, state: PMState, cfg: PropCfg,
     if draws is None:
         draws = sweep_draws(generator, x.shape[0], dev)
 
-    weak_c = cb.gather_color(state.weak, color).reshape(-1)
-    valid_c = cb.gather_color(state.valid, color).reshape(-1)
-    active = (weak_c != WEAK) & valid_c
-
     if shard is None:
-        planes_out, costs_out, sel_new, vw = _strong_body(
+        planes, costs, selected, view_weights = _strong_body(
             data, state, cfg, iteration, draws, x, y, depth_min, depth_max,
-            geom_factor, row_bounds)
-    else:
-        sl, counts = shard.row_part(h, w // 2)
-        outs = _strong_body(data, state, cfg, iteration,
-                            _take_draws(draws, sl), x[sl], y[sl], depth_min,
-                            depth_max, geom_factor, row_bounds)
-        planes_out, costs_out, sel_new, vw = (shard.gather(o, counts)
-                                              for o in outs)
-
-    # scatter back (only active pixels change)
-    def put(full, vals_flat):
-        old_flat = fetch(full, x, y)
-        vals = torch.where(
-            active.reshape(active.shape + (1,) * (vals_flat.ndim - 1)),
-            vals_flat, old_flat)
-        return cb.scatter_color(full, vals.reshape((h, w // 2)
-                                                   + vals.shape[1:]), color)
-
-    return state.replace(
-        planes=put(state.planes, planes_out),
-        costs=put(state.costs, costs_out),
-        selected=put(state.selected, sel_new),
-        view_weights=put(state.view_weights, vw),
-    )
+            geom_factor, row_bounds, commit=True)
+        return state.replace(planes=planes, costs=costs, selected=selected,
+                             view_weights=view_weights)
+    sl, counts = shard.row_part(h, w // 2)
+    outs = _strong_body(data, state, cfg, iteration, _take_draws(draws, sl),
+                        x[sl], y[sl], depth_min, depth_max, geom_factor,
+                        row_bounds)
+    planes, costs, selected, view_weights = commit_maps_plain(
+        state, x, y, StrongOutputs(*(shard.gather(o, counts) for o in outs)))
+    return state.replace(planes=planes, costs=costs, selected=selected,
+                         view_weights=view_weights)
 
 
 # ---------------------------------------------------------------------------

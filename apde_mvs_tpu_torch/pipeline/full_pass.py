@@ -20,7 +20,10 @@ from the one per-view generator, drawn whole on every rank and sliced, so
 the sharded pass takes exactly the serial pass's draws.
 
 The classify / refine stages evaluate pixels in chunks of ``CHUNK`` (the
-JAX engine's classify chunk); results do not depend on it.
+JAX engine's classify chunk); results do not depend on it. On the card a
+chunk is one launch of K5's stage form and nothing else, so a stage costs
+one `nonzero` (its pixel count, the one read that waits for the device)
+and a launch a chunk.
 """
 
 from __future__ import annotations
@@ -34,13 +37,14 @@ from ..core import geometry as geo
 from ..ops import anchors as anchor_ops
 from ..ops import filters, init as init_ops
 from ..ops.cost import CostData
+from ..ops.cuda import sweep as k5
+from ..ops.cuda.sweep import MIN_MARGIN
 from ..ops.propagation import PropCfg, propagate_strong, propagate_weak
 from ..ops.state import PMState
 
-# pixels per classify / refine evaluation: bounds the (S, chunk, 36)
-# intermediates; results do not depend on it
+# pixels per classify / refine evaluation: bounds the plain version's
+# (S, chunk, 36) intermediates on the CPU; results do not depend on it
 CHUNK = 1 << 16
-MIN_MARGIN = 6
 
 
 class PassStatic(NamedTuple):
@@ -260,6 +264,18 @@ def _sweep_constants(params, dmin, dmax) -> tuple:
                  for v in (params.geom_factor, dmin, dmax))
 
 
+def _stage_state(data: CostData, state: PMState) -> PMState:
+    """The state with the maps K5's stage form reads contiguous, and its
+    per-CostData tables (the camera table, the views' distances) made:
+    once a stage, so that each chunk is one launch and nothing more."""
+    k5.cached_camera_table(data)
+    k5.cached_view_distances(data)
+    return state.replace(planes=state.planes.contiguous(),
+                         selected=state.selected.contiguous(),
+                         view_weights=state.view_weights.contiguous(),
+                         valid=state.valid.contiguous())
+
+
 def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
                   dmax, *, shard=None, export_curve: bool = False):
     """Stage 2: the reclassified (H, W) int32 weak map, and with
@@ -267,7 +283,8 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
     debug mode: every pixel is swept, the extra ones come out UNKNOWN, as
     the reference's exporter does). Pixels the sweep would classify
     UNKNOWN without sampling anything (margins, padding, zero depth, empty
-    selection) are skipped otherwise."""
+    selection) are skipped otherwise. The depth bounds are best Python
+    numbers (`full_pass` reads them once a pass)."""
     if export_curve and shard is not None:
         raise ValueError("curve export runs on the serial pass only")
     h, w = data.height, data.width
@@ -277,6 +294,9 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
     xs, ys = geo.pixel_grid(h, w, dev)
     margin = (xs < MIN_MARGIN) | (ys < MIN_MARGIN) \
         | (xs >= data.img_w - MIN_MARGIN) | (ys >= data.img_h - MIN_MARGIN)
+    mask = torch.ones((h, w), dtype=torch.bool, device=dev) if export_curve \
+        else sweepable(data, state) & ~margin
+    state = _stage_state(data, state)
 
     def classify(cx, cy):
         return filters.depth_to_weak(
@@ -285,8 +305,6 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
             cfg.prop.strong_increment, return_curve=export_curve,
             use_sa=cfg.prop.use_sa)
 
-    mask = torch.ones((h, w), dtype=torch.bool, device=dev) if export_curve \
-        else sweepable(data, state) & ~margin
     weak_map, (cy, cx), outs = _row_chunks(
         classify, mask, shard,
         torch.full((h, w), UNKNOWN, dtype=torch.int32, device=dev))
@@ -301,16 +319,17 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
 def pass_finish(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
                 *, shard=None) -> PMState:
     """Stage 3: confidence + local refine. ``state.weak`` must already hold
-    stage 2's reclassification."""
+    stage 2's reclassification; the depth bounds as in `pass_classify`."""
     params = cfg.params
     gf, dmin, dmax = _sweep_constants(params, dmin, dmax)
     refine_mask = sweepable(data, state)
     if params.geom_consistency or cfg.use_apd:
         state = filters.compute_confidence(data, state)
+    swept = _stage_state(data, state)
 
     def refine(cx, cy):
         return filters.local_refine(
-            data, state, cx, cy, cfg.prop.geom_consistency, gf, dmin, dmax,
+            data, swept, cx, cy, cfg.prop.geom_consistency, gf, dmin, dmax,
             cfg.prop.strong_radius, cfg.prop.strong_increment,
             use_sa=cfg.prop.use_sa)
 
@@ -327,6 +346,8 @@ def full_pass(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     the pass's `WeakSet` or None; the reliability curves of
     ``export_curve`` or None)."""
     state, weak = pass_sweeps(data, state, cfg, dmin, dmax, gen, shard=shard)
+    # the classify and refine stages' depth bounds, read to the host once
+    _, dmin, dmax = _sweep_constants(cfg.params, dmin, dmax)
     weak_map, curve = pass_classify(data, state, cfg, dmin, dmax,
                                     shard=shard, export_curve=export_curve)
     state = pass_finish(data, state.replace(weak=weak_map), cfg, dmin, dmax,

@@ -11,6 +11,11 @@ of its sums and norms (torch's reductions), so the two agree to float
 tolerance, a pixel whose discrete choice sits on a float tie aside.
 Its arguments are ``_strong_body``'s; the depth bounds and the geometric
 factor are float32 0-d tensors on the data's device.
+
+``put_composition`` is the commit as ``propagation.propagate_strong`` ran
+it before K3 wrote it: a fetch, a where and a scatter a map. It is the
+witness that K3's plain commit (``strong.commit_maps_plain``) is held to,
+bit for bit, and what ``chip_smoke.py`` times K3's commit form against.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import math
 
 import torch
 
+from ..config import WEAK
+from ..core import checkerboard as cb
 from ..core import geometry as geo
 from ..core.sampling import fetch
 from ..ops import selection
@@ -126,3 +133,33 @@ def strong_composition(data: CostData, state: PMState, cfg: PropCfg,
         return (torch.where(commit[:, None], plane_cur, cur_plane),
                 torch.where(commit, cost_cur, cost_recomputed), sel_new, vw)
     return plane_cur, cost_cur, sel_new, vw
+
+
+def put_composition(state: PMState, color: int, outs) -> PMState:
+    """The commit of one colour's outputs ``outs`` (planes, costs,
+    selections, view weights of its pixels in `color_coords` raster order)
+    as torch ops: each map's colour half, the outputs where the pixel is
+    active (not WEAK, valid), the old values elsewhere, scattered back."""
+    h, w = state.costs.shape
+    xs2, ys2 = cb.color_coords(h, w, color, device=state.costs.device)
+    x = xs2.reshape(-1)
+    y = ys2.reshape(-1)
+    weak_c = cb.gather_color(state.weak, color).reshape(-1)
+    valid_c = cb.gather_color(state.valid, color).reshape(-1)
+    active = (weak_c != WEAK) & valid_c
+
+    def put(full, vals_flat):
+        old_flat = fetch(full, x, y)
+        vals = torch.where(
+            active.reshape(active.shape + (1,) * (vals_flat.ndim - 1)),
+            vals_flat, old_flat)
+        return cb.scatter_color(full, vals.reshape((h, w // 2)
+                                                   + vals.shape[1:]), color)
+
+    planes_out, costs_out, sel_new, vw = outs
+    return state.replace(
+        planes=put(state.planes, planes_out),
+        costs=put(state.costs, costs_out),
+        selected=put(state.selected, sel_new),
+        view_weights=put(state.view_weights, vw),
+    )

@@ -8,13 +8,16 @@ scene (seed 0), u8 quad tables:
 - K2 at the strong shape (10 sources x 240,000 black pixels, ground-truth
   planes, the 36-tap square window), at a tile-route rank's halo row block
   (10 x 120,000) and at the classify chunk (10 x 65,536, depths 2% off);
-- K5 at the classify chunk (10 x 65,536 pixels, 61 probes, geometric cost)
-  and in refine mode (12 probes), over near-truth planes with each pixel's
-  top-k views of K2's costs selected and weighted 1-4; and with every view
-  weighted;
+- K5 as the main path runs it: ``filters.depth_to_weak`` at the classify
+  chunk (10 x 65,536 pixels, 61 probes, geometric cost) and
+  ``filters.local_refine`` (12 probes), over near-truth planes with each
+  pixel's top-k views of K2's costs selected and weighted 1-4; and with
+  every view weighted: K5's stage form (one launch a call) in a checkout
+  that has it, the window and rule torch ops around K5's sweep form in one
+  from before;
 - both at S = 32: the 10 sources cycled into 32 (K2 at the strong shape;
-  K5 at the classify chunk with the weights cycled the same way, so the
-  same share of pairs is weighted);
+  K5 at the classify chunk with the selections and weights cycled the same
+  way, so the same share of pairs is weighted);
 - the strong sweep's colour update, ``propagation._strong_body``, at the
   black pixels of view 0 (10 x 240,000, geometric cost, iteration 2) over
   the same near-truth planes as camera-frame planes, their top-k mean
@@ -87,7 +90,7 @@ from apde_mvs_tpu_torch.ops.cost import (CostData, contiguous_window,
                                          initial_cost_and_selection,
                                          ncc_strong, precompute_ref_window)
 from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-from apde_mvs_tpu_torch.ops.cuda import ncc, sweep
+from apde_mvs_tpu_torch.ops.cuda import ncc
 from apde_mvs_tpu_torch.ops.state import PMState
 from apde_mvs_tpu_torch.parallel.tiles import HALO_ROWS, halo_block
 from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK, MIN_MARGIN
@@ -200,39 +203,40 @@ def k5_times(scene, dev, out: dict, seed: int = 0) -> None:
                                      generator=torch.Generator(
                                          device=dev).manual_seed(seed))
     state = PMState.create(H, W, S, device=dev).replace(
-        planes=planes, selected=sel.reshape(H, W, S),
-        view_weights=vw.reshape(H, W, S))
+        planes=planes, selected=sel.reshape(H, W, S).contiguous(),
+        view_weights=vw.reshape(H, W, S).contiguous())
     del costs
     margin = (xs < MIN_MARGIN) | (ys < MIN_MARGIN) \
         | (xs >= W - MIN_MARGIN) | (ys >= H - MIN_MARGIN)
     cy, cx = torch.nonzero(~margin, as_tuple=True)
     cx, cy = cx[:CHUNK].to(torch.int32), cy[:CHUNK].to(torch.int32)
-    xf, yf = cx.float(), cy.float()
-    sc = filters._sweep_scalars(data, state, cx, cy)
-    px = sweep.SweepPixels(xf, yf, sc.plane_cam.contiguous(), sc.disp,
-                           sc.base_line, sc.vw.contiguous(), sc.wnorm)
-    win = contiguous_window(precompute_ref_window(data, xf, yf, 5, 2))
-    every = px._replace(vw=torch.ones_like(px.vw),
-                        wnorm=torch.full_like(px.wnorm, S))
+    every = state.replace(selected=torch.ones_like(state.selected),
+                          view_weights=torch.ones_like(state.view_weights))
     d32, idx = cycled_views(data, CYCLED)
-    vw32 = px.vw[:, idx].contiguous()
-    px32 = px._replace(vw=vw32, wnorm=vw32.sum(-1))
+    state32 = state.replace(selected=state.selected[..., idx].contiguous(),
+                            view_weights=state.view_weights[..., idx]
+                            .contiguous())
+    gf, radius = params.geom_factor, params.weak_peak_radius
 
-    def kw(refine):
-        return dict(refine=refine, geom=True, geom_factor=params.geom_factor,
-                    depth_min=dmin, depth_max=dmax)
+    def classify(d, s):
+        return lambda: filters.depth_to_weak(d, s, cx, cy, radius, True, gf,
+                                             dmin, dmax)
 
-    for name, d, p, refine, iters in (
-            ("K5 classify", data, px, False, 20),
-            ("K5 refine", data, px, True, 50),
-            ("K5 classify every view", data, every, False, 10),
-            ("K5 refine every view", data, every, True, 20),
-            ("K5 classify S=32", d32, px32, False, 10)):
-        out[name] = cuda_ms(lambda: sweep.sweep_fused(d, p, win, **kw(refine)),
-                            iters)
-        share = float((p.vw != 0).float().mean())
-        print(f"{name}: {out[name]:.4f} ms ({d.num_src} views x "
-              f"{p.x.numel()} pixels, {share:.3f} of the pairs weighted)",
+    def refine(d, s):
+        return lambda: filters.local_refine(d, s, cx, cy, True, gf, dmin,
+                                            dmax)
+
+    for name, fn, s, iters in (
+            ("K5 classify", classify(data, state), state, 20),
+            ("K5 refine", refine(data, state), state, 50),
+            ("K5 classify every view", classify(data, every), every, 10),
+            ("K5 refine every view", refine(data, every), every, 20),
+            ("K5 classify S=32", classify(d32, state32), state32, 10)):
+        out[name] = cuda_ms(fn, iters)
+        share = float((s.view_weights[cy.long(), cx.long()] != 0)
+                      .float().mean())
+        print(f"{name}: {out[name]:.4f} ms ({s.selected.shape[-1]} views x "
+              f"{cx.numel()} pixels, {share:.3f} of the pairs weighted)",
               flush=True)
 
 

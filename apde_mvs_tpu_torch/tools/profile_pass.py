@@ -153,6 +153,7 @@ def stage_ranges(kernel_events: dict):
                (ncc, "ncc_strong_fused", _k2_site),
                (strong, "strong_fused", _k3_name),
                (sweep, "sweep_fused", _k5_mode),
+               (sweep, "stage_fused", _k5_mode),
                (weak, "weak_fused", _k6_use),
                (weak_sweep, "weak_update_fused", _k7_name),
                (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),

@@ -143,7 +143,7 @@ def demangle(names) -> dict:
 
 
 def short_name(name: str) -> str:
-    """``sweep_kernel<unsigned char, false, false, 36>`` from the demangled
+    """``stage_sweep_kernel<unsigned char, false, 36>`` from the demangled
     signature (either demangler's spelling)."""
     name = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::", "", name)
     name = re.sub(r"\([^()]*\)$", "", name)           # the parameters

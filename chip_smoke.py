@@ -22,7 +22,15 @@ and off), an SA star window, a tile-route halo row block, degenerate planes
 with empty view weights on a ragged chunk, view-weight patterns (none, one,
 every view, a NaN weight, -0 weights), 32 source views, and every pixel of
 a view in the export-curve form, timed against the per-probe composition it
-replaced (a K2 call, the geometric cost and the view weighting a probe);
+replaced (a K2 call, the geometric cost and the view weighting a probe),
+and its stage form (DepthToWeak or LocalRefine whole: the setup read from
+the state's maps, the window built in the kernel, the sweep and the peak
+or accept rule) bitwise (classes, curve, depths) at the classify chunk (u8
+and f32, geometric on and off, classify with and without its curve,
+refine), an SA star window, degenerate planes on a ragged chunk, one
+pixel, 32 views, a halo row block and a real APD pass's first classify and
+refine chunks, timed against the old stage composition (the window and
+the rule as torch ops around the sweep form) and its plain version;
 K3, the strong sweep's colour update with K2's NCC and the geometric cost
 inside and the reference window built in the kernel, bitwise at the black
 pixels of a view (u8 and f32, geometric cost on and off, iterations 0 and
@@ -32,7 +40,12 @@ row bounds (square and SA), 1 and 32 source views, a ragged batch and one
 pixel, held to the torch-op body it replaced (``testing.strong_composition``:
 the window's torch ops, 14 K2 calls and the selection's torch ops a
 colour) at the CPU tests' tolerance and timed against it with the square
-and the SA star window; and the division K3's taps take without checks
+and the SA star window; its commit form (the active pixels' outputs written
+into copies of the maps) bitwise against the plain commit (square and SA,
+u8 and f32, REFINE_INIT), the state left as it was, timed against the
+launch and the torch-op commit it replaced
+(``strong_composition.put_composition``);
+and the division K3's taps take without checks
 against ``__fdiv_rn`` bit for bit on 2^27 random triples each in a pass's
 ranges, over the fast range and of random bits, and every triple of
 special values; K6, the deformable NCC of weak pixels with the geometric
@@ -64,9 +77,11 @@ and 4; unaligned jitter draws refused) and crafted cases, K8
 also timed on a real pass's chunk and beside its draw table, K10 and K9
 also bitwise and timed on a real pass's map and first fit (K9 beside its
 draw table, K10 with its launches a call and live sub-passes); the
-synchronising calls around a real APD pass's iteration loop, with K9's
-camera read in the loop as before and once a pass as now (fails if a fit
-in the loop still reads it); and where a
+synchronising calls of a real APD pass's iteration loop with K9's camera
+read in the loop as before, then of the whole APD pass and a FIRST_INIT
+pass, by stage and site (fails if a fit in the loop still reads the
+camera, if any comes from ``core/sampling.py``, or if the classify or the
+refine stage makes more than its ``nonzero``); and where a
 K7 and a K8 launch spend their device time, stage by stage
 (``tools/kernel_split.py``). The paths:
 
@@ -111,7 +126,9 @@ views.
 Every path must run its initial cost's NCC through K2 (at least one
 launch, all at the initial cost's and debug_point's sites, none at the
 strong sweep's), its classify and refine sweeps through K5 (at least one
-launch of each mode on a path that runs a pass), its strong sweeps through
+launch of each mode on a path that runs a pass; in the round-0 and APD
+scans every ``depth_to_weak`` and ``local_refine`` call one launch and no
+other torch op but its output's allocation), its strong sweeps through
 K3 (on a path that runs a pass at least one launch, at most two a colour
 update; the APD scan at least one with an SA window), its weak sweep
 through K7 (a launch a weak-sweep chunk) and its initial cost's re-score
@@ -183,6 +200,21 @@ K5_OPS_PER_PAIR = 2
 K5_GEOM_OPS_PER_PAIR = 115
 K5_OPS_PER_PIXEL = 22
 K5_GEOM_OPS_PER_PIXEL = 36
+# K5's stage form, beside its sweep, as the JAX functions need them (data
+# movement between lanes is the kernel's own and not counted): per (pixel,
+# view) 5 for the setup (the weight's and the distance's selects, their two
+# adds, the source count); per pixel 30 (R n: 9 products and 6 adds, the
+# baseline's division, the disparity's product and division, the guards)
+# and K3's 4 a (pixel, tap) for the window; per (pixel, probe) the rule's:
+# classify 14 (the two neighbour compares and their and, the range test,
+# the peak count, the peak cost's select, the minimum's compare and select,
+# the other-peak test and its and, the difference, its square, the select
+# and the sum), refine 4 (the NaN test and select, the minimum's compare
+# and select)
+K5_STAGE_OPS_PER_VIEW = 5
+K5_STAGE_OPS_PER_PIXEL = 30
+K5_STAGE_CLASSIFY_OPS_PER_PROBE = 14
+K5_STAGE_REFINE_OPS_PER_PROBE = 4
 # operations of the strong sweep's colour update K3 as the function needs
 # them, beside K2's per tap and per pair for every valid (candidate, view)
 # pair and every (plane, weighted view) pair of the current plane and the 5
@@ -828,6 +860,277 @@ def k5_times(data, sc, px, win, kw: dict, what: str, card: str) -> dict:
                 library_ms=None)
 
 
+def k5_stage_bound(data, state, x, y, kw: dict) -> tuple:
+    """The least time the card could take for one call of K5's stage form
+    (``sweep.stage_fused``): the sweep's f32 operations as ``k5_bound``
+    counts them over the pairs this call's setup weights, with the setup's,
+    the window's and the rule's (K5_STAGE_*, K3_WINDOW_OPS_PER_TAP),
+    against the bytes of its inputs (the pixels and their state cells, the
+    reference image and segment ids, the quad tables and source depth maps
+    whole, each read once) and outputs. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.cost import square_taps
+    s, b = data.num_src, x.numel()
+    geom = kw["geom"]
+    t = len(square_taps(kw["radius"], kw["increment"]))
+    sa = kw["use_sa"] and data.sa_mask is not None
+    probes = 12 if kw["refine"] else 61
+    sc = filters._sweep_scalars(data, state, x, y)
+    pairs = int(((sc.vw != 0) & (sc.wnorm > 0)[:, None]).sum())
+    per_tap = K2_OPS_PER_TAP + (2 if sa else 0)
+    ops = probes * (
+        pairs * (t * per_tap + K2_OPS_PER_PAIR + K5_OPS_PER_PAIR
+                 + (K5_GEOM_OPS_PER_PAIR if geom else 0))
+        + b * (K5_OPS_PER_PIXEL + (K5_STAGE_REFINE_OPS_PER_PROBE
+                                   if kw["refine"] else
+                                   K5_STAGE_CLASSIFY_OPS_PER_PROBE)
+               + (K5_GEOM_OPS_PER_PIXEL if geom else 0))) \
+        + b * (s * K5_STAGE_OPS_PER_VIEW + K5_STAGE_OPS_PER_PIXEL
+               + t * K3_WINDOW_OPS_PER_TAP)
+    out = 4 + (4 * probes if kw.get("return_curve") else 0)
+    nbytes = b * (8 + 16 + 5 * s + 1 + out) \
+        + 4 * data.ref_image.numel() * (2 if sa else 1) \
+        + data.src_quads.numel() * data.src_quads.element_size() \
+        + (s + 1) * 40 * 4 + 4 * s
+    if geom:
+        nbytes += 4 * data.src_depths.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def stage_kwargs(refine: bool, geom: bool, params, dmin, dmax,
+                 use_sa=False) -> dict:
+    """``sweep.stage_fused``'s keyword arguments as the pass gives them:
+    the 36-tap window, the pass's geometric factor, depth bounds and peak
+    radius (classify with its curve)."""
+    kw = dict(refine=refine, radius=5, increment=2, use_sa=use_sa, geom=geom,
+              geom_factor=float(params.geom_factor), depth_min=float(dmin),
+              depth_max=float(dmax))
+    if not refine:
+        kw.update(weak_peak_radius=params.weak_peak_radius,
+                  return_curve=True)
+    return kw
+
+
+def k5_stage_check(data, state, x, y, kw: dict, what: str) -> float:
+    """K5's stage form against its plain version on the card: the depths or
+    the classes and the curve bitwise; classify also without its curve (the
+    classes alone, the main path's form). Returns the max abs difference
+    read from the two (over non-NaN values)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    got = sweep.stage_fused(data, state, x, y, **kw)
+    want = sweep.stage_plain(data, state, x, y, **kw)
+    bare = None if kw["refine"] else sweep.stage_fused(
+        data, state, x, y, **dict(kw, return_curve=False))
+    torch.cuda.synchronize()
+    if kw["refine"]:
+        if not bitwise(got, want):
+            raise AssertionError(f"K5 stage {what}: {int((got != want).sum())}"
+                                 f" depths differ from the plain version")
+        old = state.planes[y.long(), x.long(), 3]
+        log(f"  K5 stage {what} ({x.numel()} pixels): depths bitwise equal "
+            f"to the plain version, {float((want != old).float().mean()):.4f}"
+            f" of them refined")
+        vals = (got, want)
+    else:
+        if not torch.equal(got[0], want[0]) or not bitwise(got[1], want[1]) \
+                or not torch.equal(bare[0], want[0]) or bare[1] is not None:
+            raise AssertionError(
+                f"K5 stage {what}: {int((got[0] != want[0]).sum())} classes, "
+                f"{int((got[1] != want[1]).sum())} curve values, "
+                f"{int((bare[0] != want[0]).sum())} classes without the "
+                "curve differ from the plain version")
+        counts = torch.bincount(want[0].long(), minlength=3).tolist()
+        log(f"  K5 stage {what} ({x.numel()} pixels): classes and curve "
+            f"bitwise equal to the plain version, and the classes without "
+            f"the curve; WEAK / STRONG / UNKNOWN {counts}")
+        vals = (got[1], want[1])
+    ok = ~torch.isnan(vals[1])
+    return float((vals[0][ok] - vals[1][ok]).abs().max()) \
+        if bool(ok.any()) else 0.0
+
+
+def old_stage(data, state, x, y, kw: dict):
+    """The stage as the route before K5's stage form ran it: the setup
+    (``filters._sweep_scalars``), the window
+    (``cost.precompute_ref_window``) and the peak or accept rule as torch
+    ops around one launch of K5's sweep form. Its setup and rule sum in
+    the stage form's fixed order, a few ops more than before."""
+    import torch
+
+    from apde_mvs_tpu_torch.core.sampling import fetch
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.cost import contiguous_window, \
+        precompute_ref_window
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    xf, yf = x.float(), y.float()
+    sc = filters._sweep_scalars(data, state, x, y)
+    win = contiguous_window(precompute_ref_window(
+        data, xf, yf, kw["radius"], kw["increment"], kw["use_sa"]))
+    px = sweep.SweepPixels(xf, yf, sc.plane_cam.contiguous(),
+                           sc.disp.contiguous(), sc.base_line.contiguous(),
+                           sc.vw.contiguous(), sc.wnorm.contiguous())
+    costs = sweep.sweep_fused(data, px, win, refine=kw["refine"],
+                              geom=kw["geom"], geom_factor=kw["geom_factor"],
+                              depth_min=kw["depth_min"],
+                              depth_max=kw["depth_max"])
+    if kw["refine"]:
+        ok = sc.ok & (sc.wnorm > 0) & fetch(state.valid, x, y)
+        return torch.where(ok, filters._refine_depths(data, sc, costs),
+                           sc.depth)
+    return (filters._classify_peaks(data, state, x, y, costs,
+                                    kw["weak_peak_radius"], sc.ok),
+            costs if kw.get("return_curve") else None)
+
+
+def k5_stage_times(data, state, x, y, kw: dict, what: str,
+                   card: str) -> dict:
+    """K5's stage form's, its plain version's and the old stage
+    composition's (``old_stage``) mean times (CUDA events, warm; the
+    composition's include the host's gaps between its ops), the old
+    composition's result held to the stage's (classes equal, depths and
+    curve bitwise: u8 tables make the windows' sums exact in any order),
+    and the bound. Times the main path's form: classify without its
+    curve."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    kw = dict(kw, return_curve=False) if not kw["refine"] else kw
+    got = sweep.stage_fused(data, state, x, y, **kw)
+    old = old_stage(data, state, x, y, kw)
+    torch.cuda.synchronize()
+    same = bitwise(got, old) if kw["refine"] else torch.equal(got[0], old[0])
+    if not same:
+        raise AssertionError(f"K5 stage {what} differs from the old stage "
+                             "composition")
+    ms = cuda_ms(lambda: sweep.stage_fused(data, state, x, y, **kw), 10)
+    old_ms = cuda_ms(lambda: old_stage(data, state, x, y, kw), 10)
+    plain_ms = cuda_ms(lambda: sweep.stage_plain(data, state, x, y, **kw),
+                       1, 1)
+    bound, by, nbytes, ops = k5_stage_bound(data, state, x, y, kw)
+    log(f"  K5 stage {what}: {ms:.4f} ms, the old stage composition "
+        f"{old_ms:.4f} ms (equal results), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+        f"GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                old_stage_ms=old_ms, library_ms=None)
+
+
+def k5_stage_phase(data: dict, state, cx, cy, params, dmin, dmax, block,
+                   card: str) -> dict:
+    """K5's stage form (the setup from the state's maps, the window, the
+    sweep and the rule in one launch) against its plain version on the
+    card, bitwise, at the classify chunk (u8 and f32, the geometric cost on
+    and off, classify with and without its curve, refine), with the SA
+    star window, on degenerate planes and empty weights in a ragged chunk,
+    one pixel, 32 views and a tile-route halo row block (``block``: its
+    data, state and pixels); then its times against the old stage
+    composition and its plain version (square and SA windows)."""
+    import torch
+
+    from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views
+    errs, res = [], {}
+
+    def kw(refine, geom=True, use_sa=False):
+        return stage_kwargs(refine, geom, params, dmin, dmax, use_sa)
+
+    log(f"K5 stage form at the classify chunk: {cx.numel()} pixels, the "
+        "setup, window and rule in the launch")
+    for u8 in (True, False):
+        for geom in (True, False):
+            for refine in (False, True):
+                errs.append(k5_stage_check(
+                    data[u8], state, cx, cy, kw(refine, geom),
+                    f"{'refine' if refine else 'classify'} chunk "
+                    f"{'u8' if u8 else 'f32'}"
+                    f"{', geometric' if geom else ''}"))
+    for refine in (False, True):
+        errs.append(k5_stage_check(
+            data[True], state, cx, cy, kw(refine, use_sa=True),
+            f"{'refine' if refine else 'classify'} SA star u8, geometric"))
+    # degenerate planes and empty view weights on a ragged chunk
+    n = cx.numel() - 17
+    planes = state.planes.clone().reshape(-1, 4)
+    planes[0::7, 3] = 0.0
+    planes[1::7] = float("nan")
+    planes[2::7, 3] = float("inf")
+    planes[3::7, 3] = float("-inf")
+    planes[4::7, 0] = float("inf")
+    vw = state.view_weights.clone().reshape(planes.shape[0], -1)
+    vw[5::7] = 0.0
+    bad = state.replace(planes=planes.reshape(state.planes.shape),
+                        view_weights=vw.reshape(state.view_weights.shape))
+    for refine in (False, True):
+        errs.append(k5_stage_check(
+            data[True], bad, cx[:n], cy[:n], kw(refine),
+            f"{'refine' if refine else 'classify'} degenerate planes, "
+            "empty weights, ragged u8"))
+        errs.append(k5_stage_check(
+            data[True], state, cx[:1], cy[:1], kw(refine),
+            f"{'refine' if refine else 'classify'} one pixel u8"))
+    d32, idx = cycled_views(data[True], 32)
+    s32 = state.replace(selected=state.selected[..., idx].contiguous(),
+                        view_weights=state.view_weights[..., idx]
+                        .contiguous())
+    errs.append(k5_stage_check(d32, s32, cx, cy, kw(False),
+                               "classify 32 views (the 10 cycled) u8"))
+    del d32, s32, bad
+    bdata, bstate, bx, by = block
+    errs.append(k5_stage_check(bdata, bstate, bx, by, kw(False),
+                               f"classify row shard u8 (block "
+                               f"{bdata.height} rows, tables "
+                               f"{bdata.quad_h})"))
+    for mode, refine in (("classify", False), ("refine", True)):
+        res[mode] = k5_stage_times(data[True], state, cx, cy, kw(refine),
+                                   f"{mode} chunk u8, geometric", card)
+    res["classify_sa"] = k5_stage_times(
+        data[True], state, cx, cy, kw(False, use_sa=True),
+        "classify chunk SA star u8, geometric", card)
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def stage_real_phase(rp, card: str) -> dict:
+    """K5's stage form on the first classify and the first refine chunk a
+    real APD REFINE_INIT pass hands it (``rp``:
+    ``tools.kernel_times.real_pass_inputs``; its calls captured as made):
+    bitwise against its plain version, timed against it and the old stage
+    composition."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+    from apde_mvs_tpu_torch.pipeline import patchmatch
+    log("==== K5's stage form on a real APD pass's chunks ====")
+    fused = sweep.stage_fused
+    calls = {}
+
+    def capture(*a, **kw):
+        calls.setdefault("refine" if kw["refine"] else "classify", (a, kw))
+        return fused(*a, **kw)
+    sweep.stage_fused = capture
+    try:
+        patchmatch.run_patchmatch(rp.data, rp.params, depth_min=rp.depth_min,
+                                  depth_max=rp.depth_max, seed=1, **rp.prior)
+    finally:
+        sweep.stage_fused = fused
+    torch.cuda.synchronize()
+    res, errs = {}, []
+    for mode in ("classify", "refine"):
+        a, kw = calls[mode]
+        what = f"{mode}, a real APD pass's first chunk"
+        errs.append(k5_stage_check(*a, dict(kw, return_curve=True)
+                                   if mode == "classify" else kw, what))
+        res[mode] = k5_stage_times(*a, kw, what, card)
+        res[mode]["pixels"] = a[2].numel()
+    res["max_abs_err"] = max(errs)
+    return res
+
+
 def refine_iter_state(scene, data, params, seed: int, device) -> tuple:
     """A REFINE_ITER pass's state on view 0: planes near the truth (depth
     noise 0.2%, a fifth of the pixels 3% off), each pixel's top-k views of
@@ -867,7 +1170,7 @@ def refine_iter_state(scene, data, params, seed: int, device) -> tuple:
                                          device=device).manual_seed(seed))
     state = PMState.create(H, W, S, device=device).replace(
         planes=planes, selected=sel.reshape(H, W, S).contiguous(),
-        view_weights=vw.reshape(H, W, S))
+        view_weights=vw.reshape(H, W, S).contiguous())
     return state, cam_planes.contiguous(), mean_cost.reshape(H, W)
 
 
@@ -1040,10 +1343,13 @@ def k5_phase(scene, seed: int, device, card: str) -> dict:
                        f"export-curve chunk at pixel {lo} u8, geometric")
         errs.append(err)
     res["max_abs_err"] = max(errs)
+    res["stage"] = k5_stage_phase(data, state, cx, cy, params, dmin, dmax,
+                                  (block, bstate, bx, by), card)
     return res
 
 
-def k3_bound(data, x, y, kw: dict, flags, out) -> tuple:
+def k3_bound(data, x, y, kw: dict, flags, out, commit: bool = False
+             ) -> tuple:
     """The least time the card could take for one K3 call: its f32
     operations over the plain-f32 rate (the pixels' windows built from the
     reference image, the valid candidates against every view, the current
@@ -1051,8 +1357,10 @@ def k3_bound(data, x, y, kw: dict, flags, out) -> tuple:
     selection gave; a star window's taps weighted), against the bytes of
     its inputs (the state arrays, reference image, segment ids, quad tables
     and source depth maps whole, each read once) and outputs over the
-    memory rate. Returns (ms, "bytes" or "operations", bytes,
-    operations)."""
+    memory rate; with ``commit`` the outputs are the committed maps
+    (planes, costs, selections, view weights), read once and written once,
+    and the weak and valid maps are read. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
     import torch
 
     from apde_mvs_tpu_torch.core.sampling import fetch
@@ -1083,10 +1391,84 @@ def k3_bound(data, x, y, kw: dict, flags, out) -> tuple:
         + (s + 1) * 40 * 4
     if geom:
         nbytes += 4 * data.src_depths.numel()
+    if commit:
+        # the maps in and out, and the weak and valid maps, in place of
+        # the batch's rows
+        nbytes += cells * (2 * (16 + 4 + 5 * s) + 5) \
+            - b * (4 * 5 + 5 * s)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def k3_commit_check(data, state, x, y, draws, kw: dict, what: str) -> float:
+    """K3's commit form against its plain version on the card (the
+    committed planes, costs, selections and view weights, bitwise), the
+    state's maps left as they were. Returns the max abs difference read
+    from the two (over non-NaN costs and planes)."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    old = [m.clone() for m in (state.planes, state.costs, state.selected,
+                               state.view_weights)]
+    got = strong.strong_fused(data, state, x, y, draws, commit=True, **kw)
+    want = strong.commit_maps_plain(
+        state, x, y, strong.strong_plain(data, state, x, y, draws, **kw))
+    torch.cuda.synchronize()
+    for name, g, w, o, m in zip(got._fields, got, want, old,
+                                (state.planes, state.costs, state.selected,
+                                 state.view_weights)):
+        if g.dtype == torch.float32:
+            g, w, o, m = (v.view(torch.int32) for v in (g, w, o, m))
+        if not torch.equal(g, w):
+            raise AssertionError(f"K3 commit {what}: {name} differs from the "
+                                 f"plain commit at {int((g != w).sum())} "
+                                 "values")
+        if not torch.equal(o, m):
+            raise AssertionError(f"K3 commit {what}: the state's {name} "
+                                 "changed")
+    xl, yl = x.long(), y.long()
+    active = (state.weak[yl, xl] != 0) & state.valid[yl, xl]
+    log(f"  K3 commit {what}: the committed maps bitwise equal to the plain "
+        f"commit, {int(active.sum())} of {x.numel()} pixels active, the "
+        "state's maps untouched")
+    errs = [float((g - w)[~torch.isnan(w)].abs().max()) if bool(
+        (~torch.isnan(w)).any()) else 0.0
+        for g, w in ((got.costs, want.costs), (got.planes, want.planes))]
+    return max(errs)
+
+
+def k3_commit_times(data, state, x, y, draws, kw: dict, what: str,
+                    card: str) -> dict:
+    """K3's commit form's mean time (the maps' copies and the launch, CUDA
+    events, warm) against the launch that writes the batch's rows plus the
+    commit it replaced (``strong_composition.put_composition``, its fetch,
+    where and scatter a map), the launch alone and the plain commit; the
+    bound."""
+    from apde_mvs_tpu_torch.ops.cuda import strong
+    from apde_mvs_tpu_torch.ops.propagation import checkerboard_candidates
+    from apde_mvs_tpu_torch.testing.strong_composition import put_composition
+
+    def launch():
+        return strong.strong_fused(data, state, x, y, draws, **kw)
+    ms = cuda_ms(lambda: strong.strong_fused(data, state, x, y, draws,
+                                             commit=True, **kw), 10)
+    put_ms = cuda_ms(lambda: put_composition(state, 0, launch()), 10)
+    launch_ms = cuda_ms(launch, 10)
+    plain_ms = cuda_ms(lambda: strong.commit_maps_plain(
+        state, x, y, strong.strong_plain(data, state, x, y, draws, **kw)),
+        1, 1)
+    _, _, flags = checkerboard_candidates(state.costs, x, y,
+                                          kw["row_bounds"])
+    bound, by, nbytes, ops = k3_bound(data, x, y, kw, flags, launch(),
+                                      commit=True)
+    log(f"  K3 commit {what}: {ms:.4f} ms (copies and launch), the launch "
+        f"and the put composition {put_ms:.4f} ms, the launch alone {launch_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                launch_put_ms=put_ms, launch_ms=launch_ms, library_ms=None)
 
 
 def strong_mismatch(got, want):
@@ -1334,6 +1716,27 @@ def k3_phase(scene, seed: int, device, card: str) -> dict:
                          kwargs(2, True), "ragged batch u8, geometric"))
     errs.append(k3_check(data[True], state, x[:1], y[:1], draws(1),
                          kwargs(2, True), "one pixel u8, geometric"))
+    # the commit form: the active pixels' outputs (not WEAK, valid) written
+    # into copies of the maps; a fifth of the pixels WEAK, 3% invalid
+    rng = np.random.default_rng(seed + 17)
+    cstate = state.replace(
+        weak=torch.as_tensor(np.where(rng.random((H, W)) < 0.2, 0, 1)
+                             .astype(np.int32), device=device),
+        valid=torch.as_tensor(rng.random((H, W)) < 0.97, device=device))
+    for use_sa in (False, True):
+        for u8 in (True, False):
+            errs.append(k3_commit_check(
+                data[u8], cstate, x, y, dr, kwargs(2, True, use_sa=use_sa),
+                f"black u8={u8}, geometric{', SA' * use_sa}"))
+    errs.append(k3_commit_check(data[True], cstate, x, y, dr,
+                                kwargs(0, False, refine_init=True),
+                                "black u8, REFINE_INIT"))
+    res["commit"] = k3_commit_times(data[True], cstate, x, y, dr,
+                                    kwargs(2, True), "black u8, geometric",
+                                    card)
+    res["commit_sa"] = k3_commit_times(data[True], cstate, x, y, dr,
+                                       kwargs(2, True, use_sa=True),
+                                       "black u8, geometric, SA", card)
     res["max_abs_err"] = max(errs)
     res["div"] = div_phase(seed, device, card)
     return res
@@ -2662,78 +3065,123 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
 
 
 def sync_phase(rp, card: str) -> dict:
-    """The synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``)
-    around a real APD pass's iteration loop (``full_pass._iterations``;
-    ``rp``: ``tools.kernel_times.real_pass_inputs``), by call site: with
-    each fit reading the reference camera from the card, as K9's wrapper
-    did before the camera was read once a pass ("before"), and on the main
-    path ("after"). Fails if a fit in the loop still reads the camera, or
-    if the check does not see the read it should."""
+    """The synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``) of
+    real passes, by stage and call site: first the APD pass's iteration
+    loop (``full_pass._iterations``; ``rp``:
+    ``tools.kernel_times.real_pass_inputs``) with each fit reading the
+    reference camera from the card, as K9's wrapper did before the camera
+    was read once a pass ("before": the check must see those reads); then
+    the whole APD REFINE_INIT pass and a whole FIRST_INIT pass of the same
+    view (round 0's first pass), each call put under the innermost of the
+    stages sweeps (its iteration loop apart), classify and refine, or the
+    pass. Fails if a fit in the loop still reads the camera, if any
+    synchronising call comes from ``core/sampling.py``, or if the classify
+    or the refine stage makes more than one (its ``nonzero``)."""
     import collections
     import traceback
     import warnings
 
     import torch
 
+    from apde_mvs_tpu_torch import config as cfg
     from apde_mvs_tpu_torch.pipeline import full_pass, patchmatch
-    log("==== synchronising calls in an APD pass's iteration loop ====")
-    inner = full_pass._iterations
+    log("==== synchronising calls in real passes, by stage ====")
     port = REPO / "apde_mvs_tpu_torch"
-    sites = {}
+    wrapped = {"pass_sweeps": "sweeps", "_iterations": "iterations",
+               "pass_classify": "classify", "pass_finish": "refine"}
+    saved = {name: getattr(full_pass, name) for name in wrapped}
+    stack = ["pass"]
+    calls = collections.Counter()
 
-    def watched(label):
-        def run(data, state, cfg, weak, consts, cam, gen, shard):
-            calls = collections.Counter()
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if Path(f.filename).resolve().is_relative_to(port)]
+        f = frames[-1] if frames else None
+        site = (f"{Path(f.filename).resolve().relative_to(REPO)}:"
+                f"{f.lineno} {f.name}" if f else f"{filename}:{lineno}")
+        calls[(stack[-1], site)] += 1
 
-            def show(message, category, filename, lineno, file=None,
-                     line=None):
-                if "synchroniz" not in str(message):
-                    return
-                frames = [f for f in traceback.extract_stack()
-                          if Path(f.filename).resolve().is_relative_to(port)]
-                f = frames[-1] if frames else None
-                calls[f"{Path(f.filename).resolve().relative_to(REPO)}:"
-                      f"{f.lineno} {f.name}" if f
-                      else f"{filename}:{lineno}"] += 1
-            torch.cuda.synchronize()
-            with warnings.catch_warnings():
-                warnings.simplefilter("always")
-                warnings.showwarning = show
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    return inner(data, state, cfg, weak, consts,
-                                 None if label == "before" else cam, gen,
-                                 shard)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                    sites[label] = calls
+    def staged(name, label, camera=True):
+        inner = saved[name]
+
+        def run(*args, **kwargs):
+            if not camera:     # _iterations(..., cam, gen, shard)
+                args = args[:5] + (None,) + args[6:]
+            stack.append(label)
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                stack.pop()
         return run
-    try:
-        for label in ("before", "after"):
-            full_pass._iterations = watched(label)
-            patchmatch.run_patchmatch(rp.data, rp.params,
-                                      depth_min=rp.depth_min,
-                                      depth_max=rp.depth_max, seed=1,
-                                      **rp.prior)
-    finally:
-        full_pass._iterations = inner
-    camera = {}
-    for label in ("before", "after"):
-        calls = sites[label]
-        camera[label] = sum(n for site, n in calls.items()
-                            if site.endswith(" camera"))
-        log(f"  {label}: {sum(calls.values())} synchronising calls in "
-            f"{rp.params.max_iterations} iterations, the camera read "
-            f"{camera[label]}: " + "; ".join(
-                f"{site} x{n}" for site, n in sorted(calls.items())))
-    if camera["after"]:
+
+    def watched(params, prior, camera=True):
+        calls.clear()
+        for name, label in wrapped.items():
+            setattr(full_pass, name,
+                    staged(name, label, camera or name != "_iterations"))
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                patchmatch.run_patchmatch(rp.data, params,
+                                          depth_min=rp.depth_min,
+                                          depth_max=rp.depth_max, seed=1,
+                                          **prior)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                for name, fn in saved.items():
+                    setattr(full_pass, name, fn)
+        return dict(calls)
+
+    first = cfg.build_schedule(max(rp.data.height, rp.data.width),
+                               "General", base=APD_BASE)[0].params
+    runs = {"before": watched(rp.params, rp.prior, camera=False),
+            "apd": watched(rp.params, rp.prior),
+            "first_init": watched(first, {})}
+    res = {}
+    for label, got in runs.items():
+        by_stage = collections.Counter()
+        for (stage, site), n in got.items():
+            by_stage[stage] += n
+        res[label] = dict(
+            stages=dict(by_stage),
+            sites={f"{stage}: {site}": n for (stage, site), n in got.items()},
+            camera=sum(n for (stage, site), n in got.items()
+                       if stage == "iterations"
+                       and site.endswith(" camera")),
+            sampling=sum(n for (stage, site), n in got.items()
+                         if "core/sampling.py" in site))
+        log(f"  {label}: {sum(got.values())} synchronising calls, by stage "
+            f"{json.dumps(dict(by_stage), sort_keys=True)}: " + "; ".join(
+                f"{stage}: {site} x{n}"
+                for (stage, site), n in sorted(got.items())))
+    iters = rp.params.max_iterations
+    if res["apd"]["camera"]:
         raise AssertionError("a fit in the APD iteration loop still reads "
                              "the reference camera from the card")
-    if camera["before"] < rp.params.max_iterations:
+    if res["before"]["camera"] < iters:
         raise AssertionError("the sync check did not see a fit's camera "
                              "read")
-    log(f"  K9's camera: read once a pass, none in the loop [{card}]")
-    return {k: dict(v) for k, v in sites.items()}
+    for label in ("apd", "first_init"):
+        if res[label]["sampling"]:
+            raise AssertionError(f"{label} pass: {res[label]['sampling']} "
+                                 "synchronising calls from core/sampling.py")
+        for stage in ("classify", "refine"):
+            n = res[label]["stages"].get(stage, 0)
+            if n > 1:
+                raise AssertionError(f"{label} pass: the {stage} stage makes "
+                                     f"{n} synchronising calls, more than "
+                                     "its nonzero")
+    loop = res["apd"]["stages"].get("iterations", 0)
+    log(f"  K9's camera: read once a pass, none in the loop; the APD loop's "
+        f"{iters} iterations {loop} synchronising calls, none from "
+        f"core/sampling.py in either pass, the classify and refine stages "
+        f"at most one each [{card}]")
+    return res
 
 
 class Tee(io.TextIOBase):
@@ -2891,6 +3339,58 @@ def counted_k10_calls():
         anc.nearest_strong_jfa = fn
 
 
+@contextlib.contextmanager
+def counted_stage_calls():
+    """Counts, for each ``filters.depth_to_weak`` and ``filters.local_refine``
+    call of the main path run inside, K5's launches in the call and every
+    torch op it dispatched (a ``TorchDispatchMode``) but the output's
+    allocation. Yields the list of (name, launches, other ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from apde_mvs_tpu_torch.ops import filters
+    from apde_mvs_tpu_torch.ops.cuda import sweep
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    calls = []
+    saved = {name: getattr(filters, name)
+             for name in ("depth_to_weak", "local_refine")}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            before = sweep.launches
+            with Ops() as mode:
+                out = fn(*args, **kwargs)
+            calls.append((name, sweep.launches - before,
+                          [op for op in mode.ops
+                           if not op.startswith("aten.empty")]))
+            return out
+        return run
+    for name, fn in saved.items():
+        setattr(filters, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(filters, name, fn)
+
+
+def stage_calls_ok(c: dict) -> bool:
+    """Every classify and refine call of a path: one K5 launch and no torch
+    op but the output's allocation; at least one of each."""
+    calls = c.get("stage_calls", [])
+    names = {name for name, _, _ in calls}
+    return names == {"depth_to_weak", "local_refine"} and all(
+        n == 1 and not ops for _, n, ops in calls)
+
+
 def k10_calls_ok(c: dict) -> bool:
     """A weak path's K10 launches: at least one call, each call with the
     launches K10_A_CALL measured (one count there), and they sum to the
@@ -2927,6 +3427,8 @@ def check_counts(what: str, c: dict, passes: bool = True,
         ok = ok and c["k5_modes"].get("refine", 0) > 0 \
             and c["k3"] > 0 and c["k3_colours"] > 0 \
             and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
+    if "stage_calls" in c:
+        ok = ok and stage_calls_ok(c)
     if weak:
         ok = ok and min(split) > 0 and c["k8"] > 0 and c["k9"] > 0 \
             and k10_calls_ok(c)
@@ -2966,11 +3468,12 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    with counted_k10_calls() as k10_calls:
+    with counted_k10_calls() as k10_calls, \
+            counted_stage_calls() as stage_calls:
         text = run_main(apd.main, ["--dense_folder", root, "--dataset",
                                    "General"] + list(cli_args))
     wall = time.perf_counter() - t0
-    c = dict(read_counts(), k10_calls=k10_calls)
+    c = dict(read_counts(), k10_calls=k10_calls, stage_calls=stage_calls)
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(passes) != n_passes:
@@ -2979,6 +3482,13 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     points = coloured_points(root / "APD" / "APD.ply", "fused PLY")
     check_counts(label, c, weak=weak)
     log(f"{label}: {wall:.3f} s wall, {counts_line(c)} [{card}]")
+    by_name = {}
+    for name, n, ops in stage_calls:
+        by_name.setdefault(name, []).append((n, len(ops)))
+    log(f"  K5 a classify / refine call: " + "; ".join(
+        f"{name} {len(v)} calls, K5 launches a call {sorted({n for n, _ in v})}"
+        f", other torch ops a call {sorted({k for _, k in v})}"
+        for name, v in sorted(by_name.items())))
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
     return dict(c, wall_s=wall, errors=errs, points=points, passes=passes,
@@ -3288,6 +3798,12 @@ def kernel_report(card: str) -> None:
                 f"{info['regs']} registers, {info['local_bytes']} B local "
                 f"(spills), {info['blocks_per_sm']} resident blocks an SM "
                 f"[{card}]")
+            if mod is sweep:
+                info = sweep.stage_kernel_info(True, sa, 36, FULL_VIEWS - 1)
+                log(f"K5 stage form u8, {form} window, 36 taps, "
+                    f"{FULL_VIEWS - 1} views: {info['regs']} registers, "
+                    f"{info['local_bytes']} B local (spills), "
+                    f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
     cuobjdump = sass_taps.find_cuobjdump()
     if cuobjdump is None:
         log("SASS a tap: cuobjdump missing, not counted")
@@ -3681,6 +4197,7 @@ def main(argv=None) -> int:
         f"pixels, K8's {real.k8[0][4].numel()}; "
         f"{time.perf_counter() - t0:.1f} s")
     sync_phase(real.inputs, card)
+    k5_real = stage_real_phase(real.inputs, card)
     k7 = weak_sweep_phase(apd_scene, wc, real, args.seed, device, card)
     del wc
     ka = anchor_kernel_phase(apd_scene, real, args.seed, device, card)
@@ -3842,13 +4359,39 @@ def main(argv=None) -> int:
     k5_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/sweep.cu",
               "replaces": "apde_mvs_tpu/ops/filters.py:196-263 and :476-507 "
                           "with cost.py:418 (XLA-compiled jnp)"}
+    # the main paths launch K5's stage form (DepthToWeak and LocalRefine
+    # whole): its rows count every path's launches; the sweep form's rows
+    # count none (held as K1 is)
     for mode, what in (("classify", "DepthToWeak classify chunk, 61 probes"),
                        ("refine", "LocalRefine chunk, 12 probes")):
-        rows.append(dict(name=f"K5 fused disparity sweep, {what} (u8 quads, "
-                              "geometric cost)", **k5_src,
+        rows.append(dict(name=f"K5 fused disparity sweep, sweep form, {what} "
+                              "(u8 quads, geometric cost)", **k5_src,
+                         launches=0, max_abs_err=k5["max_abs_err"],
+                         **k5[mode]))
+    k5_stage_src = dict(k5_src, replaces="apde_mvs_tpu/ops/filters.py:234-"
+                        "307 (depth_to_weak, _classify_peaks) and :476-507 "
+                        "(local_refine) with _sweep_setup :178 and cost.py:"
+                        "418 (XLA-compiled jnp)")
+    st = k5["stage"]
+    for key, mode, what in (
+            ("classify", "classify", "DepthToWeak whole, classify chunk"),
+            ("refine", "refine", "LocalRefine whole, refine chunk"),
+            ("classify_sa", "classify", "DepthToWeak whole, classify chunk, "
+             "SA star window")):
+        rows.append(dict(name=f"K5 stage form, {what} (u8 quads, geometric "
+                              "cost)", **k5_stage_src,
                          launches=sum(k5_paths[mode].values())
                          + tl["k5"][mode],
-                         max_abs_err=k5["max_abs_err"], **k5[mode]))
+                         max_abs_err=st["max_abs_err"], **st[key]))
+    for mode in ("classify", "refine"):
+        r = k5_real[mode]
+        rows.append(dict(name=f"K5 stage form, a real APD pass's first "
+                              f"{mode} chunk ({r['pixels']} pixels, SA, u8 "
+                              "quads)", **k5_stage_src,
+                         launches=sum(k5_paths[mode].values())
+                         + tl["k5"][mode],
+                         max_abs_err=k5_real["max_abs_err"],
+                         **{k_: v for k_, v in r.items() if k_ != "pixels"}))
     k3_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/strong.cu",
               "replaces": "apde_mvs_tpu/ops/propagation.py:239-427 "
                           "(XLA-compiled jnp)"}
@@ -3864,6 +4407,19 @@ def main(argv=None) -> int:
                           "row block (u8 quads, geometric cost)", **k3_src,
                      launches=tl["k3"], max_abs_err=k3["max_abs_err"],
                      **k3["shard"]))
+    # the serial and view-parallel routes launch the commit form: every
+    # path's launches but the tile route's
+    k3_commit_src = dict(k3_src, replaces="apde_mvs_tpu/ops/propagation.py:"
+                         "239-460 (_strong_body and propagate_strong's "
+                         "commit, XLA-compiled jnp)")
+    for key, what, n in (
+            ("commit", "", sum(k3_paths.values()) - tl["k3"]),
+            ("commit_sa", ", SA star window", ap["k3_sa"] + ex["k3_sa"])):
+        rows.append(dict(name=f"K3 strong sweep colour update with its "
+                              f"commit, black pixels of a view{what} (u8 "
+                              "quads, geometric cost)", **k3_commit_src,
+                         launches=n, max_abs_err=k3["max_abs_err"],
+                         **k3[key]))
     k6_src = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/weak.cu",
               "replaces": "apde_mvs_tpu/ops/pallas/sampler.py:38 at the weak "
                           "sites, with apde_mvs_tpu/ops/deformable.py:124-198"

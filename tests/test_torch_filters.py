@@ -234,3 +234,89 @@ def test_depth_to_weak_and_local_refine_with_sa_match_jax(geom):
                            use_sa=True).numpy()
     np.testing.assert_allclose(tdep, np.asarray(jdep), rtol=1e-5, atol=0)
     assert (tdep != ts.planes.numpy()[ys, xs, 3]).sum() > 20
+
+
+def _crafted_curves(rng):
+    """(B, 61) cost curves for the peak rule: crafted rows, then random rows
+    of dyadic values (every square and sum of squares exact, so the rule's
+    sums agree in any order), NaN and +inf. The crafted rows: one deep
+    peak; two peaks of equal cost (the first is the minimum); equal costs
+    on a plateau (no strict minimum); NaN beside and at a peak; +inf
+    around a peak; peaks all at or above 2 (min_peak 0); a peak only at
+    i = 1 and only at i = 59 (both outside [2, 58]); peaks at 2 and 58;
+    several peaks whose spread puts the variance under and over 0.2."""
+    nan, inf = np.nan, np.inf
+    rows = []
+
+    def row(base=1.0, **at):
+        r = np.full(61, base, np.float32)
+        for i, v in at.items():
+            r[int(i[1:])] = v
+        rows.append(r)
+    row(i30=0.125)                                   # single, strong
+    row(i30=0.25)                                    # single, weak
+    row(i28=0.25, i33=0.25)                          # equal peak costs
+    row(i28=0.5, i29=0.5, i30=0.5)                   # plateau: no peak
+    row(i29=nan, i30=0.125)                          # NaN beside a peak
+    row(i30=nan, i31=0.125)                          # NaN at a peak's side
+    row(i29=inf, i30=0.125, i31=inf)                 # +inf around a peak
+    row(base=3.0, i30=2.0, i40=2.5)                  # no peak below 2
+    row(i1=0.125)                                    # only at i = 1
+    row(i59=0.125)                                   # only at i = 59
+    row(i2=0.125, i58=0.25)                          # peaks at 2 and 58
+    row(i30=0.125, i10=0.5, i50=0.75)                # spread peaks
+    row(i30=0.125, i10=0.25, i50=0.25)               # close peaks
+    row(i31=0.25, i27=0.375, i45=1.5, i12=0.625)     # four peaks
+    row(base=inf, i30=0.125)                         # inf everywhere else
+    row(base=nan, i30=0.125)                         # NaN everywhere else
+    vals = np.asarray([0.125, 0.25, 0.375, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5,
+                       nan, inf], np.float32)
+    p = np.asarray([.12, .12, .1, .1, .1, .1, .08, .1, .04, .07, .07])
+    # random rows: a few dips into a flat curve, some of them NaN or +inf,
+    # and on half of them a deep peak near the centre
+    rand = np.full((400, 61), 1.5, np.float32)
+    for r in rand:
+        k = rng.integers(0, 6)
+        r[rng.integers(0, 61, k)] = rng.choice(vals, k, p=p / p.sum())
+        if rng.random() < 0.5:
+            at = 30 + rng.integers(-4, 5)
+            r[at - 1:at + 2] = (1.0, 0.0625, 1.0)
+    return np.concatenate([np.stack(rows), rand]).astype(np.float32)
+
+
+@pytest.mark.parametrize("weak_peak_radius", [2, 6])
+def test_classify_peaks_on_crafted_curves_matches_jax(weak_peak_radius):
+    """The plain peak rule (the one K5's stage form applies in its
+    epilogue) against the JAX package's ``_classify_peaks`` on crafted
+    curves, over pixels on and inside the margins, invalid pixels and
+    setups that are not ok: classes equal."""
+    jd, js, td, ts, *_ = _setup()
+    rng = np.random.default_rng(23)
+    curve = _crafted_curves(rng)
+    b = curve.shape[0]
+    n = 16                                       # crafted rows: inside
+    xs = rng.integers(4, W - 4, b).astype(np.int32)
+    ys = rng.integers(4, H - 4, b).astype(np.int32)
+    xs[:n], ys[:n] = 15, 12
+    xs[n:n + 4] = [5, 6, W - 7, W - 6]           # on and off the margins
+    ys[n + 4:n + 8] = [5, 6, H - 7, H - 6]
+    ok = rng.random(b) < 0.9
+    ok[:n] = True
+    valid = rng.random((H, W)) < 0.9
+    valid[12, 15] = True
+    js = js.replace(valid=jnp.asarray(valid))
+    ts = ts.replace(valid=torch.as_tensor(valid))
+    want = np.asarray(jf._classify_peaks(
+        jd, js, jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(curve),
+        weak_peak_radius, jnp.asarray(ok)))
+    got = tf._classify_peaks(td, ts, torch.as_tensor(xs),
+                             torch.as_tensor(ys), torch.as_tensor(curve),
+                             weak_peak_radius, torch.as_tensor(ok)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+    for cls in (STRONG, WEAK, UNKNOWN):
+        assert (got == cls).sum() > 10
+    # the crafted rows' classes, as the reference's rule gives them
+    crafted = got[:n]
+    assert crafted[0] == STRONG and crafted[1] == WEAK
+    assert crafted[7] == crafted[8] == crafted[9] == WEAK

@@ -272,3 +272,40 @@ def test_texel_fetch_and_fetch_parity():
         _np(tsamp.fetch(_t(arr), _t(xi), _t(yi), fill=-1.0)),
         np.asarray(jsamp.fetch(jnp.asarray(arr), jnp.asarray(xi),
                                jnp.asarray(yi), fill=-1.0)))
+
+
+# (map dtype, fill) pairs: the fills the port's maps take
+FETCH_FILLS = [("bool", 0), ("bool", 0.0), ("int32", 0), ("int32", 0.0),
+               ("int32", 2), ("float32", 0), ("float32", 0.0),
+               ("float32", float("inf"))]
+
+
+@pytest.mark.parametrize("kind, fill", FETCH_FILLS,
+                         ids=[f"{k}-{f!r}" for k, f in FETCH_FILLS])
+def test_fetch_keeps_the_dtype_and_fills_out_of_bounds(kind, fill):
+    """``fetch`` keeps the map's dtype (a bare scalar in ``torch.where``
+    would promote a bool or int32 map), reads in-bounds cells and gives the
+    fill, cast to that dtype, at out-of-bounds indices: as the JAX package's
+    ``fetch`` and as the host-copy form it replaced."""
+    rng = np.random.default_rng(8)
+    shape = {"bool": (6, 9, 3), "int32": (6, 9), "float32": (6, 9, 4)}[kind]
+    arr = rng.normal(size=shape)
+    arr = (arr > 0) if kind == "bool" else arr.astype(kind)
+    xi = rng.integers(-3, 12, (5, 7)).astype(np.int32)
+    yi = rng.integers(-3, 9, (5, 7)).astype(np.int32)
+    xi[0, 0], yi[0, 0] = 9, 5          # one past the right edge
+    got = tsamp.fetch(_t(arr), _t(xi), _t(yi), fill=fill)
+    assert got.dtype == _t(arr).dtype
+    inb = (xi >= 0) & (xi < 9) & (yi >= 0) & (yi < 6)
+    assert not inb.all() and inb.any()
+    want = np.broadcast_to(np.asarray(fill).astype(arr.dtype),
+                           xi.shape + shape[2:]).copy()
+    want[inb] = arr[yi[inb], xi[inb]]
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(jsamp.fetch(jnp.asarray(arr), jnp.asarray(xi),
+                                         jnp.asarray(yi), fill=fill)))
+    v = tsamp.clamped_fetch(_t(arr), _t(xi), _t(yi))
+    old = torch.where(_t(inb).reshape(inb.shape + (1,) * (len(shape) - 2)),
+                      v, torch.as_tensor(fill, dtype=v.dtype))
+    assert torch.equal(got, old)

@@ -52,7 +52,8 @@ from apde_mvs_tpu_torch.testing.kernel_cases import (SELECTION_PATTERNS,
                                                      cycled_views,
                                                      strong_draws,
                                                      weight_pattern)
-from apde_mvs_tpu_torch.testing.strong_composition import strong_composition
+from apde_mvs_tpu_torch.testing.strong_composition import (put_composition,
+                                                            strong_composition)
 
 # one intra-op thread per test worker process (see tests/test_torch_cost.py)
 torch.set_num_threads(1)
@@ -559,13 +560,13 @@ def test_window_plain_equals_precompute_ref_window(sa, u8):
 
 
 def _star_tables():
-    """The star's tap offsets as csrc/strong.cu encodes them (two bits a
-    tap of kStarIx / kStarIy index {1, 3, 5}, a quadrant's signs from its
-    number)."""
+    """The star's tap offsets as csrc/window_common.cuh, the window K3 and
+    K5 build, encodes them (two bits a tap of kStarIx / kStarIy index
+    {1, 3, 5}, a quadrant's signs from its number)."""
     import re
     from pathlib import Path
     src = (Path(k3.__file__).resolve().parents[2] / "csrc"
-           / "strong.cu").read_text()
+           / "window_common.cuh").read_text()
     ix, iy = (int(re.search(rf"{n} = (0x[0-9A-Fa-f]+)u;", src)[1], 16)
               for n in ("kStarIx", "kStarIy"))
     taps = []
@@ -699,6 +700,56 @@ def test_wrapper_takes_32_views_and_rejects_33():
                 _fused(c, data=data, state=state)
 
 
+def _commit_case(name, device="cpu"):
+    """Case ``name`` with a fifth of its pixels WEAK and a tenth invalid
+    (inactive: the commit leaves them), and its colour."""
+    c = _case(name, device)
+    rng = np.random.default_rng(CARD_CASES.index(name) + 50)
+    h, w = c.state.costs.shape
+    weak = torch.as_tensor(np.where(rng.random((h, w)) < 0.2, 0, 1)
+                           .astype(np.int32), device=c.x.device)
+    valid = torch.as_tensor(rng.random((h, w)) < 0.9, device=c.x.device)
+    return c._replace(state=c.state.replace(weak=weak, valid=valid)), \
+        CARD_CASES.index(name) % 2
+
+
+def _same_maps(got, want):
+    """Four maps bit for bit, NaN payloads included."""
+    return all(g.shape == w.shape and torch.equal(
+        g.view(torch.int32) if g.dtype == torch.float32 else g,
+        w.view(torch.int32) if w.dtype == torch.float32 else w)
+        for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["u8-geom-it0", "sa-u8-geom-it1",
+                                  "u8-geom-init-it2", "halo-u8-geom-it2"])
+def test_commit_equals_the_put_composition(name):
+    """K3's commit form in its plain version (copies of the maps, the
+    outputs written at the active pixels) bitwise equal to the commit it
+    replaced (``strong_composition.put_composition``: a fetch, a where and a
+    scatter_color a map); the inactive pixels (WEAK, invalid) and the other
+    colour keep their values; the wrapper's CPU route gives the same."""
+    c, color = _commit_case(name)
+    out = _plain(c)
+    got = k3.commit_maps_plain(c.state, c.x, c.y, out)
+    want = put_composition(c.state, color, out)
+    assert _same_maps(got, (want.planes, want.costs, want.selected,
+                            want.view_weights))
+    old = (c.state.planes, c.state.costs, c.state.selected,
+           c.state.view_weights)
+    xl, yl = c.x.long(), c.y.long()
+    active = (c.state.weak[yl, xl] != 0) & c.state.valid[yl, xl]
+    assert 0 < int(active.sum()) < active.numel()
+    keep = torch.ones_like(c.state.valid)
+    keep[yl[active], xl[active]] = False
+    for g, o in zip(got, old):
+        assert _same_maps([g[keep]], [o[keep]])
+    assert (got.costs[yl[active], xl[active]] != out.costs[active]).sum() \
+        == 0
+    assert not torch.equal(got.costs, c.state.costs)
+    assert _same_maps(_fused(c, commit=True), got)
+
+
 def test_propagate_strong_makes_one_update_call_a_colour(monkeypatch):
     """propagate_strong calls K3's wrapper once a colour, and never K2."""
     c = _case("sa-u8-geom-it1")
@@ -762,6 +813,27 @@ def test_k3_matches_plain_on_card(cuda_device, name):
     assert _bitwise(got, want), "outputs differ: " + ", ".join(
         f"{int((g != w).any(-1).sum() if g.ndim > 1 else (g != w).sum())}"
         for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["u8-geom-it0", "sa-u8-geom-it1",
+                                  "u8-geom-init-it2", "halo-u8-geom-it2",
+                                  "f32-geom-it2"])
+def test_k3_commit_matches_plain_on_card(cuda_device, name):
+    """K3's commit form on the card (the active pixels' outputs written into
+    copies of the maps) bitwise equal to its plain version, one launch, the
+    state's maps left as they were."""
+    c, _ = _commit_case(name, cuda_device)
+    before = _launches()
+    old = [m.clone() for m in (c.state.planes, c.state.costs,
+                               c.state.selected, c.state.view_weights)]
+    got = _fused(c, commit=True)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    want = k3.commit_maps_plain(c.state, c.x, c.y, _plain(c))
+    assert _same_maps(got, want)
+    assert _same_maps(old, (c.state.planes, c.state.costs, c.state.selected,
+                            c.state.view_weights))
 
 
 @pytest.mark.cuda

@@ -313,7 +313,7 @@ def _jax_problem(td, ts):
 
 
 @pytest.mark.parametrize("name", ["u8", "f32-geom", "u8-geom-cut",
-                                  "sa-u8-geom"])
+                                  "sa-u8-geom", "sa-f32"])
 def test_sweeps_match_jax(name):
     """DepthToWeak and LocalRefine on the plain version (CPU tensors)
     against the JAX package's on the same arrays, over the near-truth
@@ -457,16 +457,18 @@ def test_wrapper_rejects_more_views_than_the_kernel_takes():
 
 
 def test_filters_make_one_sweep_call_a_batch(monkeypatch):
-    """depth_to_weak and local_refine call K5's wrapper once a batch, with
-    the classify and refine modes, and never K2."""
+    """depth_to_weak and local_refine call K5's stage entry once a batch,
+    with the classify and refine modes, and never K2 or the sweep entry."""
     data, state, x, y, (lo, hi) = _case("sa-u8-geom")
     calls = []
-    fused = k5.sweep_fused
+    fused = k5.stage_fused
 
     def counted(*a, **kw):
         calls.append(kw["refine"])
         return fused(*a, **kw)
-    monkeypatch.setattr(k5, "sweep_fused", counted)
+    monkeypatch.setattr(k5, "stage_fused", counted)
+    monkeypatch.setattr(k5, "sweep_fused",
+                        lambda *a, **kw: pytest.fail("sweep entry called"))
     before = (k2.launches, dict(k2.site_launches))
     k2_calls = []
     monkeypatch.setattr(k2, "ncc_strong_fused",
@@ -477,6 +479,87 @@ def test_filters_make_one_sweep_call_a_batch(monkeypatch):
     assert calls == [False, True] and not k2_calls
     assert (k2.launches, dict(k2.site_launches)) == before
     assert curve.shape == (601, 61) and weak.shape == depth.shape == (601,)
+
+
+def _stage_kw(name, mode):
+    """``stage_fused``'s keyword arguments for case ``name``."""
+    _, _, _, _, (lo, hi) = _case(name)
+    sa = name.startswith("sa") or "-sa" in name
+    kw = dict(refine=mode == "refine", radius=5, increment=2, use_sa=sa,
+              geom="geom" in name, geom_factor=GF, depth_min=lo,
+              depth_max=hi)
+    if mode == "classify":
+        kw.update(weak_peak_radius=2, return_curve=True)
+    return kw
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["u8-geom-cut", "sa-f32"])
+def test_stage_over_one_chunk_equals_eight_chunks(name, mode):
+    """The stage entry over all of a case's pixels at once equals the same
+    pixels in 8 chunks, concatenated: a pixel's result depends on no other
+    pixel of its chunk."""
+    data, state, x, y, _ = _case(name)
+    kw = _stage_kw(name, mode)
+    whole = k5.stage_fused(data, state, x, y, **kw)
+    parts = [k5.stage_fused(data, state, cx, cy, **kw)
+             for cx, cy in zip(torch.tensor_split(x, 8),
+                               torch.tensor_split(y, 8))]
+    if mode == "refine":
+        assert _bitwise(whole, torch.cat(parts))
+    else:
+        assert torch.equal(whole[0], torch.cat([w for w, _ in parts]))
+        assert _bitwise(whole[1], torch.cat([c for _, c in parts]))
+        assert whole[0].dtype == torch.int32 and whole[1].shape == (601, 61)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stage_plain_is_the_sweep_between_setup_and_rule(mode):
+    """The stage's plain version is the setup (``_sweep_scalars``), the
+    window K3 builds (``strong.window_plain``), the sweep's plain version
+    and the rule (``_classify_peaks`` / ``_refine_depths``); with u8 tables
+    the window's values are integers, so it equals the route it replaced
+    (``precompute_ref_window`` and the sweep entry) bit for bit."""
+    name = "sa-u8-geom"
+    data, state, x, y, _ = _case(name)
+    kw = _stage_kw(name, mode)
+    got = k5.stage_plain(data, state, x, y, **kw)
+    sc, px, win = _inputs(data, state, x, y, True)
+    costs = k5.sweep_fused(data, px, win, refine=kw["refine"],
+                           geom=kw["geom"], geom_factor=GF,
+                           depth_min=kw["depth_min"],
+                           depth_max=kw["depth_max"])
+    if mode == "refine":
+        want = torch.where(sc.ok & (sc.wnorm > 0) & state.valid[y, x],
+                           tf._refine_depths(data, sc, costs), sc.depth)
+        assert _bitwise(got, want)
+        assert (got != sc.depth).sum() > 20
+    else:
+        want = tf._classify_peaks(data, state, x, y, costs, 2, sc.ok)
+        assert torch.equal(got[0], want) and _bitwise(got[1], costs)
+
+
+def test_stage_wrapper_rejects_bad_arguments():
+    """The stage entry checks the pixels, the maps and the window on every
+    device before anything runs."""
+    data, state, x, y, _ = _case("sa-u8-geom")
+    kw = _stage_kw("sa-u8-geom", "refine")
+    before = _launches()
+    bad = [(dict(x=x.float()), TypeError), (dict(y=y[1:]), ValueError),
+           (dict(state=state.replace(selected=state.selected.float())),
+            TypeError),
+           (dict(state=state.replace(view_weights=state.view_weights[
+               ..., 1:])), ValueError),
+           (dict(state=state.replace(valid=state.valid[1:])), ValueError),
+           (dict(radius=4), ValueError)]
+    for change, err in bad:
+        args = dict(data=data, state=state, x=x, y=y)
+        args.update({k: v for k, v in change.items() if k in args})
+        with pytest.raises(err):
+            k5.stage_fused(**args, **dict(kw, **{k: v for k, v in
+                                                 change.items()
+                                                 if k not in args}))
+    assert _launches() == before
 
 
 def test_camera_table_is_built_once_per_cost_data():
@@ -561,7 +644,8 @@ def test_k5_matches_plain_on_card(cuda_device, name, mode):
 @pytest.mark.cuda
 def test_filters_launch_k5_once_a_batch_on_card(cuda_device):
     """On CUDA tensors depth_to_weak and local_refine launch K5 once each
-    and K2 never; their results equal the same calls on the CPU."""
+    (its stage form) and K2 never; their results equal the same calls on
+    the CPU."""
     data, state, x, y, (lo, hi) = _case("sa-u8-geom", cuda_device)
     k2.reset_launches()
     before = k5.launches
@@ -580,6 +664,34 @@ def test_filters_launch_k5_once_a_batch_on_card(cuda_device):
         depth.cpu().numpy(),
         tf.local_refine(cd, cs, cx, cy, True, GF, lo, hi,
                         use_sa=True).numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES + ("classify-no-curve",))
+@pytest.mark.parametrize("name", CASES + ("u8-geom-ragged",
+                                          "u8-geom-one-pixel", "sa-u8-geom-s32"))
+def test_k5_stage_matches_plain_on_card(cuda_device, name, mode):
+    """K5's stage form (the setup, the window, the sweep and the rule in
+    one launch) bitwise equal to its plain version on the same CUDA
+    tensors."""
+    data, state, x, y, _ = _case(name, cuda_device)
+    kw = _stage_kw(name, mode.split("-")[0])
+    if mode == "classify-no-curve":
+        kw["return_curve"] = False
+    before = _launches()
+    got = k5.stage_fused(data, state, x, y, **kw)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1,) + before[1:]
+    want = k5.stage_plain(data, state, x, y, **kw)
+    if mode == "refine":
+        assert _bitwise(got, want), f"{int((got != want).sum())} depths differ"
+    else:
+        assert torch.equal(got[0], want[0]), \
+            f"{int((got[0] != want[0]).sum())} classes differ"
+        if kw["return_curve"]:
+            assert _bitwise(got[1], want[1])
+        else:
+            assert got[1] is None and want[1] is None
 
 
 @pytest.mark.cuda
