@@ -59,8 +59,27 @@
 // Arithmetic equals the plain PyTorch version bit for bit: every operation
 // is rounded on its own, in the order of the torch ops there
 // (ncc_common.cuh says how); the exponential is expf, as torch.exp's.
-// Since K7 the main path launches K6 only for the initial cost's re-score
-// (one plane a pixel); the weak sweep's candidates and probes run inside K7.
+// Since K7 the weak sweep's candidates and probes run inside K7, and the
+// main path launches only the re-score form below.
+//
+// The re-score form (`rescore_weak_kernel`, plain version `weak.py`
+// `rescore_plain`) replaces the initial cost's re-score
+// (apde_mvs_tpu/ops/init.py:72-84 over deformable.py:30 `WeakRefData.build`
+// and :190 `ncc_weak`), which the port ran as ~40 torch ops writing the
+// reference side through device memory and this kernel's weak-sweep form
+// with 5 of 32 lanes busy. It takes the weak list (x, y, anchors), the
+// state's planes and prior selections, builds each pixel's reference side
+// in shared memory with K7's `build_weak_ref` (weak_common.cuh), costs the
+// pixel's own plane against every view and writes the S costs straight into
+// the pixel's column of the initial cost's (S, H W) costs (or a compact
+// block on the tile route); the pixels of a list are distinct, so no two
+// warps write one cell. A warp takes 32 / S pixels (at most 8): it builds
+// their sides one after another, then each lane costs one (pixel, view).
+// Bound: operations (K6's counts on the pixels' own planes and the
+// reference side's 4 a tap, chip_smoke.py's `rescore_bound`): 0.53 GFLOP
+// at the APD scan's 65,536-pixel chunk, 0.008 ms; the kernel is held back
+// by its pixels' reference sides, each a chain of dependent loads and
+// serial sums in tap order.
 //
 // Bound: operations, counted as chip_smoke.py counts them (K6_OPS_*,
 // `k6_bound`): per evaluated (pixel, plane, view) K2's 90 a pair and 38 a
@@ -311,6 +330,206 @@ __global__ void __launch_bounds__(kThreads) weak_kernel(const Params p) {
   }
 }
 
+// ---- the re-score form: the initial cost's deformable NCC of a weak list -
+
+// a warp's pixels in the re-score form: as many as fill its lanes with
+// their S views, at most kRescoreMax
+constexpr int kRescoreMax = 8;
+__host__ __device__ inline int rescore_pixels(int num_views) {
+  const int g = 32 / num_views;
+  return g < kRescoreMax ? g : kRescoreMax;
+}
+
+// the main path's windows: the centre cost.square_taps(5, 2), the anchors'
+// cost.square_taps(5, 5)
+constexpr int kMainRadius = 5;
+constexpr int kMainIncrement = 2;
+constexpr int kMainAnchorIncrement = 5;
+
+struct RescoreParams {
+  const void* quads;         // (S, quad_h * width, 4) u8 or f32
+  const float* cams;         // (S + 1, 40)
+  const float* planes;       // (grid_h, grid_w, 4) the state's planes
+  WeakRefSource src;         // the image, SA ids, the prior selections
+  const int* x;              // (B,) int32
+  const int* y;
+  const int* anchors;        // (B, 9, 2) int32 (x, y), -1 where missing
+  int c_radius;              // the centre's square
+  int c_increment;
+  int c_axis;
+  int a_radius;              // the anchors' square
+  int a_increment;
+  int a_axis;
+  float* out;                // the costs: out + s * view_stride + column
+  int64_t view_stride;       //   * pixel_stride, the column the pixel's
+  int64_t pixel_stride;      //   raster index (scatter) or its list index
+  int scatter;
+  int64_t num_pix;
+  int num_views;
+  int num_taps;              // T = c_axis^2
+  int num_anchor_taps;       // T' = a_axis^2
+  int quad_h;
+  float img_w;               // real (unpadded) bounds of the warp tests
+  float img_h;
+};
+
+// floats of a warp's slice in the re-score form: its pixels' reference
+// sides, then K6's (8, 32) column of anchor costs a lane
+__host__ __device__ inline size_t rescore_warp_floats(int num_views,
+                                                      int num_taps,
+                                                      int num_anchor_taps,
+                                                      bool sa) {
+  return static_cast<size_t>(rescore_pixels(num_views)) *
+             weak_ref_floats(num_taps, num_anchor_taps, sa) +
+         kAnchors * 32;
+}
+
+// the camera table, the two windows' offsets, then one slice a warp
+__host__ __device__ inline size_t rescore_smem_floats(int num_views,
+                                                      int num_taps,
+                                                      int num_anchor_taps,
+                                                      bool sa) {
+  return static_cast<size_t>(num_views + 1) * kWeakCamStride +
+         2 * static_cast<size_t>(num_taps + num_anchor_taps) +
+         kWarps * rescore_warp_floats(num_views, num_taps, num_anchor_taps,
+                                      sa);
+}
+
+// A warp takes G = rescore_pixels(S) consecutive pixels of the list and
+// builds their reference sides one after another (weak_common.cuh's
+// `build_weak_ref`, as K7 does); then lane l costs pixel l / S's own plane
+// (the state's at the pixel) against view l % S (`deformable_cost`), so
+// that G S of the 32 lanes work (30 at the main path's 5 views, where the
+// weak-sweep form's one pixel a warp had 5).
+template <typename Q, bool kSA, bool kMain>
+__global__ void __launch_bounds__(kThreads)
+rescore_weak_kernel(const RescoreParams p) {
+  extern __shared__ float smem[];
+  const int S = p.num_views;
+  const int T = kMain ? kMainTaps : p.num_taps;
+  const int TA = kMain ? kMainAnchorTaps : p.num_anchor_taps;
+  const int G = rescore_pixels(S);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pf = weak_ref_floats(T, TA, kSA);
+  float* s_cam = smem;
+  float* s_cdx = s_cam + (S + 1) * kWeakCamStride;
+  float* s_cdy = s_cdx + T;
+  float* s_adx = s_cdy + T;
+  float* s_ady = s_adx + TA;
+  float* slice = s_ady + TA + warp * (G * pf + kAnchors * 32);
+  float* w_acost = slice + G * pf;   // [8][32]
+
+  // ---- the cameras and the two windows' offsets, once a block ----------
+  for (int i = threadIdx.x; i < (S + 1) * kWeakCamStride; i += kThreads) {
+    s_cam[i] = __ldg(p.cams + i);
+  }
+  {
+    const int cn = kMain ? 6 : p.c_axis;
+    const int ci = kMain ? kMainIncrement : p.c_increment;
+    const int cr = kMain ? kMainRadius : p.c_radius;
+    for (int i = threadIdx.x; i < T; i += kThreads) {
+      const int iy = i / cn;
+      s_cdx[i] = static_cast<float>(ci * (i - iy * cn) - cr);
+      s_cdy[i] = static_cast<float>(ci * iy - cr);
+    }
+    const int an = kMain ? 3 : p.a_axis;
+    const int ai = kMain ? kMainAnchorIncrement : p.a_increment;
+    const int ar = kMain ? kMainRadius : p.a_radius;
+    for (int i = threadIdx.x; i < TA; i += kThreads) {
+      const int iy = i / an;
+      s_adx[i] = static_cast<float>(ai * (i - iy * an) - ar);
+      s_ady[i] = static_cast<float>(ai * iy - ar);
+    }
+  }
+  __syncthreads();
+
+  const int64_t b0 = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * G;
+  if (b0 >= p.num_pix) return;
+  const int n = p.num_pix - b0 < G ? static_cast<int>(p.num_pix - b0) : G;
+  // ---- the warp's pixels' reference sides, one after another ------------
+  const int mine = lane / S;   // this lane's pixel, n or more: none
+  WeakRef ref = {};
+  int mx = 0, my = 0;
+  auto no_mark = [](int, bool, int, int) { return false; };
+  for (int g = 0; g < n; ++g) {
+    const int64_t b = b0 + g;
+    const int xi = __ldg(p.x + b);
+    const int yi = __ldg(p.y + b);
+    const WeakRef r = build_weak_ref<kSA>(
+        p.src, xi, yi, p.anchors + b * (kAnchors + 1) * 2, T, TA, s_cdx,
+        s_cdy, s_adx, s_ady, weak_ref_slice<kSA>(slice + g * pf, T, TA),
+        lane, no_mark);
+    if (g == mine) {
+      ref = r;
+      mx = xi;
+      my = yi;
+    }
+  }
+  __syncwarp();
+  if (mine >= n) return;
+
+  // ---- lane l: pixel l / S's own plane against view l % S ----------------
+  const int s = lane - mine * S;
+  const int64_t at = static_cast<int64_t>(my) * p.src.grid_w + mx;
+  const float* plane = p.planes + 4 * at;
+  const float* c = s_cam + s * kWeakCamStride;
+  const float* r = s_cam + S * kWeakCamStride;
+  float h[3][3];
+  plane_homography(c, r, __ldg(plane + 0), __ldg(plane + 1),
+                   __ldg(plane + 2), __ldg(plane + 3), h);
+  const Q* __restrict__ tab =
+      static_cast<const Q*>(p.quads) +
+      static_cast<int64_t>(s) * p.quad_h * p.src.width * 4;
+  const float x = static_cast<float>(mx);
+  const float y = static_cast<float>(my);
+  const float cost =
+      deformable_cost<Q, kSA, kMain ? kMainTaps : 0,
+                      kMain ? kMainAnchorTaps : 0>(
+          tab, h, x, y, T, TA, ref.cwin, ref.an, s, w_acost + lane,
+          p.src.width, p.quad_h, p.img_w, p.img_h);
+  const int64_t column = p.scatter ? at : b0 + mine;
+  p.out[s * p.view_stride + column * p.pixel_stride] = cost;
+}
+
+using RescoreKernel = void (*)(const RescoreParams);
+
+template <typename Q, bool kSA>
+RescoreKernel pick_rescore_windows(bool main_windows) {
+  return main_windows ? rescore_weak_kernel<Q, kSA, true>
+                      : rescore_weak_kernel<Q, kSA, false>;
+}
+
+// the re-score form's instantiation for a table type, SA and the main
+// path's windows (the centre of radius 5, increment 2, the anchors of
+// radius 5, increment 5) or others
+RescoreKernel pick_rescore(bool quads_u8, bool sa, bool main_windows) {
+  if (quads_u8) {
+    return sa ? pick_rescore_windows<uint8_t, true>(main_windows)
+              : pick_rescore_windows<uint8_t, false>(main_windows);
+  }
+  return sa ? pick_rescore_windows<float, true>(main_windows)
+            : pick_rescore_windows<float, false>(main_windows);
+}
+
+bool is_main(int c_radius, int c_increment, int a_radius, int a_increment) {
+  return c_radius == kMainRadius && c_increment == kMainIncrement &&
+         a_radius == kMainRadius && a_increment == kMainAnchorIncrement;
+}
+
+// taps an axis of the square of (radius, increment): cost.square_taps
+int axis_taps(int radius, int increment) {
+  return 2 * radius / increment + 1;
+}
+
+size_t rescore_smem_bytes(int num_views, int c_radius, int c_increment,
+                          int a_radius, int a_increment, bool sa) {
+  const int cn = axis_taps(c_radius, c_increment);
+  const int an = axis_taps(a_radius, a_increment);
+  return rescore_smem_floats(num_views, cn * cn, an * an, sa) *
+         sizeof(float);
+}
+
 using Kernel = void (*)(const Params);
 
 template <typename Q, bool kWeighted, bool kGeom>
@@ -340,7 +559,8 @@ Kernel pick(bool quads_u8, bool weighted, bool geom, int num_taps,
 }
 
 // its shared memory, with the attribute set where it passes 48 KB
-cudaError_t prepare(Kernel kernel, size_t bytes) {
+template <typename K>
+cudaError_t prepare(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,6 +685,106 @@ int apde_weak(const void* quads, int quads_u8, const void* cams,
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int grid =
       static_cast<unsigned int>((num_pix + kWarps - 1) / kWarps);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long apde_weak_rescore_smem_bytes(int num_views, int c_radius,
+                                       int c_increment, int a_radius,
+                                       int a_increment, int sa) {
+  return static_cast<long long>(rescore_smem_bytes(
+      num_views, c_radius, c_increment, a_radius, a_increment, sa != 0));
+}
+
+// The re-score form's registers, local memory (spills) and resident blocks
+// an SM at S views; returns the first error.
+int apde_weak_rescore_kernel_info(int quads_u8, int sa, int c_radius,
+                                  int c_increment, int a_radius,
+                                  int a_increment, int num_views, int* regs,
+                                  int* local_bytes, int* blocks_per_sm) {
+  const RescoreKernel kernel =
+      pick_rescore(quads_u8 != 0, sa != 0,
+                   is_main(c_radius, c_increment, a_radius, a_increment));
+  const size_t bytes = rescore_smem_bytes(num_views, c_radius, c_increment,
+                                          a_radius, a_increment, sa != 0);
+  cudaFuncAttributes attr;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        kThreads, bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// The re-score form on num_pix weak pixels (x, y) with their anchors: each
+// pixel's own plane from ``planes`` (grid_h, grid_w, 4) against every view,
+// its reference side built from ``ref`` (ref_h, width), the SA ids ``sa``
+// (null: no SA) and the prior selections ``selected`` (grid_h, grid_w, S);
+// view s's cost at out + s * view_stride + column * pixel_stride, the
+// column the pixel's raster index y * grid_w + x (``scatter``) or its
+// index in the list.
+int apde_weak_rescore(const void* quads, int quads_u8, const void* cams,
+                      const void* planes, const void* selected, int grid_h,
+                      int grid_w, const void* x, const void* y,
+                      const void* anchors, const void* ref, int ref_h,
+                      const void* sa, int c_radius, int c_increment,
+                      int a_radius, int a_increment, void* out,
+                      int64_t view_stride, int64_t pixel_stride, int scatter,
+                      int64_t num_pix, int num_views, int width, int quad_h,
+                      int img_w, int img_h, void* stream) {
+  if (num_pix <= 0) return static_cast<int>(cudaGetLastError());
+  if (num_views < 1 || num_views > kMaxViews || c_radius < 0 ||
+      c_increment < 1 || a_radius < 0 || a_increment < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RescoreParams p;
+  p.quads = quads;
+  p.cams = static_cast<const float*>(cams);
+  p.planes = static_cast<const float*>(planes);
+  p.src.ref = static_cast<const float*>(ref);
+  p.src.sa = static_cast<const int*>(sa);
+  p.src.ref_h = ref_h;
+  p.src.width = width;
+  p.src.selected = static_cast<const uint8_t*>(selected);
+  p.src.grid_h = grid_h;
+  p.src.grid_w = grid_w;
+  p.src.num_views = num_views;
+  p.x = static_cast<const int*>(x);
+  p.y = static_cast<const int*>(y);
+  p.anchors = static_cast<const int*>(anchors);
+  p.c_radius = c_radius;
+  p.c_increment = c_increment;
+  p.c_axis = axis_taps(c_radius, c_increment);
+  p.a_radius = a_radius;
+  p.a_increment = a_increment;
+  p.a_axis = axis_taps(a_radius, a_increment);
+  p.out = static_cast<float*>(out);
+  p.view_stride = view_stride;
+  p.pixel_stride = pixel_stride;
+  p.scatter = scatter;
+  p.num_pix = num_pix;
+  p.num_views = num_views;
+  p.num_taps = p.c_axis * p.c_axis;
+  p.num_anchor_taps = p.a_axis * p.a_axis;
+  p.quad_h = quad_h;
+  p.img_w = static_cast<float>(img_w);
+  p.img_h = static_cast<float>(img_h);
+  const bool with_sa = p.src.sa != nullptr;
+  const RescoreKernel kernel = pick_rescore(
+      quads_u8 != 0, with_sa,
+      is_main(c_radius, c_increment, a_radius, a_increment));
+  const size_t bytes = rescore_smem_bytes(num_views, c_radius, c_increment,
+                                          a_radius, a_increment, with_sa);
+  const cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t per_block =
+      static_cast<int64_t>(kWarps) * rescore_pixels(num_views);
+  const unsigned int grid =
+      static_cast<unsigned int>((num_pix + per_block - 1) / per_block);
   kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,12 +18,14 @@
 // Per pixel, in the order of the plain version (ops/cuda/weak_sweep.py,
 // `weak_update_plain`):
 //  1. the reference side, built here from the reference image and the SA
-//     segment ids: the centre window, the square taps of (strong_radius,
-//     strong_increment), dy outer; under SA each tap's 0/1 weight is "the
-//     pixel is in no segment (id <= 0), or the tap's id equals the
-//     pixel's" (no star, no truncation: APD.cu:523-541); the 8 anchors'
-//     sparse windows, square_taps(weak_radius, weak_increment) around each
-//     anchor clamped at 0, weighed against the weak pixel's segment; values
+//     segment ids by weak_common.cuh's `build_weak_ref` (K6's re-score
+//     form builds it so too): the centre window, the square taps of
+//     (strong_radius, strong_increment), dy outer; under SA each tap's
+//     0/1 weight is "the pixel is in no segment (id <= 0), or the tap's
+//     id equals the pixel's" (no star, no truncation: APD.cu:523-541);
+//     the 8 anchors' sparse windows, square_taps(weak_radius,
+//     weak_increment) around each anchor clamped at 0, weighed against the
+//     weak pixel's segment; values
 //     by a clamped fetch, segment ids 0 outside the array; sum_ref, sum_rr
 //     and the weight sums in tap order;
 //  2. the anchors: ``exists`` (x, y >= 0) gates the priors; ``valid``
@@ -190,13 +192,6 @@ __host__ __device__ inline size_t smem_floats(int num_views, int num_taps,
              warp_floats(num_views, num_taps, num_anchor_taps, sa, geom);
 }
 
-// cost.ref_window_taps' `fetch` of a segment id: 0 outside the array
-__device__ __forceinline__ int segment_id(const int* __restrict__ sa, int x,
-                                          int y, int w, int h) {
-  return (x >= 0 && x < w && y >= 0 && y < h)
-             ? __ldg(sa + static_cast<int64_t>(y) * w + x)
-             : 0;
-}
 
 // kStop, for timing only (``stop`` of `apde_weak_sweep`; the main path
 // runs 0): 1 stops after the reference side (step 1), 2 after the
@@ -276,141 +271,45 @@ weak_update_kernel(const Params p) {
   const float y = static_cast<float>(yi);
   const int64_t at = static_cast<int64_t>(yi) * gw + xi;
 
-  // ---- 1. the reference side ----------------------------------------------
-  // the pixel's segment: a tap weighs 1 where the pixel is in none (id <= 0)
-  // or the tap's id is the pixel's
-  const int seg = kSA ? segment_id(p.sa, xi, yi, p.width, p.ref_h) : 0;
-  auto tap_weight = [&](int tx, int ty) {
-    return (seg <= 0 || segment_id(p.sa, tx, ty, p.width, p.ref_h) == seg)
-               ? 1.f
-               : 0.f;
-  };
-  // the clamped fetch of the reference image
-  auto ref_value = [&](int tx, int ty) {
-    return __ldg(p.ref +
-                 static_cast<int64_t>(clamp_int(ty, p.ref_h - 1)) * p.width +
-                 clamp_int(tx, p.width - 1));
-  };
-  for (int t = lane; t < T; t += 32) {
-    const int tx = xi + static_cast<int>(s_cdx[t]);
-    const int ty = yi + static_cast<int>(s_cdy[t]);
-    const float v = ref_value(tx, ty);
-    if (kSA) {
-      const float w = tap_weight(tx, ty);
-      w_ctw[t] = w;
-      w_cval[t] = mul(w, v);
-    } else {
-      w_cval[t] = v;
-    }
-  }
-  // the anchors: lane a < 8 reads anchor a + 1 of the pixel's 9; lane 8
-  // the current plane, lane 9 the fit plane
-  bool exists = false, valid = false, flag = false;
-  if (lane < kAnchors) {
-    const int* an = p.anchors + (b * (kAnchors + 1) + 1 + lane) * 2;
-    const int ax = __ldg(an), ay = __ldg(an + 1);
-    exists = ax >= 0 && ay >= 0;
-    const int axc = ax > 0 ? ax : 0, ayc = ay > 0 ? ay : 0;
-    const bool in_grid = axc < gw && ayc < gh;
-    const int64_t cell = static_cast<int64_t>(ayc) * gw + axc;
-    flag = exists && in_grid && __ldg(p.weak + cell) == kStrong;
-    valid = exists &&
-            (!kSA || seg <= 0 ||
-             segment_id(p.sa, axc, ayc, p.width, p.ref_h) == seg);
-    w_ax[lane] = static_cast<float>(ax);
-    w_ay[lane] = static_cast<float>(ay);
-    w_acx[lane] = axc;
-    w_acy[lane] = ayc;
+  // ---- 1. the reference side (weak_common.cuh), with each anchor's flag
+  // (exists and STRONG) and the plane slots read on the way: lane a < 8
+  // anchor a + 1's plane, lane 8 the current plane, lane 9 the fit plane
+  const WeakRefSource src = {p.ref, p.sa, p.ref_h, p.width,
+                             p.selected, gh, gw, S};
+  const WeakRefSlice ref_slice = {w_cval, w_ctw, w_aval, w_atw, w_ax,
+                                 w_ay, w_asr, w_asrr, w_ainv, w_sel,
+                                 w_acx, w_acy};
+  auto read_slots = [&](int l, bool ex, int axc, int ayc) {
+    bool flag = false;
+    if (l < kAnchors) {
+      const bool in_grid = axc < gw && ayc < gh;
+      const int64_t cell = static_cast<int64_t>(ayc) * gw + axc;
+      flag = ex && in_grid && __ldg(p.weak + cell) == kStrong;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w_plane[4 * lane + j] = in_grid ? __ldg(p.planes + 4 * cell + j) : 0.f;
-    }
-  } else if (lane == kCurrent) {
+      for (int j = 0; j < 4; ++j) {
+        w_plane[4 * l + j] = in_grid ? __ldg(p.planes + 4 * cell + j) : 0.f;
+      }
+    } else if (l == kCurrent) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w_plane[4 * kCurrent + j] = __ldg(p.planes + 4 * at + j);
-    }
-  } else if (lane == kFit) {
+      for (int j = 0; j < 4; ++j) {
+        w_plane[4 * kCurrent + j] = __ldg(p.planes + 4 * at + j);
+      }
+    } else if (l == kFit) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w_plane[4 * kFit + j] = __ldg(p.fit + 4 * b + j);
-    }
-  }
-  const unsigned exist_bits = __ballot_sync(kFull, exists);
-  const unsigned valid_bits = __ballot_sync(kFull, valid);
-  const unsigned flags = __ballot_sync(kFull, flag);
-  __syncwarp();
-  // each anchor's selected views (bit s: view s) and its window's taps
-  for (int a = 0; a < kAnchors; ++a) {
-    const int axc = w_acx[a], ayc = w_acy[a];
-    const bool sel =
-        lane < S && axc < gw && ayc < gh &&
-        p.selected[(static_cast<int64_t>(ayc) * gw + axc) * S + lane] != 0;
-    const unsigned bits = __ballot_sync(kFull, sel);
-    if (lane == 0) w_sel[a] = bits;
-  }
-  for (int i = lane; i < kAnchors * TA; i += 32) {
-    const int a = i / TA;
-    const int t = i - a * TA;
-    const int tx = w_acx[a] + static_cast<int>(s_adx[t]);
-    const int ty = w_acy[a] + static_cast<int>(s_ady[t]);
-    const float v = ref_value(tx, ty);
-    if (kSA) {
-      const float w = tap_weight(tx, ty);
-      w_atw[i] = w;
-      w_aval[i] = mul(w, v);
-    } else {
-      w_aval[i] = v;
-    }
-  }
-  __syncwarp();
-  // the sums in tap order: lanes 0-7 an anchor's sum_ref, 8-15 its sum_rr,
-  // 16-23 its weight sum; lanes 24, 25, 26 the centre's three
-  float part = 0.f;
-  {
-    const int k = lane & 7;
-    const int what = lane < 24 ? lane >> 3 : lane - 24;
-    const float* val = lane < 24 ? w_aval + k * TA : w_cval;
-    const float* tw = lane < 24 ? w_atw + k * TA : w_ctw;
-    const int n = lane < 24 ? TA : T;
-    if (lane < 27) {
-      for (int t = 0; t < n; ++t) {
-        const float wv = val[t];
-        part = add(part, what == 0 ? wv
-                                   : (what == 1 ? mul(wv, wv)
-                                                : (kSA ? tw[t] : 1.f)));
+      for (int j = 0; j < 4; ++j) {
+        w_plane[4 * kFit + j] = __ldg(p.fit + 4 * b + j);
       }
     }
-  }
-  bool positive = false;
-  if (lane < kAnchors) {
-    w_asr[lane] = part;
-  } else if (lane < 2 * kAnchors) {
-    w_asrr[lane - kAnchors] = part;
-  } else if (lane < 3 * kAnchors) {
-    // an anchor's weight sum: the count of its weights, or T' (no SA)
-    bool empty;
-    const float ws = kSA ? part : static_cast<float>(TA);
-    inverse_weight_sum(ws, &w_ainv[lane - 2 * kAnchors], &empty);
-    positive = ws > 0.f;
-  }
-  const unsigned positive_bits =
-      (__ballot_sync(kFull, positive) >> (2 * kAnchors)) & 0xffu;
-  PixelWindow cwin;
-  cwin.dx = s_cdx;
-  cwin.dy = s_cdy;
-  cwin.val = w_cval;
-  cwin.tw = w_ctw;
-  cwin.sum_ref = __shfl_sync(kFull, part, 24);
-  cwin.sum_rr = __shfl_sync(kFull, part, 25);
-  const float c_wsum = __shfl_sync(kFull, part, 26);
-  if (kSA) {
-    inverse_weight_sum(c_wsum, &cwin.inv, &cwin.empty);
-  } else {
-    // cost.ncc_from_sums' float32 1 / T of a float weight sum
-    cwin.inv = dvd(1.f, static_cast<float>(T));
-    cwin.empty = false;
-  }
+    return flag;
+  };
+  const WeakRef ref = build_weak_ref<kSA>(
+      src, xi, yi, p.anchors + b * (kAnchors + 1) * 2, T, TA, s_cdx, s_cdy,
+      s_adx, s_ady, ref_slice, lane, read_slots);
+  const unsigned exist_bits = ref.exists;
+  const unsigned valid_bits = ref.an.valid;
+  const unsigned positive_bits = ref.an.positive;
+  const unsigned flags = ref.marked;
+  const PixelWindow cwin = ref.cwin;
   if constexpr (kStop == 1) {
     __syncwarp();
     if (lane == 0) {
@@ -436,19 +335,7 @@ weak_update_kernel(const Params p) {
     }
   }
   __syncwarp();
-  WeakAnchors an;
-  an.dx = s_adx;
-  an.dy = s_ady;
-  an.val = w_aval;
-  an.tw = w_atw;
-  an.x = w_ax;
-  an.y = w_ay;
-  an.sum_ref = w_asr;
-  an.sum_rr = w_asrr;
-  an.inv = w_ainv;
-  an.sel = w_sel;
-  an.valid = valid_bits;
-  an.positive = positive_bits;
+  const WeakAnchors an = ref.an;
   const float* fit = w_plane + 4 * kFit;
   // the fit plane has a normal (NaN counts): else no fit test, no refinement
   const bool fit_ok = fit[0] != 0.f || fit[1] != 0.f || fit[2] != 0.f;

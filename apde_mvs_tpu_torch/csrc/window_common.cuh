@@ -1,8 +1,9 @@
 // A pixel's reference window built in the kernel from the reference image
 // and the SA segment ids, shared by K3 (strong.cu, the strong sweep's colour
-// update) and K5 (sweep.cu, the disparity sweeps of DepthToWeak and
-// LocalRefine), so that no per-pixel window goes through device memory and
-// the two cannot drift apart.
+// update), K5 (sweep.cu, the disparity sweeps of DepthToWeak and
+// LocalRefine) and K2's stage form (ncc.cu, the initial cost), so that no
+// per-pixel window goes through device memory and the three cannot drift
+// apart.
 //
 // The window is `cost.precompute_ref_window`'s: the square taps of (radius,
 // increment), dy outer, or, under SA where the pixel's segment id is not 0,
@@ -105,18 +106,17 @@ __device__ __forceinline__ void square_offsets(const WindowSource& src, int t,
   *dy = inc * iy - rad;
 }
 
-// Builds pixel (xi, yi)'s window of T taps in a warp's slice of shared
+// Stages pixel (xi, yi)'s window of T taps in a warp's slice of shared
 // memory, every lane of the warp taking part: the tap values (SA: the
 // weight-value products) in ``w_val``; under SA the weights in ``w_tw``
 // and the offsets in ``w_dx`` / ``w_dy``; the square's offsets there too
 // where ``kSquareOffsets``. SA mixes the star only with 36-tap squares
 // (the wrappers check): two taps a lane, every load issued before any
 // depends on another (the centre's segment id, each star tap's, both
-// windows' values). Returns the window as a thread reads it, its sums in
-// tap order (lanes 0 and 1 add the terms w v and (w v) v, where
-// (w v) v = (w v) (w v) for a weight of 0 or 1).
+// windows' values). Returns the window's weight sum (T but for a star),
+// the same on every lane; the writes are not yet synchronised.
 template <bool kSA, bool kMain, bool kSquareOffsets>
-__device__ __forceinline__ PixelWindow build_window(
+__device__ __forceinline__ int stage_window(
     const WindowSource& src, int xi, int yi, int T, int lane, float* w_val,
     float* w_tw, float* w_dx, float* w_dy) {
   // cost.precompute_ref_window's clamped_fetch of the reference image
@@ -185,6 +185,36 @@ __device__ __forceinline__ PixelWindow build_window(
       }
     }
   }
+  return weight_sum;
+}
+
+// A staged window's sum_ref and sum_rr in tap order in one thread: the
+// terms w v and (w v) v, where (w v) v = (w v) (w v) for a weight of 0
+// or 1. K2's stage form sums a block's windows so, a thread a pixel;
+// `build_window` splits the two sums over lanes 0 and 1 (one chain a lane:
+// taking both on lane 0 made K3 2-3% slower, PERF.md §6).
+__device__ __forceinline__ void staged_window_sums(const float* w_val, int T,
+                                                   float* sum_ref,
+                                                   float* sum_rr) {
+  float sr = 0.f, srr = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const float wv = w_val[t];
+    sr = add(sr, wv);
+    srr = add(srr, mul(wv, wv));
+  }
+  *sum_ref = sr;
+  *sum_rr = srr;
+}
+
+// Builds pixel (xi, yi)'s window of T taps in a warp's slice of shared
+// memory (`stage_window`). Returns the window as a thread reads it, its
+// sums in tap order (lanes 0 and 1 add `staged_window_sums`' terms).
+template <bool kSA, bool kMain, bool kSquareOffsets>
+__device__ __forceinline__ PixelWindow build_window(
+    const WindowSource& src, int xi, int yi, int T, int lane, float* w_val,
+    float* w_tw, float* w_dx, float* w_dy) {
+  const int weight_sum = stage_window<kSA, kMain, kSquareOffsets>(
+      src, xi, yi, T, lane, w_val, w_tw, w_dx, w_dy);
   __syncwarp();
   // sum_ref and sum_rr in tap order, lanes 0 and 1
   float part = 0.f;

@@ -10,10 +10,12 @@ APD.cu:820-829).
 
 The reference-image window sums depend only on the pixel, so
 `precompute_ref_window` hoists them out of the candidate x view loops: its
-`RefWindow` is K2's input (and K5's, the fused disparity sweep of
-ops/filters.py). The window is the plain square, or, with SA
-(segment masks, loaded for APD passes only) and the pixel inside a segment,
-the 36-tap star truncated at the segment's edge.
+`RefWindow` is the input of K2's sweep form (``ncc_strong``: the debug
+tool and the test harnesses). The main path's kernels build the same
+window themselves (csrc/window_common.cuh: K2's stage form for the initial
+cost, K3, K5). The window is the plain square, or, with SA (segment masks,
+loaded for APD passes only) and the pixel inside a segment, the 36-tap
+star truncated at the segment's edge.
 """
 
 from __future__ import annotations
@@ -278,12 +280,17 @@ def initial_cost_and_selection(costs: torch.Tensor, top_k: int
     Returns (mean top-k cost (B,), selected mask (B, S)). Views are selected
     when their cost is <= the k-th smallest (ties select extra views, as in
     the reference); all-invalid pixels get cost_max and empty selection.
+    The k smallest are summed in ascending order from +0 and the mean is a
+    true division by k: the plain version of the selection kernel K11
+    (``cuda/select.py``).
     """
+    from .cuda.strong import ordered_sum
     S = costs.shape[-1]
     k = torch.clamp((costs < COST_MAX).sum(-1), max=top_k)        # (B,)
     csort = torch.sort(costs, dim=-1).values
     idx = torch.arange(S, device=costs.device)
-    topk_sum = torch.where(idx[None, :] < k[:, None], csort, 0.0).sum(-1)
+    topk_sum = ordered_sum(torch.where(idx[None, :] < k[:, None], csort,
+                                       0.0))
     mean_cost = torch.where(k > 0, topk_sum / torch.clamp(k, min=1),
                             COST_MAX)
     thresh = torch.gather(csort, -1, torch.clamp(k - 1, min=0)[:, None])[:, 0]

@@ -25,10 +25,18 @@ the window sums accumulated in tap order t = 0 .. T-1 from 0, compensated
 The kernel computes the same sequence with every operation rounded on its
 own, so the two agree bit for bit on the card.
 
+The stage form, ``init_stage_fused`` (plain version ``init_stage_plain``),
+is the initial cost's strong NCC: a range of the image's pixels under the
+state's planes map, each pixel's window (``strong.window_plain``'s: the
+square, or the SA star cut at the segment's edge, its sums in tap order)
+built in the kernel, the costs written into a view-major (S, n) or
+pixel-major (n, S) block. ``init.initial_cost`` is one launch of it, with
+K6's re-score form and the selection K11.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches, and
 ``site_launches`` splits them by the call site that asked for them
-("init": the initial cost, "debug_point": the debug tool, "strong": the
+("init": the stage form, "debug_point": the debug tool, "strong": the
 torch-op strong sweep of ``testing/strong_composition.py``; "other" for
 any caller that names none). The strong sweep runs its NCC inside K3
 (``ops/cuda/strong.py``), the disparity sweeps of DepthToWeak and
@@ -46,7 +54,7 @@ import numpy as np
 import torch
 
 from ...core import geometry as geo
-from ..cost import COST_MAX, ncc_from_sums
+from ..cost import COST_MAX, ncc_from_sums, square_taps
 from . import build as _build
 from .sampler import sample_packed_plain
 
@@ -83,6 +91,13 @@ def library() -> _build.Built:
     lib.apde_ncc_smem_bytes.restype = ctypes.c_longlong
     lib.apde_ncc_kernel_info.argtypes = [i32] * 5 + [ctypes.c_void_p] * 3
     lib.apde_ncc_kernel_info.restype = i32
+    i64 = ctypes.c_int64
+    lib.apde_ncc_stage.argtypes = [
+        ptr, i32, ptr, i32, ptr, ptr, i32, ptr, i32, i32, ctypes.c_float,
+        ptr, i64, i64, i64, i64, i32, i32, i32, i32, i32, ptr]
+    lib.apde_ncc_stage.restype = i32
+    lib.apde_ncc_stage_kernel_info.argtypes = [i32] * 5 + [ptr] * 3
+    lib.apde_ncc_stage_kernel_info.restype = i32
     if lib.apde_ncc_max_views() != MAX_VIEWS:
         raise RuntimeError(f"csrc/ncc.cu takes {lib.apde_ncc_max_views()} "
                            f"views, the wrapper assumes {MAX_VIEWS}")
@@ -106,6 +121,15 @@ def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
     resident blocks an SM at ``num_views`` views, from the CUDA runtime."""
     return read_kernel_info(library().lib.apde_ncc_kernel_info, quads_u8,
                             pixel_offsets, weighted, num_taps, num_views)
+
+
+def stage_kernel_info(quads_u8: bool, sa: bool, radius: int,
+                      increment: int, num_views: int) -> dict:
+    """The stage form's registers, local memory (spill) bytes and resident
+    blocks an SM at ``num_views`` views: u8 or f32 tables, the SA window or
+    the square of (radius, increment)."""
+    return read_kernel_info(library().lib.apde_ncc_stage_kernel_info,
+                            quads_u8, sa, radius, increment, num_views)
 
 
 def camera_table(data) -> torch.Tensor:
@@ -177,6 +201,20 @@ def ncc_strong_plain(data, x, y, plane, win) -> torch.Tensor:
     cost = ncc_from_sums(win.sum_ref, win.sum_rr, sums[0], sums[1], sums[2],
                          win.wsum)
     return torch.where(oob, COST_MAX, cost).T
+
+
+def init_stage_plain(data, planes, lo: int, hi: int, radius: int,
+                     increment: int, use_sa: bool) -> torch.Tensor:
+    """The (hi - lo, S) strong NCC costs of the stage form: pixels lo ..
+    hi - 1 in raster order, each with its plane of the (H, W, 4) map
+    ``planes`` and its window of ``strong.window_plain`` (sums in tap
+    order; under SA the star cut at the segment's edge)."""
+    from .strong import window_plain
+    flat = torch.arange(lo, hi, device=planes.device)
+    x = (flat % data.width).to(torch.float32)
+    y = torch.div(flat, data.width, rounding_mode="floor").to(torch.float32)
+    win = window_plain(data, x, y, radius, increment, use_sa)
+    return ncc_strong_plain(data, x, y, planes.reshape(-1, 4)[lo:hi], win)
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +339,117 @@ def ncc_strong_fused(data, x, y, plane, win, site: str = "other"
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_ncc_strong")
     return out.T
+
+
+def check_block(out: torch.Tensor, num_views: int, view_major: bool,
+                columns: int, device) -> tuple:
+    """An (S, n) view-major or (n, S) pixel-major float32 block of costs
+    on ``device``, contiguous, with at least ``columns`` pixel columns.
+    Returns the strides (a view's, a pixel's) in elements."""
+    n = out.shape[1] if view_major else out.shape[0]
+    want = (num_views, n) if view_major else (n, num_views)
+    if out.ndim != 2 or tuple(out.shape) != want or n < columns:
+        raise ValueError(f"costs block {tuple(out.shape)}: need "
+                         f"{'(S, n)' if view_major else '(n, S)'} with S = "
+                         f"{num_views} and n >= {columns}")
+    if out.dtype != torch.float32:
+        raise TypeError(f"costs block has dtype {out.dtype}, expected "
+                        "float32")
+    if out.device != device:
+        raise ValueError(f"costs block on {out.device}, the quad tables on "
+                         f"{device}")
+    if not out.is_contiguous():
+        raise ValueError("costs block must be contiguous")
+    return (n, 1) if view_major else (1, num_views)
+
+
+def check_planes_map(data, planes, what: str = "planes") -> None:
+    """``planes``: the state's (H, W, 4) float32 map, contiguous, on the
+    quad tables' device."""
+    want = (data.height, data.width, 4)
+    if tuple(planes.shape) != want or planes.dtype != torch.float32:
+        raise ValueError(f"{what} must be a float32 {want} map, got "
+                         f"{planes.dtype} {tuple(planes.shape)}")
+    if planes.device != data.src_quads.device:
+        raise ValueError(f"{what} on {planes.device}, the quad tables on "
+                         f"{data.src_quads.device}")
+    if not planes.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def sa_ids(data, use_sa: bool, num_taps: int):
+    """The segment ids the SA window reads, or None (no SA, or no mask
+    loaded); SA mixes the star with 36-tap squares only."""
+    if not use_sa or data.sa_mask is None:
+        return None
+    if num_taps != 36:
+        raise ValueError("SA mixing assumes 36-tap square windows")
+    mask = data.sa_mask
+    if tuple(mask.shape) != (data.height, data.width) \
+            or mask.dtype != torch.int32 or not mask.is_contiguous():
+        raise ValueError(f"sa_mask must be a contiguous int32 "
+                         f"({data.height}, {data.width}) map")
+    return mask
+
+
+def init_stage_fused(data, planes, lo: int, hi: int, out, *, radius: int,
+                     increment: int, use_sa: bool, view_major: bool,
+                     col0=None) -> None:
+    """K2's stage form: the strong NCC of pixels lo .. hi - 1 (raster
+    indices of the H x W image) under their planes in the state's (H, W, 4)
+    map ``planes``, over the window K2 builds from the reference image (the
+    square of (radius, increment) or, with ``use_sa`` and a mask, the star
+    cut at the segment's edge). Writes pixel f's S costs into column f -
+    ``col0`` (default ``lo``) of ``out``, an (S, n) view-major or (n, S)
+    pixel-major float32 block. One launch on CUDA tensors, counted under
+    the site "init"; the plain version on CPU tensors."""
+    check_tables(data)
+    check_planes_map(data, planes)
+    col0 = lo if col0 is None else col0
+    if not 0 <= col0 <= lo <= hi <= data.height * data.width:
+        raise ValueError(f"pixels {lo} .. {hi} from column {col0}: outside "
+                         f"the {data.height}x{data.width} image")
+    quads = data.src_quads
+    s = data.num_src
+    vs, ps = check_block(out, s, view_major, hi - col0, quads.device)
+    t = len(square_taps(radius, increment))
+    if t < 1:
+        raise ValueError(f"no window of radius {radius}, increment "
+                         f"{increment}")
+    sa = sa_ids(data, use_sa, t)
+    if quads.device.type == "cpu":
+        costs = init_stage_plain(data, planes, lo, hi, radius, increment,
+                                 use_sa)
+        if view_major:
+            out[:, lo - col0:hi - col0] = costs.T
+        else:
+            out[lo - col0:hi - col0] = costs
+        return
+    if quads.device.type != "cuda":
+        raise ValueError(f"unsupported device {quads.device}")
+    if not quads.is_contiguous():
+        raise ValueError("quads must be contiguous")
+    if quads.data_ptr() % (4 * quads.element_size()):
+        raise ValueError("quad table rows must be aligned to their size")
+    lib = library().lib
+    smem = lib.apde_ncc_smem_bytes(s, t, int(sa is not None),
+                                   int(sa is not None))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {t}-tap window needs {smem} B of shared memory "
+                         f"a block, more than {SMEM_LIMIT}")
+    from . import sweep
+    cams = sweep.cached_camera_table(data)
+    if hi == lo:
+        return
+    global launches
+    launches += 1
+    site_launches["init"] = site_launches.get("init", 0) + 1
+    _raise_on(lib.apde_ncc_stage(
+        quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
+        cams.shape[1], planes.data_ptr(), data.ref_image.data_ptr(),
+        data.height, None if sa is None else sa.data_ptr(), radius,
+        increment, float(np.float32(1.0) / np.float32(t)),
+        out.data_ptr() + (lo - col0) * ps * out.element_size(), vs, ps, lo,
+        hi - lo, s, data.width, data.quad_h, data.img_w, data.img_h,
+        torch.cuda.current_stream(quads.device).cuda_stream),
+        "apde_ncc_stage")

@@ -36,9 +36,18 @@ ordered adds with one true division, ``cost.geom_cost``'s torch ops. The
 kernel computes the same sequence with every operation rounded on its own,
 so the two agree bit for bit on the card.
 
+The re-score form, ``rescore_fused`` (plain version ``rescore_plain``:
+``weak_ref_plain`` and ``weak_plain`` on the pixel's own plane), is the
+initial cost's re-score of the weak list: the kernel builds each pixel's
+reference side itself, as K7 does, from the weak list, its anchors, the
+state's planes and prior selections, and writes the S costs into the
+pixels' columns of the initial cost's costs (a compact block on the tile
+route). Since K7 it is the only form a main path launches.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches and
-``planes`` the plane hypotheses a pixel they evaluated (P each).
+``planes`` the plane hypotheses a pixel they evaluated (P each; 1 a
+re-score launch).
 """
 
 from __future__ import annotations
@@ -51,9 +60,12 @@ import numpy as np
 import torch
 
 from ...core import geometry as geo
+from ...core.sampling import clamped_fetch, device_constant, fetch
 from ..cost import COST_MAX, RefWindow, geom_cost, square_taps
+from ..deformable import WeakRefData
 from . import build as _build
 from . import ncc, sweep
+from .strong import ordered_sum, window_plain
 
 launches = 0      # kernel launches since the last reset (plain runs excluded)
 planes = 0        # plane hypotheses a pixel those launches evaluated
@@ -99,6 +111,15 @@ def library() -> _build.Built:
     lib.apde_weak_smem_bytes.restype = ctypes.c_longlong
     lib.apde_weak_kernel_info.argtypes = [i32] * 6 + [ptr] * 3
     lib.apde_weak_kernel_info.restype = i32
+    i64 = ctypes.c_int64
+    lib.apde_weak_rescore.argtypes = (
+        [ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
+        + [i32] * 4 + [ptr, i64, i64, i32, i64] + [i32] * 5 + [ptr])
+    lib.apde_weak_rescore.restype = i32
+    lib.apde_weak_rescore_smem_bytes.argtypes = [i32] * 6
+    lib.apde_weak_rescore_smem_bytes.restype = ctypes.c_longlong
+    lib.apde_weak_rescore_kernel_info.argtypes = [i32] * 7 + [ptr] * 3
+    lib.apde_weak_rescore_kernel_info.restype = i32
     if (lib.apde_weak_max_views(), lib.apde_weak_cam_stride(),
             lib.apde_weak_anchors()) != (MAX_VIEWS, CAM_STRIDE, ANCHORS):
         raise RuntimeError("csrc/weak.cu's view limit, camera table or "
@@ -117,6 +138,16 @@ def kernel_info(quads_u8: bool, weighted: bool, geom: bool, num_taps: int,
                                 num_anchor_taps, num_views)
 
 
+def rescore_kernel_info(quads_u8: bool, sa: bool, num_views: int,
+                        windows=(5, 2, 5, 5)) -> dict:
+    """The re-score form's registers, local memory (spill) bytes and
+    resident blocks an SM at ``num_views`` views: u8 or f32 tables, SA
+    windows or not, the windows (strong radius, increment, weak radius,
+    increment)."""
+    return ncc.read_kernel_info(library().lib.apde_weak_rescore_kernel_info,
+                                quads_u8, sa, *windows, num_views)
+
+
 @functools.lru_cache(maxsize=None)
 def _anchor_offsets(radius: int, increment: int, device: str):
     taps = torch.as_tensor(square_taps(radius, increment),
@@ -133,6 +164,70 @@ def anchor_offsets(radius: int, increment: int, device):
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
+
+def weak_ref_plain(data, x, y, anchors, selected, strong_radius: int,
+                   strong_increment: int, weak_radius: int,
+                   weak_increment: int, use_sa: bool) -> WeakRefData:
+    """The reference side K7 and K6's re-score form build for weak pixels
+    (x, y) f32 with their (B, 9, 2) anchors (csrc/weak_common.cuh,
+    `build_weak_ref`): ``deformable.WeakRefData.build``'s taps, weights,
+    anchor masks and selections, every window's sums taken in tap order.
+    The centre window is the square of (strong_radius, strong_increment);
+    under SA a tap weighs 1 where the pixel is in no segment (id <= 0) or
+    the tap's id is the pixel's (no star, no truncation), and the anchors'
+    windows weigh against the weak pixel's segment too."""
+    sa = bool(use_sa) and data.sa_mask is not None
+    dev = x.device
+    xi, yi = x.to(torch.int32), y.to(torch.int32)
+    seg = fetch(data.sa_mask, xi, yi) if sa else None
+
+    def weights(tx, ty):
+        extra = (1,) * (tx.ndim - 1)
+        keep = (seg <= 0).reshape(seg.shape + extra) \
+            | (fetch(data.sa_mask, tx, ty) == seg.reshape(seg.shape + extra))
+        return keep.to(torch.float32)
+
+    def sums(val, w):
+        """(sum_ref, sum_rr, weight sum) in tap order: the terms w v and
+        (w v) v, the weights' count; T without weights."""
+        wv = val if w is None else w * val
+        count = torch.full(val.shape[:-1], float(val.shape[-1]), device=dev) \
+            if w is None else w.sum(-1)
+        return ordered_sum(wv), ordered_sum(wv * val), count
+
+    if sa:
+        sq = device_constant(
+            ("square_taps", strong_radius, strong_increment),
+            lambda: square_taps(strong_radius, strong_increment), dev)
+        ctx, cty = xi[:, None] + sq[:, 0], yi[:, None] + sq[:, 1]
+        cval = clamped_fetch(data.ref_image, ctx, cty)
+        cw = weights(ctx, cty)
+        centre = RefWindow(sq[:, 0].to(torch.float32),
+                           sq[:, 1].to(torch.float32), cval, *sums(cval, cw),
+                           cw)
+    else:
+        centre = window_plain(data, x, y, strong_radius,
+                                     strong_increment, False)
+    ax, ay = anchors[:, 1:, 0], anchors[:, 1:, 1]
+    exists = (ax >= 0) & (ay >= 0)
+    axc, ayc = torch.clamp(ax, min=0), torch.clamp(ay, min=0)
+    valid = exists
+    if sa:
+        valid = exists & ((seg <= 0)[:, None]
+                          | (fetch(data.sa_mask, axc, ayc) == seg[:, None]))
+    wk = device_constant(("square_taps", weak_radius, weak_increment),
+                         lambda: square_taps(weak_radius, weak_increment),
+                         dev)
+    tx, ty = axc[..., None] + wk[:, 0], ayc[..., None] + wk[:, 1]
+    tval = clamped_fetch(data.ref_image, tx, ty)              # (B, 8, T')
+    tw = weights(tx, ty) if sa else None
+    sum_ref, sum_rr, wsum = sums(tval, tw)
+    return WeakRefData(
+        x=x, y=y, center_win=centre, anchor_x=ax.to(torch.float32),
+        anchor_y=ay.to(torch.float32), anchor_valid=valid,
+        anchor_sel=fetch(selected, axc, ayc), tap_val=tval, tap_w=tw,
+        sum_ref=sum_ref, sum_rr=sum_rr, wsum=wsum)
+
 
 def weak_plain(data, wref, planes_, radius: int, increment: int, *,
                geom: bool, view_weights=None) -> WeakCosts:
@@ -202,6 +297,23 @@ def weak_plain(data, wref, planes_, radius: int, increment: int, *,
         g = torch.where(keep, g, 0.0) if geom else None
     return WeakCosts(cost.reshape(b, p, s),
                      g.reshape(b, p, s) if geom else None)
+
+
+def rescore_plain(data, planes_map, selected, x, y, anchors, *,
+                  strong_radius: int, strong_increment: int,
+                  weak_radius: int, weak_increment: int,
+                  use_sa: bool) -> torch.Tensor:
+    """The (B, S) costs of the re-score form: weak pixels (x, y) int32
+    with their (B, 9, 2) anchors, each against every view under its own
+    plane of the (H, W, 4) map ``planes_map``, its reference side
+    `weak_ref_plain`'s (the anchors' selections from the prior
+    ``selected``), its cost `weak_plain`'s."""
+    wref = weak_ref_plain(data, x.to(torch.float32), y.to(torch.float32),
+                          anchors, selected, strong_radius, strong_increment,
+                          weak_radius, weak_increment, use_sa)
+    own = fetch(planes_map, x, y)[:, None]
+    return weak_plain(data, wref, own, weak_radius, weak_increment,
+                      geom=False).ncc[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -337,3 +449,93 @@ def weak_fused(data, wref, planes_, radius: int, increment: int, *,
         data.img_h, torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_weak")
     return out
+
+
+def rescore_fused(data, planes_map, selected, x, y, anchors, lo: int,
+                  hi: int, out, *, strong_radius: int, strong_increment: int,
+                  weak_radius: int, weak_increment: int, use_sa: bool,
+                  view_major: bool, col0=None) -> None:
+    """K6's re-score form: the deformable NCC of weak pixels lo .. hi - 1
+    of the list (x, y) (N,) int32 with their (N, 9, 2) int32 anchors, each
+    under its own plane of the state's (H, W, 4) map ``planes_map``
+    against every view, the reference side built in the kernel (the
+    anchors' selected views from the prior (H, W, S) ``selected``). Writes
+    the S costs of a pixel into ``out``, an (S, n) view-major or (n, S)
+    pixel-major float32 block: into the pixel's raster column y W + x
+    where ``col0`` is None (n = H W), else into column i - ``col0`` for
+    list item i. One launch on CUDA tensors, the plain version on CPU
+    tensors."""
+    ncc.check_tables(data)
+    ncc.check_planes_map(data, planes_map)
+    s = data.num_src
+    quads = data.src_quads
+    dev = quads.device
+    n = x.shape[0] if x.ndim == 1 else -1
+    h, w = data.height, data.width
+    for name, a, shape, dtype in (
+            ("x", x, (n,), torch.int32), ("y", y, (n,), torch.int32),
+            ("anchors", anchors, (n, ANCHORS + 1, 2), torch.int32),
+            ("selected", selected, (h, w, s), torch.bool)):
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, the quad tables on "
+                             f"{dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    scatter = col0 is None
+    if not 0 <= lo <= hi <= n or not (scatter or 0 <= col0 <= lo):
+        raise ValueError(f"items {lo} .. {hi} from column {col0} of a "
+                         f"{n}-item list")
+    vs, ps = ncc.check_block(out, s, view_major,
+                             h * w if scatter else hi - col0, dev)
+    if scatter and (out.shape[1] if view_major else out.shape[0]) != h * w:
+        raise ValueError(f"costs block {tuple(out.shape)}: the scatter "
+                         f"writes raster columns of {h}x{w}")
+    sa = ncc.sa_ids(data, use_sa,
+                    len(square_taps(strong_radius, strong_increment)))
+    windows = (strong_radius, strong_increment, weak_radius, weak_increment)
+    if dev.type == "cpu":
+        costs = rescore_plain(
+            data, planes_map, selected, x[lo:hi], y[lo:hi], anchors[lo:hi],
+            strong_radius=strong_radius, strong_increment=strong_increment,
+            weak_radius=weak_radius, weak_increment=weak_increment,
+            use_sa=use_sa)
+        cols = y[lo:hi].long() * w + x[lo:hi].long() if scatter \
+            else torch.arange(lo - col0, hi - col0)
+        if view_major:
+            out[:, cols] = costs.T
+        else:
+            out[cols] = costs
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not quads.is_contiguous():
+        raise ValueError("quads must be contiguous")
+    if quads.data_ptr() % (4 * quads.element_size()):
+        raise ValueError("quad table rows must be aligned to their size")
+    lib = library().lib
+    smem = lib.apde_weak_rescore_smem_bytes(s, *windows, int(sa is not None))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the re-score form's windows at {s} views need "
+                         f"{smem} B of shared memory a block, more than "
+                         f"{SMEM_LIMIT}")
+    cams = sweep.cached_camera_table(data)
+    if hi == lo:
+        return
+    global launches, planes
+    launches += 1
+    planes += 1
+    base = out.data_ptr() if scatter \
+        else out.data_ptr() + (lo - col0) * ps * out.element_size()
+    ncc._raise_on(lib.apde_weak_rescore(
+        quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
+        planes_map.data_ptr(), selected.data_ptr(), h, w,
+        x.data_ptr() + 4 * lo, y.data_ptr() + 4 * lo,
+        anchors.data_ptr() + 4 * (ANCHORS + 1) * 2 * lo,
+        data.ref_image.data_ptr(), data.height,
+        None if sa is None else sa.data_ptr(), *windows, base, vs, ps,
+        int(scatter), hi - lo, s, data.width, data.quad_h, data.img_w,
+        data.img_h, torch.cuda.current_stream(dev).cuda_stream),
+        "apde_weak_rescore")

@@ -28,7 +28,8 @@ every evaluated pair, K4's, the selection's and the hypotheses').
 
 The plain version fixes every operation's order: the reference side of
 ``deformable.WeakRefData.build`` with its sums in tap order
-(``weak_ref_plain``), K6's plain deformable NCC (``weak.weak_plain``), the
+(``weak.weak_ref_plain``, K6's re-score form's too), K6's plain
+deformable NCC (``weak.weak_plain``), the
 selection of ``selection.ordered_*``, every view sum as ordered adds over
 s = 0 .. S-1, K3's plain adoption and hypotheses
 (``strong.adopt_plain``, ``strong.refinement_planes_plain``: lengths in
@@ -52,14 +53,15 @@ import torch
 
 from ...config import STRONG
 from ...core import geometry as geo
-from ...core.sampling import clamped_fetch, fetch
+from ...core.sampling import fetch
 from .. import selection
-from ..cost import COST_MAX, GEOM_COST_MAX, RefWindow, square_taps
+from ..cost import COST_MAX, GEOM_COST_MAX, square_taps
 from ..deformable import WeakRefData
 from . import build as _build
 from . import ncc, strong, sweep, weak
-from .strong import ordered_sum, weighted_sum
+from .strong import weighted_sum
 from .sweep import _f32
+from .weak import weak_ref_plain
 
 launches = 0      # kernel launches since the last reset (plain runs excluded)
 chunks = 0        # weak-sweep chunks those launches updated
@@ -132,67 +134,6 @@ def kernel_info(quads_u8: bool, sa: bool, geom: bool, num_views: int,
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
-
-def weak_ref_plain(data, x, y, anchors, selected, strong_radius: int,
-                   strong_increment: int, weak_radius: int,
-                   weak_increment: int, use_sa: bool) -> WeakRefData:
-    """The reference side K7 builds for weak pixels (x, y) f32 with their
-    (B, 9, 2) anchors: ``deformable.WeakRefData.build``'s taps, weights,
-    anchor masks and selections, every window's sums taken in tap order.
-    The centre window is the square of (strong_radius, strong_increment);
-    under SA a tap weighs 1 where the pixel is in no segment (id <= 0) or
-    the tap's id is the pixel's (no star, no truncation), and the anchors'
-    windows weigh against the weak pixel's segment too."""
-    sa = bool(use_sa) and data.sa_mask is not None
-    dev = x.device
-    xi, yi = x.to(torch.int32), y.to(torch.int32)
-    seg = fetch(data.sa_mask, xi, yi) if sa else None
-
-    def weights(tx, ty):
-        extra = (1,) * (tx.ndim - 1)
-        keep = (seg <= 0).reshape(seg.shape + extra) \
-            | (fetch(data.sa_mask, tx, ty) == seg.reshape(seg.shape + extra))
-        return keep.to(torch.float32)
-
-    def sums(val, w):
-        """(sum_ref, sum_rr, weight sum) in tap order: the terms w v and
-        (w v) v, the weights' count; T without weights."""
-        wv = val if w is None else w * val
-        count = torch.full(val.shape[:-1], float(val.shape[-1]), device=dev) \
-            if w is None else w.sum(-1)
-        return ordered_sum(wv), ordered_sum(wv * val), count
-
-    if sa:
-        sq = torch.as_tensor(square_taps(strong_radius, strong_increment),
-                             device=dev)
-        ctx, cty = xi[:, None] + sq[:, 0], yi[:, None] + sq[:, 1]
-        cval = clamped_fetch(data.ref_image, ctx, cty)
-        cw = weights(ctx, cty)
-        centre = RefWindow(sq[:, 0].to(torch.float32),
-                           sq[:, 1].to(torch.float32), cval, *sums(cval, cw),
-                           cw)
-    else:
-        centre = strong.window_plain(data, x, y, strong_radius,
-                                     strong_increment, False)
-    ax, ay = anchors[:, 1:, 0], anchors[:, 1:, 1]
-    exists = (ax >= 0) & (ay >= 0)
-    axc, ayc = torch.clamp(ax, min=0), torch.clamp(ay, min=0)
-    valid = exists
-    if sa:
-        valid = exists & ((seg <= 0)[:, None]
-                          | (fetch(data.sa_mask, axc, ayc) == seg[:, None]))
-    wk = torch.as_tensor(square_taps(weak_radius, weak_increment),
-                         device=dev)
-    tx, ty = axc[..., None] + wk[:, 0], ayc[..., None] + wk[:, 1]
-    tval = clamped_fetch(data.ref_image, tx, ty)              # (B, 8, T')
-    tw = weights(tx, ty) if sa else None
-    sum_ref, sum_rr, wsum = sums(tval, tw)
-    return WeakRefData(
-        x=x, y=y, center_win=centre, anchor_x=ax.to(torch.float32),
-        anchor_y=ay.to(torch.float32), anchor_valid=valid,
-        anchor_sel=fetch(selected, axc, ayc), tap_val=tval, tap_w=tw,
-        sum_ref=sum_ref, sum_rr=sum_rr, wsum=wsum)
-
 
 class WeakStage(NamedTuple):
     """What a chunk's update holds before its refinement probes are costed:

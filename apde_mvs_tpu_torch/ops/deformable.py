@@ -12,9 +12,12 @@ window sums) depend only on the pixel, so `WeakRefData.build` hoists them
 out of the per-candidate / per-view loops. `ncc_weak_planes` evaluates P
 planes per pixel against all S views in one launch of the deformable NCC
 kernel K6 (ops/cuda/weak.py), with the geometric cost K4 inside when asked
-for; `ncc_weak` is its one-plane form, the initial cost's re-score. The
-weak sweep builds the same reference side and runs K6's per-pair code
-inside its chunk-update kernel K7 (ops/cuda/weak_sweep.py).
+for; `ncc_weak` is its one-plane form. No main path calls them since the
+weak sweep's K7 and the initial cost's re-score form of K6 build the same
+reference side in the kernel and run K6's per-pair code there
+(ops/cuda/weak_sweep.py, `weak.rescore_fused`); the test harnesses and
+the compositions those kernels replaced (`testing/weak_composition.py`,
+`testing/init_composition.py`) still do.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.sampling import clamped_fetch, fetch
+from ..core.sampling import clamped_fetch, device_constant, fetch
 from .cost import COST_MAX, CostData, RefWindow, precompute_ref_window, \
     square_taps
 
@@ -68,9 +71,11 @@ class WeakRefData(NamedTuple):
                        == center_sa.reshape(center_sa.shape + extra))
                 return keep.to(torch.float32)
 
-            sq = torch.as_tensor(square_taps(params.strong_radius,
-                                             params.strong_increment),
-                                 device=dev)
+            sq = device_constant(
+                ("square_taps", params.strong_radius,
+                 params.strong_increment),
+                lambda: square_taps(params.strong_radius,
+                                    params.strong_increment), dev)
             ctx = xi[..., None] + sq[:, 0]
             cty = yi[..., None] + sq[:, 1]
             cval = clamped_fetch(data.ref_image, ctx, cty)
@@ -96,8 +101,10 @@ class WeakRefData(NamedTuple):
                                  == center_sa[..., None]))
         sel = fetch(selected, axc, ayc)                       # (B, 8, S)
 
-        wk = torch.as_tensor(square_taps(params.weak_radius,
-                                         params.weak_increment), device=dev)
+        wk = device_constant(("square_taps", params.weak_radius,
+                              params.weak_increment),
+                             lambda: square_taps(params.weak_radius,
+                                                 params.weak_increment), dev)
         tx = axc[..., None] + wk[:, 0]
         ty = ayc[..., None] + wk[:, 1]
         tval = clamped_fetch(data.ref_image, tx, ty)          # (B, 8, T)

@@ -1,7 +1,9 @@
 """Per-pass state initialization (reference: RandomInitialization,
 APD.cu:919-948): FIRST_INIT draws random plane hypotheses; later passes
 convert the loaded (world normal, depth) maps into camera-frame planes. Both
-then compute the initial multi-view cost and top-k view selection."""
+then compute the initial multi-view cost and top-k view selection, on the
+card three kernels: K2's stage form, K6's re-score form and K11. The torch-op
+composition they replaced is ``testing/init_composition.py``."""
 
 from __future__ import annotations
 
@@ -10,13 +12,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import geometry as geo
-from .cost import CostData, initial_cost_and_selection, ncc_strong, \
-    precompute_ref_window
-from .deformable import WeakRefData, ncc_weak
+from .cost import CostData
+from .cuda import ncc as k2
+from .cuda import select as k11
+from .cuda import weak as k6
 from .state import PMState
 
-# pixels per initial-cost evaluation (the JAX engine's chunks): they bound
-# the (chunk, S, taps) intermediates; the result does not depend on them
+# pixels per evaluation of the plain versions on the CPU (the JAX engine's
+# chunks): they bound the (chunk, S, taps) intermediates; the result does
+# not depend on them. The card takes the image's pixels in one launch and
+# the weak list in launches of WEAK_CHUNK.
 CHUNK = 1 << 19
 WEAK_CHUNK = 1 << 16
 
@@ -55,47 +60,64 @@ def initial_cost(data: CostData, state: PMState, params, weak_x=None,
     ComputeMultiViewInitialCostandSelectedViews, APD.cu:723-774). Given a
     weak list (``weak_x``, ``weak_y`` (Nw,) int32, ``anchors`` (Nw, 9, 2)),
     those pixels are re-scored with the deformable NCC before the view
-    selection (the APD passes): one K6 launch a chunk of WEAK_CHUNK. ``shard`` (`parallel.tile_pass.RowShard`)
-    scores only its rank's rows and slice of the weak list and all-gathers
-    the costs; the selection then runs on the whole image on every rank."""
-    h, w = data.height, data.width
-    xs, ys = geo.pixel_grid(h, w, data.device)
-    xf = xs.reshape(-1)
-    yf = ys.reshape(-1)
-    planes = state.planes.reshape(-1, 4)
-    use_sa = bool(params.use_sa)
-    sl, counts = (slice(0, h * w), None) if shard is None \
-        else shard.row_part(h, w)
+    selection (the APD passes).
 
-    def strong(lo, hi):
-        return ncc_strong(data, xf[lo:hi], yf[lo:hi], planes[lo:hi],
-                          precompute_ref_window(data, xf[lo:hi], yf[lo:hi],
-                                                params.strong_radius,
-                                                params.strong_increment,
-                                                use_sa), site="init")
-    costs = torch.cat([strong(i, min(i + CHUNK, sl.stop))
-                       for i in range(sl.start, sl.stop, CHUNK)])
+    On the card the stage is three kernels and no torch op but the outputs'
+    allocations: one launch of K2's stage form over the image's pixels
+    (each pixel's window built in the kernel) into an (S, H W) cost array,
+    one launch of K6's re-score form a WEAK_CHUNK of the weak list (its
+    reference side built in the kernel, its costs written into the pixels'
+    columns), one launch of the selection K11, which writes the state's
+    new cost map and selections. On the CPU the same steps run as their
+    plain versions, K2's over CHUNK pixels at a time on (H W, S) costs.
+    ``shard`` (`parallel.tile_pass.RowShard`) scores only its rank's rows
+    and slice of the weak list, gathers each and places the re-scored
+    costs with one ``index_put``; the selection then runs on the whole
+    image on every rank. The maps the kernels read (the planes, the prior
+    selections, the validity) must be contiguous."""
+    h, w, s = data.height, data.width, data.num_src
+    card = data.device.type == "cuda"
+    # the kernels' layout: view-major costs, a view's pixels coalesced
+    view_major = card and shard is None
+    planes = state.planes
+    window = dict(radius=params.strong_radius,
+                  increment=params.strong_increment,
+                  use_sa=bool(params.use_sa))
+    if shard is None:
+        lo, hi, counts = 0, h * w, None
+    else:
+        sl, counts = shard.row_part(h, w)
+        lo, hi = sl.start, sl.stop
+    costs = torch.empty((s, hi - lo) if view_major else (hi - lo, s),
+                        dtype=torch.float32, device=data.device)
+    step = max(hi - lo, 1) if card else CHUNK
+    for i in range(lo, hi, step):
+        k2.init_stage_fused(data, planes, i, min(i + step, hi), costs,
+                            view_major=view_major, col0=lo, **window)
     if shard is not None:
         costs = shard.gather(costs, counts)
     if weak_x is not None:
-        flat = weak_y.long() * w + weak_x.long()
         n = weak_x.shape[0]
-        wsl, wcounts = (slice(0, n), None) if shard is None \
-            else shard.list_part(n)
-
-        def weak(lo, hi):
-            wref = WeakRefData.build(
-                data, weak_x[lo:hi].to(torch.float32),
-                weak_y[lo:hi].to(torch.float32), anchors[lo:hi],
-                state.selected, params)
-            return ncc_weak(data, wref, planes[flat[lo:hi]], params)
-        parts = [weak(i, min(i + WEAK_CHUNK, wsl.stop))
-                 for i in range(wsl.start, wsl.stop, WEAK_CHUNK)]
-        wcosts = torch.cat(parts) if parts else costs[:0]
-        if shard is not None:
-            wcosts = shard.gather(wcosts, wcounts)
-        costs[flat] = wcosts
-    mean_cost, selected = initial_cost_and_selection(costs, params.top_k)
-    return state.replace(
-        costs=torch.where(state.valid, mean_cost.reshape(h, w), 1e9),
-        selected=selected.reshape(h, w, -1) & state.valid[..., None])
+        rescore = dict(strong_radius=params.strong_radius,
+                       strong_increment=params.strong_increment,
+                       weak_radius=params.weak_radius,
+                       weak_increment=params.weak_increment,
+                       use_sa=bool(params.use_sa))
+        if shard is None:
+            for i in range(0, n, WEAK_CHUNK):
+                k6.rescore_fused(data, planes, state.selected, weak_x,
+                                 weak_y, anchors, i, min(i + WEAK_CHUNK, n),
+                                 costs, view_major=view_major, **rescore)
+        else:
+            wsl, wcounts = shard.list_part(n)
+            part = torch.empty((wsl.stop - wsl.start, s),
+                               dtype=torch.float32, device=data.device)
+            for i in range(wsl.start, wsl.stop, WEAK_CHUNK):
+                k6.rescore_fused(data, planes, state.selected, weak_x,
+                                 weak_y, anchors, i,
+                                 min(i + WEAK_CHUNK, wsl.stop), part,
+                                 view_major=False, col0=wsl.start, **rescore)
+            costs.view(h, w, s)[weak_y, weak_x] = shard.gather(part, wcounts)
+    cost_map, selected = k11.select_fused(costs, view_major, state.valid,
+                                          params.top_k)
+    return state.replace(costs=cost_map, selected=selected)

@@ -31,6 +31,7 @@ from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
 from ..ops.cost import CostData
 from ..ops.cuda import anchors as anchor_kernels
 from ..ops.cuda import ncc, sampler, strong, sweep, weak, weak_sweep
+from ..ops.cuda import select as select_kernel
 from ..tools import visualize
 from .patchmatch import pad_to_multiple, run_patchmatch
 
@@ -390,7 +391,8 @@ def print_launches(tag: str) -> None:
           f"launches: {strong.launches} for {strong.colours} colour updates"
           f"{tag}, weak kernel launches: {weak.launches} for {weak.planes} "
           f"planes, weak sweep kernel launches: {weak_sweep.launches} for "
-          f"{weak_sweep.chunks} chunks, anchor kernel launches: K10 "
+          f"{weak_sweep.chunks} chunks, selection kernel launches: "
+          f"{select_kernel.launches}, anchor kernel launches: K10 "
           f"{anchor_kernels.jfa_launches}, K8 "
           f"{anchor_kernels.anchor_launches}, K9 "
           f"{anchor_kernels.fit_launches}\n", end="", flush=True)

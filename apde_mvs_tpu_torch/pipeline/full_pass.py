@@ -194,7 +194,7 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
         planes = filters.depth_normal_to_planes(
             data, state.planes[..., 3], state.planes[..., :3])
     state = init_ops.initial_cost(
-        data, state.replace(planes=planes), params,
+        data, _stage_state(data, state.replace(planes=planes)), params,
         *(weak[:3] if weak is not None else ()), shard=shard)
     state = _iterations(data, state, cfg, weak, (dmin_f, dmax_f, gf), cam,
                         gen, shard)
@@ -265,9 +265,10 @@ def _sweep_constants(params, dmin, dmax) -> tuple:
 
 
 def _stage_state(data: CostData, state: PMState) -> PMState:
-    """The state with the maps K5's stage form reads contiguous, and its
-    per-CostData tables (the camera table, the views' distances) made:
-    once a stage, so that each chunk is one launch and nothing more."""
+    """The state with the maps the stage kernels read contiguous (K5's
+    stage form; the initial cost's K2, K6 and K11), and their per-CostData
+    tables (the camera table, the views' distances) made: once a stage, so
+    that each chunk is one launch and nothing more."""
     k5.cached_camera_table(data)
     k5.cached_view_distances(data)
     return state.replace(planes=state.planes.contiguous(),

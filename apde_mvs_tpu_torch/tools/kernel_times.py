@@ -1,6 +1,7 @@
 """Device times of K2, K5, the strong sweep's colour update (K3), the weak
-sweep's chunk (K7, K6) and the APD setup's kernels (K8, K9, K10) at the
-main path's shapes, for comparing two checkouts of the port on one card.
+sweep's chunk (K7, K6), the initial cost and the APD setup's kernels (K8,
+K9, K10) at the main path's shapes, for comparing two checkouts of the
+port on one card.
 
 The shapes are chip_smoke.py's, on view 0 of the 11-view 600x800 synthetic
 scene (seed 0), u8 quad tables:
@@ -43,6 +44,12 @@ scene (seed 0), u8 quad tables:
   hands it (``real_pass_chunks``: the 11-view APD scene of
   ``tools/profile_pass.py --pass apd``, the priors of a FIRST_INIT pass of
   the same view), in both pass forms;
+- the initial cost, ``init.initial_cost``, on the call a real APD
+  REFINE_INIT pass makes (``real_pass_chunks``: its state, SA windows and
+  weak list), its time a call by CUDA events and its host time a call:
+  K2's stage form, K6's re-score form and K11 in a checkout that has them,
+  the window, reference-side and selection torch ops around K2's and K6's
+  launches in one from before (also with ``--weak_only``);
 - K8 at a 16,384-pixel chunk of the APD scan's weak list at the APD
   round's rotate_time (2: 16 directions) and at the chunk a real APD pass
   hands it, and the chunk's jitter and RANSAC draw table
@@ -85,7 +92,7 @@ from apde_mvs_tpu_torch.core import checkerboard as cb
 from apde_mvs_tpu_torch.core import geometry as geo
 from apde_mvs_tpu_torch.core.platform import card_line
 from apde_mvs_tpu_torch.ops import anchors as anc
-from apde_mvs_tpu_torch.ops import filters
+from apde_mvs_tpu_torch.ops import filters, init
 from apde_mvs_tpu_torch.ops.cost import (CostData, contiguous_window,
                                          initial_cost_and_selection,
                                          ncc_strong, precompute_ref_window)
@@ -403,11 +410,13 @@ def real_pass_inputs(dev, views: int = PASS_VIEWS) -> RealPass:
 
 def real_pass_chunks(dev, views: int = PASS_VIEWS
                      ) -> types.SimpleNamespace:
-    """The first K7 chunk, the first K8 chunk, the first K9 call and the
-    K10 call of a real APD REFINE_INIT pass of view 0 (``real_pass_inputs``),
-    each as the positional and keyword arguments of its wrapper, captured
-    at the call (``k7``, ``k8``, ``k9``, ``k10``; None where the checkout
-    has no such wrapper), the pass (``inputs``); and ``k8_plain``, the
+    """The first K7 chunk, the first K8 chunk, the first K9 call, the
+    K10 call and the initial cost of a real APD REFINE_INIT pass of view 0
+    (``real_pass_inputs``), each as the positional and keyword arguments of
+    its wrapper (``init.initial_cost`` for the initial cost: the pass's
+    state, SA windows and weak list), captured at the call (``k7``, ``k8``,
+    ``k9``, ``k10``, ``init``; None where the checkout has no such
+    wrapper), the pass (``inputs``); and ``k8_plain``, the
     pass's reference camera, RANSAC threshold and depth bounds, which K8's
     plain version takes in place of the wrapper's host scalars (K9's
     takes the camera)."""
@@ -429,7 +438,8 @@ def real_pass_chunks(dev, views: int = PASS_VIEWS
     for mod, name, key in ((weak_sweep, "weak_update_fused", "k7"),
                            (kern, "gen_anchors", "k8"),
                            (kern, "fit_planes", "k9"),
-                           (kern, "nearest_strong", "k10")):
+                           (kern, "nearest_strong", "k10"),
+                           (init, "initial_cost", "init")):
         fn, run = capture(mod, name, key)
         saved.append((mod, name, fn))
         setattr(mod, name, run)
@@ -441,7 +451,8 @@ def real_pass_chunks(dev, views: int = PASS_VIEWS
             setattr(mod, name, fn)
     return types.SimpleNamespace(
         k7=got.get("k7"), k8=got.get("k8"), k9=got.get("k9"),
-        k10=got.get("k10"), inputs=rp, prior_weak=rp.prior_weak,
+        k10=got.get("k10"), init=got.get("init"), inputs=rp,
+        prior_weak=rp.prior_weak,
         k8_plain=(rp.data.ref_cam, rp.params.ransac_threshold, rp.depth_min,
                   rp.depth_max))
 
@@ -517,6 +528,9 @@ class WeakChunk(NamedTuple):
     candidates: torch.Tensor   # (B, 10, 4) the body's candidate planes
     probes: torch.Tensor       # (B, 5, 4) refinement probes of the current
     vw: torch.Tensor           # (B, S) view weights of the body's selection
+    all_x: torch.Tensor        # (Nw,) every weak pixel, the initial cost's
+    all_y: torch.Tensor        # weak list, and its (Nw, 9, 2) anchors
+    all_anchors: torch.Tensor
 
 
 def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
@@ -529,8 +543,10 @@ def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
     WEAK_SWEEP_CHUNK reliable weak pixels. REFINE_ITER's parameters of the
     APD round (SA windows, the geometric cost against the ground-truth
     source depths). The probes are the refinement hypotheses of the
-    current planes, the view weights those of ``_weak_body``'s selection.
-    Uses only what checkouts from before K6 have too."""
+    current planes, the view weights those of ``_weak_body``'s selection;
+    beside the chunk, every weak pixel with its anchors (the list the
+    initial cost re-scores). Uses only what checkouts from before K6 have
+    too."""
     from apde_mvs_tpu_torch.ops import propagation
     H, W = scene.images.shape[1:]
     S = scene.num_views - 1
@@ -598,7 +614,8 @@ def weak_chunk(scene, dev, seed: int = 0) -> WeakChunk:
     vw = propagation._weak_body(data, state, prop, it, draws, x, y, anchors,
                                 fit, dmin, dmax, gf)[3].contiguous()
     return WeakChunk(data, state, prop, it, draws, x, y, anchors, fit, dmin,
-                     dmax, gf, candidates, probes, vw)
+                     dmax, gf, candidates, probes, vw, wx, wy,
+                     res.anchors.contiguous())
 
 
 def timed(out: dict, name: str, fn, iters: int, kernel: str,
@@ -682,6 +699,37 @@ def weak_times(scene, wc, real, dev, out: dict) -> None:
               f"{what}", flush=True)
 
 
+def init_times(real, out: dict) -> None:
+    """The initial cost, ``init.initial_cost``, on the call a real APD
+    REFINE_INIT pass makes (its state, SA windows and weak list): three
+    kernel launches and no other torch op in a checkout with K2's stage
+    form, K6's re-score form and K11, the window, reference-side and
+    selection torch ops around K2's and K6's launches in one from before.
+    Its time a call (CUDA events) and its host time a call (the host clock
+    from the call to its return, the launches enqueued)."""
+    import time
+    if real.init is None:
+        print("no initial cost captured", flush=True)
+        return
+    a, kw = real.init
+
+    def call():
+        return init.initial_cost(*a, **kw)
+    out["initial cost"] = cuda_ms(call, 10)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call()
+    out["initial cost host"] = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    n = 0 if len(a) < 4 else a[3].numel()
+    print(f"initial cost: {out['initial cost']:.4f} ms, host "
+          f"{out['initial cost host']:.4f} ms a call ({a[0].num_src} views, "
+          f"{a[0].height}x{a[0].width}, {n} weak pixels re-scored, a real "
+          f"APD REFINE_INIT pass)", flush=True)
+
+
 def anchor_times(scene, wc, real, dev, out: dict, seed: int = 0) -> None:
     """K8 at chip_smoke.py's chunk and at a real APD pass's, the draw table
     of a chunk, K10 a call on the APD scan's map and K9 a call on the weak
@@ -740,8 +788,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--weak_only", action="store_true",
-                    help="time only the weak path's kernels: the weak "
-                         "sweep's chunk, K7, K6, K8, K9 and K10")
+                    help="time only the weak path's kernels and the "
+                         "initial cost: the weak sweep's chunk, K7, K6, "
+                         "the initial cost, K8, K9 and K10")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -771,6 +820,7 @@ def main(argv=None) -> int:
     wc = weak_chunk(scene, dev)
     real = real_pass_chunks(dev)
     weak_times(scene, wc, real, dev, out)
+    init_times(real, out)
     anchor_times(scene, wc, real, dev, out)
     print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
     return 0

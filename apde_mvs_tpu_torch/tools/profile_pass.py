@@ -20,12 +20,12 @@ launches of the fused strong NCC K2 by call site (the initial cost), of
 the strong sweep's colour update K3, of the fused disparity sweep K5 by
 mode (classify, refine), of the weak sweep's chunk update K7, of the
 deformable NCC K6 by use (on the main path only the initial cost's
-re-score), of the APD setup's
+re-score form), of the initial cost's K2 stage form and selection K11, of
+the APD setup's
 K10 (the nearest-strong flooding), K8 (anchor generation) and K9 (the
 fit-plane RANSAC) and of K1 by call site, each kernel's profiler time,
 the device and host time of the pass's stages (anchors, fit planes, the
-weak sweep, the re-score's deformable NCC, the classify and refine
-sweeps, ...), and
+initial cost, the weak sweep, the classify and refine sweeps, ...), and
 the torch ops that hold the most device time.
 
     python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
@@ -55,6 +55,7 @@ from ..ops import anchors, filters, init
 from ..ops.cost import CostData
 from ..ops.cuda import anchors as kanchors
 from ..ops.cuda import ncc, sampler, strong, sweep, weak, weak_sweep
+from ..ops.cuda import select as k11
 from ..pipeline import full_pass, patchmatch
 from ..testing import synthetic
 
@@ -74,7 +75,6 @@ _STAGES = (
     (init, "initial_cost", "initial_cost"),
     (full_pass, "propagate_strong", "propagate_strong"),
     (full_pass, "propagate_weak", "propagate_weak"),
-    (init, "ncc_weak", "ncc_weak"),
     (filters, "depth_to_weak", "depth_to_weak"),
     (filters, "local_refine", "local_refine"),
 )
@@ -144,17 +144,25 @@ def _k6_use(a, kw):
     return "K6 re-score" if a[2].shape[1] == 1 else "K6 candidates"
 
 
+def _named(name):
+    return lambda a, kw: name
+
+
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site), K3, K5 (by mode), K6 (by use) and K7 into
+    K2 and K1 (by call site; K2's stage form apart), K3, K5 (by mode), K6
+    (by use; its re-score form apart), K7, K11 and K8-K10 into
     ``kernel_events``; restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
                (strong, "strong_fused", _k3_name),
                (sweep, "sweep_fused", _k5_mode),
                (sweep, "stage_fused", _k5_mode),
+               (ncc, "init_stage_fused", _named("K2 init stage form")),
                (weak, "weak_fused", _k6_use),
+               (weak, "rescore_fused", _named("K6 re-score form")),
+               (k11, "select_fused", _named("K11 selection")),
                (weak_sweep, "weak_update_fused", _k7_name),
                (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),
                (kanchors, "gen_anchors", _anchor_kernel("K8 anchors")),
@@ -182,7 +190,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     t0 = time.perf_counter()
     run()
     plain_wall = time.perf_counter() - t0
-    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, kanchors):
+    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, k11,
+                kanchors):
         mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -213,12 +222,15 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     busy = sum(kernels.values()) / 1e6
     k1 = sum(t for k, t in kernels.items() if "sample_" in k
              and "kernel" in k and ("packed" in k or "image" in k)) / 1e6
-    k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k) / 1e6
+    k2 = sum(t for k, t in kernels.items() if "ncc_strong_kernel" in k
+             or "ncc_stage_kernel" in k) / 1e6
     k5 = sum(t for k, t in kernels.items() if "sweep_kernel" in k) / 1e6
     k3 = sum(t for k, t in kernels.items() if "strong_kernel" in k
              and "ncc_strong" not in k) / 1e6
     k6 = sum(t for k, t in kernels.items() if "weak_kernel" in k) / 1e6
     k7 = sum(t for k, t in kernels.items() if "weak_update_kernel" in k) / 1e6
+    k11_s = sum(t for k, t in kernels.items()
+                if "topk_select_kernel" in k) / 1e6
     anchor = {name: sum(t for k, t in kernels.items() if kernel in k) / 1e6
               for name, kernel in (("k8_s", "gen_anchors"),
                                    ("k9_s", "fit_planes"),
@@ -235,7 +247,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
                 k3_launches=strong.launches, k5_s=k5,
                 k5_launches=sweep.launches, k6_s=k6,
                 k6_launches=weak.launches, k7_s=k7,
-                k7_launches=weak_sweep.launches, **anchor,
+                k7_launches=weak_sweep.launches, k11_s=k11_s,
+                k11_launches=k11.launches, **anchor,
                 k8_launches=kanchors.anchor_launches,
                 k9_launches=kanchors.fit_launches,
                 k10_launches=kanchors.jfa_launches, k1_launches=launches,
@@ -260,7 +273,8 @@ def _report(r, card):
           f"{r['k3_launches']} launches, K5 {r['k5_s']:.3f} s over "
           f"{r['k5_launches']} launches, K6 {r['k6_s']:.3f} s over "
           f"{r['k6_launches']} launches, K7 {r['k7_s']:.4f} s over "
-          f"{r['k7_launches']} launches, K8 {r['k8_s']:.4f} s over "
+          f"{r['k7_launches']} launches, K11 {r['k11_s']:.4f} s over "
+          f"{r['k11_launches']} launches, K8 {r['k8_s']:.4f} s over "
           f"{r['k8_launches']} launches, K9 {r['k9_s']:.4f} s over "
           f"{r['k9_launches']} launches, K10 {r['k10_s']:.4f} s over "
           f"{r['k10_launches']} launches, K1 {r['k1_s']:.3f} s over "

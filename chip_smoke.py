@@ -80,8 +80,15 @@ draw table, K10 with its launches a call and live sub-passes); the
 synchronising calls of a real APD pass's iteration loop with K9's camera
 read in the loop as before, then of the whole APD pass and a FIRST_INIT
 pass, by stage and site (fails if a fit in the loop still reads the
-camera, if any comes from ``core/sampling.py``, or if the classify or the
-refine stage makes more than its ``nonzero``); and where a
+camera, if any comes from ``core/sampling.py``, if the classify or the
+refine stage makes more than its ``nonzero``, or if the initial cost
+makes any); the initial cost's K2 stage form, K6 re-score form and
+selection K11 bitwise against their plain versions (``init_phase``: the
+full 600x800 image, u8 and f32, square and SA, a padded image, the APD
+scan's weak list and a real APD pass's, a tile rank's row block and list
+slice, 32 views, K11 on crafted rows), each timed a launch against its
+plain version and the torch ops it replaced, K11 beside ``torch.sort``,
+and the whole stage against ``testing.init_composition``; and where a
 K7 and a K8 launch spend their device time, stage by stage
 (``tools/kernel_split.py``). The paths:
 
@@ -123,17 +130,21 @@ limit (the exports pass follows the APD scan). The kernel checks, the
 view-parallel scan, the tile route and the batch scan always use all 11
 views.
 
-Every path must run its initial cost's NCC through K2 (at least one
-launch, all at the initial cost's and debug_point's sites, none at the
-strong sweep's), its classify and refine sweeps through K5 (at least one
+Every path must run its initial cost's NCC through K2's stage form (at
+least one launch, all at the initial cost's and debug_point's sites, none
+at the strong sweep's) and its selection through K11 (one launch an
+initial cost; in the round-0 and APD scans every ``initial_cost`` call
+one K2 launch, one K6 launch a 65,536 weak pixels, one K11 launch and no
+other torch op but its outputs' allocations), its classify and refine
+sweeps through K5 (at least one
 launch of each mode on a path that runs a pass; in the round-0 and APD
 scans every ``depth_to_weak`` and ``local_refine`` call one launch and no
 other torch op but its output's allocation), its strong sweeps through
 K3 (on a path that runs a pass at least one launch, at most two a colour
 update; the APD scan at least one with an SA window), its weak sweep
 through K7 (a launch a weak-sweep chunk) and its initial cost's re-score
-through K6 (one plane a launch; the APD scan and the exports pass at least
-one chunk of each); no path may launch K1.
+through K6's re-score form (one plane a launch; the APD scan and the
+exports pass at least one chunk of each); no path may launch K1.
 Every phase raises on failure, a subprocess's exit code included; the exit
 code is non-zero on any failure, and without a CUDA device the script stops
 before printing any result. Output ends with: one JSON line of per-kernel
@@ -3064,6 +3075,545 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
     return out
 
 
+# operations of the initial cost's stage forms as the function needs them,
+# beside K2's per tap and per pair (K2's stage form) and K6's per evaluated
+# pair (its re-score form): the window's K3_WINDOW_OPS_PER_TAP a (pixel,
+# tap) of K2's window, K7_OPS_PER_REF_TAP a (pixel, reference tap) of the
+# re-score's reference side (36 + 8 x 9 taps a pixel). The selection K11 is
+# bound by its bytes: the (S, H W) costs read, the validity read, the cost
+# map and the selections written, each once.
+
+
+def stage_costs_plain(data, state, params, wx=None, wy=None, anchors=None):
+    """The initial cost's plain versions on the card's tensors, step by
+    step: K2's stage form over the image ((H W, S) costs), with a weak list
+    K6's re-score form placed at its pixels, and K11's cost map and
+    selections. Returns (the strong costs, the costs after the re-score,
+    the cost map, the selections)."""
+    from apde_mvs_tpu_torch.ops.cuda import ncc, weak
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+    h, w = data.height, data.width
+    strong = ncc.init_stage_plain(data, state.planes, 0, h * w,
+                                  params.strong_radius,
+                                  params.strong_increment,
+                                  bool(params.use_sa))
+    costs = strong.clone()
+    if wx is not None:
+        costs[wy.long() * w + wx.long()] = weak.rescore_plain(
+            data, state.planes, state.selected, wx, wy, anchors,
+            **rescore_kwargs(params))
+    cost_map, selected = k11.select_plain(costs, state.valid, params.top_k)
+    return strong, costs, cost_map, selected
+
+
+def rescore_kwargs(params) -> dict:
+    return dict(strong_radius=params.strong_radius,
+                strong_increment=params.strong_increment,
+                weak_radius=params.weak_radius,
+                weak_increment=params.weak_increment,
+                use_sa=bool(params.use_sa))
+
+
+def init_stage_check(data, state, params, what: str, wx=None, wy=None,
+                     anchors=None) -> float:
+    """The initial cost's three forms against their plain versions on the
+    card, bitwise, one at a time and as ``init.initial_cost``'s stage: K2's
+    stage form over the whole image into view-major costs, K6's re-score
+    form into those costs' columns, K11 on them. Returns the max abs
+    difference read."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops import init
+    from apde_mvs_tpu_torch.ops.cuda import ncc, weak
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+    h, w, s = data.height, data.width, data.num_src
+    strong, costs, cost_map, sel = stage_costs_plain(
+        data, state, params, wx, wy, anchors)
+    got = torch.empty((s, h * w), device=data.device)
+    ncc.init_stage_fused(data, state.planes, 0, h * w, got,
+                         radius=params.strong_radius,
+                         increment=params.strong_increment,
+                         use_sa=bool(params.use_sa), view_major=True)
+    torch.cuda.synchronize()
+    if not bitwise(got.T, strong):
+        raise AssertionError(f"K2 stage form {what}: "
+                             f"{int((got.T != strong).sum())} costs differ "
+                             "from the plain version")
+    errs = [0.0]
+    n = 0 if wx is None else wx.numel()
+    for i in range(0, n, init.WEAK_CHUNK):
+        weak.rescore_fused(data, state.planes, state.selected, wx, wy,
+                           anchors, i, min(i + init.WEAK_CHUNK, n), got,
+                           view_major=True, **rescore_kwargs(params))
+    torch.cuda.synchronize()
+    if not bitwise(got.T, costs):
+        raise AssertionError(f"K6 re-score form {what}: "
+                             f"{int((got.T != costs).sum())} costs differ "
+                             "from the plain version")
+    got_map, got_sel = k11.select_fused(got, True, state.valid,
+                                        params.top_k)
+    torch.cuda.synchronize()
+    if not bitwise(got_map, cost_map) or not torch.equal(got_sel, sel):
+        raise AssertionError(
+            f"K11 {what}: {int((got_map != cost_map).sum())} costs and "
+            f"{int((got_sel != sel).sum())} selections differ from the "
+            "plain version")
+    out = init.initial_cost(data, state, params, wx, wy, anchors)
+    torch.cuda.synchronize()
+    if not bitwise(out.costs, cost_map) or not torch.equal(out.selected,
+                                                           sel):
+        raise AssertionError(f"initial cost {what}: the stage differs from "
+                             "its plain versions")
+    for a, b in ((got.T, costs), (got_map, cost_map)):
+        errs.append(float((a - b).abs().max()))
+    changed = 0 if wx is None else int(
+        (costs != strong).any(-1).sum())
+    log(f"  initial cost {what} ({s} views, {h}x{w}, {n} weak pixels, "
+        f"{changed} costs re-scored): K2's stage form, K6's re-score form, "
+        f"K11 and the stage bitwise equal to their plain versions; "
+        f"{float((cost_map >= 2.0).float().mean()):.4f} of the pixels at "
+        f"COST_MAX or invalid, {float(sel.sum(-1).float().mean()):.3f} "
+        "views selected a pixel")
+    return max(errs)
+
+
+def tile_stage_check(data, state, params, wx, wy, anchors,
+                     what: str) -> float:
+    """The tile route's forms on one rank's part: K2's stage form on rows
+    0 .. H / RANKS - 1 into a pixel-major block, K6's re-score form on the
+    second half of the weak list into a compact pixel-major block, K11 on
+    pixel-major costs; each bitwise against its plain version."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import ncc, weak
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+    h, w, s = data.height, data.width, data.num_src
+    hi = h // RANKS * w
+    got = torch.empty((hi, s), device=data.device)
+    ncc.init_stage_fused(data, state.planes, 0, hi, got,
+                         radius=params.strong_radius,
+                         increment=params.strong_increment,
+                         use_sa=bool(params.use_sa), view_major=False)
+    want = ncc.init_stage_plain(data, state.planes, 0, hi,
+                                params.strong_radius,
+                                params.strong_increment, bool(params.use_sa))
+    n = wx.numel()
+    lo = n // RANKS
+    part = torch.empty((n - lo, s), device=data.device)
+    weak.rescore_fused(data, state.planes, state.selected, wx, wy, anchors,
+                       lo, n, part, view_major=False, col0=lo,
+                       **rescore_kwargs(params))
+    wpart = weak.rescore_plain(data, state.planes, state.selected, wx[lo:],
+                               wy[lo:], anchors[lo:],
+                               **rescore_kwargs(params))
+    full = ncc.init_stage_plain(data, state.planes, 0, h * w,
+                                params.strong_radius,
+                                params.strong_increment,
+                                bool(params.use_sa)).contiguous()
+    got_map, got_sel = k11.select_fused(full, False, state.valid,
+                                        params.top_k)
+    want_map, want_sel = k11.select_plain(full, state.valid, params.top_k)
+    torch.cuda.synchronize()
+    for name, a, b in (("K2 stage form", got, want),
+                       ("K6 re-score form", part, wpart),
+                       ("K11", got_map, want_map)):
+        if not bitwise(a, b):
+            raise AssertionError(f"{name} {what}: {int((a != b).sum())} "
+                                 "values differ from the plain version")
+    if not torch.equal(got_sel, want_sel):
+        raise AssertionError(f"K11 {what}: selections differ")
+    log(f"  tile route {what}: K2's stage form on rows 0 .. {h // RANKS - 1}"
+        f" ({hi} pixels), K6's re-score form on list items {lo} .. {n - 1} "
+        f"(a compact block), K11 on pixel-major costs: bitwise equal to "
+        "their plain versions")
+    return float((got - want).abs().max())
+
+
+def crafted_selection_costs(h: int, w: int, s: int, seed: int, device):
+    """(H W, S) costs with crafted rows among seeded uniform ones: every
+    view at COST_MAX, exact ties at the threshold, fewer views below
+    COST_MAX than top_k, one view below it, NaN costs, -0 and +0, -inf,
+    +inf and costs above COST_MAX (a geometric cost's range)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.0, 2.0, (h * w, s)).astype(np.float32)
+    c[rng.random(c.shape) < 0.3] = 2.0
+    n = h * w // 16
+    rows = [slice(i * n, (i + 1) * n) for i in range(10)]
+    c[rows[0]] = 2.0
+    c[rows[1], 1] = c[rows[1], 0]
+    c[rows[1], 2] = c[rows[1], 0]
+    c[rows[2], 2:] = 2.0
+    c[rows[3], 1:] = 2.0
+    c[rows[4], ::2] = np.nan
+    c[rows[5], 0] = -0.0
+    c[rows[5], 1] = 0.0
+    c[rows[6], 0] = -np.inf
+    c[rows[7], 1] = np.inf
+    c[rows[8], ::3] = 3.0
+    q = np.round(rng.uniform(0.0, 2.0, (n, s)) * 4) / 4
+    c[rows[9]] = q.astype(np.float32)      # many exact ties
+    return torch.as_tensor(c, device=device)
+
+
+def k11_crafted_check(h: int, w: int, s: int, valid, top_k: int, seed: int,
+                      device, what: str) -> None:
+    """K11 against its plain version on crafted rows, bitwise, in both
+    layouts."""
+    import torch
+
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+    c = crafted_selection_costs(h, w, s, seed, device)
+    want_map, want_sel = k11.select_plain(c, valid, top_k)
+    for view_major, costs in ((False, c), (True, c.T.contiguous())):
+        got_map, got_sel = k11.select_fused(costs, view_major, valid, top_k)
+        torch.cuda.synchronize()
+        if not bitwise(got_map, want_map) or not torch.equal(got_sel,
+                                                             want_sel):
+            raise AssertionError(
+                f"K11 {what} ({'view' if view_major else 'pixel'}-major): "
+                f"{int((got_map != want_map).sum())} costs, "
+                f"{int((got_sel != want_sel).sum())} selections differ")
+    log(f"  K11 {what} ({s} views, {h}x{w}, crafted rows: all COST_MAX, "
+        f"ties, k < top_k, one view, NaN, -0 / +0, -inf, +inf, above "
+        f"COST_MAX): bitwise equal to the plain version in both layouts, "
+        f"{float(want_sel.sum(-1).float().mean()):.3f} views selected a "
+        "pixel")
+
+
+def init_stage_bound(data, state, params) -> tuple:
+    """The least time the card could take for one launch of K2's stage
+    form over the image: its f32 operations (K2's a tap and a pair, the
+    window's a (pixel, tap)) over the plain-f32 rate, against the bytes of
+    its inputs (the planes, the reference image and segment ids, the
+    quad-table rows its taps touch, each once) and its output. Returns (ms,
+    "bytes" or "operations", bytes, operations)."""
+    import torch
+
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.core.sampling import quad_coords
+    from apde_mvs_tpu_torch.ops.cuda.strong import window_plain
+    s, h, w = data.num_src, data.height, data.width
+    sa = bool(params.use_sa) and data.sa_mask is not None
+    t = 0
+    mark = torch.zeros((s, w * data.quad_h), dtype=torch.bool,
+                       device=data.device)
+    step = 1 << 15
+    for lo in range(0, h * w, step):
+        f = torch.arange(lo, min(lo + step, h * w), device=data.device)
+        x, y = (f % w).float(), (f // w).float()
+        win = window_plain(data, x, y, params.strong_radius,
+                           params.strong_increment, sa)
+        t = win.tap_val.shape[1]
+        plane = state.planes.reshape(-1, 4)[lo:lo + f.numel()]
+        hom = geo.homography(data.ref_cam, data.src_views, plane)
+        wx, wy = geo.warp(hom[..., None, :, :], x[:, None] + win.tap_dx,
+                          y[:, None] + win.tap_dy)
+        mark_rows(mark, quad_coords(data.width, data.quad_h, wx, wy)[0])
+    rows = int(mark.sum())
+    b = h * w
+    per_tap = K2_OPS_PER_TAP + (2 if sa else 0)
+    ops = s * b * (t * per_tap + K2_OPS_PER_PAIR) \
+        + b * t * K3_WINDOW_OPS_PER_TAP
+    nbytes = 16 * b + 4 * data.ref_image.numel() * (2 if sa else 1) \
+        + rows * 4 * data.src_quads.element_size() + (s + 1) * 16 * 4 \
+        + 4 * s * b
+    return bound_of(nbytes, ops)
+
+
+def rescore_bound(data, state, params, wx, wy, anchors) -> tuple:
+    """The least time the card could take for one launch of K6's re-score
+    form: its f32 operations (``k6_bound``'s on the pixels' own planes, the
+    reference side's K7_OPS_PER_REF_TAP a tap) over the plain-f32 rate,
+    against the bytes of its inputs (the pixels, their anchors and planes,
+    the prior selections at the anchors, the distinct reference-image
+    texels and segment ids of the windows, the quad-table rows the pairs
+    touch, each once) and its output. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    import torch
+
+    from apde_mvs_tpu_torch.core.sampling import fetch
+    from apde_mvs_tpu_torch.ops.cost import square_taps
+    from apde_mvs_tpu_torch.ops.cuda import weak
+    s, b = data.num_src, wx.numel()
+    sa = bool(params.use_sa) and data.sa_mask is not None
+    wref = weak.weak_ref_plain(data, wx.float(), wy.float(), anchors,
+                               state.selected, params.strong_radius,
+                               params.strong_increment, params.weak_radius,
+                               params.weak_increment, sa)
+    own = fetch(state.planes, wx, wy)[:, None].contiguous()
+    _, _, k6_bytes, k6_ops = k6_bound(data, wref, own, params, None, False)
+    t = wref.center_win.tap_val.shape[1]
+    ta = wref.tap_val.shape[2]
+    w_ = 2 if sa else 1
+    old_inputs = b * (4 * (2 + w_ * t + 3 + 8 * (2 + w_ * ta + 3)) + 8
+                      + 8 * s + 16)
+    # the distinct texels the two windows read
+    texels = torch.zeros((data.height, data.width), dtype=torch.bool,
+                         device=data.device)
+    sq = torch.as_tensor(square_taps(params.strong_radius,
+                                     params.strong_increment),
+                         device=data.device)
+    wk = torch.as_tensor(square_taps(params.weak_radius,
+                                     params.weak_increment),
+                         device=data.device)
+    cx = (wx.long()[:, None] + sq[:, 0]).clamp(0, data.width - 1)
+    cy = (wy.long()[:, None] + sq[:, 1]).clamp(0, data.height - 1)
+    texels[cy, cx] = True
+    ax = anchors[:, 1:, 0].clamp(min=0).long()
+    ay = anchors[:, 1:, 1].clamp(min=0).long()
+    texels[(ay[..., None] + wk[:, 1]).clamp(0, data.height - 1),
+           (ax[..., None] + wk[:, 0]).clamp(0, data.width - 1)] = True
+    nbytes = k6_bytes - old_inputs + b * (8 + 72 + 16 + 8 * s) \
+        + int(texels.sum()) * 4 * (2 if sa else 1)
+    ops = k6_ops + b * (t + 8 * ta) * K7_OPS_PER_REF_TAP
+    return bound_of(nbytes, ops)
+
+
+def k11_bound(h: int, w: int, s: int) -> tuple:
+    """The least time the card could take for one K11 launch: the bytes of
+    the (S, H W) costs and the validity map read and the cost map and
+    selections written, each once, over the memory rate (its compares and
+    adds, ~2 a (pixel, view) and pass over the views, are far below)."""
+    return bound_of(h * w * (4 * s + 1 + 4 + s), h * w * s * 2 * 5)
+
+
+def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
+               card: str) -> dict:
+    """The initial cost's stage on the card (``init.initial_cost``: K2's
+    stage form, K6's re-score form a WEAK_CHUNK, K11) against its plain
+    versions, bitwise: at the full 600x800 image (u8 and f32, square and
+    SA star windows, ground-truth and random planes with degenerate ones, a
+    padded image's invalid border), with the APD scan's weak list (SA and
+    square windows, u8 and f32) and a real APD pass's (its captured call),
+    at a tile rank's row block and list slice, at 32 views, and K11 on
+    crafted rows; then each form's time a launch against its plain version
+    and the composition it replaced, its bound, K11 beside ``torch.sort``,
+    and the whole stage against ``testing.init_composition``."""
+    import dataclasses
+
+    import torch
+
+    from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.core import geometry as geo
+    from apde_mvs_tpu_torch.ops import filters, init
+    from apde_mvs_tpu_torch.ops.cost import CostData, ncc_strong, \
+        precompute_ref_window
+    from apde_mvs_tpu_torch.ops.cuda import ncc, weak
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+    from apde_mvs_tpu_torch.ops.deformable import WeakRefData, ncc_weak
+    from apde_mvs_tpu_torch.ops.state import PMState
+    from apde_mvs_tpu_torch.testing.init_composition import init_composition
+    from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views
+
+    log("==== the initial cost: K2's stage form, K6's re-score form, K11 "
+        "====")
+    t_phase = time.perf_counter()
+    errs = []
+    H, W = full_scene.images.shape[1:]
+    cams = geo.CameraArrays.from_cameras(full_scene.cameras, device=device)
+    imgs = torch.as_tensor(full_scene.images, device=device)
+    sa_ids = segment_masks(full_scene.depths[0], seed).to(device)
+    params = next(sp.params for sp in cfg.build_schedule(
+        max(H, W), base=APD_BASE) if sp.params.use_apd)
+    square = dataclasses.replace(params, use_sa=False)
+    depth = torch.as_tensor(full_scene.depths[0], device=device)
+    normal = torch.as_tensor(full_scene.normals[0], device=device)
+    dmin = float(full_scene.cameras[0].depth_min * cfg.DEPTH_MIN_FACTOR)
+    dmax = float(full_scene.cameras[0].depth_max * cfg.DEPTH_MAX_FACTOR)
+
+    def full_state(data, pad: int = 0):
+        """Ground-truth planes on half the pixels, random ones on the
+        other half, a few degenerate; seeded prior selections; the last
+        ``pad`` rows and columns invalid (a padded image's border)."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        gt = filters.depth_normal_to_planes(data, depth, normal)
+        rnd = init.random_planes(data, dmin, dmax, generator=gen)
+        pick = torch.rand((H, W), generator=gen, device=device) < 0.5
+        planes = torch.where(pick[..., None], gt, rnd).contiguous()
+        planes.view(-1, 4)[0::97, 3] = 0.0
+        planes.view(-1, 4)[1::97] = float("nan")
+        valid = torch.ones((H, W), dtype=torch.bool, device=device)
+        if pad:
+            valid[H - pad:] = False
+            valid[:, W - pad:] = False
+        sel = torch.rand((H, W, data.num_src), generator=gen,
+                         device=device) < 0.4
+        return PMState.create(H, W, data.num_src, valid, device=device
+                              ).replace(planes=planes, selected=sel)
+
+    # ---- the full image: u8 and f32, square and SA ------------------------
+    data = {}
+    for u8 in (True, False):
+        data[u8] = CostData.build(cams.view(0), cams.map(lambda a: a[1:]),
+                                  imgs[0], imgs[1:], sampler_u8=u8,
+                                  sa_mask=sa_ids)
+        for prm, form in ((square, "square"), (params, "SA star")):
+            errs.append(init_stage_check(
+                data[u8], full_state(data[u8]), prm,
+                f"full image {'u8' if u8 else 'f32'}, {form} window"))
+    # a padded image: the real bounds 8 pixels in, the border invalid
+    padded = data[True].replace(real_width=W - 8, real_height=H - 8)
+    errs.append(init_stage_check(padded, full_state(padded, 8), params,
+                                 f"padded u8 (real {H - 8}x{W - 8}), SA"))
+    # 32 views, the kernels' limit: the 10 cycled, prior selections cycled
+    d32, idx = cycled_views(data[True], 32)
+    st32 = full_state(data[True])
+    st32 = st32.replace(selected=st32.selected[..., idx].contiguous())
+    errs.append(init_stage_check(d32, st32, params, "u8, 32 views"))
+    k11_crafted_check(H, W, 32, st32.valid, params.top_k, seed, device,
+                      "32 views")
+    del d32, st32
+    k11_crafted_check(H, W, data[True].num_src,
+                      full_state(data[True], 8).valid, params.top_k, seed,
+                      device, "padded validity")
+
+    # ---- the APD scan's weak list (every weak pixel, gen_anchors') --------
+    wx, wy, wan = wc.all_x, wc.all_y, wc.all_anchors
+    wdata = {True: wc.data}
+    acams = geo.CameraArrays.from_cameras(apd_scene.cameras, device=device)
+    aimgs = torch.as_tensor(apd_scene.images, device=device)
+    wdata[False] = CostData.build(
+        acams.view(0), acams.map(lambda a: a[1:]), aimgs[0], aimgs[1:],
+        src_depths=wc.data.src_depths, sampler_u8=False,
+        sa_mask=wc.data.sa_mask)
+    wstate = wc.state.replace(planes=wc.state.planes.contiguous(),
+                              selected=wc.state.selected.contiguous())
+    for u8 in (True, False):
+        for prm, form in ((params, "SA"), (square, "square")):
+            if not u8 and form == "square":
+                continue
+            errs.append(init_stage_check(
+                wdata[u8], wstate, prm,
+                f"APD scan {'u8' if u8 else 'f32'}, {form} windows, its "
+                "weak list", wx, wy, wan))
+    errs.append(tile_stage_check(wdata[True], wstate, params, wx, wy, wan,
+                                 "APD scan u8, SA"))
+    # 32 views on a slice of the list
+    a32, idx = cycled_views(wdata[True], 32)
+    s32 = wstate.replace(selected=wstate.selected[..., idx].contiguous())
+    n32 = min(wx.numel(), init.WEAK_CHUNK)
+    errs.append(init_stage_check(a32, s32, params,
+                                 "APD scan u8, 32 views, SA", wx[:n32],
+                                 wy[:n32], wan[:n32].contiguous()))
+    del a32, s32
+
+    # ---- a real APD pass's call -----------------------------------------
+    (rdata, rstate, rparams, rx, ry, ran), _ = real.init
+    errs.append(init_stage_check(rdata, rstate, rparams,
+                                 "a real APD REFINE_INIT pass", rx, ry, ran))
+
+    # ---- times ------------------------------------------------------------
+    res = {}
+    d, st = data[True], full_state(data[True])
+    xs, ys = geo.pixel_grid(H, W, device)
+    xf, yf = xs.reshape(-1), ys.reshape(-1)
+    out = torch.empty((d.num_src, H * W), device=device)
+    for prm, key, form in ((params, "k2_sa", "SA star"),
+                           (square, "k2", "square")):
+        use_sa = bool(prm.use_sa)
+
+        def k2():
+            ncc.init_stage_fused(d, st.planes, 0, H * W, out, radius=5,
+                                 increment=2, use_sa=use_sa,
+                                 view_major=True)
+
+        def comp():
+            return ncc_strong(d, xf, yf, st.planes.reshape(-1, 4),
+                              precompute_ref_window(d, xf, yf, 5, 2, use_sa),
+                              site="init")
+        ms = cuda_ms(k2, 20)
+        plain_ms = cuda_ms(lambda: ncc.init_stage_plain(
+            d, st.planes, 0, H * W, 5, 2, use_sa), 2, 1)
+        comp_ms = cuda_ms(comp, 10)
+        bound, by, nbytes, ops = init_stage_bound(d, st, prm)
+        log(f"  K2 stage form, full image u8, {form} window ({d.num_src} "
+            f"views x {H * W} pixels): {ms:.4f} ms a launch, plain "
+            f"{plain_ms:.4f} ms, the composition it replaced (the window's "
+            f"torch ops and K2's sweep form) {comp_ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} GFLOP) [{card}]")
+        res[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, composition_ms=comp_ms, library_ms=None)
+    # K6's re-score form at the APD scan's first WEAK_CHUNK
+    n = min(wx.numel(), init.WEAK_CHUNK)
+    cx, cy, ca = wx[:n], wy[:n], wan[:n].contiguous()
+    wout = torch.empty((wc.data.num_src, H * W), device=device)
+    rk = rescore_kwargs(params)
+
+    def k6():
+        weak.rescore_fused(wc.data, wstate.planes, wstate.selected, wx, wy,
+                           wan, 0, n, wout, view_major=True, **rk)
+
+    def k6_comp():
+        wref = WeakRefData.build(wc.data, cx.float(), cy.float(), ca,
+                                 wstate.selected, params)
+        flat = cy.long() * W + cx.long()
+        return ncc_weak(wc.data, wref, wstate.planes.reshape(-1, 4)[flat],
+                        params)
+    ms = cuda_ms(k6, 20)
+    plain_ms = cuda_ms(lambda: weak.rescore_plain(
+        wc.data, wstate.planes, wstate.selected, cx, cy, ca, **rk), 2, 1)
+    comp_ms = cuda_ms(k6_comp, 10)
+    bound, by, nbytes, ops = rescore_bound(wc.data, wstate, params, cx, cy,
+                                           ca)
+    log(f"  K6 re-score form, the APD scan's first chunk ({n} weak pixels, "
+        f"{wc.data.num_src} views, SA, u8): {ms:.4f} ms a launch, plain "
+        f"{plain_ms:.4f} ms, the composition it replaced "
+        f"(WeakRefData.build and K6's weak-sweep form) {comp_ms:.4f} ms, "
+        f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP) [{card}]")
+    res["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     composition_ms=comp_ms, library_ms=None, pixels=n)
+    # K11 at the full image, 10 views, beside torch.sort
+    ncc.init_stage_fused(d, st.planes, 0, H * W, out, radius=5,
+                         increment=2, use_sa=True, view_major=True)
+    pix_major = out.T.contiguous()
+    ms = cuda_ms(lambda: k11.select_fused(out, True, st.valid,
+                                          params.top_k), 20)
+    plain_ms = cuda_ms(lambda: k11.select_plain(pix_major, st.valid,
+                                                params.top_k), 5)
+    lib_ms = cuda_ms(lambda: torch.sort(pix_major, dim=-1), 20)
+    bound, by, nbytes, ops = k11_bound(H, W, d.num_src)
+    log(f"  K11, full image ({d.num_src} views x {H * W} pixels): {ms:.4f} "
+        f"ms a launch, plain (the torch ops it replaced, in a fixed sum "
+        f"order) {plain_ms:.4f} ms, torch.sort of the ({H * W}, "
+        f"{d.num_src}) costs {lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+        f"({nbytes / 1e6:.1f} MB) [{card}]")
+    res["k11"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      library_ms=lib_ms)
+    # the whole stage against the composition it replaced
+    for key, args, what in (
+            ("stage_round0", (d, st, square), "full image u8, square "
+             "(a round-0 pass's)"),
+            ("stage_real", (rdata, rstate, rparams, rx, ry, ran),
+             f"a real APD REFINE_INIT pass's ({rx.numel()} weak pixels, "
+             "SA)")):
+        ms = cuda_ms(lambda: init.initial_cost(*args), 10)
+        comp_ms = cuda_ms(lambda: init_composition(*args), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            init.initial_cost(*args)
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            init_composition(*args)
+        comp_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.cuda.synchronize()
+        log(f"  the initial cost, {what}: {ms:.4f} ms a call (host "
+            f"{host_ms:.4f} ms), the composition it replaced "
+            f"(testing.init_composition) {comp_ms:.4f} ms (host "
+            f"{comp_host_ms:.4f} ms) [{card}]")
+        res[key] = dict(ms=ms, host_ms=host_ms, composition_ms=comp_ms,
+                        composition_host_ms=comp_host_ms)
+    res["max_abs_err"] = max(errs)
+    log(f"initial-cost phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def sync_phase(rp, card: str) -> dict:
     """The synchronising CUDA calls (``torch.cuda.set_sync_debug_mode``) of
     real passes, by stage and call site: first the APD pass's iteration
@@ -3074,9 +3624,11 @@ def sync_phase(rp, card: str) -> dict:
     the whole APD REFINE_INIT pass and a whole FIRST_INIT pass of the same
     view (round 0's first pass), each call put under the innermost of the
     stages sweeps (its iteration loop apart), classify and refine, or the
-    pass. Fails if a fit in the loop still reads the camera, if any
-    synchronising call comes from ``core/sampling.py``, or if the classify
-    or the refine stage makes more than one (its ``nonzero``)."""
+    pass, the initial cost (``init.initial_cost``) under a label of its
+    own. Fails if a fit in the loop still reads the camera, if any
+    synchronising call comes from ``core/sampling.py``, if the classify or
+    the refine stage makes more than one (its ``nonzero``), or if the
+    initial cost makes any."""
     import collections
     import traceback
     import warnings
@@ -3084,6 +3636,7 @@ def sync_phase(rp, card: str) -> dict:
     import torch
 
     from apde_mvs_tpu_torch import config as cfg
+    from apde_mvs_tpu_torch.ops import init as init_ops
     from apde_mvs_tpu_torch.pipeline import full_pass, patchmatch
     log("==== synchronising calls in real passes, by stage ====")
     port = REPO / "apde_mvs_tpu_torch"
@@ -3116,11 +3669,21 @@ def sync_phase(rp, card: str) -> dict:
                 stack.pop()
         return run
 
+    initial_cost = init_ops.initial_cost
+
+    def init_staged(*args, **kwargs):
+        stack.append("initial_cost")
+        try:
+            return initial_cost(*args, **kwargs)
+        finally:
+            stack.pop()
+
     def watched(params, prior, camera=True):
         calls.clear()
         for name, label in wrapped.items():
             setattr(full_pass, name,
                     staged(name, label, camera or name != "_iterations"))
+        init_ops.initial_cost = init_staged
         torch.cuda.synchronize()
         with warnings.catch_warnings():
             warnings.simplefilter("always")
@@ -3135,6 +3698,7 @@ def sync_phase(rp, card: str) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
                 for name, fn in saved.items():
                     setattr(full_pass, name, fn)
+                init_ops.initial_cost = initial_cost
         return dict(calls)
 
     first = cfg.build_schedule(max(rp.data.height, rp.data.width),
@@ -3176,11 +3740,15 @@ def sync_phase(rp, card: str) -> dict:
                 raise AssertionError(f"{label} pass: the {stage} stage makes "
                                      f"{n} synchronising calls, more than "
                                      "its nonzero")
+        n = res[label]["stages"].get("initial_cost", 0)
+        if n:
+            raise AssertionError(f"{label} pass: the initial cost makes {n} "
+                                 "synchronising calls")
     loop = res["apd"]["stages"].get("iterations", 0)
     log(f"  K9's camera: read once a pass, none in the loop; the APD loop's "
         f"{iters} iterations {loop} synchronising calls, none from "
         f"core/sampling.py in either pass, the classify and refine stages "
-        f"at most one each [{card}]")
+        f"at most one each, the initial cost none [{card}]")
     return res
 
 
@@ -3246,9 +3814,9 @@ def coloured_points(ply: Path, what: str) -> int:
 
 def reset_counts() -> None:
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
-                                             weak, weak_sweep)
-    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, kern):
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, select, strong,
+                                             sweep, weak, weak_sweep)
+    for mod in (sampler, ncc, strong, sweep, weak, weak_sweep, select, kern):
         mod.reset_launches()
 
 
@@ -3256,34 +3824,37 @@ def read_counts() -> dict:
     """Every kernel's launches since the last reset, in this process: K1's
     and K2's by call site, K3's with the colour updates they served, K5's
     by mode, K6's with the planes a pixel they evaluated, K7's with the
-    weak-sweep chunks they updated, and the APD setup's K8, K9 and K10."""
+    weak-sweep chunks they updated, K11's, and the APD setup's K8, K9 and
+    K10."""
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
-                                             weak, weak_sweep)
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, select, strong,
+                                             sweep, weak, weak_sweep)
     return dict(k1=sampler.launches, sites=dict(sampler.site_launches),
                 k2=ncc.launches, k2_sites=dict(ncc.site_launches),
                 k5=sweep.launches, k5_modes=dict(sweep.mode_launches),
                 k3=strong.launches, k3_colours=strong.colours,
                 k3_sa=strong.sa_launches, k6=weak.launches,
                 k6_planes=weak.planes, k7=weak_sweep.launches,
-                k7_chunks=weak_sweep.chunks, k8=kern.anchor_launches,
-                k9=kern.fit_launches, k10=kern.jfa_launches)
+                k7_chunks=weak_sweep.chunks, k11=select.launches,
+                k8=kern.anchor_launches, k9=kern.fit_launches,
+                k10=kern.jfa_launches)
 
 
 def parsed_counts(match) -> dict:
     """``read_counts``'s dict from one LAUNCH_RE match of an engine's log;
-    raises where the line lacks K6's, K7's or the anchor kernels'
+    raises where the line lacks K6's, K7's, K11's or the anchor kernels'
     counts."""
-    if not match[10] or not match[12] or not match[14]:
-        raise AssertionError(f"engine launch line without K6's, K7's or "
-                             f"the anchor kernels' counts: {match}")
+    if not match[10] or not match[12] or not match[14] or not match[15]:
+        raise AssertionError(f"engine launch line without K6's, K7's, K11's "
+                             f"or the anchor kernels' counts: {match}")
     return dict(k1=int(match[0]), sites=json.loads(match[1]),
                 k2=int(match[2]), k2_sites=json.loads(match[3]),
                 k5=int(match[4]), k5_modes=json.loads(match[5]),
                 k3=int(match[6]), k3_colours=int(match[7]),
                 k6=int(match[10]), k6_planes=int(match[11]),
                 k7=int(match[12]), k7_chunks=int(match[13]),
-                k10=int(match[14]), k8=int(match[15]), k9=int(match[16]))
+                k11=int(match[14]), k10=int(match[15]), k8=int(match[16]),
+                k9=int(match[17]))
 
 
 # K2's: the initial cost and the debug tool; the strong sweep runs in K3, the
@@ -3382,6 +3953,60 @@ def counted_stage_calls():
             setattr(filters, name, fn)
 
 
+@contextlib.contextmanager
+def counted_init_calls():
+    """Counts, for each ``init.initial_cost`` call of the main path run
+    inside, the launches of K2's stage form (K2 at site "init"), of K6 and
+    of K11 in the call, the weak list's length and every torch op it
+    dispatched (a ``TorchDispatchMode``) but the outputs' allocations.
+    Yields the list of (K2, K6, K11 launches, weak pixels, other ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from apde_mvs_tpu_torch.ops import init
+    from apde_mvs_tpu_torch.ops.cuda import ncc, weak
+    from apde_mvs_tpu_torch.ops.cuda import select as k11
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    calls = []
+    fn = init.initial_cost
+
+    def run(*args, **kwargs):
+        before = (ncc.site_launches.get("init", 0), weak.launches,
+                  k11.launches)
+        with Ops() as mode:
+            out = fn(*args, **kwargs)
+        n = args[3].numel() if len(args) > 3 and args[3] is not None else 0
+        calls.append((ncc.site_launches.get("init", 0) - before[0],
+                      weak.launches - before[1], k11.launches - before[2],
+                      n, [op for op in mode.ops
+                          if not op.startswith("aten.empty")]))
+        return out
+    init.initial_cost = run
+    try:
+        yield calls
+    finally:
+        init.initial_cost = fn
+
+
+def init_calls_ok(c: dict) -> bool:
+    """Every initial-cost call of a path: one launch of K2's stage form,
+    one K6 launch a WEAK_CHUNK of its weak list, one K11 launch and no
+    torch op but the outputs' allocations; at least one call."""
+    from apde_mvs_tpu_torch.ops.init import WEAK_CHUNK
+    calls = c.get("init_calls", [])
+    return bool(calls) and all(
+        (k2, k6, k11) == (1, -(-n // WEAK_CHUNK), 1) and not ops
+        for k2, k6, k11, n, ops in calls)
+
+
 def stage_calls_ok(c: dict) -> bool:
     """Every classify and refine call of a path: one K5 launch and no torch
     op but the output's allocation; at least one of each."""
@@ -3413,8 +4038,13 @@ def check_counts(what: str, c: dict, passes: bool = True,
     one of each on a ``weak`` path (one that runs APD passes), whose APD
     setup must launch K10 (in ``c["k10_calls"]`` calls, each with the
     launches ``anchor_kernel_phase`` counted a call, K10_A_CALL), K8 and
-    K9, which no other path launches; each kernel's launches add up over
-    its sites or modes."""
+    K9, which no other path launches; on a path that runs a pass the
+    selection K11 once an initial cost (as many launches as K2 has at the
+    initial cost's site), and where the path's initial-cost calls were
+    counted in-process (``c["init_calls"]``) each call one launch of K2's
+    stage form, one K6 launch a WEAK_CHUNK of its weak list, one K11 launch
+    and no other torch op; each kernel's launches add up over its sites or
+    modes."""
     split = k6_chunks(c)
     ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
         and split is not None \
@@ -3429,6 +4059,11 @@ def check_counts(what: str, c: dict, passes: bool = True,
             and c["k3"] <= K3_LAUNCHES_A_COLOUR * c["k3_colours"]
     if "stage_calls" in c:
         ok = ok and stage_calls_ok(c)
+    if "init_calls" in c:
+        ok = ok and init_calls_ok(c)
+    if passes:
+        # the selection K11: one launch an initial cost, one a pass
+        ok = ok and c["k11"] > 0 and c["k11"] == c["k2_sites"].get("init", 0)
     if weak:
         ok = ok and min(split) > 0 and c["k8"] > 0 and c["k9"] > 0 \
             and k10_calls_ok(c)
@@ -3447,7 +4082,8 @@ def counts_line(c: dict) -> str:
             f"{c['k5']} by mode {json.dumps(c['k5_modes'], sort_keys=True)}, "
             f"K7 launches {c['k7']} for {c['k7_chunks']} weak-sweep chunks, "
             f"K6 launches {c['k6']} for {c['k6_planes']} planes ("
-            f"{split[1] if split else '?'} re-score chunks), K10 launches "
+            f"{split[1] if split else '?'} re-score chunks), K11 launches "
+            f"{c['k11']}, K10 launches "
             f"{c['k10']}{k10_in}, K8 launches {c['k8']}, K9 launches "
             f"{c['k9']}, K1 "
             f"launches {c['k1']} by site "
@@ -3469,11 +4105,13 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
     reset_counts()
     t0 = time.perf_counter()
     with counted_k10_calls() as k10_calls, \
-            counted_stage_calls() as stage_calls:
+            counted_stage_calls() as stage_calls, \
+            counted_init_calls() as init_calls:
         text = run_main(apd.main, ["--dense_folder", root, "--dataset",
                                    "General"] + list(cli_args))
     wall = time.perf_counter() - t0
-    c = dict(read_counts(), k10_calls=k10_calls, stage_calls=stage_calls)
+    c = dict(read_counts(), k10_calls=k10_calls, stage_calls=stage_calls,
+             init_calls=init_calls)
     passes = [ln for ln in text.splitlines() if ln.startswith("Pass ")]
     fusion = [ln for ln in text.splitlines() if ln.startswith("Fusion wall")]
     if len(passes) != n_passes:
@@ -3489,6 +4127,10 @@ def scan_phase(label: str, cli_args, scene, root: Path, n_passes: int,
         f"{name} {len(v)} calls, K5 launches a call {sorted({n for n, _ in v})}"
         f", other torch ops a call {sorted({k for _, k in v})}"
         for name, v in sorted(by_name.items())))
+    log(f"  the initial cost: {len(init_calls)} calls, (K2 stage, K6, K11) "
+        f"launches and weak pixels a call "
+        f"{sorted({(a, b, k, n) for a, b, k, n, _ in init_calls})}, other "
+        f"torch ops a call {sorted({len(ops) for *_, ops in init_calls})}")
     for ln in passes + fusion:
         log(f"  {ln} [{card}]")
     return dict(c, wall_s=wall, errors=errs, points=points, passes=passes,
@@ -3725,7 +4367,7 @@ def batch_phase(scene, tmp: Path, card: str) -> dict:
 
 KERNEL_MODULES = {"K1": "sampler", "K2": "ncc", "K3": "strong",
                   "K5": "sweep", "K6": "weak", "K7": "weak_sweep",
-                  "K8-K10": "anchors"}
+                  "K8-K10": "anchors", "K11": "select"}
 
 
 def build_race(card: str) -> dict:
@@ -3804,6 +4446,23 @@ def kernel_report(card: str) -> None:
                     f"{FULL_VIEWS - 1} views: {info['regs']} registers, "
                     f"{info['local_bytes']} B local (spills), "
                     f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
+    # the initial cost's stage forms and K11
+    from apde_mvs_tpu_torch.ops.cuda import select
+    for form, sa in (("square", False), ("SA star", True)):
+        info = ncc.stage_kernel_info(True, sa, 5, 2, FULL_VIEWS - 1)
+        log(f"K2 stage form u8, {form} window, 36 taps, {FULL_VIEWS - 1} "
+            f"views: {info['regs']} registers, {info['local_bytes']} B "
+            f"local (spills), {info['blocks_per_sm']} resident blocks an SM "
+            f"[{card}]")
+        for views in (APD_VIEWS - 1, FULL_VIEWS - 1):
+            info = weak.rescore_kernel_info(True, sa, views)
+            log(f"K6 re-score form u8, {'SA' if sa else 'square'} windows, "
+                f"36 + 8 x 9 taps, {views} views: {info['regs']} registers, "
+                f"{info['local_bytes']} B local (spills), "
+                f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
+    info = select.kernel_info()
+    log(f"K11: {info['regs']} registers, {info['local_bytes']} B local "
+        f"(spills), {info['blocks_per_sm']} resident blocks an SM [{card}]")
     cuobjdump = sass_taps.find_cuobjdump()
     if cuobjdump is None:
         log("SASS a tap: cuobjdump missing, not counted")
@@ -3853,7 +4512,8 @@ LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\d+) colour updates(?:, rank (\d+) of (\d+))?"
                        r"(?:, weak kernel launches: (\d+) for (\d+) "
                        r"planes)?(?:, weak sweep kernel launches: (\d+) for "
-                       r"(\d+) chunks)?(?:, anchor kernel launches: K10 "
+                       r"(\d+) chunks)?(?:, selection kernel launches: "
+                       r"(\d+))?(?:, anchor kernel launches: K10 "
                        r"(\d+), K8 (\d+), K9 (\d+))?")
 
 
@@ -3912,6 +4572,7 @@ def vp_scan_phase(scene, root: Path, seed: int, card: str) -> dict:
     launches["K3"] = sum(sites[r]["k3"] for r in range(RANKS))
     launches["K6"] = sum(sites[r]["k6"] for r in range(RANKS))
     launches["K7"] = sum(sites[r]["k7"] for r in range(RANKS))
+    launches["K11"] = sum(sites[r]["k11"] for r in range(RANKS))
     for k in ("K8", "K9", "K10"):
         launches[k] = sum(sites[r][k.lower()] for r in range(RANKS))
     k5 = {mode: sum(sites[r]["k5_modes"].get(mode, 0) for r in range(RANKS))
@@ -3987,7 +4648,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
           for mode in ("classify", "refine")}
     k1 = sum(sites[r]["k1"] for r in range(RANKS))
     anchors = {k: sum(sites[r][k] for r in range(RANKS))
-               for k in ("k8", "k9", "k10")}
+               for k in ("k8", "k9", "k10", "k11")}
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
@@ -4118,8 +4779,8 @@ def main(argv=None) -> int:
     from apde_mvs_tpu_torch.core.platform import card_line
     from apde_mvs_tpu_torch.io.images import pil_available
     from apde_mvs_tpu_torch.ops.cuda import anchors as kern
-    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, strong, sweep,
-                                             weak, weak_sweep)
+    from apde_mvs_tpu_torch.ops.cuda import (ncc, sampler, select, strong,
+                                             sweep, weak, weak_sweep)
     from apde_mvs_tpu_torch.testing import synthetic
     from apde_mvs_tpu_torch.tools import kernel_split
     from apde_mvs_tpu_torch.tools.kernel_times import (real_pass_chunks,
@@ -4133,11 +4794,11 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"PIL {'imports' if pil_available() else 'missing'}")
 
-    # ---- setup: build K1-K3, K5-K7 and K8-K10 from this checkout ---------
+    # ---- setup: build K1-K3 and K5-K11 from this checkout -----------------
     build_race(card)
     for name, mod in (("K1", sampler), ("K2", ncc), ("K3", strong),
                       ("K5", sweep), ("K6", weak), ("K7", weak_sweep),
-                      ("K8-K10", kern)):
+                      ("K8-K10", kern), ("K11", select)):
         t0 = time.perf_counter()
         built = mod.library()
         log(f"{name} load: {time.perf_counter() - t0:.2f} s -> "
@@ -4199,6 +4860,7 @@ def main(argv=None) -> int:
     sync_phase(real.inputs, card)
     k5_real = stage_real_phase(real.inputs, card)
     k7 = weak_sweep_phase(apd_scene, wc, real, args.seed, device, card)
+    ki = init_phase(full_scene, apd_scene, wc, real, args.seed, device, card)
     del wc
     ka = anchor_kernel_phase(apd_scene, real, args.seed, device, card)
     # step 0's split of K7 and K8 (tools/kernel_split.py): where a launch's
@@ -4345,14 +5007,28 @@ def main(argv=None) -> int:
                          max_abs_err=r["max_abs_err"], **r["u8"]))
     k2 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/ncc.cu",
           "replaces": "apde_mvs_tpu/ops/cost.py:248-297 (XLA-compiled jnp)"}
-    rows.append(dict(name="K2 fused strong NCC (u8 quads)", **k2,
-                     launches=sum(k2_paths.values()),
+    # the main paths launch K2's stage form (the initial cost) and the
+    # debug tool its sweep form
+    k2_sweep_form = ex["debug_point"]["k2"]
+    k2_stage = sum(k2_paths.values()) - k2_sweep_form + tl["launches"]
+    rows.append(dict(name="K2 fused strong NCC, sweep form (u8 quads)",
+                     **k2, launches=k2_sweep_form,
                      max_abs_err=kk["max_abs_err"], **kk["strong"]))
-    rows.append(dict(name="K2 fused strong NCC, tile-route row shard "
-                          "(u8 quads)", **k2, launches=tl["launches"],
+    rows.append(dict(name="K2 fused strong NCC, sweep form, tile-route row "
+                          "shard (u8 quads)", **k2, launches=0,
                      max_abs_err=kk["max_abs_err"],
                      **{k_: v for k_, v in kk["shard"].items()
                         if k_ != "shape"}))
+    k2_stage_src = dict(k2, replaces="apde_mvs_tpu/ops/cost.py:140 "
+                        "(precompute_ref_window) and :248-297 with "
+                        "ops/init.py:43-90 (XLA-compiled jnp)")
+    for key, what in (("k2", "square window"), ("k2_sa", "SA star window")):
+        rows.append(dict(name=f"K2 stage form, the initial cost over the "
+                              f"full image, {what} (u8 quads)",
+                         **k2_stage_src, launches=k2_stage,
+                         max_abs_err=ki["max_abs_err"],
+                         **{k_: v for k_, v in ki[key].items()
+                            if k_ != "composition_ms"}))
     rows.append(dict(name="K2 fused strong NCC, classify chunk (u8 quads)",
                      **k2, launches=k2_sweeps, max_abs_err=kk["max_abs_err"],
                      **kk["chunk"]))
@@ -4431,8 +5107,8 @@ def main(argv=None) -> int:
             ("candidates", "weak-sweep chunk, 10 candidate planes, every "
              "view", 0),
             ("probes", "weak-sweep chunk, 5 probes, weighted views", 0),
-            ("rescore", "initial cost's re-score chunk, 1 plane",
-             k6_rescores),
+            ("rescore", "initial cost's re-score chunk, 1 plane, "
+             "weak-sweep form (the re-score form replaced it)", 0),
             ("candidates_square", "weak-sweep chunk, 10 candidate planes, "
              "every view, square windows", 0)):
         geo_tag = "" if key == "rescore" else ", geometric cost"
@@ -4441,6 +5117,29 @@ def main(argv=None) -> int:
                               f"{sa_tag}{geo_tag})", **k6_src, launches=n,
                          max_abs_err=kw["k6_max_abs_err"],
                          **kw[key]))
+    # the main paths' re-score runs K6's re-score form, every K6 launch
+    rows.append(dict(
+        name=f"K6 re-score form, the initial cost's re-score, the APD "
+             f"scan's first chunk ({ki['k6']['pixels']} pixels, 1 plane, "
+             "u8 quads, SA)", **dict(
+                 k6_src, replaces="apde_mvs_tpu/ops/deformable.py:30 "
+                 "(WeakRefData.build) and :124-198 with ops/init.py:72-84 "
+                 "(XLA-compiled jnp)"),
+        launches=k6_rescores, max_abs_err=ki["max_abs_err"],
+        **{k_: v for k_, v in ki["k6"].items()
+           if k_ not in ("composition_ms", "pixels")}))
+    k11_paths = dict(round0=r0["k11"], apd=ap["k11"], exports=ex["k11"],
+                     view_parallel=vp["launches"]["K11"], nccl=ag["k11"],
+                     batch=bt["k11"], tile_route=tl["k11"])
+    log(f"K11 launches by path: {json.dumps(k11_paths)} [{card}]")
+    rows.append(dict(
+        name="K11 top-k view selection, the full image (10 views, "
+             "600x800)", route="cuda",
+        source="apde_mvs_tpu_torch/csrc/select.cu",
+        replaces="apde_mvs_tpu/ops/cost.py:430 (initial_cost_and_selection)"
+                 " with ops/init.py:85-90 (XLA-compiled jnp)",
+        launches=sum(k11_paths.values()), max_abs_err=ki["max_abs_err"],
+        **ki["k11"]))
     k7_src = {"route": "cuda",
               "source": "apde_mvs_tpu_torch/csrc/weak_sweep.cu",
               "replaces": "apde_mvs_tpu/ops/propagation.py:739 (_weak_body, "

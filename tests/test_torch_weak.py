@@ -450,24 +450,25 @@ def test_weak_sweep_makes_two_k6_calls_a_chunk(monkeypatch):
 
 
 def test_initial_cost_rescore_makes_one_k6_call_a_chunk(monkeypatch):
+    """The initial cost's re-score: one call of K6's re-score form a
+    WEAK_CHUNK of the weak list, its items in order, and no call of the
+    weak-sweep form."""
     c = _case("u8")
     calls = []
-    fused = k6.weak_fused
+    fused = k6.rescore_fused
 
     def counted(*a, **kw):
-        calls.append((a[2].shape[:2], kw["view_weights"] is None,
-                      kw["geom"]))
+        calls.append((a[6], a[7], kw.get("col0") is None))
         return fused(*a, **kw)
-    monkeypatch.setattr(k6, "weak_fused", counted)
+    monkeypatch.setattr(k6, "rescore_fused", counted)
+    monkeypatch.setattr(k6, "weak_fused", _fail)
     monkeypatch.setattr(k1, "sample_packed", _fail)
     monkeypatch.setattr(tinit, "WEAK_CHUNK", 100)
     state = _sweep_state(c)
     tinit.initial_cost(c.data, state, PatchMatchParams(use_sa=False), c.x,
                        c.y, c.anchors)
     n = c.x.numel()
-    assert [k[0] for k in calls] == [
-        (min(100, n - lo), 1) for lo in range(0, n, 100)]
-    assert all(vw_none and not geom for _, vw_none, geom in calls)
+    assert calls == [(lo, min(lo + 100, n), True) for lo in range(0, n, 100)]
 
 
 def test_profile_pass_times_k6_and_restores_it():
