@@ -10,26 +10,19 @@
 // state. Here one launch reads each pixel's S costs and writes the state's
 // new cost map and selections.
 //
-// Per pixel, in the order of the plain version (ops/cuda/select.py,
-// `select_plain`, which is `cost.initial_cost_and_selection`):
-//  - k = min(#{cost < COST_MAX}, top_k) (NaN is not below);
-//  - the k smallest costs in ascending order (torch.sort puts NaN last, so
-//    they are the k smallest of those below COST_MAX), their sum from +0 in
-//    that order, the mean as a true division by k, COST_MAX where k = 0;
-//  - the threshold, the k-th smallest; a view is selected where its cost
-//    is <= the threshold and k > 0 (ties select extra views);
-//  - the state: the mean where the pixel is valid, else 1e9; the
-//    selections and the pixel's validity.
-// Equal costs are added one after another, so the sum does not depend on
-// the order the sort gives them; a -0 and a +0 add alike to a sum that
-// starts at +0.
+// Per pixel, the selection of select_common.cuh (`select_top_k`), which
+// K2's stage form and K6's re-score form run in their epilogues on the
+// serial and view-parallel routes: since then K11 runs only on the tile
+// route, over the whole image's gathered costs.
 //
 // Layout: one thread a pixel. The S costs come a view at a time from an
 // (S, n) array (view-major: the lanes of a warp read consecutive pixels,
 // coalesced) or an (n, S) one (the tile route's gather), as its strides say;
-// they stay in registers (S <= 32, the loops unrolled over 32 with the
-// views past S masked). The k smallest are found a distinct value at a time:
-// the least cost above the last one taken, and how many views share it.
+// they stay in registers, the loops unrolled over the least of 8, 16 and 32
+// that holds S (the views past S masked). The block's selections are
+// staged in shared memory as its pixels' bytes in the map's order and
+// written as 16-byte words (`store_selections`), where one thread a pixel
+// would store S bytes at stride S.
 //
 // Bound: bytes. At 600x800 and S = 10 the launch reads the 19.2 MB of
 // costs and the 0.48 MB validity map and writes the 1.92 MB cost map and
@@ -40,13 +33,13 @@
 #include <stdint.h>
 
 #include "ncc_common.cuh"
+#include "select_common.cuh"
 
 namespace {
 
 using namespace apde;
 
 constexpr int kThreads = 256;
-constexpr float kInvalidCost = 1e9f;   // an invalid pixel's cost
 
 struct Params {
   const float* costs;      // pixel i's view s at s * view_stride +
@@ -60,49 +53,39 @@ struct Params {
   int top_k;
 };
 
+// kN: the loops' bound, the least of 8, 16, 32 that holds S
+template <int kN>
 __global__ void __launch_bounds__(kThreads) topk_select_kernel(const Params p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= p.num_pix) return;
+  __shared__ __align__(16) uint8_t s_sel[kThreads * kN];
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int tid = threadIdx.x;
+  const int64_t i = b0 + tid;
   const int S = p.num_views;
-  float c[kMaxViews];
-  int below = 0;
+  if (i < p.num_pix) {
+    float c[kN];
 #pragma unroll
-  for (int s = 0; s < kMaxViews; ++s) {
-    c[s] = s < S ? __ldg(p.costs + s * p.view_stride + i * p.pixel_stride)
-                 : kCostMax;
-    below += (s < S && c[s] < kCostMax) ? 1 : 0;
-  }
-  const int k = below < p.top_k ? below : p.top_k;
-  // the k smallest, a distinct value at a time: each is below COST_MAX
-  float sum = 0.f, thresh = 0.f;
-  int taken = 0;
-  bool first = true;
-  while (taken < k) {
-    float least = kCostMax;
-#pragma unroll
-    for (int s = 0; s < kMaxViews; ++s) {
-      const bool above = first || c[s] > thresh;
-      if (s < S && above && c[s] < least) least = c[s];
+    for (int s = 0; s < kN; ++s) {
+      c[s] = s < S ? __ldg(p.costs + s * p.view_stride + i * p.pixel_stride)
+                   : kCostMax;
     }
-    int same = 0;
-#pragma unroll
-    for (int s = 0; s < kMaxViews; ++s) {
-      same += (s < S && c[s] == least) ? 1 : 0;
-    }
-    const int take = same < k - taken ? same : k - taken;
-    for (int j = 0; j < take; ++j) sum = add(sum, least);
-    taken += take;
-    thresh = least;
-    first = false;
+    uint32_t bits;
+    p.cost_out[i] = select_top_k<kN>([&](int s) { return c[s]; }, S,
+                                     p.top_k, p.valid[i] != 0, &bits);
+    selection_bytes(bits, S, s_sel + tid * S);
   }
-  const bool valid = p.valid[i] != 0;
-  const float mean = k > 0 ? dvd(sum, static_cast<float>(k)) : kCostMax;
-  p.cost_out[i] = valid ? mean : kInvalidCost;
-  uint8_t* sel = p.sel_out + i * S;
-#pragma unroll
-  for (int s = 0; s < kMaxViews; ++s) {
-    if (s < S) sel[s] = (valid && k > 0 && c[s] <= thresh) ? 1 : 0;
-  }
+  __syncthreads();
+  const int64_t left = p.num_pix - b0;
+  const int npix = left < kThreads ? static_cast<int>(left) : kThreads;
+  store_selections(s_sel, p.sel_out + b0 * S, npix * S, tid, kThreads);
+}
+
+using Kernel = void (*)(const Params);
+
+// the instantiation for S views
+Kernel pick(int num_views) {
+  return num_views <= 8 ? topk_select_kernel<8>
+         : num_views <= 16 ? topk_select_kernel<16>
+                           : topk_select_kernel<32>;
 }
 
 }  // namespace
@@ -113,14 +96,16 @@ extern "C" {
 
 int apde_select_max_views() { return kMaxViews; }
 
-// The kernel's registers, local memory (spills) and resident blocks an SM;
-// returns the first error.
-int apde_select_kernel_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+// The instantiation's registers, local memory (spills) and resident blocks
+// an SM at S views; returns the first error.
+int apde_select_kernel_info(int num_views, int* regs, int* local_bytes,
+                            int* blocks_per_sm) {
+  const Kernel kernel = pick(num_views);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, topk_select_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, topk_select_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
+                                                        kernel, kThreads, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
@@ -150,8 +135,8 @@ int apde_select(const void* costs, int64_t view_stride, int64_t pixel_stride,
   p.top_k = top_k;
   const unsigned int grid =
       static_cast<unsigned int>((num_pix + kThreads - 1) / kThreads);
-  topk_select_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(p);
+  const Kernel kernel = pick(num_views);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

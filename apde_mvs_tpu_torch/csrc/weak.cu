@@ -69,12 +69,18 @@
 // reference side through device memory and this kernel's weak-sweep form
 // with 5 of 32 lanes busy. It takes the weak list (x, y, anchors), the
 // state's planes and prior selections, builds each pixel's reference side
-// in shared memory with K7's `build_weak_ref` (weak_common.cuh), costs the
-// pixel's own plane against every view and writes the S costs straight into
-// the pixel's column of the initial cost's (S, H W) costs (or a compact
-// block on the tile route); the pixels of a list are distinct, so no two
-// warps write one cell. A warp takes 32 / S pixels (at most 8): it builds
-// their sides one after another, then each lane costs one (pixel, view).
+// in shared memory with K7's `build_weak_ref` (weak_common.cuh) and costs
+// the pixel's own plane against every view. On the serial and view-parallel
+// routes an epilogue runs the initial cost's selection (select_common.cuh's,
+// as K2's stage form runs it) on the pixel's S costs, which sit in
+// consecutive lanes of one warp: the pixel's first lane writes the pixel's
+// entry of the state's new cost map and its S selections at its raster
+// index, over what K2's epilogue wrote there (in stream order); the prior
+// selections it reads are another tensor. The tile route's cost-out mode
+// writes the S costs into a compact block for its gather. The pixels of a
+// list are distinct, so no two warps write one cell. A warp takes 32 / S
+// pixels (at most 8): it builds their sides one after another, then each
+// lane costs one (pixel, view).
 // Bound: operations (K6's counts on the pixels' own planes and the
 // reference side's 4 a tap, chip_smoke.py's `rescore_bound`): 0.53 GFLOP
 // at the APD scan's 65,536-pixel chunk, 0.008 ms; the kernel is held back
@@ -97,6 +103,7 @@
 
 #include "geom_common.cuh"
 #include "ncc_common.cuh"
+#include "select_common.cuh"
 #include "weak_common.cuh"
 
 namespace {
@@ -364,6 +371,10 @@ struct RescoreParams {
   int64_t view_stride;       //   * pixel_stride, the column the pixel's
   int64_t pixel_stride;      //   raster index (scatter) or its list index
   int scatter;
+  const uint8_t* valid;      // the selection mode (cost_out not null): the
+  float* cost_out;           //   (grid_h * grid_w,) validity map, the
+  uint8_t* sel_out;          //   state's new cost map and (.., S)
+  int top_k;                 //   selections, by raster index
   int64_t num_pix;
   int num_views;
   int num_taps;              // T = c_axis^2
@@ -467,29 +478,48 @@ rescore_weak_kernel(const RescoreParams p) {
     }
   }
   __syncwarp();
-  if (mine >= n) return;
+  const bool live = mine < n;
+  const bool select = p.cost_out != nullptr;
+  if (!live && !select) return;
 
   // ---- lane l: pixel l / S's own plane against view l % S ----------------
   const int s = lane - mine * S;
   const int64_t at = static_cast<int64_t>(my) * p.src.grid_w + mx;
-  const float* plane = p.planes + 4 * at;
-  const float* c = s_cam + s * kWeakCamStride;
-  const float* r = s_cam + S * kWeakCamStride;
-  float h[3][3];
-  plane_homography(c, r, __ldg(plane + 0), __ldg(plane + 1),
-                   __ldg(plane + 2), __ldg(plane + 3), h);
-  const Q* __restrict__ tab =
-      static_cast<const Q*>(p.quads) +
-      static_cast<int64_t>(s) * p.quad_h * p.src.width * 4;
-  const float x = static_cast<float>(mx);
-  const float y = static_cast<float>(my);
-  const float cost =
-      deformable_cost<Q, kSA, kMain ? kMainTaps : 0,
-                      kMain ? kMainAnchorTaps : 0>(
-          tab, h, x, y, T, TA, ref.cwin, ref.an, s, w_acost + lane,
-          p.src.width, p.quad_h, p.img_w, p.img_h);
-  const int64_t column = p.scatter ? at : b0 + mine;
-  p.out[s * p.view_stride + column * p.pixel_stride] = cost;
+  float cost = kCostMax;
+  if (live) {
+    const float* plane = p.planes + 4 * at;
+    const float* c = s_cam + s * kWeakCamStride;
+    const float* r = s_cam + S * kWeakCamStride;
+    float h[3][3];
+    plane_homography(c, r, __ldg(plane + 0), __ldg(plane + 1),
+                     __ldg(plane + 2), __ldg(plane + 3), h);
+    const Q* __restrict__ tab =
+        static_cast<const Q*>(p.quads) +
+        static_cast<int64_t>(s) * p.quad_h * p.src.width * 4;
+    const float x = static_cast<float>(mx);
+    const float y = static_cast<float>(my);
+    cost = deformable_cost<Q, kSA, kMain ? kMainTaps : 0,
+                           kMain ? kMainAnchorTaps : 0>(
+        tab, h, x, y, T, TA, ref.cwin, ref.an, s, w_acost + lane,
+        p.src.width, p.quad_h, p.img_w, p.img_h);
+  }
+  if (!select) {
+    const int64_t column = p.scatter ? at : b0 + mine;
+    p.out[s * p.view_stride + column * p.pixel_stride] = cost;
+    return;
+  }
+  // ---- the epilogue: the pixel's S costs, in lanes mine S .. mine S + S
+  // - 1, through the first row of the warp's anchor-cost columns (each
+  // lane's own); the pixel's first lane runs the selection -------------------
+  w_acost[lane] = cost;
+  __syncwarp();
+  if (live && s == 0) {
+    const float* costs = w_acost + mine * S;
+    uint32_t bits;
+    p.cost_out[at] = select_top_k<0>([&](int v) { return costs[v]; }, S,
+                                     p.top_k, p.valid[at] != 0, &bits);
+    selection_bytes(bits, S, p.sel_out + at * S);
+  }
 }
 
 using RescoreKernel = void (*)(const RescoreParams);
@@ -723,10 +753,12 @@ int apde_weak_rescore_kernel_info(int quads_u8, int sa, int c_radius,
 // The re-score form on num_pix weak pixels (x, y) with their anchors: each
 // pixel's own plane from ``planes`` (grid_h, grid_w, 4) against every view,
 // its reference side built from ``ref`` (ref_h, width), the SA ids ``sa``
-// (null: no SA) and the prior selections ``selected`` (grid_h, grid_w, S);
-// view s's cost at out + s * view_stride + column * pixel_stride, the
-// column the pixel's raster index y * grid_w + x (``scatter``) or its
-// index in the list.
+// (null: no SA) and the prior selections ``selected`` (grid_h, grid_w, S).
+// With ``cost_out`` null, view s's cost at out + s * view_stride + column *
+// pixel_stride, the column the pixel's raster index y * grid_w + x
+// (``scatter``) or its index in the list; else (the selection mode) the
+// selection of the pixel's top_k views, with its validity valid[at], at
+// cost_out[at] and sel_out[at * S + s], at = y * grid_w + x.
 int apde_weak_rescore(const void* quads, int quads_u8, const void* cams,
                       const void* planes, const void* selected, int grid_h,
                       int grid_w, const void* x, const void* y,
@@ -734,11 +766,16 @@ int apde_weak_rescore(const void* quads, int quads_u8, const void* cams,
                       const void* sa, int c_radius, int c_increment,
                       int a_radius, int a_increment, void* out,
                       int64_t view_stride, int64_t pixel_stride, int scatter,
-                      int64_t num_pix, int num_views, int width, int quad_h,
-                      int img_w, int img_h, void* stream) {
+                      const void* valid, void* cost_out, void* sel_out,
+                      int top_k, int64_t num_pix, int num_views, int width,
+                      int quad_h, int img_w, int img_h, void* stream) {
   if (num_pix <= 0) return static_cast<int>(cudaGetLastError());
+  const bool select = cost_out != nullptr;
   if (num_views < 1 || num_views > kMaxViews || c_radius < 0 ||
-      c_increment < 1 || a_radius < 0 || a_increment < 1) {
+      c_increment < 1 || a_radius < 0 || a_increment < 1 ||
+      (select && (valid == nullptr || sel_out == nullptr || top_k < 0 ||
+                  sel_out == selected)) ||
+      (!select && out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RescoreParams p;
@@ -766,6 +803,10 @@ int apde_weak_rescore(const void* quads, int quads_u8, const void* cams,
   p.view_stride = view_stride;
   p.pixel_stride = pixel_stride;
   p.scatter = scatter;
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.cost_out = static_cast<float*>(cost_out);
+  p.sel_out = static_cast<uint8_t*>(sel_out);
+  p.top_k = top_k;
   p.num_pix = num_pix;
   p.num_views = num_views;
   p.num_taps = p.c_axis * p.c_axis;

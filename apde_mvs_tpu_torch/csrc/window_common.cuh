@@ -109,16 +109,19 @@ __device__ __forceinline__ void square_offsets(const WindowSource& src, int t,
 // Stages pixel (xi, yi)'s window of T taps in a warp's slice of shared
 // memory, every lane of the warp taking part: the tap values (SA: the
 // weight-value products) in ``w_val``; under SA the weights in ``w_tw``
-// and the offsets in ``w_dx`` / ``w_dy``; the square's offsets there too
-// where ``kSquareOffsets``. SA mixes the star only with 36-tap squares
-// (the wrappers check): two taps a lane, every load issued before any
-// depends on another (the centre's segment id, each star tap's, both
-// windows' values). Returns the window's weight sum (T but for a star),
-// the same on every lane; the writes are not yet synchronised.
-template <bool kSA, bool kMain, bool kSquareOffsets>
+// and, where ``kStarOffsets``, the offsets in ``w_dx`` / ``w_dy`` (else
+// the caller takes them from the star's or the square's table, as
+// ``*star`` says); the square's offsets there too where
+// ``kSquareOffsets``. SA mixes the star only with 36-tap squares (the
+// wrappers check): two taps a lane, every load issued before any depends
+// on another (the centre's segment id, each star tap's, both windows'
+// values). Returns the window's weight sum (T but for a star), the same on
+// every lane, and where ``star`` is not null whether the window is the
+// star; the writes are not yet synchronised.
+template <bool kSA, bool kMain, bool kSquareOffsets, bool kStarOffsets = true>
 __device__ __forceinline__ int stage_window(
     const WindowSource& src, int xi, int yi, int T, int lane, float* w_val,
-    float* w_tw, float* w_dx, float* w_dy) {
+    float* w_tw, float* w_dx, float* w_dy, bool* star_out = nullptr) {
   // cost.precompute_ref_window's clamped_fetch of the reference image
   auto ref_value = [&](int dx, int dy) {
     return __ldg(src.ref +
@@ -163,6 +166,7 @@ __device__ __forceinline__ int stage_window(
     }
     const uint64_t keep = star_weights(in_image, leaves);
     if (star) weight_sum = __popcll(keep);
+    if (star_out != nullptr) *star_out = star;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int t = 32 * half + lane;
@@ -170,11 +174,14 @@ __device__ __forceinline__ int stage_window(
         const float w = (!star || ((keep >> t) & 1ull)) ? 1.f : 0.f;
         w_val[t] = mul(w, star ? star_v[half] : square_v[half]);
         w_tw[t] = w;
-        w_dx[t] = static_cast<float>(star ? sx[half] : qx[half]);
-        w_dy[t] = static_cast<float>(star ? sy[half] : qy[half]);
+        if (kStarOffsets) {
+          w_dx[t] = static_cast<float>(star ? sx[half] : qx[half]);
+          w_dy[t] = static_cast<float>(star ? sy[half] : qy[half]);
+        }
       }
     }
   } else {
+    if (star_out != nullptr) *star_out = false;
     for (int t = lane; t < T; t += 32) {
       int dx, dy;
       square_offsets<kMain>(src, t, &dx, &dy);

@@ -25,13 +25,20 @@ the window sums accumulated in tap order t = 0 .. T-1 from 0, compensated
 The kernel computes the same sequence with every operation rounded on its
 own, so the two agree bit for bit on the card.
 
-The stage form, ``init_stage_fused`` (plain version ``init_stage_plain``),
-is the initial cost's strong NCC: a range of the image's pixels under the
-state's planes map, each pixel's window (``strong.window_plain``'s: the
-square, or the SA star cut at the segment's edge, its sums in tap order)
-built in the kernel, the costs written into a view-major (S, n) or
-pixel-major (n, S) block. ``init.initial_cost`` is one launch of it, with
-K6's re-score form and the selection K11.
+The stage form is the initial cost's strong NCC: a range of the image's
+pixels under the state's planes map, each pixel's window
+(``strong.window_plain``'s: the square, or the SA star cut at the
+segment's edge, its sums in tap order) built once in the kernel, a block
+owning all S views of G whole 32-pixel groups (``stage_groups``). Its
+selection mode, ``init_stage_select_fused`` (plain version
+``init_stage_select_plain``: K11's plain selection of
+``init_stage_plain``'s costs), runs the top-k view selection in the
+block's epilogue and writes the state's new cost map and selections;
+``init.initial_cost`` on the serial and view-parallel routes is one launch
+of it and K6's re-score form with the same epilogue. Its cost-out mode,
+``init_stage_fused`` (plain version ``init_stage_plain``), writes the costs
+into a view-major (S, n) or pixel-major (n, S) block: the tile route's,
+gathered and selected by K11.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches, and
@@ -94,14 +101,49 @@ def library() -> _build.Built:
     i64 = ctypes.c_int64
     lib.apde_ncc_stage.argtypes = [
         ptr, i32, ptr, i32, ptr, ptr, i32, ptr, i32, i32, ctypes.c_float,
-        ptr, i64, i64, i64, i64, i32, i32, i32, i32, i32, ptr]
+        ptr, i64, i64, ptr, ptr, ptr, i32, i64, i64, i32, i32, i32, i32,
+        i32, ptr]
     lib.apde_ncc_stage.restype = i32
-    lib.apde_ncc_stage_kernel_info.argtypes = [i32] * 5 + [ptr] * 3
+    lib.apde_ncc_stage_kernel_info.argtypes = [i32] * 6 + [ptr] * 3
     lib.apde_ncc_stage_kernel_info.restype = i32
+    lib.apde_ncc_stage_smem_bytes.argtypes = [i32] * 5
+    lib.apde_ncc_stage_smem_bytes.restype = ctypes.c_longlong
+    lib.apde_ncc_stage_groups.argtypes = [i32]
+    lib.apde_ncc_stage_groups.restype = i32
     if lib.apde_ncc_max_views() != MAX_VIEWS:
         raise RuntimeError(f"csrc/ncc.cu takes {lib.apde_ncc_max_views()} "
                            f"views, the wrapper assumes {MAX_VIEWS}")
+    rule = [lib.apde_ncc_stage_groups(s) for s in range(1, MAX_VIEWS + 1)]
+    if rule != [stage_groups(s) for s in range(1, MAX_VIEWS + 1)]:
+        raise RuntimeError("csrc/ncc.cu's stage_groups differs from the "
+                           "wrapper's")
     return built
+
+
+def stage_groups(num_views: int) -> int:
+    """G, the 32-pixel groups a block of K2's stage form owns (all S views
+    of them), csrc/ncc.cu's `stage_groups`: 4 below 16 views, 2 from 16."""
+    return 2 if num_views >= 16 else 4
+
+
+def window_builds(num_pix: int, num_views: int, groups=None) -> float:
+    """The windows K2's stage form builds a pixel over ``num_pix`` pixels,
+    counted from the grid: each block builds the window of every pixel of
+    the groups its (group, view) pairs span. ``groups`` G: a block owns all
+    S views of G whole 32-pixel groups; None: the sweep form's layout of 8
+    consecutive (group, view) pairs a block, view fastest."""
+    g = -(-num_pix // 32)
+    built = 0
+    if groups is not None:
+        for first in range(0, g, groups):
+            built += min(32 * (first + groups), num_pix) - 32 * first
+        return built / max(num_pix, 1)
+    pairs = g * num_views
+    for first in range(0, pairs, 8):
+        last = min(first + 8, pairs) - 1
+        g0, g1 = first // num_views, last // num_views
+        built += min(32 * (g1 + 1), num_pix) - 32 * g0
+    return built / max(num_pix, 1)
 
 
 def read_kernel_info(fn, *args: int) -> dict:
@@ -124,12 +166,22 @@ def kernel_info(quads_u8: bool, pixel_offsets: bool, weighted: bool,
 
 
 def stage_kernel_info(quads_u8: bool, sa: bool, radius: int,
-                      increment: int, num_views: int) -> dict:
+                      increment: int, num_views: int,
+                      select: bool = True) -> dict:
     """The stage form's registers, local memory (spill) bytes and resident
     blocks an SM at ``num_views`` views: u8 or f32 tables, the SA window or
-    the square of (radius, increment)."""
+    the square of (radius, increment), the selection mode or the cost-out
+    mode."""
     return read_kernel_info(library().lib.apde_ncc_stage_kernel_info,
-                            quads_u8, sa, radius, increment, num_views)
+                            quads_u8, sa, radius, increment, select,
+                            num_views)
+
+
+def stage_smem_bytes(num_views: int, radius: int, increment: int, sa: bool,
+                     select: bool = True) -> int:
+    """The stage form's shared memory a block (csrc/ncc.cu's layout)."""
+    return int(library().lib.apde_ncc_stage_smem_bytes(
+        num_views, radius, increment, int(sa), int(select)))
 
 
 def camera_table(data) -> torch.Tensor:
@@ -392,51 +444,82 @@ def sa_ids(data, use_sa: bool, num_taps: int):
     return mask
 
 
-def init_stage_fused(data, planes, lo: int, hi: int, out, *, radius: int,
-                     increment: int, use_sa: bool, view_major: bool,
-                     col0=None) -> None:
-    """K2's stage form: the strong NCC of pixels lo .. hi - 1 (raster
-    indices of the H x W image) under their planes in the state's (H, W, 4)
-    map ``planes``, over the window K2 builds from the reference image (the
-    square of (radius, increment) or, with ``use_sa`` and a mask, the star
-    cut at the segment's edge). Writes pixel f's S costs into column f -
-    ``col0`` (default ``lo``) of ``out``, an (S, n) view-major or (n, S)
-    pixel-major float32 block. One launch on CUDA tensors, counted under
-    the site "init"; the plain version on CPU tensors."""
+def check_state_maps(data, valid, top_k: int, maps=()) -> None:
+    """The state's (H, W) bool validity map and ``top_k`` >= 0, and the
+    new maps a selection writes (``maps``: the (H, W) float32 cost map and
+    the (H, W, S) bool selections), each contiguous on the quad tables'
+    device."""
+    h, w, s = data.height, data.width, data.num_src
+    dev = data.src_quads.device
+    want = [("valid", valid, (h, w), torch.bool)]
+    if maps:
+        want += [("cost map", maps[0], (h, w), torch.float32),
+                 ("selections", maps[1], (h, w, s), torch.bool)]
+    for name, a, shape, dtype in want:
+        if tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if a.device != dev:
+            raise ValueError(f"{name} is on {a.device}, the quad tables on "
+                             f"{dev}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if top_k < 0:
+        raise ValueError(f"top_k {top_k} < 0")
+
+
+def init_stage_select_plain(data, planes, lo: int, hi: int, valid,
+                            top_k: int, radius: int, increment: int,
+                            use_sa: bool):
+    """The selection mode's plain version: the (hi - lo,) costs and
+    (hi - lo, S) selections of pixels lo .. hi - 1, K11's plain selection
+    (``select.select_rows_plain``) of `init_stage_plain`'s costs with the
+    pixels' validity."""
+    from .select import select_rows_plain
+    costs = init_stage_plain(data, planes, lo, hi, radius, increment, use_sa)
+    return select_rows_plain(costs, valid.reshape(-1)[lo:hi], top_k)
+
+
+def _stage_args(data, planes, lo: int, hi: int, radius: int,
+                increment: int, use_sa: bool):
+    """The stage form's shared checks. Returns (T, the SA segment ids or
+    None)."""
     check_tables(data)
     check_planes_map(data, planes)
-    col0 = lo if col0 is None else col0
-    if not 0 <= col0 <= lo <= hi <= data.height * data.width:
-        raise ValueError(f"pixels {lo} .. {hi} from column {col0}: outside "
-                         f"the {data.height}x{data.width} image")
-    quads = data.src_quads
-    s = data.num_src
-    vs, ps = check_block(out, s, view_major, hi - col0, quads.device)
+    if not 0 <= lo <= hi <= data.height * data.width:
+        raise ValueError(f"pixels {lo} .. {hi}: outside the "
+                         f"{data.height}x{data.width} image")
     t = len(square_taps(radius, increment))
     if t < 1:
         raise ValueError(f"no window of radius {radius}, increment "
                          f"{increment}")
-    sa = sa_ids(data, use_sa, t)
-    if quads.device.type == "cpu":
-        costs = init_stage_plain(data, planes, lo, hi, radius, increment,
-                                 use_sa)
-        if view_major:
-            out[:, lo - col0:hi - col0] = costs.T
-        else:
-            out[lo - col0:hi - col0] = costs
-        return
+    return t, sa_ids(data, use_sa, t)
+
+
+def _launch_stage(data, planes, lo: int, hi: int, radius: int,
+                  increment: int, sa, select: bool, out=None,
+                  strides=(0, 0), valid=None, maps=(None, None),
+                  top_k: int = 0) -> None:
+    """One launch of the stage form on CUDA tensors (pixels lo .. hi - 1),
+    counted under the site "init": the cost-out mode into ``out`` (its
+    address the range's first column) with ``strides``, or the selection
+    mode into ``maps`` (the cost map and the selections)."""
+    quads = data.src_quads
     if quads.device.type != "cuda":
         raise ValueError(f"unsupported device {quads.device}")
     if not quads.is_contiguous():
         raise ValueError("quads must be contiguous")
     if quads.data_ptr() % (4 * quads.element_size()):
         raise ValueError("quad table rows must be aligned to their size")
+    s = data.num_src
+    t = len(square_taps(radius, increment))
     lib = library().lib
-    smem = lib.apde_ncc_smem_bytes(s, t, int(sa is not None),
-                                   int(sa is not None))
+    smem = lib.apde_ncc_stage_smem_bytes(s, radius, increment,
+                                         int(sa is not None), int(select))
     if smem > SMEM_LIMIT:
-        raise ValueError(f"a {t}-tap window needs {smem} B of shared memory "
-                         f"a block, more than {SMEM_LIMIT}")
+        raise ValueError(f"a {t}-tap window at {s} views needs {smem} B "
+                         f"of shared memory a block, more than "
+                         f"{SMEM_LIMIT}")
     from . import sweep
     cams = sweep.cached_camera_table(data)
     if hi == lo:
@@ -449,7 +532,65 @@ def init_stage_fused(data, planes, lo: int, hi: int, out, *, radius: int,
         cams.shape[1], planes.data_ptr(), data.ref_image.data_ptr(),
         data.height, None if sa is None else sa.data_ptr(), radius,
         increment, float(np.float32(1.0) / np.float32(t)),
-        out.data_ptr() + (lo - col0) * ps * out.element_size(), vs, ps, lo,
+        None if out is None else out, strides[0], strides[1],
+        None if valid is None else valid.data_ptr(),
+        None if maps[0] is None else maps[0].data_ptr(),
+        None if maps[1] is None else maps[1].data_ptr(), int(top_k), lo,
         hi - lo, s, data.width, data.quad_h, data.img_w, data.img_h,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_ncc_stage")
+
+
+def init_stage_fused(data, planes, lo: int, hi: int, out, *, radius: int,
+                     increment: int, use_sa: bool, view_major: bool,
+                     col0=None) -> None:
+    """K2's stage form, the cost-out mode (the tile route's): the strong
+    NCC of pixels lo .. hi - 1 (raster indices of the H x W image) under
+    their planes in the state's (H, W, 4) map ``planes``, over the window
+    K2 builds from the reference image (the square of (radius, increment)
+    or, with ``use_sa`` and a mask, the star cut at the segment's edge).
+    Writes pixel f's S costs into column f - ``col0`` (default ``lo``) of
+    ``out``, an (S, n) view-major or (n, S) pixel-major float32 block. One
+    launch on CUDA tensors, counted under the site "init"; the plain version
+    on CPU tensors."""
+    t, sa = _stage_args(data, planes, lo, hi, radius, increment, use_sa)
+    col0 = lo if col0 is None else col0
+    if not 0 <= col0 <= lo:
+        raise ValueError(f"pixels {lo} .. {hi} from column {col0}")
+    quads = data.src_quads
+    s = data.num_src
+    vs, ps = check_block(out, s, view_major, hi - col0, quads.device)
+    if quads.device.type == "cpu":
+        costs = init_stage_plain(data, planes, lo, hi, radius, increment,
+                                 use_sa)
+        if view_major:
+            out[:, lo - col0:hi - col0] = costs.T
+        else:
+            out[lo - col0:hi - col0] = costs
+        return
+    _launch_stage(data, planes, lo, hi, radius, increment, sa, False,
+                  out=out.data_ptr()
+                  + (lo - col0) * ps * out.element_size(), strides=(vs, ps))
+
+
+def init_stage_select_fused(data, planes, lo: int, hi: int, valid,
+                            top_k: int, cost_map, selected, *, radius: int,
+                            increment: int, use_sa: bool) -> None:
+    """K2's stage form with the selection in its epilogue (the serial and
+    view-parallel routes): the strong NCC of pixels lo .. hi - 1 as
+    `init_stage_fused` computes it, and each pixel's top-k view selection
+    (K11's, ``select.select_rows_plain``) with its validity in the state's
+    (H, W) ``valid`` map, written into the state's new (H, W) float32
+    ``cost_map`` and (H, W, S) bool ``selected`` at the pixels; the costs
+    themselves are not kept. One launch on CUDA tensors, counted under the
+    site "init"; the plain version on CPU tensors."""
+    t, sa = _stage_args(data, planes, lo, hi, radius, increment, use_sa)
+    check_state_maps(data, valid, top_k, (cost_map, selected))
+    if data.src_quads.device.type == "cpu":
+        cost, sel = init_stage_select_plain(data, planes, lo, hi, valid,
+                                            top_k, radius, increment, use_sa)
+        cost_map.view(-1)[lo:hi] = cost
+        selected.view(-1, data.num_src)[lo:hi] = sel
+        return
+    _launch_stage(data, planes, lo, hi, radius, increment, sa, True,
+                  valid=valid, maps=(cost_map, selected), top_k=top_k)

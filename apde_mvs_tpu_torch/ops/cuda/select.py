@@ -11,15 +11,20 @@ k-th smallest; the state's cost map takes the mean where the pixel is
 valid, else 1e9, its selections the views where it is valid. The port ran
 it as a ``torch.sort`` of the (H W, S) costs and about a dozen torch ops.
 
-The kernel (``csrc/select.cu``) runs a thread a pixel over the (S, H W)
-costs the initial cost's K2 and K6 launches write (or the (H W, S) ones
-the tile route gathers) and writes only the new maps. What bounds it on
-the H100: bytes (the costs read once, the maps written once).
+The per-pixel code is ``csrc/select_common.cuh``'s, which K2's stage form
+and K6's re-score form run in the epilogues of the launches that make the
+costs on the serial and view-parallel routes (``ncc.init_stage_select_fused``,
+``weak.rescore_select_fused``): K11's own launch (``csrc/select.cu``) runs
+only on the tile route, a thread a pixel over the (H W, S) costs it gathers
+(or an (S, H W) view-major block), and writes only the new maps, a block's
+selections as 16-byte words. What bounds it on the H100: bytes (the costs
+read once, the maps written once).
 
 The plain version is ``cost.initial_cost_and_selection``, whose top-k sum
 is taken in ascending order from +0 and whose mean is a true division, then
-the two ``where``s of the state update; the kernel computes the same, so
-the two agree bit for bit on the card.
+the two ``where``s of the state update (``select_rows_plain`` on a range of
+pixels, ``select_plain`` on the image); the kernels compute the same, so
+they agree bit for bit on the card.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches.
@@ -63,7 +68,7 @@ def library() -> _build.Built:
     lib.apde_select.restype = i32
     lib.apde_select_max_views.argtypes = []
     lib.apde_select_max_views.restype = i32
-    lib.apde_select_kernel_info.argtypes = [ptr] * 3
+    lib.apde_select_kernel_info.argtypes = [i32] + [ptr] * 3
     lib.apde_select_kernel_info.restype = i32
     if lib.apde_select_max_views() != MAX_VIEWS:
         raise RuntimeError(f"csrc/select.cu takes "
@@ -72,24 +77,33 @@ def library() -> _build.Built:
     return built
 
 
-def kernel_info() -> dict:
-    """The kernel's registers, local memory (spill) bytes and resident
-    blocks an SM, from the CUDA runtime."""
-    return ncc.read_kernel_info(library().lib.apde_select_kernel_info)
+def kernel_info(num_views: int) -> dict:
+    """The instantiation's registers, local memory (spill) bytes and
+    resident blocks an SM at ``num_views`` views, from the CUDA runtime."""
+    return ncc.read_kernel_info(library().lib.apde_select_kernel_info,
+                                num_views)
 
 
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
 
+def select_rows_plain(costs: torch.Tensor, valid: torch.Tensor, top_k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The state's (n,) costs and (n, S) selections of n pixels from their
+    (n, S) costs and (n,) validity."""
+    mean, selected = initial_cost_and_selection(costs, top_k)
+    return (torch.where(valid, mean, INVALID_COST),
+            selected & valid[:, None])
+
+
 def select_plain(costs: torch.Tensor, valid: torch.Tensor, top_k: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The state's (H, W) cost map and (H, W, S) selections from the
     (H W, S) costs of the pixels and the (H, W) validity map."""
     h, w = valid.shape
-    mean, selected = initial_cost_and_selection(costs, top_k)
-    return (torch.where(valid, mean.reshape(h, w), INVALID_COST),
-            selected.reshape(h, w, -1) & valid[..., None])
+    cost, selected = select_rows_plain(costs, valid.reshape(-1), top_k)
+    return cost.reshape(h, w), selected.reshape(h, w, -1)
 
 
 # ---------------------------------------------------------------------------

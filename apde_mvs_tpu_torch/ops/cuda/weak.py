@@ -36,13 +36,18 @@ ordered adds with one true division, ``cost.geom_cost``'s torch ops. The
 kernel computes the same sequence with every operation rounded on its own,
 so the two agree bit for bit on the card.
 
-The re-score form, ``rescore_fused`` (plain version ``rescore_plain``:
-``weak_ref_plain`` and ``weak_plain`` on the pixel's own plane), is the
-initial cost's re-score of the weak list: the kernel builds each pixel's
-reference side itself, as K7 does, from the weak list, its anchors, the
-state's planes and prior selections, and writes the S costs into the
-pixels' columns of the initial cost's costs (a compact block on the tile
-route). Since K7 it is the only form a main path launches.
+The re-score form is the initial cost's re-score of the weak list: the
+kernel builds each pixel's reference side itself, as K7 does, from the
+weak list, its anchors, the state's planes and prior selections. Its
+selection mode, ``rescore_select_fused`` (plain version
+``rescore_select_plain``: K11's plain selection of ``rescore_plain``'s
+costs), runs the pixel's top-k view selection in an epilogue and writes
+the state's new cost map and selections at the pixel (the serial and
+view-parallel routes); its cost-out mode, ``rescore_fused`` (plain version
+``rescore_plain``: ``weak_ref_plain`` and ``weak_plain`` on the pixel's
+own plane), writes the S costs into the pixels' columns of a block (the
+tile route's compact block). Since K7 it is the only form a main path
+launches.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback. ``launches`` counts kernel launches and
@@ -114,7 +119,8 @@ def library() -> _build.Built:
     i64 = ctypes.c_int64
     lib.apde_weak_rescore.argtypes = (
         [ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, ptr]
-        + [i32] * 4 + [ptr, i64, i64, i32, i64] + [i32] * 5 + [ptr])
+        + [i32] * 4 + [ptr, i64, i64, i32, ptr, ptr, ptr, i32, i64]
+        + [i32] * 5 + [ptr])
     lib.apde_weak_rescore.restype = i32
     lib.apde_weak_rescore_smem_bytes.argtypes = [i32] * 6
     lib.apde_weak_rescore_smem_bytes.restype = ctypes.c_longlong
@@ -316,6 +322,18 @@ def rescore_plain(data, planes_map, selected, x, y, anchors, *,
                       geom=False).ncc[:, 0]
 
 
+def rescore_select_plain(data, planes_map, selected, x, y, anchors, valid,
+                         top_k: int, **windows):
+    """The selection mode's plain version: the (B,) costs and (B, S)
+    selections of weak pixels (x, y), K11's plain selection
+    (``select.select_rows_plain``) of `rescore_plain`'s costs with the
+    pixels' validity in the (H, W) map ``valid``."""
+    from .select import select_rows_plain
+    costs = rescore_plain(data, planes_map, selected, x, y, anchors,
+                          **windows)
+    return select_rows_plain(costs, fetch(valid, x, y), top_k)
+
+
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
@@ -451,25 +469,15 @@ def weak_fused(data, wref, planes_, radius: int, increment: int, *,
     return out
 
 
-def rescore_fused(data, planes_map, selected, x, y, anchors, lo: int,
-                  hi: int, out, *, strong_radius: int, strong_increment: int,
-                  weak_radius: int, weak_increment: int, use_sa: bool,
-                  view_major: bool, col0=None) -> None:
-    """K6's re-score form: the deformable NCC of weak pixels lo .. hi - 1
-    of the list (x, y) (N,) int32 with their (N, 9, 2) int32 anchors, each
-    under its own plane of the state's (H, W, 4) map ``planes_map``
-    against every view, the reference side built in the kernel (the
-    anchors' selected views from the prior (H, W, S) ``selected``). Writes
-    the S costs of a pixel into ``out``, an (S, n) view-major or (n, S)
-    pixel-major float32 block: into the pixel's raster column y W + x
-    where ``col0`` is None (n = H W), else into column i - ``col0`` for
-    list item i. One launch on CUDA tensors, the plain version on CPU
-    tensors."""
+def _check_rescore(data, planes_map, selected, x, y, anchors, lo: int,
+                   hi: int, use_sa: bool, strong_radius: int,
+                   strong_increment: int) -> tuple:
+    """The re-score form's shared checks. Returns (N, the SA segment ids or
+    None)."""
     ncc.check_tables(data)
     ncc.check_planes_map(data, planes_map)
     s = data.num_src
-    quads = data.src_quads
-    dev = quads.device
+    dev = data.src_quads.device
     n = x.shape[0] if x.ndim == 1 else -1
     h, w = data.height, data.width
     for name, a, shape, dtype in (
@@ -484,37 +492,30 @@ def rescore_fused(data, planes_map, selected, x, y, anchors, lo: int,
                              f"{dev}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    scatter = col0 is None
-    if not 0 <= lo <= hi <= n or not (scatter or 0 <= col0 <= lo):
-        raise ValueError(f"items {lo} .. {hi} from column {col0} of a "
-                         f"{n}-item list")
-    vs, ps = ncc.check_block(out, s, view_major,
-                             h * w if scatter else hi - col0, dev)
-    if scatter and (out.shape[1] if view_major else out.shape[0]) != h * w:
-        raise ValueError(f"costs block {tuple(out.shape)}: the scatter "
-                         f"writes raster columns of {h}x{w}")
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"items {lo} .. {hi} of a {n}-item list")
     sa = ncc.sa_ids(data, use_sa,
                     len(square_taps(strong_radius, strong_increment)))
-    windows = (strong_radius, strong_increment, weak_radius, weak_increment)
-    if dev.type == "cpu":
-        costs = rescore_plain(
-            data, planes_map, selected, x[lo:hi], y[lo:hi], anchors[lo:hi],
-            strong_radius=strong_radius, strong_increment=strong_increment,
-            weak_radius=weak_radius, weak_increment=weak_increment,
-            use_sa=use_sa)
-        cols = y[lo:hi].long() * w + x[lo:hi].long() if scatter \
-            else torch.arange(lo - col0, hi - col0)
-        if view_major:
-            out[:, cols] = costs.T
-        else:
-            out[cols] = costs
-        return
+    return n, sa
+
+
+def _launch_rescore(data, planes_map, selected, x, y, anchors, lo: int,
+                    hi: int, sa, windows: tuple, out=None, strides=(0, 0),
+                    scatter: bool = False, valid=None, maps=(None, None),
+                    top_k: int = 0) -> None:
+    """One launch of the re-score form on CUDA tensors (list items lo ..
+    hi - 1): the cost-out mode into ``out`` (its address the block's first
+    column: item ``lo``'s where not ``scatter``) with ``strides``, or the
+    selection mode into ``maps`` (the cost map and the selections)."""
+    quads = data.src_quads
+    dev = quads.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not quads.is_contiguous():
         raise ValueError("quads must be contiguous")
     if quads.data_ptr() % (4 * quads.element_size()):
         raise ValueError("quad table rows must be aligned to their size")
+    s = data.num_src
     lib = library().lib
     smem = lib.apde_weak_rescore_smem_bytes(s, *windows, int(sa is not None))
     if smem > SMEM_LIMIT:
@@ -527,15 +528,101 @@ def rescore_fused(data, planes_map, selected, x, y, anchors, lo: int,
     global launches, planes
     launches += 1
     planes += 1
-    base = out.data_ptr() if scatter \
-        else out.data_ptr() + (lo - col0) * ps * out.element_size()
     ncc._raise_on(lib.apde_weak_rescore(
         quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
-        planes_map.data_ptr(), selected.data_ptr(), h, w,
+        planes_map.data_ptr(), selected.data_ptr(), data.height, data.width,
         x.data_ptr() + 4 * lo, y.data_ptr() + 4 * lo,
         anchors.data_ptr() + 4 * (ANCHORS + 1) * 2 * lo,
         data.ref_image.data_ptr(), data.height,
-        None if sa is None else sa.data_ptr(), *windows, base, vs, ps,
-        int(scatter), hi - lo, s, data.width, data.quad_h, data.img_w,
-        data.img_h, torch.cuda.current_stream(dev).cuda_stream),
-        "apde_weak_rescore")
+        None if sa is None else sa.data_ptr(), *windows, out, strides[0],
+        strides[1], int(scatter), None if valid is None else valid.data_ptr(),
+        None if maps[0] is None else maps[0].data_ptr(),
+        None if maps[1] is None else maps[1].data_ptr(), int(top_k), hi - lo,
+        s, data.width, data.quad_h, data.img_w, data.img_h,
+        torch.cuda.current_stream(dev).cuda_stream), "apde_weak_rescore")
+
+
+def rescore_fused(data, planes_map, selected, x, y, anchors, lo: int,
+                  hi: int, out, *, strong_radius: int, strong_increment: int,
+                  weak_radius: int, weak_increment: int, use_sa: bool,
+                  view_major: bool, col0=None) -> None:
+    """K6's re-score form, the cost-out mode (the tile route's): the
+    deformable NCC of weak pixels lo .. hi - 1 of the list (x, y) (N,)
+    int32 with their (N, 9, 2) int32 anchors, each under its own plane of
+    the state's (H, W, 4) map ``planes_map`` against every view, the
+    reference side built in the kernel (the anchors' selected views from
+    the prior (H, W, S) ``selected``). Writes the S costs of a pixel into
+    ``out``, an (S, n) view-major or (n, S) pixel-major float32 block: into
+    the pixel's raster column y W + x where ``col0`` is None (n = H W),
+    else into column i - ``col0`` for list item i. One launch on CUDA
+    tensors, the plain version on CPU tensors."""
+    windows = (strong_radius, strong_increment, weak_radius, weak_increment)
+    n, sa = _check_rescore(data, planes_map, selected, x, y, anchors, lo, hi,
+                           use_sa, strong_radius, strong_increment)
+    s = data.num_src
+    h, w = data.height, data.width
+    scatter = col0 is None
+    if not (scatter or 0 <= col0 <= lo):
+        raise ValueError(f"items {lo} .. {hi} from column {col0} of a "
+                         f"{n}-item list")
+    vs, ps = ncc.check_block(out, s, view_major,
+                             h * w if scatter else hi - col0,
+                             data.src_quads.device)
+    if scatter and (out.shape[1] if view_major else out.shape[0]) != h * w:
+        raise ValueError(f"costs block {tuple(out.shape)}: the scatter "
+                         f"writes raster columns of {h}x{w}")
+    if data.src_quads.device.type == "cpu":
+        costs = rescore_plain(
+            data, planes_map, selected, x[lo:hi], y[lo:hi], anchors[lo:hi],
+            strong_radius=strong_radius, strong_increment=strong_increment,
+            weak_radius=weak_radius, weak_increment=weak_increment,
+            use_sa=use_sa)
+        cols = y[lo:hi].long() * w + x[lo:hi].long() if scatter \
+            else torch.arange(lo - col0, hi - col0)
+        if view_major:
+            out[:, cols] = costs.T
+        else:
+            out[cols] = costs
+        return
+    base = out.data_ptr() if scatter \
+        else out.data_ptr() + (lo - col0) * ps * out.element_size()
+    _launch_rescore(data, planes_map, selected, x, y, anchors, lo, hi, sa,
+                    windows, out=base, strides=(vs, ps), scatter=scatter)
+
+
+def rescore_select_fused(data, planes_map, selected, x, y, anchors, lo: int,
+                         hi: int, valid, top_k: int, cost_map, sel_out, *,
+                         strong_radius: int, strong_increment: int,
+                         weak_radius: int, weak_increment: int,
+                         use_sa: bool) -> None:
+    """K6's re-score form with the selection in its epilogue (the serial
+    and view-parallel routes): the costs of weak pixels lo .. hi - 1 as
+    `rescore_fused` computes them from the prior selections ``selected``,
+    and each pixel's top-k view selection (K11's,
+    ``select.select_rows_plain``) with its validity in the state's (H, W)
+    ``valid`` map, written into the state's new (H, W) float32
+    ``cost_map`` and (H, W, S) bool ``sel_out`` at the pixel, over what K2's
+    stage form wrote there. ``sel_out`` must not overlap ``selected``. One
+    launch on CUDA tensors, the plain version on CPU
+    tensors."""
+    windows = (strong_radius, strong_increment, weak_radius, weak_increment)
+    _, sa = _check_rescore(data, planes_map, selected, x, y, anchors, lo,
+                           hi, use_sa, strong_radius, strong_increment)
+    ncc.check_state_maps(data, valid, top_k, (cost_map, sel_out))
+    a, b = sel_out.data_ptr(), selected.data_ptr()
+    if a < b + selected.numel() and b < a + sel_out.numel():
+        raise ValueError("the new selections overlap the prior selections "
+                         "the re-score reads")
+    if data.src_quads.device.type == "cpu":
+        cost, sel = rescore_select_plain(
+            data, planes_map, selected, x[lo:hi], y[lo:hi], anchors[lo:hi],
+            valid, top_k, strong_radius=strong_radius,
+            strong_increment=strong_increment, weak_radius=weak_radius,
+            weak_increment=weak_increment, use_sa=use_sa)
+        yl, xl = y[lo:hi].long(), x[lo:hi].long()
+        cost_map[yl, xl] = cost
+        sel_out[yl, xl] = sel
+        return
+    _launch_rescore(data, planes_map, selected, x, y, anchors, lo, hi, sa,
+                    windows, valid=valid, maps=(cost_map, sel_out),
+                    top_k=top_k)

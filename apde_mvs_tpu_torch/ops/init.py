@@ -2,7 +2,8 @@
 APD.cu:919-948): FIRST_INIT draws random plane hypotheses; later passes
 convert the loaded (world normal, depth) maps into camera-frame planes. Both
 then compute the initial multi-view cost and top-k view selection, on the
-card three kernels: K2's stage form, K6's re-score form and K11. The torch-op
+card K2's stage form and K6's re-score form, each with the selection in its
+epilogue (the tile route: their cost-out modes and K11). The torch-op
 composition they replaced is ``testing/init_composition.py``."""
 
 from __future__ import annotations
@@ -62,62 +63,67 @@ def initial_cost(data: CostData, state: PMState, params, weak_x=None,
     those pixels are re-scored with the deformable NCC before the view
     selection (the APD passes).
 
-    On the card the stage is three kernels and no torch op but the outputs'
-    allocations: one launch of K2's stage form over the image's pixels
-    (each pixel's window built in the kernel) into an (S, H W) cost array,
-    one launch of K6's re-score form a WEAK_CHUNK of the weak list (its
-    reference side built in the kernel, its costs written into the pixels'
-    columns), one launch of the selection K11, which writes the state's
-    new cost map and selections. On the CPU the same steps run as their
-    plain versions, K2's over CHUNK pixels at a time on (H W, S) costs.
+    On the card the stage is K2's stage form and K6's re-score form and no
+    torch op but the outputs' allocations: one launch of K2's stage form
+    over the image's pixels (each pixel's window built once in the kernel),
+    whose epilogue writes every pixel's selection into the state's new cost
+    map and selections, then one launch of K6's re-score form a WEAK_CHUNK
+    of the weak list, whose epilogue writes its pixels' selections over
+    K2's; no per-view costs go through device memory. On the CPU the same
+    entries run as their plain versions, K2's over CHUNK pixels at a time.
     ``shard`` (`parallel.tile_pass.RowShard`) scores only its rank's rows
-    and slice of the weak list, gathers each and places the re-scored
-    costs with one ``index_put``; the selection then runs on the whole
-    image on every rank. The maps the kernels read (the planes, the prior
-    selections, the validity) must be contiguous."""
+    and slice of the weak list in the two forms' cost-out modes, gathers
+    the (H W, S) costs, places the re-scored ones with one ``index_put``
+    and selects on the whole image with K11 on every rank. The maps the
+    kernels read (the planes, the prior selections, the validity) must be
+    contiguous."""
     h, w, s = data.height, data.width, data.num_src
     card = data.device.type == "cuda"
-    # the kernels' layout: view-major costs, a view's pixels coalesced
-    view_major = card and shard is None
     planes = state.planes
     window = dict(radius=params.strong_radius,
                   increment=params.strong_increment,
                   use_sa=bool(params.use_sa))
+    rescore = dict(strong_radius=params.strong_radius,
+                   strong_increment=params.strong_increment,
+                   weak_radius=params.weak_radius,
+                   weak_increment=params.weak_increment,
+                   use_sa=bool(params.use_sa))
+    n = 0 if weak_x is None else weak_x.shape[0]
     if shard is None:
-        lo, hi, counts = 0, h * w, None
-    else:
-        sl, counts = shard.row_part(h, w)
-        lo, hi = sl.start, sl.stop
-    costs = torch.empty((s, hi - lo) if view_major else (hi - lo, s),
-                        dtype=torch.float32, device=data.device)
+        cost_map = torch.empty((h, w), dtype=torch.float32,
+                               device=data.device)
+        selected = torch.empty((h, w, s), dtype=torch.bool,
+                               device=data.device)
+        step = max(h * w, 1) if card else CHUNK
+        for i in range(0, h * w, step):
+            k2.init_stage_select_fused(data, planes, i, min(i + step, h * w),
+                                       state.valid, params.top_k, cost_map,
+                                       selected, **window)
+        for i in range(0, n, WEAK_CHUNK):
+            k6.rescore_select_fused(data, planes, state.selected, weak_x,
+                                    weak_y, anchors, i,
+                                    min(i + WEAK_CHUNK, n), state.valid,
+                                    params.top_k, cost_map, selected,
+                                    **rescore)
+        return state.replace(costs=cost_map, selected=selected)
+    sl, counts = shard.row_part(h, w)
+    lo, hi = sl.start, sl.stop
+    costs = torch.empty((hi - lo, s), dtype=torch.float32,
+                        device=data.device)
     step = max(hi - lo, 1) if card else CHUNK
     for i in range(lo, hi, step):
         k2.init_stage_fused(data, planes, i, min(i + step, hi), costs,
-                            view_major=view_major, col0=lo, **window)
-    if shard is not None:
-        costs = shard.gather(costs, counts)
+                            view_major=False, col0=lo, **window)
+    costs = shard.gather(costs, counts)
     if weak_x is not None:
-        n = weak_x.shape[0]
-        rescore = dict(strong_radius=params.strong_radius,
-                       strong_increment=params.strong_increment,
-                       weak_radius=params.weak_radius,
-                       weak_increment=params.weak_increment,
-                       use_sa=bool(params.use_sa))
-        if shard is None:
-            for i in range(0, n, WEAK_CHUNK):
-                k6.rescore_fused(data, planes, state.selected, weak_x,
-                                 weak_y, anchors, i, min(i + WEAK_CHUNK, n),
-                                 costs, view_major=view_major, **rescore)
-        else:
-            wsl, wcounts = shard.list_part(n)
-            part = torch.empty((wsl.stop - wsl.start, s),
-                               dtype=torch.float32, device=data.device)
-            for i in range(wsl.start, wsl.stop, WEAK_CHUNK):
-                k6.rescore_fused(data, planes, state.selected, weak_x,
-                                 weak_y, anchors, i,
-                                 min(i + WEAK_CHUNK, wsl.stop), part,
-                                 view_major=False, col0=wsl.start, **rescore)
-            costs.view(h, w, s)[weak_y, weak_x] = shard.gather(part, wcounts)
-    cost_map, selected = k11.select_fused(costs, view_major, state.valid,
+        wsl, wcounts = shard.list_part(n)
+        part = torch.empty((wsl.stop - wsl.start, s), dtype=torch.float32,
+                           device=data.device)
+        for i in range(wsl.start, wsl.stop, WEAK_CHUNK):
+            k6.rescore_fused(data, planes, state.selected, weak_x, weak_y,
+                             anchors, i, min(i + WEAK_CHUNK, wsl.stop), part,
+                             view_major=False, col0=wsl.start, **rescore)
+        costs.view(h, w, s)[weak_y, weak_x] = shard.gather(part, wcounts)
+    cost_map, selected = k11.select_fused(costs, False, state.valid,
                                           params.top_k)
     return state.replace(costs=cost_map, selected=selected)

@@ -46,10 +46,14 @@ scene (seed 0), u8 quad tables:
   the same view), in both pass forms;
 - the initial cost, ``init.initial_cost``, on the call a real APD
   REFINE_INIT pass makes (``real_pass_chunks``: its state, SA windows and
-  weak list), its time a call by CUDA events and its host time a call:
-  K2's stage form, K6's re-score form and K11 in a checkout that has them,
-  the window, reference-side and selection torch ops around K2's and K6's
-  launches in one from before (also with ``--weak_only``);
+  weak list), its time a call by CUDA events and its host time a call,
+  and on the same state without the weak list (a round-0 pass's call:
+  the SA and the square window) and with its 10 views cut to 5 or cycled
+  to 32 (SA): K2's stage form and K6's re-score form with the selection
+  in their epilogues in a checkout that has them, those forms writing the
+  costs and K11 in one from before, the window, reference-side and
+  selection torch ops around K2's and K6's launches in one from before
+  that (also with ``--weak_only``; ``--init_only`` times only these);
 - K8 at a 16,384-pixel chunk of the APD scan's weak list at the APD
   round's rotate_time (2: 16 directions) and at the chunk a real APD pass
   hands it, and the chunk's jitter and RANSAC draw table
@@ -66,7 +70,7 @@ found first on ``sys.path``: run it from another checkout's root with
 that root on ``PYTHONPATH`` to time that checkout's kernels.
 
     python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] \
-        [--weak_only]
+        [--weak_only | --init_only]
     cd OTHER && PYTHONPATH=$PWD python /path/to/kernel_times.py --tag other
 
 Needs a CUDA device. The last line is one JSON object: the tag, the card,
@@ -728,6 +732,18 @@ def init_times(real, out: dict) -> None:
           f"{out['initial cost host']:.4f} ms a call ({a[0].num_src} views, "
           f"{a[0].height}x{a[0].width}, {n} weak pixels re-scored, a real "
           f"APD REFINE_INIT pass)", flush=True)
+    # the same state without the weak list: K2's stage form and the
+    # selection alone, SA and square, at the pass's views, 5 and 32
+    from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views
+    data, state, params = a[:3]
+    square = dataclasses.replace(params, use_sa=False)
+    for name, views, prm in (("SA", data.num_src, params),
+                             ("square", data.num_src, square),
+                             ("SA", 5, params), ("SA", 32, params)):
+        d = data if views == data.num_src else cycled_views(data, views)[0]
+        key = f"initial cost, no weak list, {name}, {views} views"
+        out[key] = cuda_ms(lambda: init.initial_cost(d, state, prm), 10)
+        print(f"{key}: {out[key]:.4f} ms a call", flush=True)
 
 
 def anchor_times(scene, wc, real, dev, out: dict, seed: int = 0) -> None:
@@ -791,6 +807,8 @@ def main(argv=None) -> int:
                     help="time only the weak path's kernels and the "
                          "initial cost: the weak sweep's chunk, K7, K6, "
                          "the initial cost, K8, K9 and K10")
+    ap.add_argument("--init_only", action="store_true",
+                    help="time only the initial cost")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -798,7 +816,8 @@ def main(argv=None) -> int:
     card = card_line()
     libs = []
     weak_path = (("weak", "K6"), ("weak_sweep", "K7"), ("anchors", "K8-K10"))
-    kernels = weak_path if args.weak_only else (
+    kernels = (("ncc", "K2"), ("weak", "K6"), ("select", "K11")) \
+        if args.init_only else weak_path if args.weak_only else (
         ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3")) + weak_path
     for name, kernel in kernels:
         try:
@@ -809,6 +828,10 @@ def main(argv=None) -> int:
             libs.append(f"no {kernel} in this checkout")
     print(f"{args.tag}: {', '.join(libs)} [{card}]", flush=True)
     out: dict = {}
+    if args.init_only:
+        init_times(real_pass_chunks(dev), out)
+        print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
+        return 0
     if not args.weak_only:
         scene = synthetic.make_scene(num_views=VIEWS, height=HEIGHT,
                                      width=WIDTH, baseline=0.12)

@@ -20,8 +20,9 @@ launches of the fused strong NCC K2 by call site (the initial cost), of
 the strong sweep's colour update K3, of the fused disparity sweep K5 by
 mode (classify, refine), of the weak sweep's chunk update K7, of the
 deformable NCC K6 by use (on the main path only the initial cost's
-re-score form), of the initial cost's K2 stage form and selection K11, of
-the APD setup's
+re-score form), of the initial cost's K2 stage form and K6 re-score form
+with the selection in their epilogues (the serial route's) and of the
+selection K11 where it runs (the tile route), of the APD setup's
 K10 (the nearest-strong flooding), K8 (anchor generation) and K9 (the
 fit-plane RANSAC) and of K1 by call site, each kernel's profiler time,
 the device and host time of the pass's stages (anchors, fit planes, the
@@ -151,8 +152,9 @@ def _named(name):
 @contextlib.contextmanager
 def stage_ranges(kernel_events: dict):
     """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site; K2's stage form apart), K3, K5 (by mode), K6
-    (by use; its re-score form apart), K7, K11 and K8-K10 into
+    K2 and K1 (by call site; K2's stage form apart, with the selection
+    and without), K3, K5 (by mode), K6 (by use; its re-score form apart,
+    with the selection and without), K7, K11 and K8-K10 into
     ``kernel_events``; restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
@@ -160,8 +162,12 @@ def stage_ranges(kernel_events: dict):
                (sweep, "sweep_fused", _k5_mode),
                (sweep, "stage_fused", _k5_mode),
                (ncc, "init_stage_fused", _named("K2 init stage form")),
+               (ncc, "init_stage_select_fused",
+                _named("K2 init stage form with the selection")),
                (weak, "weak_fused", _k6_use),
                (weak, "rescore_fused", _named("K6 re-score form")),
+               (weak, "rescore_select_fused",
+                _named("K6 re-score form with the selection")),
                (k11, "select_fused", _named("K11 selection")),
                (weak_sweep, "weak_update_fused", _k7_name),
                (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),

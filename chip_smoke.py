@@ -82,13 +82,17 @@ read in the loop as before, then of the whole APD pass and a FIRST_INIT
 pass, by stage and site (fails if a fit in the loop still reads the
 camera, if any comes from ``core/sampling.py``, if the classify or the
 refine stage makes more than its ``nonzero``, or if the initial cost
-makes any); the initial cost's K2 stage form, K6 re-score form and
+makes any); the initial cost's K2 stage form and K6 re-score form,
+each with the selection in its epilogue and in its cost-out mode, and the
 selection K11 bitwise against their plain versions (``init_phase``: the
 full 600x800 image, u8 and f32, square and SA, a padded image, the APD
 scan's weak list and a real APD pass's, a tile rank's row block and list
-slice, 32 views, K11 on crafted rows), each timed a launch against its
-plain version and the torch ops it replaced, K11 beside ``torch.sort``,
-and the whole stage against ``testing.init_composition``; and where a
+slice, 32 views, K11 on crafted rows), the windows K2's stage form builds
+a pixel in its old layout and its new, each form timed a launch against
+its plain version and the torch ops it replaced, the selection modes
+against the cost-out modes and K11 (the parent's composition) at 5, 10
+and 32 views, K11 beside ``torch.sort`` and ``torch.topk``, and the whole
+stage against ``testing.init_composition``; and where a
 K7 and a K8 launch spend their device time, stage by stage
 (``tools/kernel_split.py``). The paths:
 
@@ -132,10 +136,11 @@ views.
 
 Every path must run its initial cost's NCC through K2's stage form (at
 least one launch, all at the initial cost's and debug_point's sites, none
-at the strong sweep's) and its selection through K11 (one launch an
-initial cost; in the round-0 and APD scans every ``initial_cost`` call
-one K2 launch, one K6 launch a 65,536 weak pixels, one K11 launch and no
-other torch op but its outputs' allocations), its classify and refine
+at the strong sweep's) with its selection in the epilogue (no K11 launch
+but the tile route's, one an initial cost; in the round-0 and APD scans
+every ``initial_cost`` call one K2 launch, one K6 launch a 65,536 weak
+pixels, no K11 launch and no other torch op but its outputs'
+allocations), its classify and refine
 sweeps through K5 (at least one
 launch of each mode on a path that runs a pass; in the round-0 and APD
 scans every ``depth_to_weak`` and ``local_refine`` call one launch and no
@@ -3075,6 +3080,11 @@ def anchor_kernel_phase(scene, real, seed: int, device, card: str) -> dict:
     return out
 
 
+# the selection's operations a (pixel, view): ~2 compares and selects a
+# pass over the views, for the count and the k smallest (top_k = 4: ~5
+# passes)
+K11_OPS_PER_PAIR = 2 * 5
+
 # operations of the initial cost's stage forms as the function needs them,
 # beside K2's per tap and per pair (K2's stage form) and K6's per evaluated
 # pair (its re-score form): the window's K3_WINDOW_OPS_PER_TAP a (pixel,
@@ -3158,6 +3168,36 @@ def init_stage_check(data, state, params, what: str, wx=None, wy=None,
             f"K11 {what}: {int((got_map != cost_map).sum())} costs and "
             f"{int((got_sel != sel).sum())} selections differ from the "
             "plain version")
+    # the selection modes: K2's stage form with the selection in its
+    # epilogue (plain: K11's plain selection of the strong costs), then
+    # K6's re-score form with it over K2's maps (plain: the composition)
+    sel_map = torch.full((h, w), -1.0, device=data.device)
+    sel_sel = torch.zeros((h, w, s), dtype=torch.bool, device=data.device)
+    ncc.init_stage_select_fused(data, state.planes, 0, h * w, state.valid,
+                                params.top_k, sel_map, sel_sel,
+                                radius=params.strong_radius,
+                                increment=params.strong_increment,
+                                use_sa=bool(params.use_sa))
+    torch.cuda.synchronize()
+    k2_map, k2_sel = k11.select_plain(strong, state.valid, params.top_k)
+    if not bitwise(sel_map, k2_map) or not torch.equal(sel_sel, k2_sel):
+        raise AssertionError(
+            f"K2 stage form with the selection {what}: "
+            f"{int((sel_map != k2_map).sum())} costs and "
+            f"{int((sel_sel != k2_sel).sum())} selections differ from the "
+            "plain version")
+    for i in range(0, n, init.WEAK_CHUNK):
+        weak.rescore_select_fused(data, state.planes, state.selected, wx,
+                                  wy, anchors, i, min(i + init.WEAK_CHUNK, n),
+                                  state.valid, params.top_k, sel_map,
+                                  sel_sel, **rescore_kwargs(params))
+    torch.cuda.synchronize()
+    if not bitwise(sel_map, cost_map) or not torch.equal(sel_sel, sel):
+        raise AssertionError(
+            f"K6 re-score form with the selection {what}: "
+            f"{int((sel_map != cost_map).sum())} costs and "
+            f"{int((sel_sel != sel).sum())} selections differ from the "
+            "plain version")
     out = init.initial_cost(data, state, params, wx, wy, anchors)
     torch.cuda.synchronize()
     if not bitwise(out.costs, cost_map) or not torch.equal(out.selected,
@@ -3169,8 +3209,9 @@ def init_stage_check(data, state, params, what: str, wx=None, wy=None,
     changed = 0 if wx is None else int(
         (costs != strong).any(-1).sum())
     log(f"  initial cost {what} ({s} views, {h}x{w}, {n} weak pixels, "
-        f"{changed} costs re-scored): K2's stage form, K6's re-score form, "
-        f"K11 and the stage bitwise equal to their plain versions; "
+        f"{changed} costs re-scored): K2's stage form and K6's re-score "
+        f"form, each with the selection and in its cost-out mode, K11 and "
+        f"the stage bitwise equal to their plain versions; "
         f"{float((cost_map >= 2.0).float().mean()):.4f} of the pixels at "
         f"COST_MAX or invalid, {float(sel.sum(-1).float().mean()):.3f} "
         "views selected a pixel")
@@ -3282,13 +3323,16 @@ def k11_crafted_check(h: int, w: int, s: int, valid, top_k: int, seed: int,
         "pixel")
 
 
-def init_stage_bound(data, state, params) -> tuple:
+def init_stage_bound(data, state, params, select: bool = True) -> tuple:
     """The least time the card could take for one launch of K2's stage
     form over the image: its f32 operations (K2's a tap and a pair, the
-    window's a (pixel, tap)) over the plain-f32 rate, against the bytes of
-    its inputs (the planes, the reference image and segment ids, the
-    quad-table rows its taps touch, each once) and its output. Returns (ms,
-    "bytes" or "operations", bytes, operations)."""
+    window's a (pixel, tap); with the selection K11's a (pixel, view),
+    `k11_bound`'s count) over the plain-f32 rate, against the bytes of its
+    inputs (the planes, the reference image and segment ids, the
+    quad-table rows its taps touch, with the selection the validity map,
+    each once) and its outputs (the cost map and the selections with the
+    selection, else the (S, H W) costs). Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
     import torch
 
     from apde_mvs_tpu_torch.core import geometry as geo
@@ -3317,20 +3361,27 @@ def init_stage_bound(data, state, params) -> tuple:
     ops = s * b * (t * per_tap + K2_OPS_PER_PAIR) \
         + b * t * K3_WINDOW_OPS_PER_TAP
     nbytes = 16 * b + 4 * data.ref_image.numel() * (2 if sa else 1) \
-        + rows * 4 * data.src_quads.element_size() + (s + 1) * 16 * 4 \
-        + 4 * s * b
+        + rows * 4 * data.src_quads.element_size() + (s + 1) * 16 * 4
+    if select:
+        ops += b * s * K11_OPS_PER_PAIR
+        nbytes += b * (1 + 4 + s)
+    else:
+        nbytes += 4 * s * b
     return bound_of(nbytes, ops)
 
 
-def rescore_bound(data, state, params, wx, wy, anchors) -> tuple:
+def rescore_bound(data, state, params, wx, wy, anchors,
+                  select: bool = True) -> tuple:
     """The least time the card could take for one launch of K6's re-score
     form: its f32 operations (``k6_bound``'s on the pixels' own planes, the
-    reference side's K7_OPS_PER_REF_TAP a tap) over the plain-f32 rate,
-    against the bytes of its inputs (the pixels, their anchors and planes,
-    the prior selections at the anchors, the distinct reference-image
-    texels and segment ids of the windows, the quad-table rows the pairs
-    touch, each once) and its output. Returns (ms, "bytes" or
-    "operations", bytes, operations)."""
+    reference side's K7_OPS_PER_REF_TAP a tap; with the selection K11's a
+    (pixel, view)) over the plain-f32 rate, against the bytes of its inputs
+    (the pixels, their anchors and planes, the prior selections at the
+    anchors, the distinct reference-image texels and segment ids of the
+    windows, the quad-table rows the pairs touch, with the selection the
+    pixels' validity, each once) and its outputs (with the selection the
+    pixels' costs and selections, else their (S, B) costs). Returns (ms,
+    "bytes" or "operations", bytes, operations)."""
     import torch
 
     from apde_mvs_tpu_torch.core.sampling import fetch
@@ -3368,6 +3419,10 @@ def rescore_bound(data, state, params, wx, wy, anchors) -> tuple:
     nbytes = k6_bytes - old_inputs + b * (8 + 72 + 16 + 8 * s) \
         + int(texels.sum()) * 4 * (2 if sa else 1)
     ops = k6_ops + b * (t + 8 * ta) * K7_OPS_PER_REF_TAP
+    if select:
+        # k6_bound counts the (S, B) f32 costs written
+        ops += b * s * K11_OPS_PER_PAIR
+        nbytes += b * (1 + 4 + s) - 4 * s * b
     return bound_of(nbytes, ops)
 
 
@@ -3375,22 +3430,27 @@ def k11_bound(h: int, w: int, s: int) -> tuple:
     """The least time the card could take for one K11 launch: the bytes of
     the (S, H W) costs and the validity map read and the cost map and
     selections written, each once, over the memory rate (its compares and
-    adds, ~2 a (pixel, view) and pass over the views, are far below)."""
-    return bound_of(h * w * (4 * s + 1 + 4 + s), h * w * s * 2 * 5)
+    adds, K11_OPS_PER_PAIR a (pixel, view), are far below)."""
+    return bound_of(h * w * (4 * s + 1 + 4 + s), h * w * s * K11_OPS_PER_PAIR)
 
 
 def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
                card: str) -> dict:
     """The initial cost's stage on the card (``init.initial_cost``: K2's
-    stage form, K6's re-score form a WEAK_CHUNK, K11) against its plain
-    versions, bitwise: at the full 600x800 image (u8 and f32, square and
-    SA star windows, ground-truth and random planes with degenerate ones, a
-    padded image's invalid border), with the APD scan's weak list (SA and
-    square windows, u8 and f32) and a real APD pass's (its captured call),
-    at a tile rank's row block and list slice, at 32 views, and K11 on
-    crafted rows; then each form's time a launch against its plain version
-    and the composition it replaced, its bound, K11 beside ``torch.sort``,
-    and the whole stage against ``testing.init_composition``."""
+    stage form and K6's re-score form a WEAK_CHUNK, each with the selection
+    in its epilogue; on the tile route their cost-out modes and K11)
+    against its plain versions, bitwise, every form: at the full 600x800
+    image (u8 and f32, square and SA star windows, ground-truth and random
+    planes with degenerate ones, a padded image's invalid border), with the
+    APD scan's weak list (SA and square windows, u8 and f32) and a real APD
+    pass's (its captured call), at a tile rank's row block and list slice,
+    at 32 views, and K11 on crafted rows; then the windows K2's stage form
+    builds a pixel in the old layout and the new, each form's time a launch
+    against its plain version and the composition it replaced, the
+    selection modes against the cost-out modes and K11 (the parent's
+    composition) at 5, 10 and 32 views, the bounds,
+    K11 beside ``torch.topk`` and ``torch.sort``, and the whole stage
+    against ``testing.init_composition``."""
     import dataclasses
 
     import torch
@@ -3407,8 +3467,8 @@ def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
     from apde_mvs_tpu_torch.testing.init_composition import init_composition
     from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views
 
-    log("==== the initial cost: K2's stage form, K6's re-score form, K11 "
-        "====")
+    log("==== the initial cost: K2's stage form and K6's re-score form with "
+        "the selection, their cost-out modes, K11 ====")
     t_phase = time.perf_counter()
     errs = []
     H, W = full_scene.images.shape[1:]
@@ -3504,45 +3564,125 @@ def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
     errs.append(init_stage_check(rdata, rstate, rparams,
                                  "a real APD REFINE_INIT pass", rx, ry, ran))
 
+    # ---- the windows K2's stage form builds a pixel -----------------------
+    for views in (5, 10, 32):
+        g = ncc.stage_groups(views)
+        log(f"  K2 stage form, {views} views at {H}x{W}: windows built a "
+            f"pixel {ncc.window_builds(H * W, views):.4f} in the sweep "
+            f"form's layout (8 (group, view) pairs a block), "
+            f"{ncc.window_builds(H * W, views, g):.4f} with a block owning "
+            f"all {views} views of {g} groups")
+
     # ---- times ------------------------------------------------------------
     res = {}
     d, st = data[True], full_state(data[True])
     xs, ys = geo.pixel_grid(H, W, device)
     xf, yf = xs.reshape(-1), ys.reshape(-1)
     out = torch.empty((d.num_src, H * W), device=device)
+    cmap = torch.empty((H, W), device=device)
     for prm, key, form in ((params, "k2_sa", "SA star"),
                            (square, "k2", "square")):
         use_sa = bool(prm.use_sa)
+        smap = torch.empty((H, W, d.num_src), dtype=torch.bool,
+                           device=device)
 
         def k2():
+            ncc.init_stage_select_fused(d, st.planes, 0, H * W, st.valid,
+                                        prm.top_k, cmap, smap, radius=5,
+                                        increment=2, use_sa=use_sa)
+
+        def cost_out():
             ncc.init_stage_fused(d, st.planes, 0, H * W, out, radius=5,
                                  increment=2, use_sa=use_sa,
                                  view_major=True)
+
+        def parent():
+            cost_out()
+            k11.select_fused(out, True, st.valid, prm.top_k)
 
         def comp():
             return ncc_strong(d, xf, yf, st.planes.reshape(-1, 4),
                               precompute_ref_window(d, xf, yf, 5, 2, use_sa),
                               site="init")
         ms = cuda_ms(k2, 20)
-        plain_ms = cuda_ms(lambda: ncc.init_stage_plain(
+        parent_ms = cuda_ms(parent, 20)
+        costout_ms = cuda_ms(cost_out, 20)
+        ms_again = cuda_ms(k2, 20)
+        plain_ms = cuda_ms(lambda: ncc.init_stage_select_plain(
+            d, st.planes, 0, H * W, st.valid, prm.top_k, 5, 2, use_sa), 2, 1)
+        costout_plain_ms = cuda_ms(lambda: ncc.init_stage_plain(
             d, st.planes, 0, H * W, 5, 2, use_sa), 2, 1)
         comp_ms = cuda_ms(comp, 10)
         bound, by, nbytes, ops = init_stage_bound(d, st, prm)
-        log(f"  K2 stage form, full image u8, {form} window ({d.num_src} "
-            f"views x {H * W} pixels): {ms:.4f} ms a launch, plain "
-            f"{plain_ms:.4f} ms, the composition it replaced (the window's "
-            f"torch ops and K2's sweep form) {comp_ms:.4f} ms, bound "
-            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} GFLOP) [{card}]")
+        cbound, cby, cbytes, cops = init_stage_bound(d, st, prm,
+                                                     select=False)
+        log(f"  K2 stage form with the selection, full image u8, {form} "
+            f"window ({d.num_src} views x {H * W} pixels, "
+            f"{ncc.stage_groups(d.num_src)} groups a block): {ms:.4f} / "
+            f"{ms_again:.4f} ms a launch, against its cost-out mode and K11 "
+            f"(the parent's composition) {parent_ms:.4f} ms (the cost-out "
+            f"mode alone {costout_ms:.4f} ms), plain {plain_ms:.4f} ms, the "
+            f"composition it replaced (the window's torch ops and K2's "
+            f"sweep form) {comp_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) [{card}]")
+        log(f"  K2 stage form, cost-out mode (the tile route's), {form}: "
+            f"{costout_ms:.4f} ms, plain {costout_plain_ms:.4f} ms, bound "
+            f"{cbound:.4f} ms by {cby} ({cbytes / 1e6:.1f} MB, "
+            f"{cops / 1e9:.3f} GFLOP) [{card}]")
         res[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, composition_ms=comp_ms, library_ms=None)
-    # K6's re-score form at the APD scan's first WEAK_CHUNK
+                        bound_by=by, composition_ms=comp_ms,
+                        parent_ms=parent_ms, library_ms=None)
+        res[key + "_costout"] = dict(ms=costout_ms,
+                                     plain_ms=costout_plain_ms,
+                                     bound_ms=cbound, bound_by=cby,
+                                     library_ms=None)
+        del smap
+    # at 5 and 32 views (the views cut and cycled), SA: the selection mode
+    # against the parent's composition
+    for views in (5, 32):
+        dv, idx = cycled_views(d, views)
+        outv = torch.empty((views, H * W), device=device)
+        smap = torch.empty((H, W, views), dtype=torch.bool, device=device)
+
+        def k2():
+            ncc.init_stage_select_fused(dv, st.planes, 0, H * W, st.valid,
+                                        params.top_k, cmap, smap, radius=5,
+                                        increment=2, use_sa=True)
+
+        def parent():
+            ncc.init_stage_fused(dv, st.planes, 0, H * W, outv, radius=5,
+                                 increment=2, use_sa=True, view_major=True)
+            k11.select_fused(outv, True, st.valid, params.top_k)
+        ms = cuda_ms(k2, 20)
+        parent_ms = cuda_ms(parent, 20)
+        again = cuda_ms(k2, 20)
+        info = ncc.stage_kernel_info(True, True, 5, 2, views, True)
+        log(f"  K2 stage form with the selection, {views} views, SA, u8: "
+            f"{ms:.4f} / {again:.4f} ms a launch ("
+            f"{ncc.stage_groups(views)} groups a block, "
+            f"{info['blocks_per_sm']} blocks an SM, "
+            f"{ncc.stage_smem_bytes(views, 5, 2, True, True)} B shared), "
+            f"against the cost-out mode and K11 {parent_ms:.4f} ms "
+            f"[{card}]")
+        res[f"k2_sa_{views}"] = dict(ms=ms, again_ms=again,
+                                     parent_ms=parent_ms)
+        del outv, smap, dv
+    # K6's re-score form at the APD scan's first WEAK_CHUNK, with the
+    # selection over K2's maps and in its cost-out mode
     n = min(wx.numel(), init.WEAK_CHUNK)
     cx, cy, ca = wx[:n], wy[:n], wan[:n].contiguous()
     wout = torch.empty((wc.data.num_src, H * W), device=device)
+    wmap = torch.empty((H, W), device=device)
+    wsel = torch.empty((H, W, wc.data.num_src), dtype=torch.bool,
+                       device=device)
     rk = rescore_kwargs(params)
 
     def k6():
+        weak.rescore_select_fused(wc.data, wstate.planes, wstate.selected,
+                                  wx, wy, wan, 0, n, wstate.valid,
+                                  params.top_k, wmap, wsel, **rk)
+
+    def k6_costout():
         weak.rescore_fused(wc.data, wstate.planes, wstate.selected, wx, wy,
                            wan, 0, n, wout, view_major=True, **rk)
 
@@ -3553,36 +3693,57 @@ def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
         return ncc_weak(wc.data, wref, wstate.planes.reshape(-1, 4)[flat],
                         params)
     ms = cuda_ms(k6, 20)
-    plain_ms = cuda_ms(lambda: weak.rescore_plain(
+    costout_ms = cuda_ms(k6_costout, 20)
+    ms_again = cuda_ms(k6, 20)
+    plain_ms = cuda_ms(lambda: weak.rescore_select_plain(
+        wc.data, wstate.planes, wstate.selected, cx, cy, ca, wstate.valid,
+        params.top_k, **rk), 2, 1)
+    costout_plain_ms = cuda_ms(lambda: weak.rescore_plain(
         wc.data, wstate.planes, wstate.selected, cx, cy, ca, **rk), 2, 1)
     comp_ms = cuda_ms(k6_comp, 10)
     bound, by, nbytes, ops = rescore_bound(wc.data, wstate, params, cx, cy,
                                            ca)
-    log(f"  K6 re-score form, the APD scan's first chunk ({n} weak pixels, "
-        f"{wc.data.num_src} views, SA, u8): {ms:.4f} ms a launch, plain "
-        f"{plain_ms:.4f} ms, the composition it replaced "
+    cbound, cby, cbytes, cops = rescore_bound(wc.data, wstate, params, cx,
+                                              cy, ca, select=False)
+    log(f"  K6 re-score form with the selection, the APD scan's first chunk "
+        f"({n} weak pixels, {wc.data.num_src} views, SA, u8): {ms:.4f} / "
+        f"{ms_again:.4f} ms a launch, the cost-out mode {costout_ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, the composition it replaced "
         f"(WeakRefData.build and K6's weak-sweep form) {comp_ms:.4f} ms, "
         f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} GFLOP) [{card}]")
+    log(f"  K6 re-score form, cost-out mode (the tile route's), the same "
+        f"chunk: {costout_ms:.4f} ms, plain {costout_plain_ms:.4f} ms, "
+        f"bound {cbound:.4f} ms by {cby} ({cbytes / 1e6:.1f} MB, "
+        f"{cops / 1e9:.3f} GFLOP) [{card}]")
     res["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                      composition_ms=comp_ms, library_ms=None, pixels=n)
-    # K11 at the full image, 10 views, beside torch.sort
+    res["k6_costout"] = dict(ms=costout_ms, plain_ms=costout_plain_ms,
+                             bound_ms=cbound, bound_by=cby, library_ms=None)
+    # K11 at the full image, 10 views, beside torch.sort and torch.topk
     ncc.init_stage_fused(d, st.planes, 0, H * W, out, radius=5,
                          increment=2, use_sa=True, view_major=True)
     pix_major = out.T.contiguous()
     ms = cuda_ms(lambda: k11.select_fused(out, True, st.valid,
                                           params.top_k), 20)
+    pix_ms = cuda_ms(lambda: k11.select_fused(pix_major, False, st.valid,
+                                              params.top_k), 20)
     plain_ms = cuda_ms(lambda: k11.select_plain(pix_major, st.valid,
                                                 params.top_k), 5)
-    lib_ms = cuda_ms(lambda: torch.sort(pix_major, dim=-1), 20)
+    sort_ms = cuda_ms(lambda: torch.sort(pix_major, dim=-1), 20)
+    lib_ms = cuda_ms(lambda: torch.topk(pix_major, k=params.top_k, dim=-1,
+                                        largest=False), 20)
     bound, by, nbytes, ops = k11_bound(H, W, d.num_src)
     log(f"  K11, full image ({d.num_src} views x {H * W} pixels): {ms:.4f} "
-        f"ms a launch, plain (the torch ops it replaced, in a fixed sum "
-        f"order) {plain_ms:.4f} ms, torch.sort of the ({H * W}, "
-        f"{d.num_src}) costs {lib_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-        f"({nbytes / 1e6:.1f} MB) [{card}]")
+        f"ms a launch view-major, {pix_ms:.4f} ms pixel-major (the tile "
+        f"route's), plain (the torch ops it replaced, in a fixed sum "
+        f"order) {plain_ms:.4f} ms, torch.topk(k={params.top_k}, "
+        f"largest=False) of the ({H * W}, {d.num_src}) costs {lib_ms:.4f} "
+        f"ms, torch.sort of them {sort_ms:.4f} ms, bound {bound:.4f} ms by "
+        f"{by} ({nbytes / 1e6:.1f} MB) [{card}]")
     res["k11"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                       library_ms=lib_ms)
+    res["k11_extra"] = dict(pixel_major_ms=pix_ms, sort_ms=sort_ms)
     # the whole stage against the composition it replaced
     for key, args, what in (
             ("stage_round0", (d, st, square), "full image u8, square "
@@ -3997,13 +4158,14 @@ def counted_init_calls():
 
 
 def init_calls_ok(c: dict) -> bool:
-    """Every initial-cost call of a path: one launch of K2's stage form,
-    one K6 launch a WEAK_CHUNK of its weak list, one K11 launch and no
-    torch op but the outputs' allocations; at least one call."""
+    """Every initial-cost call of a path (the serial route): one launch of
+    K2's stage form, one K6 launch a WEAK_CHUNK of its weak list, each with
+    the selection in its epilogue, no K11 launch and no torch op but the
+    outputs' allocations; at least one call."""
     from apde_mvs_tpu_torch.ops.init import WEAK_CHUNK
     calls = c.get("init_calls", [])
     return bool(calls) and all(
-        (k2, k6, k11) == (1, -(-n // WEAK_CHUNK), 1) and not ops
+        (k2, k6, k11) == (1, -(-n // WEAK_CHUNK), 0) and not ops
         for k2, k6, k11, n, ops in calls)
 
 
@@ -4026,7 +4188,7 @@ def k10_calls_ok(c: dict) -> bool:
 
 
 def check_counts(what: str, c: dict, passes: bool = True,
-                 weak: bool = False) -> None:
+                 weak: bool = False, tile: bool = False) -> None:
     """The initial cost's NCC went through K2 (at least one launch, every
     one at the initial cost's or the debug tool's site, none at the strong
     sweep's), K1 launched at no site, the disparity sweeps through K5 (at
@@ -4038,13 +4200,14 @@ def check_counts(what: str, c: dict, passes: bool = True,
     one of each on a ``weak`` path (one that runs APD passes), whose APD
     setup must launch K10 (in ``c["k10_calls"]`` calls, each with the
     launches ``anchor_kernel_phase`` counted a call, K10_A_CALL), K8 and
-    K9, which no other path launches; on a path that runs a pass the
-    selection K11 once an initial cost (as many launches as K2 has at the
-    initial cost's site), and where the path's initial-cost calls were
-    counted in-process (``c["init_calls"]``) each call one launch of K2's
-    stage form, one K6 launch a WEAK_CHUNK of its weak list, one K11 launch
-    and no other torch op; each kernel's launches add up over its sites or
-    modes."""
+    K9, which no other path launches; the selection K11 on no path but
+    the tile route's (``tile``), there once an initial cost (as many
+    launches as K2 has at the initial cost's site), since the other
+    routes select in K2's and K6's epilogues; where the path's
+    initial-cost calls were counted in-process (``c["init_calls"]``) each
+    call one launch of K2's stage form, one K6 launch a WEAK_CHUNK of its
+    weak list, no K11 launch and no other torch op; each kernel's launches
+    add up over its sites or modes."""
     split = k6_chunks(c)
     ok = c["k2"] > 0 and c["k1"] == 0 and not c["sites"] \
         and split is not None \
@@ -4061,9 +4224,11 @@ def check_counts(what: str, c: dict, passes: bool = True,
         ok = ok and stage_calls_ok(c)
     if "init_calls" in c:
         ok = ok and init_calls_ok(c)
-    if passes:
-        # the selection K11: one launch an initial cost, one a pass
+    if tile:
+        # the tile route's selection K11: one launch an initial cost
         ok = ok and c["k11"] > 0 and c["k11"] == c["k2_sites"].get("init", 0)
+    else:
+        ok = ok and c["k11"] == 0
     if weak:
         ok = ok and min(split) > 0 and c["k8"] > 0 and c["k9"] > 0 \
             and k10_calls_ok(c)
@@ -4449,20 +4614,29 @@ def kernel_report(card: str) -> None:
     # the initial cost's stage forms and K11
     from apde_mvs_tpu_torch.ops.cuda import select
     for form, sa in (("square", False), ("SA star", True)):
-        info = ncc.stage_kernel_info(True, sa, 5, 2, FULL_VIEWS - 1)
-        log(f"K2 stage form u8, {form} window, 36 taps, {FULL_VIEWS - 1} "
-            f"views: {info['regs']} registers, {info['local_bytes']} B "
-            f"local (spills), {info['blocks_per_sm']} resident blocks an SM "
-            f"[{card}]")
+        for views, select_mode in ((FULL_VIEWS - 1, True),
+                                   (APD_VIEWS - 1, True),
+                                   (FULL_VIEWS - 1, False)):
+            info = ncc.stage_kernel_info(True, sa, 5, 2, views, select_mode)
+            smem = ncc.stage_smem_bytes(views, 5, 2, sa, select_mode)
+            log(f"K2 stage form u8, "
+                f"{'with the selection' if select_mode else 'cost-out'}, "
+                f"{form} window, 36 taps, {views} views, "
+                f"{ncc.stage_groups(views)} groups a block: {info['regs']} "
+                f"registers, {info['local_bytes']} B local (spills), "
+                f"{smem} B shared a block, {info['blocks_per_sm']} resident "
+                f"blocks an SM [{card}]")
         for views in (APD_VIEWS - 1, FULL_VIEWS - 1):
             info = weak.rescore_kernel_info(True, sa, views)
             log(f"K6 re-score form u8, {'SA' if sa else 'square'} windows, "
                 f"36 + 8 x 9 taps, {views} views: {info['regs']} registers, "
                 f"{info['local_bytes']} B local (spills), "
                 f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
-    info = select.kernel_info()
-    log(f"K11: {info['regs']} registers, {info['local_bytes']} B local "
-        f"(spills), {info['blocks_per_sm']} resident blocks an SM [{card}]")
+    for views in (FULL_VIEWS - 1, 32):
+        info = select.kernel_info(views)
+        log(f"K11, {views} views: {info['regs']} registers, "
+            f"{info['local_bytes']} B local (spills), "
+            f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
     cuobjdump = sass_taps.find_cuobjdump()
     if cuobjdump is None:
         log("SASS a tap: cuobjdump missing, not counted")
@@ -4517,9 +4691,11 @@ LAUNCH_RE = re.compile(r"Sampler kernel launches: (\d+), by site "
                        r"(\d+), K8 (\d+), K9 (\d+))?")
 
 
-def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
+def torchrun(cli_args, what: str, timeout: int = 900,
+             tile: bool = False) -> tuple:
     """The port's engine CLI under ``torch.distributed.run`` with RANKS
-    ranks on the one card; raises on a non-zero exit (a dead rank).
+    ranks on the one card (``tile``: the tile route's, which selects with
+    K11); raises on a non-zero exit (a dead rank).
     Returns (stdout, wall seconds, per-rank pass walls, per-rank launch
     counts as ``read_counts`` gives them)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4542,7 +4718,7 @@ def torchrun(cli_args, what: str, timeout: int = 900) -> tuple:
     sites = {}
     for m in LAUNCH_RE.findall(text):
         sites[int(m[8])] = parsed_counts(m)
-        check_counts(f"{what}, rank {m[8]}", sites[int(m[8])])
+        check_counts(f"{what}, rank {m[8]}", sites[int(m[8])], tile=tile)
     if sorted(sites) != list(range(RANKS)):
         raise AssertionError(f"{what}: launch lines of ranks "
                              f"{sorted(sites)}")
@@ -4621,7 +4797,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
             "--start_iteration", 3, "--no_fuse", "true"]
     text, wall, passes, sites = torchrun(
         [roots["tiled"] if a is None else a for a in args]
-        + ["--views_parallel", "true"], "tile route")
+        + ["--views_parallel", "true"], "tile route", tile=True)
     if text.count("TILED over 2 rank(s)") != RANKS \
             or "Scale-out: tile route over 2 rank(s)" not in text:
         raise AssertionError(f"tile route not taken:\n{text[-3000:]}")
@@ -4648,7 +4824,7 @@ def tile_phase(scene, vp_root: Path, tmp: Path, seed: int,
           for mode in ("classify", "refine")}
     k1 = sum(sites[r]["k1"] for r in range(RANKS))
     anchors = {k: sum(sites[r][k] for r in range(RANKS))
-               for k in ("k8", "k9", "k10", "k11")}
+               for k in ("k6", "k8", "k9", "k10", "k11")}
     log(f"tile route: differing pixels against the serial pass {diff} of "
         f"{gt.size}; median relative depth error tiled {errs['tiled']:.5f}, "
         f"serial {errs['serial']:.5f}; torchrun {wall:.3f} s, rank walls "
@@ -5007,10 +5183,11 @@ def main(argv=None) -> int:
                          max_abs_err=r["max_abs_err"], **r["u8"]))
     k2 = {"route": "cuda", "source": "apde_mvs_tpu_torch/csrc/ncc.cu",
           "replaces": "apde_mvs_tpu/ops/cost.py:248-297 (XLA-compiled jnp)"}
-    # the main paths launch K2's stage form (the initial cost) and the
-    # debug tool its sweep form
+    # the main paths launch K2's stage form (the initial cost: with the
+    # selection on every route but the tile route's, which runs its
+    # cost-out mode) and the debug tool its sweep form
     k2_sweep_form = ex["debug_point"]["k2"]
-    k2_stage = sum(k2_paths.values()) - k2_sweep_form + tl["launches"]
+    k2_stage = sum(k2_paths.values()) - k2_sweep_form
     rows.append(dict(name="K2 fused strong NCC, sweep form (u8 quads)",
                      **k2, launches=k2_sweep_form,
                      max_abs_err=kk["max_abs_err"], **kk["strong"]))
@@ -5020,15 +5197,27 @@ def main(argv=None) -> int:
                      **{k_: v for k_, v in kk["shard"].items()
                         if k_ != "shape"}))
     k2_stage_src = dict(k2, replaces="apde_mvs_tpu/ops/cost.py:140 "
-                        "(precompute_ref_window) and :248-297 with "
-                        "ops/init.py:43-90 (XLA-compiled jnp)")
+                        "(precompute_ref_window), :248-297 and :430 "
+                        "(initial_cost_and_selection) with ops/init.py:43-90"
+                        " (XLA-compiled jnp)")
     for key, what in (("k2", "square window"), ("k2_sa", "SA star window")):
-        rows.append(dict(name=f"K2 stage form, the initial cost over the "
-                              f"full image, {what} (u8 quads)",
+        rows.append(dict(name=f"K2 stage form with the selection in its "
+                              f"epilogue, the initial cost over the full "
+                              f"image, {what} (u8 quads)",
                          **k2_stage_src, launches=k2_stage,
                          max_abs_err=ki["max_abs_err"],
                          **{k_: v for k_, v in ki[key].items()
-                            if k_ != "composition_ms"}))
+                            if k_ not in ("composition_ms", "parent_ms")}))
+        rows.append(dict(name=f"K2 stage form, cost-out mode (the tile "
+                              f"route's), the full image, {what} (u8 "
+                              "quads)",
+                         **dict(k2_stage_src, replaces="apde_mvs_tpu/ops/"
+                                "cost.py:140 (precompute_ref_window) and "
+                                ":248-297 with ops/init.py:43-90 "
+                                "(XLA-compiled jnp)"),
+                         launches=tl["launches"],
+                         max_abs_err=ki["max_abs_err"],
+                         **ki[key + "_costout"]))
     rows.append(dict(name="K2 fused strong NCC, classify chunk (u8 quads)",
                      **k2, launches=k2_sweeps, max_abs_err=kk["max_abs_err"],
                      **kk["chunk"]))
@@ -5117,24 +5306,34 @@ def main(argv=None) -> int:
                               f"{sa_tag}{geo_tag})", **k6_src, launches=n,
                          max_abs_err=kw["k6_max_abs_err"],
                          **kw[key]))
-    # the main paths' re-score runs K6's re-score form, every K6 launch
+    # the main paths' re-score runs K6's re-score form with the selection
+    # (the serial route's), every K6 launch; the tile route's cost-out mode
+    # runs where the tile route has a weak list
+    k6_rescore_src = dict(
+        k6_src, replaces="apde_mvs_tpu/ops/deformable.py:30 "
+        "(WeakRefData.build) and :124-198 with ops/init.py:72-90 and "
+        "cost.py:430 (XLA-compiled jnp)")
     rows.append(dict(
-        name=f"K6 re-score form, the initial cost's re-score, the APD "
-             f"scan's first chunk ({ki['k6']['pixels']} pixels, 1 plane, "
-             "u8 quads, SA)", **dict(
-                 k6_src, replaces="apde_mvs_tpu/ops/deformable.py:30 "
-                 "(WeakRefData.build) and :124-198 with ops/init.py:72-84 "
-                 "(XLA-compiled jnp)"),
-        launches=k6_rescores, max_abs_err=ki["max_abs_err"],
+        name=f"K6 re-score form with the selection in its epilogue, the "
+             f"initial cost's re-score, the APD scan's first chunk "
+             f"({ki['k6']['pixels']} pixels, 1 plane, u8 quads, SA)",
+        **k6_rescore_src, launches=k6_rescores,
+        max_abs_err=ki["max_abs_err"],
         **{k_: v for k_, v in ki["k6"].items()
            if k_ not in ("composition_ms", "pixels")}))
+    rows.append(dict(
+        name=f"K6 re-score form, cost-out mode (the tile route's), the same "
+             f"chunk ({ki['k6']['pixels']} pixels)", **k6_rescore_src,
+        launches=tl["k6"], max_abs_err=ki["max_abs_err"],
+        **ki["k6_costout"]))
     k11_paths = dict(round0=r0["k11"], apd=ap["k11"], exports=ex["k11"],
                      view_parallel=vp["launches"]["K11"], nccl=ag["k11"],
                      batch=bt["k11"], tile_route=tl["k11"])
-    log(f"K11 launches by path: {json.dumps(k11_paths)} [{card}]")
+    log(f"K11 launches by path (the tile route's alone; the others select "
+        f"in K2's and K6's epilogues): {json.dumps(k11_paths)} [{card}]")
     rows.append(dict(
         name="K11 top-k view selection, the full image (10 views, "
-             "600x800)", route="cuda",
+             "600x800; the tile route's)", route="cuda",
         source="apde_mvs_tpu_torch/csrc/select.cu",
         replaces="apde_mvs_tpu/ops/cost.py:430 (initial_cost_and_selection)"
                  " with ops/init.py:85-90 (XLA-compiled jnp)",

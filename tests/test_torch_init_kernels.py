@@ -1,16 +1,20 @@
 """The initial cost's kernels (K2's stage form, ops/cuda/ncc.py; K6's
 re-score form, ops/cuda/weak.py; the selection K11, ops/cuda/select.py)
-around ``init.initial_cost``: the stage's calls (one of each form, one
-re-score a WEAK_CHUNK, and none of the torch-op window, reference side or
-selection it replaced), the wrappers' refusals, the layouts and the tile
-route's compact blocks on the CPU, the profiler's wrapping; and, on a
-card, each kernel against its plain version bit for bit and the stage's
-launches.
+around ``init.initial_cost``: the stage's calls (on the serial route one
+call of K2's stage form with the selection in its epilogue and one of K6's
+re-score form with it a WEAK_CHUNK, no K11, and none of the torch-op
+window, reference side or selection it replaced), the selection modes'
+writes against their compositions (K11's plain selection of the cost-out
+modes' plain costs), the tile route against the serial route, the
+wrappers' refusals, the layouts and the tile route's compact blocks on the
+CPU, the profiler's wrapping; and, on a card, each kernel against its plain
+version bit for bit and the stage's launches.
 
 Cases run on the 24x32 synthetic scene with 4 source views of
 tests/test_torch_weak.py (every other pixel weak, seeded anchors and
-selections, SA segment ids or none, u8 or f32 tables). No JAX: on a machine
-with a card the file runs with ``--noconftest``:
+selections, SA segment ids or none, u8 or f32 tables), its views cycled to
+1, 5, 10 and 32 where a test says so. No JAX: on a machine with a card the
+file runs with ``--noconftest``:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_init_kernels.py
@@ -28,6 +32,7 @@ from apde_mvs_tpu_torch.ops.cuda import ncc as k2
 from apde_mvs_tpu_torch.ops.cuda import select as k11
 from apde_mvs_tpu_torch.ops.cuda import weak as k6
 from apde_mvs_tpu_torch.ops.cuda import weak_sweep as k7
+from apde_mvs_tpu_torch.parallel.tile_pass import RowShard
 from apde_mvs_tpu_torch.testing.kernel_cases import cycled_views
 from test_torch_weak import H, W, _case, _sweep_state
 
@@ -70,11 +75,12 @@ def _fail(*a, **kw):
 
 @pytest.mark.parametrize("weak", [False, True])
 def test_initial_cost_makes_one_call_of_each_stage_form(weak, monkeypatch):
-    """One call of K2's stage form (the image's pixels, CHUNK of them at a
-    time on the CPU: one here), one of K6's re-score form a WEAK_CHUNK, one
-    of K11; neither the torch-op window (`cost.precompute_ref_window`) nor
-    the reference side (`deformable.WeakRefData.build`) nor K2's and K6's
-    sweep forms."""
+    """On the serial route one call of K2's stage form with the selection
+    in its epilogue (the image's pixels, CHUNK of them at a time on the
+    CPU: one here) and one of K6's re-score form with it a WEAK_CHUNK; no
+    selection call (K11), no cost-out mode (the tile route's), neither the
+    torch-op window (`cost.precompute_ref_window`) nor the reference side
+    (`deformable.WeakRefData.build`) nor K2's and K6's sweep forms."""
     c, state, params = _setup()
     calls = []
 
@@ -85,22 +91,179 @@ def test_initial_cost_makes_one_call_of_each_stage_form(weak, monkeypatch):
             calls.append(name)
             return fn(*a, **kw)
         monkeypatch.setattr(mod, name, run)
-    for mod, name in ((k2, "init_stage_fused"), (k6, "rescore_fused"),
-                      (k11, "select_fused")):
+    for mod, name in ((k2, "init_stage_select_fused"),
+                      (k6, "rescore_select_fused")):
         counted(mod, name)
     monkeypatch.setattr(tcost, "precompute_ref_window", _fail)
     monkeypatch.setattr(tdef.WeakRefData, "build", _fail)
     monkeypatch.setattr(k2, "ncc_strong_fused", _fail)
     monkeypatch.setattr(k6, "weak_fused", _fail)
+    monkeypatch.setattr(k2, "init_stage_fused", _fail)
+    monkeypatch.setattr(k6, "rescore_fused", _fail)
+    monkeypatch.setattr(k11, "select_fused", _fail)
     monkeypatch.setattr(tinit, "WEAK_CHUNK", 100)
     args = (c.x, c.y, c.anchors) if weak else ()
     out = tinit.initial_cost(c.data, state, params, *args)
     n = -(-c.x.numel() // 100) if weak else 0
-    assert calls == ["init_stage_fused"] + ["rescore_fused"] * n \
-        + ["select_fused"]
+    assert calls == ["init_stage_select_fused"] \
+        + ["rescore_select_fused"] * n
     assert out.costs.shape == (H, W) and out.selected.shape == (H, W, S)
     # fresh maps: the prior selections the re-score read are untouched
     assert out.selected is not state.selected
+
+
+def _views(name: str, views: int):
+    """The case ``name`` with its 4 source views cycled to ``views``, the
+    prior selections cycled alike; a padded image's invalid border (its
+    last 3 rows and 5 columns) where ``name`` has "pad", NaN and
+    degenerate (w = 0) planes among the others where it has "nan"."""
+    c, state, params = _setup(name.replace("-pad", "").replace("-nan", ""))
+    data, sel = c.data, state.selected
+    if views != S:
+        data, idx = cycled_views(data, views)
+        sel = sel[..., idx].contiguous()
+    planes = state.planes.clone()
+    valid = state.valid.clone()
+    if "pad" in name:
+        valid[-3:] = False
+        valid[:, -5:] = False
+    if "nan" in name:
+        planes.view(-1, 4)[0::13, 3] = 0.0
+        planes.view(-1, 4)[1::17] = float("nan")
+    state = state.replace(selected=sel, planes=planes, valid=valid)
+    return c, data, state, params
+
+
+SELECT_CASES = [f"{v}-{n}" for v in (1, 5, 10, 32)
+                for n in ("sa-u8", "u8-pad", "sa-f32-nan")]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_stage_selection_is_k11_of_the_stage_costs(case):
+    """K2's stage form with the selection (`init_stage_select_fused`) on
+    pixel ranges of 100 (a ragged last one) writes, at exactly those
+    pixels of the state's new maps, K11's plain selection of the cost-out
+    mode's plain costs, bit for bit: at 1, 5, 10 and 32 views, on a padded
+    image's invalid border and with NaN and degenerate planes."""
+    views, name = case.split("-", 1)
+    c, data, state, params = _views(name, int(views))
+    sa = "sa" in name
+    n = H * W
+    want_map, want_sel = k11.select_plain(
+        k2.init_stage_plain(data, state.planes, 0, n, 5, 2, sa),
+        state.valid, params.top_k)
+    cost_map = torch.full((H, W), -1.0)
+    sel = torch.zeros((H, W, int(views)), dtype=torch.bool)
+    for lo in range(0, n - 130, 100):
+        k2.init_stage_select_fused(data, state.planes, lo, lo + 100,
+                                   state.valid, params.top_k, cost_map, sel,
+                                   radius=5, increment=2, use_sa=sa)
+    done = (n - 130 + 99) // 100 * 100
+    assert torch.equal(_bits(cost_map).view(-1)[:done],
+                       _bits(want_map).view(-1)[:done])
+    assert (cost_map.view(-1)[done:] == -1.0).all()
+    assert torch.equal(sel.view(n, -1)[:done], want_sel.view(n, -1)[:done])
+    assert not sel.view(n, -1)[done:].any()
+    k2.init_stage_select_fused(data, state.planes, done, n, state.valid,
+                               params.top_k, cost_map, sel, radius=5,
+                               increment=2, use_sa=sa)
+    assert torch.equal(_bits(cost_map), _bits(want_map))
+    assert torch.equal(sel, want_sel)
+    if "pad" in name:
+        assert (cost_map[~state.valid] == k11.INVALID_COST).all()
+        assert not sel[~state.valid].any()
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_rescore_selection_is_k11_of_the_rescore_costs(case):
+    """K6's re-score form with the selection (`rescore_select_fused`) on
+    list chunks of 50 (a ragged last one) writes, at exactly the weak
+    pixels of the state's new maps, K11's plain selection of the cost-out
+    mode's plain costs, bit for bit, and leaves the prior selections it
+    reads as they were."""
+    views, name = case.split("-", 1)
+    c, data, state, params = _views(name, int(views))
+    kw = _rescore_kw(params)
+    prior = state.selected.clone()
+    costs = k6.rescore_plain(data, state.planes, state.selected, c.x, c.y,
+                             c.anchors, **kw)
+    flat = c.y.long() * W + c.x.long()
+    want_cost, want_sel = k11.select_rows_plain(
+        costs, state.valid.view(-1)[flat], params.top_k)
+    cost_map = torch.full((H, W), -1.0)
+    sel = torch.zeros((H, W, int(views)), dtype=torch.bool)
+    m = c.x.numel()
+    for lo in range(0, m, 50):
+        k6.rescore_select_fused(data, state.planes, state.selected, c.x,
+                                c.y, c.anchors, lo, min(lo + 50, m),
+                                state.valid, params.top_k, cost_map, sel,
+                                **kw)
+    assert torch.equal(_bits(cost_map.view(-1)[flat]), _bits(want_cost))
+    assert torch.equal(sel.view(H * W, -1)[flat], want_sel)
+    rest = torch.ones(H * W, dtype=torch.bool)
+    rest[flat] = False
+    assert (cost_map.view(-1)[rest] == -1.0).all()
+    assert not sel.view(H * W, -1)[rest].any()
+    assert torch.equal(state.selected, prior)
+    # the whole stage: the composition of the cost-out modes and K11
+    full = k2.init_stage_plain(data, state.planes, 0, H * W, 5, 2,
+                               bool(params.use_sa))
+    full[flat] = costs
+    want_map, want_all = k11.select_plain(full, state.valid, params.top_k)
+    out = tinit.initial_cost(data, state, params, c.x, c.y, c.anchors)
+    assert torch.equal(_bits(out.costs), _bits(want_map))
+    assert torch.equal(out.selected, want_all)
+
+
+class _Recorded(RowShard):
+    """A rank of a row-sharded pass run alone: its gathers record its part
+    in ``parts`` (by call) and return it zero-padded to the whole."""
+
+    def __init__(self, rank, world, parts):
+        super().__init__(rank, world)
+        self.parts, self.calls = parts, 0
+
+    def gather(self, t, counts):
+        self.parts.setdefault(self.calls, {})[self.rank] = t.clone()
+        self.calls += 1
+        return torch.zeros((sum(counts),) + tuple(t.shape[1:]),
+                           dtype=t.dtype)
+
+
+class _Replayed(RowShard):
+    """A rank whose gathers join every rank's recorded parts, in rank
+    order: the all-gather of ``distributed.all_gather_parts``."""
+
+    def __init__(self, rank, world, parts):
+        super().__init__(rank, world)
+        self.parts, self.calls = parts, 0
+
+    def gather(self, t, counts):
+        got = self.parts[self.calls]
+        self.calls += 1
+        assert torch.equal(got[self.rank], t)
+        return torch.cat([got[r] for r in range(self.world)])
+
+
+@pytest.mark.parametrize("name", ["sa-u8", "u8"])
+@pytest.mark.parametrize("world", [1, 3])
+def test_tile_route_equals_serial_route(name, world):
+    """The tile route's initial cost (the cost-out modes on a rank's rows
+    and slice of the weak list, the gather, the re-scored costs placed,
+    K11 on the whole image) equals the serial route's (the selection
+    modes), bit for bit, on one rank and on each of three."""
+    c, state, params = _setup(name)
+    args = (c.x, c.y, c.anchors)
+    serial = tinit.initial_cost(c.data, state, params, *args)
+    parts = {}
+    for rank in range(world):
+        tinit.initial_cost(c.data, state, params, *args,
+                           shard=_Recorded(rank, world, parts))
+    for rank in range(world):
+        tiled = tinit.initial_cost(c.data, state, params, *args,
+                                   shard=_Replayed(rank, world, parts))
+        assert torch.equal(_bits(tiled.costs), _bits(serial.costs))
+        assert torch.equal(tiled.selected, serial.selected)
 
 
 @pytest.mark.parametrize("view_major", [False, True])
@@ -145,6 +308,22 @@ def test_stage_forms_write_either_layout(view_major):
     cost_map, sel = k11.select_fused(out, view_major, state.valid, 4)
     want_map, want_sel = k11.select_plain(got, state.valid, 4)
     assert torch.equal(cost_map, want_map) and torch.equal(sel, want_sel)
+
+
+@pytest.mark.parametrize("views,before", [(1, 1.0), (4, 1.0), (5, 1.5),
+                                          (8, 1.0), (10, 2.0), (32, 4.0)])
+def test_stage_form_builds_each_window_once(views, before):
+    """The windows K2's stage form builds a pixel, counted from its grid: a
+    block owning all S views of whole groups builds each once, where a
+    block of 8 consecutive (group, view) pairs built every window of the
+    groups its pairs span (600x800; a ragged image too)."""
+    n = 600 * 800
+    assert k2.window_builds(n, views) == pytest.approx(before)
+    g = k2.stage_groups(views)
+    assert g == (2 if views >= 16 else 4)
+    for pixels in (n, 1000, 31):
+        assert k2.window_builds(pixels, views, g) == 1.0
+    assert k2.window_builds(1000, 10) > 1.0
 
 
 def test_rescore_plain_is_the_weak_sweeps_reference_side():
@@ -234,6 +413,48 @@ def _bad_select(what, c, state):
     k11.select_fused(costs, view_major, valid, top_k)
 
 
+def _bad_select_modes(what, c, state):
+    kw = _rescore_kw(_params(True))
+    cost_map = torch.empty((H, W))
+    sel = torch.empty((H, W, S), dtype=torch.bool)
+    valid, top_k = state.valid, 4
+    n = c.x.numel()
+    if what == "stage select valid":
+        valid = valid.float()
+    elif what == "stage select top_k":
+        top_k = -1
+    elif what == "stage select cost map":
+        cost_map = torch.empty((H * W,))
+    elif what == "stage select selections":
+        sel = torch.empty((H, W, S + 1), dtype=torch.bool)
+    elif what == "stage select strided":
+        sel = torch.empty((W, H, S), dtype=torch.bool).transpose(0, 1)
+    elif what == "stage select range":
+        k2.init_stage_select_fused(c.data, state.planes, 0, H * W + 1,
+                                   valid, top_k, cost_map, sel, radius=5,
+                                   increment=2, use_sa=True)
+        return
+    if what.startswith("stage"):
+        k2.init_stage_select_fused(c.data, state.planes, 0, H * W, valid,
+                                   top_k, cost_map, sel, radius=5,
+                                   increment=2, use_sa=True)
+        return
+    prior = state.selected
+    if what == "rescore select aliased":
+        sel = prior
+    elif what == "rescore select view":
+        sel = prior.view(H, W, S)
+    elif what == "rescore select valid":
+        valid = valid[:, :-1]
+    elif what == "rescore select top_k":
+        top_k = -2
+    elif what == "rescore select cost map":
+        cost_map = cost_map.double()
+    k6.rescore_select_fused(c.data, state.planes, prior, c.x, c.y,
+                            c.anchors, 0, n, valid, top_k, cost_map, sel,
+                            **kw)
+
+
 BAD = {
     **{w: _bad_stage for w in (
         "stage out shape", "stage out dtype", "stage planes",
@@ -245,6 +466,12 @@ BAD = {
     **{w: _bad_select for w in (
         "select valid", "select costs shape", "select top_k",
         "select 33 views", "select strided")},
+    **{w: _bad_select_modes for w in (
+        "stage select valid", "stage select top_k", "stage select cost map",
+        "stage select selections", "stage select strided",
+        "stage select range", "rescore select aliased",
+        "rescore select view", "rescore select valid",
+        "rescore select top_k", "rescore select cost map")},
 }
 
 
@@ -258,7 +485,8 @@ def test_wrappers_reject_bad_arguments(what):
 def test_profile_pass_times_the_stage_forms_and_restores_them():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fns = ((k2, "init_stage_fused"), (k6, "rescore_fused"),
-           (k11, "select_fused"))
+           (k11, "select_fused"), (k2, "init_stage_select_fused"),
+           (k6, "rescore_select_fused"))
     before = [getattr(m, a) for m, a in fns]
     with pp.stage_ranges({}):
         assert all(getattr(m, a) is not f for (m, a), f in zip(fns, before))
@@ -301,11 +529,14 @@ CARD_CASES = ("u8", "sa-u8", "f32", "sa-f32", "sa-u8-s32", "u8-s1",
 
 
 def _card(name, device):
-    c, state, params = _setup(name.replace("-s32", "").replace("-s1", "")
-                              .replace("-taps25", ""), device)
+    parts = name.split("-")
+    views = [int(p[1:]) for p in parts if p[0] == "s" and p[1:].isdigit()]
+    c, state, params = _setup("-".join(
+        p for p in parts if p != "taps25" and not (
+            p[0] == "s" and p[1:].isdigit())), device)
     data, sel = c.data, state.selected
-    if "s32" in name or "s1" in name:
-        data, idx = cycled_views(data, 32 if "s32" in name else 1)
+    if views and views[0] != S:
+        data, idx = cycled_views(data, views[0])
         sel = sel[..., idx].contiguous()
     state = state.replace(selected=sel, planes=state.planes.contiguous())
     if "taps25" in name:
@@ -386,18 +617,71 @@ def test_k11_matches_plain_on_crafted_rows_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("views", [1, 5, 10, 32])
+@pytest.mark.parametrize("name", ["u8", "sa-u8", "f32", "sa-f32"])
+def test_selection_epilogues_match_plain_on_card(cuda_device, name, views):
+    """K2's stage form and K6's re-score form with the selection in their
+    epilogues against their plain versions, bit for bit, at 1, 5, 10 and
+    32 views, square and SA, u8 and f32 tables; the stage form also on a
+    ragged range at an offset (its selections' bytes not 16-byte
+    aligned)."""
+    c, data, state, params = _card(f"{name}-s{views}", cuda_device)
+    s, n = data.num_src, H * W
+    r, inc, sa = params.strong_radius, params.strong_increment, \
+        bool(params.use_sa)
+    valid = state.valid.clone()
+    valid[-2:] = False
+    top_k = params.top_k
+    want_cost, want_sel = k2.init_stage_select_plain(
+        data, state.planes, 0, n, valid, top_k, r, inc, sa)
+    cost_map = torch.full((H, W), -1.0, device=cuda_device)
+    sel = torch.zeros((H, W, s), dtype=torch.bool, device=cuda_device)
+    k2.init_stage_select_fused(data, state.planes, 0, n, valid, top_k,
+                               cost_map, sel, radius=r, increment=inc,
+                               use_sa=sa)
+    assert torch.equal(_bits(cost_map.view(-1)), _bits(want_cost))
+    assert torch.equal(sel.view(n, s), want_sel)
+    cost_map = torch.full((H, W), -1.0, device=cuda_device)
+    sel = torch.zeros((H, W, s), dtype=torch.bool, device=cuda_device)
+    k2.init_stage_select_fused(data, state.planes, 37, n - 11, valid, top_k,
+                               cost_map, sel, radius=r, increment=inc,
+                               use_sa=sa)
+    assert torch.equal(_bits(cost_map.view(-1)[37:n - 11]),
+                       _bits(want_cost[37:n - 11]))
+    assert torch.equal(sel.view(n, s)[37:n - 11], want_sel[37:n - 11])
+    assert (cost_map.view(-1)[:37] == -1).all() \
+        and (cost_map.view(-1)[n - 11:] == -1).all()
+    assert not sel.view(n, s)[:37].any() and not sel.view(n, s)[n - 11:].any()
+    # K6's re-score form with the selection, over K2's maps
+    kw = _rescore_kw(params)
+    m = c.x.numel()
+    wcost, wsel = k6.rescore_select_plain(data, state.planes, state.selected,
+                                          c.x, c.y, c.anchors, valid, top_k,
+                                          **kw)
+    for lo, hi in ((0, m), (5, m - 3)):
+        k6.rescore_select_fused(data, state.planes, state.selected, c.x, c.y,
+                                c.anchors, lo, hi, valid, top_k, cost_map,
+                                sel, **kw)
+        flat = c.y[lo:hi].long() * W + c.x[lo:hi].long()
+        assert torch.equal(_bits(cost_map.view(-1)[flat]),
+                           _bits(wcost[lo:hi]))
+        assert torch.equal(sel.view(n, s)[flat], wsel[lo:hi])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sa", [False, True])
 def test_initial_cost_launches_each_form_once_on_card(cuda_device, sa):
-    """On the card the stage is one launch of K2's stage form, one K6
-    launch a WEAK_CHUNK and one K11 launch, and equals its plain versions
-    run on the same tensors."""
+    """On the card the stage is one launch of K2's stage form and one K6
+    launch a WEAK_CHUNK, each with the selection in its epilogue, and no
+    K11 launch (the tile route's), and equals its plain versions run on
+    the same tensors."""
     c, data, state, params = _card("sa-u8" if sa else "u8", cuda_device)
     k2.reset_launches()
     k6.reset_launches()
     k11.reset_launches()
     out = tinit.initial_cost(data, state, params, c.x, c.y, c.anchors)
     assert (k2.site_launches, k6.launches, k11.launches) == (
-        {"init": 1}, -(-c.x.numel() // tinit.WEAK_CHUNK), 1)
+        {"init": 1}, -(-c.x.numel() // tinit.WEAK_CHUNK), 0)
     n = H * W
     full = k2.init_stage_plain(data, state.planes, 0, n, 5, 2, sa)
     full[c.y.long() * W + c.x.long()] = k6.rescore_plain(

@@ -451,24 +451,38 @@ def test_weak_sweep_makes_two_k6_calls_a_chunk(monkeypatch):
 
 def test_initial_cost_rescore_makes_one_k6_call_a_chunk(monkeypatch):
     """The initial cost's re-score: one call of K6's re-score form a
-    WEAK_CHUNK of the weak list, its items in order, and no call of the
-    weak-sweep form."""
+    WEAK_CHUNK of the weak list, its items in order, writing at the
+    pixels' raster positions (on the serial route the selection mode,
+    whose epilogue writes the pixels' selections), and no call of the
+    cost-out mode (the tile route's) or of the weak-sweep form."""
     c = _case("u8")
     calls = []
-    fused = k6.rescore_fused
+    fused = k6.rescore_select_fused
 
     def counted(*a, **kw):
-        calls.append((a[6], a[7], kw.get("col0") is None))
+        calls.append((a[6], a[7]))
         return fused(*a, **kw)
-    monkeypatch.setattr(k6, "rescore_fused", counted)
+    monkeypatch.setattr(k6, "rescore_select_fused", counted)
+    monkeypatch.setattr(k6, "rescore_fused", _fail)
     monkeypatch.setattr(k6, "weak_fused", _fail)
     monkeypatch.setattr(k1, "sample_packed", _fail)
     monkeypatch.setattr(tinit, "WEAK_CHUNK", 100)
     state = _sweep_state(c)
-    tinit.initial_cost(c.data, state, PatchMatchParams(use_sa=False), c.x,
-                       c.y, c.anchors)
+    params = PatchMatchParams(use_sa=False)
+    out = tinit.initial_cost(c.data, state, params, c.x, c.y, c.anchors)
     n = c.x.numel()
-    assert calls == [(lo, min(lo + 100, n), True) for lo in range(0, n, 100)]
+    assert calls == [(lo, min(lo + 100, n)) for lo in range(0, n, 100)]
+    # the re-score's selections land at the pixels' raster positions
+    cost, sel = k6.rescore_select_plain(
+        c.data, state.planes, state.selected, c.x, c.y, c.anchors,
+        state.valid, params.top_k, strong_radius=params.strong_radius,
+        strong_increment=params.strong_increment,
+        weak_radius=params.weak_radius,
+        weak_increment=params.weak_increment, use_sa=False)
+    yl, xl = c.y.long(), c.x.long()
+    assert torch.equal(out.costs[yl, xl].view(torch.int32),
+                       cost.view(torch.int32))
+    assert torch.equal(out.selected[yl, xl], sel)
 
 
 def test_profile_pass_times_k6_and_restores_it():
