@@ -69,24 +69,36 @@
 // reference side through device memory and this kernel's weak-sweep form
 // with 5 of 32 lanes busy. It takes the weak list (x, y, anchors), the
 // state's planes and prior selections, builds each pixel's reference side
-// in shared memory with K7's `build_weak_ref` (weak_common.cuh) and costs
-// the pixel's own plane against every view. On the serial and view-parallel
-// routes an epilogue runs the initial cost's selection (select_common.cuh's,
-// as K2's stage form runs it) on the pixel's S costs, which sit in
-// consecutive lanes of one warp: the pixel's first lane writes the pixel's
-// entry of the state's new cost map and its S selections at its raster
-// index, over what K2's epilogue wrote there (in stream order); the prior
-// selections it reads are another tensor. The tile route's cost-out mode
-// writes the S costs into a compact block for its gather. The pixels of a
-// list are distinct, so no two warps write one cell. A warp takes 32 / S
-// pixels (at most 8): it builds their sides one after another, then each
-// lane costs one (pixel, view).
+// in shared memory and costs the pixel's own plane against every view. On
+// the serial and view-parallel routes an epilogue runs the initial cost's
+// selection (select_common.cuh's, as K2's stage form runs it) on the
+// pixel's S costs, which sit in consecutive lanes of one warp: the pixel's
+// first lane writes the pixel's entry of the state's new cost map and its
+// S selections at its raster index, over what K2's epilogue wrote there (in
+// stream order); the prior selections it reads are another tensor. The
+// tile route's cost-out mode writes the S costs into a compact block for
+// its gather. The pixels of a list are distinct, so no two warps write one
+// cell.
+// Layout: a block takes 4 G pixels, G = 32 / S a warp (at most 8), and its
+// 128 threads build their reference sides together (weak_common.cuh's
+// `build_weak_refs`, with the per-tap code of K7's `build_weak_ref`): every
+// pixel's and anchor's coordinates and segment ids read at once, the valid
+// anchors listed, every centre tap and every valid anchor's tap spread over
+// the threads with 8 loads in flight a thread, each window sum in tap order
+// on a thread of its own, the valid anchors' selections read as words;
+// then lane l of warp w costs pixel w G + l / S against view l % S. An
+// anchor that is not valid is not built: `deformable_cost` reads nothing of
+// it but its validity. A warp building its G pixels' sides alone, with no
+// block barrier, was timed against this layout and was 1-7% slower at the
+// APD scan's chunks and a real pass's list (PERF.md §6).
 // Bound: operations (K6's counts on the pixels' own planes and the
-// reference side's 4 a tap, chip_smoke.py's `rescore_bound`): 0.53 GFLOP
-// at the APD scan's 65,536-pixel chunk, 0.008 ms; the kernel is held back
-// by its pixels' reference sides, each a chain of dependent loads and
-// serial sums in tap order.
-//
+// reference side's 4 a tap of the windows the costs read: 36 a pixel and 9
+// a valid anchor; chip_smoke.py's `rescore_bound`): ~0.5 GFLOP at the APD
+// scan's 65,536-pixel chunk under SA, where no anchor is valid. What holds
+// the kernel back is the chain a block waits on before its lanes cost
+// (three dependent global reads and a 36-term sum in tap order) and the
+// costs' serial gathers; the layout makes that chain one side's, not G.
+
 // Bound: operations, counted as chip_smoke.py counts them (K6_OPS_*,
 // `k6_bound`): per evaluated (pixel, plane, view) K2's 90 a pair and 38 a
 // tap of the centre window (40 with SA weights), and per counting anchor
@@ -384,38 +396,35 @@ struct RescoreParams {
   float img_h;
 };
 
-// floats of a warp's slice in the re-score form: its pixels' reference
-// sides, then K6's (8, 32) column of anchor costs a lane
-__host__ __device__ inline size_t rescore_warp_floats(int num_views,
-                                                      int num_taps,
-                                                      int num_anchor_taps,
-                                                      bool sa) {
-  return static_cast<size_t>(rescore_pixels(num_views)) *
-             weak_ref_floats(num_taps, num_anchor_taps, sa) +
-         kAnchors * 32;
-}
-
-// the camera table, the two windows' offsets, then one slice a warp
+// The re-score form's shared memory: the camera table, the two windows'
+// offsets, the block's 4 G pixels' reference sides (one `WeakRefSlice`
+// each), a warp's (8, 32) column of anchor costs a lane, and the block's
+// `build_weak_refs` scratch.
 __host__ __device__ inline size_t rescore_smem_floats(int num_views,
                                                       int num_taps,
                                                       int num_anchor_taps,
                                                       bool sa) {
+  const int g = rescore_pixels(num_views);
   return static_cast<size_t>(num_views + 1) * kWeakCamStride +
          2 * static_cast<size_t>(num_taps + num_anchor_taps) +
-         kWarps * rescore_warp_floats(num_views, num_taps, num_anchor_taps,
-                                      sa);
+         kWarps * static_cast<size_t>(
+                      g * weak_ref_floats(num_taps, num_anchor_taps, sa) +
+                      kAnchors * 32) +
+         weak_refs_scratch_words(kWarps * g);
 }
 
-// A warp takes G = rescore_pixels(S) consecutive pixels of the list and
-// builds their reference sides one after another (weak_common.cuh's
-// `build_weak_ref`, as K7 does); then lane l costs pixel l / S's own plane
-// (the state's at the pixel) against view l % S (`deformable_cost`), so
-// that G S of the 32 lanes work (30 at the main path's 5 views, where the
-// weak-sweep form's one pixel a warp had 5).
+// A block takes 4 G consecutive pixels of the list, G = rescore_pixels(S) a
+// warp, and builds their reference sides together (weak_common.cuh's
+// `build_weak_refs`, its 128 threads over the block's taps and sums); then
+// lane l of warp w costs the block's pixel w G + l / S, its own plane (the
+// state's at the pixel) against view l % S (`deformable_cost`), so that G S
+// of the 32 lanes work (30 at the main path's 5 views).
 template <typename Q, bool kSA, bool kMain>
 __global__ void __launch_bounds__(kThreads)
 rescore_weak_kernel(const RescoreParams p) {
   extern __shared__ float smem[];
+  constexpr int kT = kMain ? kMainTaps : 0;
+  constexpr int kTA = kMain ? kMainAnchorTaps : 0;
   const int S = p.num_views;
   const int T = kMain ? kMainTaps : p.num_taps;
   const int TA = kMain ? kMainAnchorTaps : p.num_anchor_taps;
@@ -428,8 +437,11 @@ rescore_weak_kernel(const RescoreParams p) {
   float* s_cdy = s_cdx + T;
   float* s_adx = s_cdy + T;
   float* s_ady = s_adx + TA;
-  float* slice = s_ady + TA + warp * (G * pf + kAnchors * 32);
-  float* w_acost = slice + G * pf;   // [8][32]
+  float* s_sides = s_ady + TA;                        // (4 G, pf)
+  float* w_acost = s_sides + kWarps * G * pf + warp * kAnchors * 32;
+  const WeakRefsScratch sc = weak_refs_scratch(
+      reinterpret_cast<int*>(s_sides + kWarps * (G * pf + kAnchors * 32)),
+      kWarps * G);
 
   // ---- the cameras and the two windows' offsets, once a block ----------
   for (int i = threadIdx.x; i < (S + 1) * kWeakCamStride; i += kThreads) {
@@ -453,40 +465,35 @@ rescore_weak_kernel(const RescoreParams p) {
       s_ady[i] = static_cast<float>(ai * iy - ar);
     }
   }
+  if (threadIdx.x == 0) *sc.count = 0;
   __syncthreads();
 
-  const int64_t b0 = (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * G;
-  if (b0 >= p.num_pix) return;
-  const int n = p.num_pix - b0 < G ? static_cast<int>(p.num_pix - b0) : G;
-  // ---- the warp's pixels' reference sides, one after another ------------
-  const int mine = lane / S;   // this lane's pixel, n or more: none
-  WeakRef ref = {};
-  int mx = 0, my = 0;
-  auto no_mark = [](int, bool, int, int) { return false; };
-  for (int g = 0; g < n; ++g) {
-    const int64_t b = b0 + g;
-    const int xi = __ldg(p.x + b);
-    const int yi = __ldg(p.y + b);
-    const WeakRef r = build_weak_ref<kSA>(
-        p.src, xi, yi, p.anchors + b * (kAnchors + 1) * 2, T, TA, s_cdx,
-        s_cdy, s_adx, s_ady, weak_ref_slice<kSA>(slice + g * pf, T, TA),
-        lane, no_mark);
-    if (g == mine) {
-      ref = r;
-      mx = xi;
-      my = yi;
-    }
-  }
-  __syncwarp();
-  const bool live = mine < n;
+  // ---- the block's pixels' reference sides, built together --------------
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kWarps * G;
+  const int64_t left = p.num_pix - b0;
+  const int n = left < kWarps * G ? static_cast<int>(left) : kWarps * G;
+  build_weak_refs<kSA, kThreads, kT, kTA>(
+      p.src, p.x + b0, p.y + b0, p.anchors + b0 * (kAnchors + 1) * 2, n, T,
+      TA, s_cdx, s_cdy, s_adx, s_ady, s_sides, pf, sc, threadIdx.x);
+  // the warp's pixels: those past the list have nothing to cost
+  const int wn = n - warp * G < G ? n - warp * G : G;
+  const int mine = lane / S;   // this lane's pixel, wn or more: none
+  const bool live = mine < wn;
   const bool select = p.cost_out != nullptr;
-  if (!live && !select) return;
+  if (!live && (!select || wn <= 0)) return;
 
   // ---- lane l: pixel l / S's own plane against view l % S ----------------
   const int s = lane - mine * S;
-  const int64_t at = static_cast<int64_t>(my) * p.src.grid_w + mx;
+  const int g = warp * G + mine;   // the block's pixel
   float cost = kCostMax;
+  int64_t at = 0;
   if (live) {
+    const int mx = sc.x[g], my = sc.y[g];
+    at = static_cast<int64_t>(my) * p.src.grid_w + mx;
+    PixelWindow cwin;
+    WeakAnchors an;
+    built_weak_ref<kSA>(sc, s_sides, pf, g, T, TA, s_cdx, s_cdy, s_adx,
+                        s_ady, &cwin, &an);
     const float* plane = p.planes + 4 * at;
     const float* c = s_cam + s * kWeakCamStride;
     const float* r = s_cam + S * kWeakCamStride;
@@ -496,15 +503,12 @@ rescore_weak_kernel(const RescoreParams p) {
     const Q* __restrict__ tab =
         static_cast<const Q*>(p.quads) +
         static_cast<int64_t>(s) * p.quad_h * p.src.width * 4;
-    const float x = static_cast<float>(mx);
-    const float y = static_cast<float>(my);
-    cost = deformable_cost<Q, kSA, kMain ? kMainTaps : 0,
-                           kMain ? kMainAnchorTaps : 0>(
-        tab, h, x, y, T, TA, ref.cwin, ref.an, s, w_acost + lane,
-        p.src.width, p.quad_h, p.img_w, p.img_h);
+    cost = deformable_cost<Q, kSA, kT, kTA>(
+        tab, h, static_cast<float>(mx), static_cast<float>(my), T, TA, cwin,
+        an, s, w_acost + lane, p.src.width, p.quad_h, p.img_w, p.img_h);
   }
   if (!select) {
-    const int64_t column = p.scatter ? at : b0 + mine;
+    const int64_t column = p.scatter ? at : b0 + g;
     p.out[s * p.view_stride + column * p.pixel_stride] = cost;
     return;
   }

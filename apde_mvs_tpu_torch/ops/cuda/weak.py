@@ -37,8 +37,12 @@ kernel computes the same sequence with every operation rounded on its own,
 so the two agree bit for bit on the card.
 
 The re-score form is the initial cost's re-score of the weak list: the
-kernel builds each pixel's reference side itself, as K7 does, from the
-weak list, its anchors, the state's planes and prior selections. Its
+kernel builds each pixel's reference side itself, from the weak list, its
+anchors, the state's planes and prior selections: a block takes 4 G
+pixels, G = `rescore_pixels` a warp, and builds their sides together (the
+taps and sums of K7's reference side, only the parts the costs read: the
+centres and the valid anchors), then costs each (pixel, view) on a lane.
+Its
 selection mode, ``rescore_select_fused`` (plain version
 ``rescore_select_plain``: K11's plain selection of ``rescore_plain``'s
 costs), runs the pixel's top-k view selection in an epilogue and writes
@@ -79,6 +83,8 @@ MAX_VIEWS = ncc.MAX_VIEWS
 CAM_STRIDE = sweep.CAM_STRIDE   # the camera table is K5's
 ANCHORS = 8
 SMEM_LIMIT = ncc.SMEM_LIMIT
+WARPS = 4            # a block's warps (csrc/weak.cu kWarps)
+RESCORE_MAX = 8      # a warp's pixels in the re-score form, at most
 _SOURCES = ("weak.cu",)
 
 
@@ -152,6 +158,32 @@ def rescore_kernel_info(quads_u8: bool, sa: bool, num_views: int,
     increment)."""
     return ncc.read_kernel_info(library().lib.apde_weak_rescore_kernel_info,
                                 quads_u8, sa, *windows, num_views)
+
+
+def rescore_pixels(num_views: int) -> int:
+    """G, a warp's pixels in the re-score form (csrc/weak.cu's
+    `rescore_pixels`): as many as fill its 32 lanes with their S views, at
+    most RESCORE_MAX; a block takes WARPS G."""
+    return min(32 // num_views, RESCORE_MAX)
+
+
+def rescore_smem_bytes(num_views: int, windows=(5, 2, 5, 5),
+                       sa: bool = True) -> int:
+    """The re-score form's shared memory a block (csrc/weak.cu's
+    `rescore_smem_floats`) at S views with the windows (strong radius,
+    increment, weak radius, increment): the camera table, the two windows'
+    offsets, a warp's G reference sides (`weak_common.cuh`'s
+    `WeakRefSlice`: the centre's and 8 anchors' tap values, SA weights,
+    the anchors' 8 words of coordinates, sums and selections) and its (8,
+    32) anchor costs, and the block builder's scratch (15 words a pixel
+    and a count)."""
+    r, inc, ar, ainc = windows
+    t = len(square_taps(r, inc))
+    ta = len(square_taps(ar, ainc))
+    g = rescore_pixels(num_views)
+    side = (t + ANCHORS * ta) * (2 if sa else 1) + 8 * ANCHORS
+    return 4 * ((num_views + 1) * CAM_STRIDE + 2 * (t + ta)
+                + WARPS * (g * side + ANCHORS * 32) + 15 * WARPS * g + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -517,7 +549,7 @@ def _launch_rescore(data, planes_map, selected, x, y, anchors, lo: int,
         raise ValueError("quad table rows must be aligned to their size")
     s = data.num_src
     lib = library().lib
-    smem = lib.apde_weak_rescore_smem_bytes(s, *windows, int(sa is not None))
+    smem = rescore_smem_bytes(s, windows, sa is not None)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the re-score form's windows at {s} views need "
                          f"{smem} B of shared memory a block, more than "

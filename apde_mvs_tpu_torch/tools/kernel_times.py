@@ -54,6 +54,12 @@ scene (seed 0), u8 quad tables:
   costs and K11 in one from before, the window, reference-side and
   selection torch ops around K2's and K6's launches in one from before
   that (also with ``--weak_only``; ``--init_only`` times only these);
+- K6's re-score form alone, one launch, in its selection mode (over
+  maps of its own) and its cost-out mode (view-major, the pixels' raster
+  columns): at the APD scan's first WEAK_CHUNK of its weak list (65,536
+  pixels, 5 views) with SA and with square windows, and on the weak list
+  of the call a real APD REFINE_INIT pass makes (``real_pass_chunks``);
+  also with ``--weak_only``, and ``--rescore_only`` times only these;
 - K8 at a 16,384-pixel chunk of the APD scan's weak list at the APD
   round's rotate_time (2: 16 directions) and at the chunk a real APD pass
   hands it, and the chunk's jitter and RANSAC draw table
@@ -70,7 +76,7 @@ found first on ``sys.path``: run it from another checkout's root with
 that root on ``PYTHONPATH`` to time that checkout's kernels.
 
     python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] \
-        [--weak_only | --init_only]
+        [--weak_only | --init_only | --rescore_only]
     cd OTHER && PYTHONPATH=$PWD python /path/to/kernel_times.py --tag other
 
 Needs a CUDA device. The last line is one JSON object: the tag, the card,
@@ -746,6 +752,53 @@ def init_times(real, out: dict) -> None:
         print(f"{key}: {out[key]:.4f} ms a call", flush=True)
 
 
+def rescore_times(scene, wc, real, out: dict) -> None:
+    """K6's re-score form alone (one launch a call) in both modes, by CUDA
+    events and profiler device time: at the APD scan's first WEAK_CHUNK
+    (``weak_chunk``'s state and weak list, the APD round's SA windows and
+    its square ones) and on a real APD REFINE_INIT pass's weak list (its
+    ``initial_cost`` call: state, SA windows, list). The selection mode
+    writes maps of its own; the cost-out mode writes (S, H W) view-major
+    costs into the pixels' raster columns."""
+    from apde_mvs_tpu_torch.ops.cuda import weak
+    if not hasattr(weak, "rescore_select_fused"):
+        print("no K6 re-score form with the selection in this checkout",
+              flush=True)
+        return
+    H, W = scene.images.shape[1:]
+    params = next(sp.params for sp in cfg.build_schedule(
+        max(H, W), base=APD_BASE) if sp.params.use_apd)
+    n = min(wc.all_x.numel(), init.WEAK_CHUNK)
+    cases = [("APD chunk, SA", wc.data, wc.state, params),
+             ("APD chunk, square", wc.data, wc.state,
+              dataclasses.replace(params, use_sa=False))]
+    lists = [(wc.all_x, wc.all_y, wc.all_anchors, n)] * 2
+    if real.init is not None:
+        (d, st, prm, rx, ry, ran), _ = real.init
+        cases.append(("real pass", d, st, prm))
+        lists.append((rx, ry, ran, min(rx.numel(), init.WEAK_CHUNK)))
+    for (tag, d, st, prm), (x, y, an, m) in zip(cases, lists):
+        h, w, s = d.height, d.width, d.num_src
+        kw = dict(strong_radius=prm.strong_radius,
+                  strong_increment=prm.strong_increment,
+                  weak_radius=prm.weak_radius,
+                  weak_increment=prm.weak_increment,
+                  use_sa=bool(prm.use_sa))
+        cmap = torch.empty((h, w), device=d.device)
+        smap = torch.empty((h, w, s), dtype=torch.bool, device=d.device)
+        costs = torch.empty((s, h * w), device=d.device)
+        what = f"({m} weak pixels, {s} views)"
+        timed(out, f"K6 re-score, {tag}",
+              lambda: weak.rescore_select_fused(
+                  d, st.planes, st.selected, x, y, an, 0, m, st.valid,
+                  prm.top_k, cmap, smap, **kw), 20, "rescore_weak_kernel",
+              what)
+        timed(out, f"K6 re-score cost-out, {tag}",
+              lambda: weak.rescore_fused(
+                  d, st.planes, st.selected, x, y, an, 0, m, costs,
+                  view_major=True, **kw), 20, "rescore_weak_kernel", what)
+
+
 def anchor_times(scene, wc, real, dev, out: dict, seed: int = 0) -> None:
     """K8 at chip_smoke.py's chunk and at a real APD pass's, the draw table
     of a chunk, K10 a call on the APD scan's map and K9 a call on the weak
@@ -809,6 +862,8 @@ def main(argv=None) -> int:
                          "the initial cost, K8, K9 and K10")
     ap.add_argument("--init_only", action="store_true",
                     help="time only the initial cost")
+    ap.add_argument("--rescore_only", action="store_true",
+                    help="time only K6's re-score form (both modes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -817,7 +872,8 @@ def main(argv=None) -> int:
     libs = []
     weak_path = (("weak", "K6"), ("weak_sweep", "K7"), ("anchors", "K8-K10"))
     kernels = (("ncc", "K2"), ("weak", "K6"), ("select", "K11")) \
-        if args.init_only else weak_path if args.weak_only else (
+        if args.init_only else (("weak", "K6"),) if args.rescore_only \
+        else weak_path if args.weak_only else (
         ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3")) + weak_path
     for name, kernel in kernels:
         try:
@@ -842,7 +898,12 @@ def main(argv=None) -> int:
     scene = apd_scene()
     wc = weak_chunk(scene, dev)
     real = real_pass_chunks(dev)
+    if args.rescore_only:
+        rescore_times(scene, wc, real, out)
+        print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
+        return 0
     weak_times(scene, wc, real, dev, out)
+    rescore_times(scene, wc, real, out)
     init_times(real, out)
     anchor_times(scene, wc, real, dev, out)
     print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))

@@ -3088,8 +3088,9 @@ K11_OPS_PER_PAIR = 2 * 5
 # operations of the initial cost's stage forms as the function needs them,
 # beside K2's per tap and per pair (K2's stage form) and K6's per evaluated
 # pair (its re-score form): the window's K3_WINDOW_OPS_PER_TAP a (pixel,
-# tap) of K2's window, K7_OPS_PER_REF_TAP a (pixel, reference tap) of the
-# re-score's reference side (36 + 8 x 9 taps a pixel). The selection K11 is
+# tap) of K2's window, K7_OPS_PER_REF_TAP a reference tap of the re-score's
+# reference side (36 a pixel and 9 a valid anchor: the costs read no other
+# anchor's window). The selection K11 is
 # bound by its bytes: the (S, H W) costs read, the validity read, the cost
 # map and the selections written, each once.
 
@@ -3371,16 +3372,20 @@ def init_stage_bound(data, state, params, select: bool = True) -> tuple:
 
 
 def rescore_bound(data, state, params, wx, wy, anchors,
-                  select: bool = True) -> tuple:
+                  select: bool = True, every_anchor: bool = False) -> tuple:
     """The least time the card could take for one launch of K6's re-score
     form: its f32 operations (``k6_bound``'s on the pixels' own planes, the
-    reference side's K7_OPS_PER_REF_TAP a tap; with the selection K11's a
-    (pixel, view)) over the plain-f32 rate, against the bytes of its inputs
-    (the pixels, their anchors and planes, the prior selections at the
-    anchors, the distinct reference-image texels and segment ids of the
-    windows, the quad-table rows the pairs touch, with the selection the
-    pixels' validity, each once) and its outputs (with the selection the
-    pixels' costs and selections, else their (S, B) costs). Returns (ms,
+    reference side's K7_OPS_PER_REF_TAP a tap of the windows the costs
+    read: every centre's and the valid anchors'; with the selection K11's
+    a (pixel, view)) over the plain-f32 rate, against the bytes of its
+    inputs (the pixels, their anchors and planes, the prior selections at
+    the valid anchors, the distinct reference-image texels of those
+    windows, under SA their segment ids and those at the pixels and the
+    existing anchors (the validity test), the quad-table rows the pairs
+    touch, with the selection the pixels' validity, each once) and its
+    outputs (with the selection the pixels' costs and selections, else
+    their (S, B) costs). ``every_anchor``: the earlier count, every
+    anchor's window and selections as if the costs read them. Returns (ms,
     "bytes" or "operations", bytes, operations)."""
     import torch
 
@@ -3388,6 +3393,7 @@ def rescore_bound(data, state, params, wx, wy, anchors,
     from apde_mvs_tpu_torch.ops.cost import square_taps
     from apde_mvs_tpu_torch.ops.cuda import weak
     s, b = data.num_src, wx.numel()
+    h, w = data.height, data.width
     sa = bool(params.use_sa) and data.sa_mask is not None
     wref = weak.weak_ref_plain(data, wx.float(), wy.float(), anchors,
                                state.selected, params.strong_radius,
@@ -3400,25 +3406,34 @@ def rescore_bound(data, state, params, wx, wy, anchors,
     w_ = 2 if sa else 1
     old_inputs = b * (4 * (2 + w_ * t + 3 + 8 * (2 + w_ * ta + 3)) + 8
                       + 8 * s + 16)
-    # the distinct texels the two windows read
-    texels = torch.zeros((data.height, data.width), dtype=torch.bool,
-                         device=data.device)
+    built = torch.ones_like(wref.anchor_valid) if every_anchor \
+        else wref.anchor_valid
+    nbuilt = int(built.sum())
+    # the distinct texels the windows read
+    texels = torch.zeros((h, w), dtype=torch.bool, device=data.device)
     sq = torch.as_tensor(square_taps(params.strong_radius,
                                      params.strong_increment),
                          device=data.device)
     wk = torch.as_tensor(square_taps(params.weak_radius,
                                      params.weak_increment),
                          device=data.device)
-    cx = (wx.long()[:, None] + sq[:, 0]).clamp(0, data.width - 1)
-    cy = (wy.long()[:, None] + sq[:, 1]).clamp(0, data.height - 1)
-    texels[cy, cx] = True
+    texels[(wy.long()[:, None] + sq[:, 1]).clamp(0, h - 1),
+           (wx.long()[:, None] + sq[:, 0]).clamp(0, w - 1)] = True
     ax = anchors[:, 1:, 0].clamp(min=0).long()
     ay = anchors[:, 1:, 1].clamp(min=0).long()
-    texels[(ay[..., None] + wk[:, 1]).clamp(0, data.height - 1),
-           (ax[..., None] + wk[:, 0]).clamp(0, data.width - 1)] = True
-    nbytes = k6_bytes - old_inputs + b * (8 + 72 + 16 + 8 * s) \
-        + int(texels.sum()) * 4 * (2 if sa else 1)
-    ops = k6_ops + b * (t + 8 * ta) * K7_OPS_PER_REF_TAP
+    texels[(ay[built][:, None] + wk[:, 1]).clamp(0, h - 1),
+           (ax[built][:, None] + wk[:, 0]).clamp(0, w - 1)] = True
+    nbytes = k6_bytes - old_inputs + b * (8 + 72 + 16) + nbuilt * s \
+        + int(texels.sum()) * 4 * w_
+    if sa and not every_anchor:
+        # the segment ids the validity test reads outside those windows
+        ids = torch.zeros_like(texels)
+        ids[wy.long(), wx.long()] = True
+        exists = (anchors[:, 1:] >= 0).all(-1)
+        inside = exists & (ax < w) & (ay < h)
+        ids[ay[inside], ax[inside]] = True
+        nbytes += 4 * int((ids & ~texels).sum())
+    ops = k6_ops + (b * t + nbuilt * ta) * K7_OPS_PER_REF_TAP
     if select:
         # k6_bound counts the (S, B) f32 costs written
         ops += b * s * K11_OPS_PER_PAIR
@@ -3668,58 +3683,82 @@ def init_phase(full_scene, apd_scene, wc, real, seed: int, device,
                                      parent_ms=parent_ms)
         del outv, smap, dv
     # K6's re-score form at the APD scan's first WEAK_CHUNK, with the
-    # selection over K2's maps and in its cost-out mode
+    # selection over K2's maps and in its cost-out mode; SA windows (the
+    # main path's: no anchor of this chunk is valid) and square ones (every
+    # existing anchor valid)
     n = min(wx.numel(), init.WEAK_CHUNK)
     cx, cy, ca = wx[:n], wy[:n], wan[:n].contiguous()
     wout = torch.empty((wc.data.num_src, H * W), device=device)
     wmap = torch.empty((H, W), device=device)
     wsel = torch.empty((H, W, wc.data.num_src), dtype=torch.bool,
                        device=device)
-    rk = rescore_kwargs(params)
+    for prm, key, form in ((params, "k6", "SA"), (square, "k6_square",
+                                                  "square windows")):
+        rk = rescore_kwargs(prm)
 
-    def k6():
-        weak.rescore_select_fused(wc.data, wstate.planes, wstate.selected,
-                                  wx, wy, wan, 0, n, wstate.valid,
-                                  params.top_k, wmap, wsel, **rk)
+        def k6():
+            weak.rescore_select_fused(wc.data, wstate.planes,
+                                      wstate.selected, wx, wy, wan, 0, n,
+                                      wstate.valid, prm.top_k, wmap, wsel,
+                                      **rk)
 
-    def k6_costout():
-        weak.rescore_fused(wc.data, wstate.planes, wstate.selected, wx, wy,
-                           wan, 0, n, wout, view_major=True, **rk)
+        def k6_costout():
+            weak.rescore_fused(wc.data, wstate.planes, wstate.selected, wx,
+                               wy, wan, 0, n, wout, view_major=True, **rk)
 
-    def k6_comp():
-        wref = WeakRefData.build(wc.data, cx.float(), cy.float(), ca,
-                                 wstate.selected, params)
-        flat = cy.long() * W + cx.long()
-        return ncc_weak(wc.data, wref, wstate.planes.reshape(-1, 4)[flat],
-                        params)
-    ms = cuda_ms(k6, 20)
-    costout_ms = cuda_ms(k6_costout, 20)
-    ms_again = cuda_ms(k6, 20)
-    plain_ms = cuda_ms(lambda: weak.rescore_select_plain(
-        wc.data, wstate.planes, wstate.selected, cx, cy, ca, wstate.valid,
-        params.top_k, **rk), 2, 1)
-    costout_plain_ms = cuda_ms(lambda: weak.rescore_plain(
-        wc.data, wstate.planes, wstate.selected, cx, cy, ca, **rk), 2, 1)
-    comp_ms = cuda_ms(k6_comp, 10)
-    bound, by, nbytes, ops = rescore_bound(wc.data, wstate, params, cx, cy,
-                                           ca)
-    cbound, cby, cbytes, cops = rescore_bound(wc.data, wstate, params, cx,
-                                              cy, ca, select=False)
-    log(f"  K6 re-score form with the selection, the APD scan's first chunk "
-        f"({n} weak pixels, {wc.data.num_src} views, SA, u8): {ms:.4f} / "
-        f"{ms_again:.4f} ms a launch, the cost-out mode {costout_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, the composition it replaced "
-        f"(WeakRefData.build and K6's weak-sweep form) {comp_ms:.4f} ms, "
-        f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.3f} GFLOP) [{card}]")
-    log(f"  K6 re-score form, cost-out mode (the tile route's), the same "
-        f"chunk: {costout_ms:.4f} ms, plain {costout_plain_ms:.4f} ms, "
-        f"bound {cbound:.4f} ms by {cby} ({cbytes / 1e6:.1f} MB, "
-        f"{cops / 1e9:.3f} GFLOP) [{card}]")
-    res["k6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                     composition_ms=comp_ms, library_ms=None, pixels=n)
-    res["k6_costout"] = dict(ms=costout_ms, plain_ms=costout_plain_ms,
-                             bound_ms=cbound, bound_by=cby, library_ms=None)
+        def k6_comp():
+            wref = WeakRefData.build(wc.data, cx.float(), cy.float(), ca,
+                                     wstate.selected, prm)
+            flat = cy.long() * W + cx.long()
+            return ncc_weak(wc.data, wref,
+                            wstate.planes.reshape(-1, 4)[flat], prm)
+        ms = cuda_ms(k6, 20)
+        costout_ms = cuda_ms(k6_costout, 20)
+        ms_again = cuda_ms(k6, 20)
+        costout_again = cuda_ms(k6_costout, 20)
+        plain_ms = cuda_ms(lambda: weak.rescore_select_plain(
+            wc.data, wstate.planes, wstate.selected, cx, cy, ca,
+            wstate.valid, prm.top_k, **rk), 2, 1)
+        costout_plain_ms = cuda_ms(lambda: weak.rescore_plain(
+            wc.data, wstate.planes, wstate.selected, cx, cy, ca, **rk), 2, 1)
+        comp_ms = cuda_ms(k6_comp, 10)
+        bound, by, nbytes, ops = rescore_bound(wc.data, wstate, prm, cx, cy,
+                                               ca)
+        cbound, cby, cbytes, cops = rescore_bound(wc.data, wstate, prm, cx,
+                                                  cy, ca, select=False)
+        old_bound = rescore_bound(wc.data, wstate, prm, cx, cy, ca,
+                                  every_anchor=True)[0]
+        old_cbound = rescore_bound(wc.data, wstate, prm, cx, cy, ca,
+                                   select=False, every_anchor=True)[0]
+        valid = int(weak.weak_ref_plain(
+            wc.data, cx.float(), cy.float(), ca, wstate.selected,
+            prm.strong_radius, prm.strong_increment, prm.weak_radius,
+            prm.weak_increment, bool(prm.use_sa)).anchor_valid.sum())
+        log(f"  K6 re-score form with the selection, the APD scan's first "
+            f"chunk ({n} weak pixels, {wc.data.num_src} views, {form}, u8; "
+            f"{valid} valid anchors, {valid / n:.3f} a pixel): {ms:.4f} / "
+            f"{ms_again:.4f} ms a launch, the cost-out mode {costout_ms:.4f} "
+            f"/ {costout_again:.4f} ms, plain {plain_ms:.4f} ms, the "
+            f"composition it replaced (WeakRefData.build and K6's "
+            f"weak-sweep form) {comp_ms:.4f} ms, bound {bound:.4f} ms by "
+            f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP): "
+            f"{100 * bound / ms:.1f}% of it; counting every anchor's window "
+            f"(the earlier count) {old_bound:.4f} ms, "
+            f"{100 * old_bound / ms:.1f}% [{card}]")
+        log(f"  K6 re-score form, cost-out mode (the tile route's), the same "
+            f"chunk, {form}: {costout_ms:.4f} ms, plain "
+            f"{costout_plain_ms:.4f} ms, bound {cbound:.4f} ms by {cby} "
+            f"({cbytes / 1e6:.1f} MB, {cops / 1e9:.3f} GFLOP): "
+            f"{100 * cbound / costout_ms:.1f}%; every anchor's window "
+            f"{old_cbound:.4f} ms, {100 * old_cbound / costout_ms:.1f}% "
+            f"[{card}]")
+        res[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, composition_ms=comp_ms, library_ms=None,
+                        pixels=n)
+        res[key + "_costout"] = dict(ms=costout_ms,
+                                     plain_ms=costout_plain_ms,
+                                     bound_ms=cbound, bound_by=cby,
+                                     library_ms=None)
     # K11 at the full image, 10 views, beside torch.sort and torch.topk
     ncc.init_stage_fused(d, st.planes, 0, H * W, out, radius=5,
                          increment=2, use_sa=True, view_major=True)
@@ -4626,12 +4665,22 @@ def kernel_report(card: str) -> None:
                 f"registers, {info['local_bytes']} B local (spills), "
                 f"{smem} B shared a block, {info['blocks_per_sm']} resident "
                 f"blocks an SM [{card}]")
-        for views in (APD_VIEWS - 1, FULL_VIEWS - 1):
-            info = weak.rescore_kernel_info(True, sa, views)
-            log(f"K6 re-score form u8, {'SA' if sa else 'square'} windows, "
-                f"36 + 8 x 9 taps, {views} views: {info['regs']} registers, "
-                f"{info['local_bytes']} B local (spills), "
-                f"{info['blocks_per_sm']} resident blocks an SM [{card}]")
+        # every re-score instantiation (the mode is chosen at run time:
+        # one instantiation serves both), at the APD scan's and the full
+        # scan's views
+        for u8, windows in ((True, (5, 2, 5, 5)), (False, (5, 2, 5, 5)),
+                            (True, (4, 2, 4, 2)), (False, (4, 2, 4, 2))):
+            taps = "36 + 8 x 9 taps (the main windows)" \
+                if windows == (5, 2, 5, 5) else "25 + 8 x 25 taps"
+            for views in (APD_VIEWS - 1, FULL_VIEWS - 1):
+                info = weak.rescore_kernel_info(u8, sa, views, windows)
+                smem = weak.rescore_smem_bytes(views, windows, sa)
+                log(f"K6 re-score form {'u8' if u8 else 'f32'}, "
+                    f"{'SA' if sa else 'square'} windows, {taps}, {views} "
+                    f"views, both modes: {info['regs']} registers, "
+                    f"{info['local_bytes']} B local (spills), {smem} B "
+                    f"shared a block, {info['blocks_per_sm']} resident "
+                    f"blocks an SM [{card}]")
     for views in (FULL_VIEWS - 1, 32):
         info = select.kernel_info(views)
         log(f"K11, {views} views: {info['regs']} registers, "
@@ -5326,6 +5375,16 @@ def main(argv=None) -> int:
              f"chunk ({ki['k6']['pixels']} pixels)", **k6_rescore_src,
         launches=tl["k6"], max_abs_err=ki["max_abs_err"],
         **ki["k6_costout"]))
+    # the same chunk with square windows: no main path re-scores with them
+    # (its weak windows are SA's), so these rows count no launch
+    for key, what in (("k6_square", "with the selection in its epilogue"),
+                      ("k6_square_costout", "cost-out mode")):
+        rows.append(dict(
+            name=f"K6 re-score form, {what}, the same chunk with square "
+                 "windows (every existing anchor valid)", **k6_rescore_src,
+            launches=0, max_abs_err=ki["max_abs_err"],
+            **{k_: v for k_, v in ki[key].items()
+               if k_ not in ("composition_ms", "pixels")}))
     k11_paths = dict(round0=r0["k11"], apd=ap["k11"], exports=ex["k11"],
                      view_parallel=vp["launches"]["K11"], nccl=ag["k11"],
                      batch=bt["k11"], tile_route=tl["k11"])

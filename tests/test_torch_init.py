@@ -1,7 +1,9 @@
 """The initial cost's stage (ops/init.py: K2's stage form, K6's re-score
 form, the selection K11) on the CPU, where each form runs its plain
 version: against the JAX package's ``initial_cost`` with the SA star window
-and no weak list (u8 and f32), the selection against the JAX
+and no weak list (u8 and f32), and with a weak list re-scored (the JAX
+``use_apd=True`` path: SA and square windows, u8 and f32, on
+tests/test_torch_deformable.py's fixture), the selection against the JAX
 ``initial_cost_and_selection`` on crafted rows, one chunk of the plain
 path against several, and the plain path against the torch-op composition
 it replaced (``testing.init_composition``).
@@ -21,17 +23,22 @@ import pytest
 import torch
 
 from apde_mvs_tpu.config import PatchMatchParams
+from apde_mvs_tpu.core import geometry as jgeo
 from apde_mvs_tpu.ops import cost as jcost
+from apde_mvs_tpu.ops import deformable as jdef
 from apde_mvs_tpu.ops import init as jinit
 from apde_mvs_tpu.ops.state import PMState as JState
+from apde_mvs_tpu.testing import synthetic
 from apde_mvs_tpu_torch import convert
 from apde_mvs_tpu_torch.config import PatchMatchParams as TParams
 from apde_mvs_tpu_torch.ops import cost as tcost
 from apde_mvs_tpu_torch.ops import init as tinit
 from apde_mvs_tpu_torch.ops.cuda import ncc as k2
 from apde_mvs_tpu_torch.ops.cuda import select as k11
+from apde_mvs_tpu_torch.ops.cuda import weak as k6
 from apde_mvs_tpu_torch.testing.init_composition import init_composition
 from test_torch_cost import H, V, W, _planes, _scene_data
+from test_torch_deformable import setup as _weak_fixture
 from test_torch_propagation import _weak_setup
 
 # one intra-op thread per test worker process (see tests/test_torch_cost.py)
@@ -112,6 +119,83 @@ def test_plain_initial_cost_matches_jax_with_the_sa_star(u8):
     # the star really cut windows: SA changes the costs
     square = tinit.initial_cost(td, ts, TParams(use_sa=False))
     assert (_np(square.costs) != _np(tout.costs)).mean() > 0.05
+
+
+@pytest.mark.parametrize("u8,use_sa", [(True, True), (False, True),
+                                       (True, False), (False, False)])
+def test_plain_initial_cost_with_a_weak_list_matches_jax(u8, use_sa):
+    """The whole stage with a weak list re-scored: the port's
+    ``initial_cost(data, state, params, weak_x, weak_y, anchors)`` (K2's
+    and K6's selection modes, their plain versions here) against the JAX
+    package's ``initial_cost(..., use_apd=True, weak_x, weak_y,
+    weak_valid, anchors)``, on tests/test_torch_deformable.py's fixture
+    (every other pixel weak; its SA case has anchors that exist but are
+    not valid), SA and square windows, u8 and f32 tables. The bar is
+    `test_plain_initial_cost_matches_jax_with_the_sa_star`'s: the per-view
+    costs (the strong ones and the re-scored ones at the weak pixels) to
+    ATOL but at most LOOSE_SHARE of them, none beyond LOOSE_ATOL; the
+    cost map to ATOL and the selections exactly but at the pixels of such
+    a cost or a float tie (`_tie_pixels`), at most MAX_TIES of them."""
+    jd, td, wx, wy, anchors, selected, wplanes, params = _weak_fixture(
+        u8, use_sa)
+    scene = synthetic.make_scene(num_views=V, height=H, width=W)
+    ys, xs = np.mgrid[0:H, 0:W]
+    planes = np.array(jgeo.make_plane(
+        jd.ref_cam, jnp.asarray(xs, jnp.float32),
+        jnp.asarray(ys, jnp.float32), jnp.asarray(scene.depths[0]),
+        jnp.asarray(scene.normals[0])))
+    planes[wy, wx] = wplanes
+    js = JState.create(H, W, V - 1).replace(
+        planes=jnp.asarray(planes), selected=jnp.asarray(selected))
+    ts = convert.pm_state(**{k: getattr(js, k) for k in (
+        "planes", "costs", "selected", "view_weights", "weak", "confidence",
+        "valid")}, device="cpu")
+    n = len(wx)
+    jout = jinit.initial_cost(jd, js, params, True, jnp.asarray(wx),
+                              jnp.asarray(wy), jnp.ones(n, bool),
+                              jnp.asarray(anchors))
+    tparams = TParams(use_sa=use_sa)
+    tx, ty = convert.ints(wx, "cpu"), convert.ints(wy, "cpu")
+    tan = convert.ints(anchors, "cpu")
+    tout = tinit.initial_cost(td, ts, tparams, tx, ty, tan)
+    # the per-view costs of both sides, the weak pixels' re-scored
+    gx = jnp.asarray(xs.reshape(-1), jnp.float32)
+    gy = jnp.asarray(ys.reshape(-1), jnp.float32)
+    jc = np.array(jcost.ncc_strong(
+        jd, gx, gy, jnp.asarray(planes.reshape(-1, 4)),
+        jcost.precompute_ref_window(jd, gx, gy, 5, 2, use_sa)))
+    jref = jdef.WeakRefData.build(
+        jd, jnp.asarray(wx, jnp.float32), jnp.asarray(wy, jnp.float32),
+        jnp.asarray(anchors), jnp.asarray(selected), params)
+    flat = wy * W + wx
+    jc[flat] = np.asarray(jdef.ncc_weak(jd, jref,
+                                        jnp.asarray(planes[wy, wx]), params))
+    tc = _np(k2.init_stage_plain(td, ts.planes, 0, H * W, 5, 2, use_sa))
+    tc[flat] = _np(k6.rescore_plain(td, ts.planes, ts.selected, tx, ty, tan,
+                                    strong_radius=5, strong_increment=2,
+                                    weak_radius=5, weak_increment=5,
+                                    use_sa=use_sa))
+    far = np.abs(tc - jc) > ATOL
+    assert far.mean() <= LOOSE_SHARE, far.sum()
+    np.testing.assert_allclose(tc, jc, atol=LOOSE_ATOL, rtol=0)
+    ties = _tie_pixels(jc, tc, params.top_k) | far.any(-1)
+    assert ties.mean() <= MAX_TIES, ties.sum()
+    live = ~ties.reshape(H, W)
+    np.testing.assert_allclose(_np(tout.costs)[live],
+                               np.asarray(jout.costs)[live], atol=ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(_np(tout.selected)[live],
+                                  np.asarray(jout.selected)[live])
+    # the weak list really changed the stage: its pixels' costs are not
+    # the strong NCC's, and the fixture's anchors reach every rule
+    strong = _np(tinit.initial_cost(td, ts, tparams).costs)
+    assert (_np(tout.costs)[wy, wx] != strong[wy, wx]).mean() > 0.5
+    if use_sa:
+        exists = (anchors[:, 1:] >= 0).all(-1)
+        valid = _np(k6.weak_ref_plain(
+            td, tx.float(), ty.float(), tan, ts.selected, 5, 2, 5, 5,
+            True).anchor_valid)
+        assert (exists & ~valid).sum() > 20
 
 
 def _crafted_rows(seed: int = 11, s: int = 6) -> np.ndarray:

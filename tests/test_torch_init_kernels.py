@@ -326,6 +326,30 @@ def test_stage_form_builds_each_window_once(views, before):
     assert k2.window_builds(1000, 10) > 1.0
 
 
+@pytest.mark.parametrize("windows,sa", [((5, 2, 5, 5), True),
+                                        ((5, 2, 5, 5), False),
+                                        ((4, 2, 4, 2), False)])
+def test_rescore_plan_fits_every_view_count(windows, sa):
+    """The re-score form's host-side plan (csrc/weak.cu's layout, the
+    library's own numbers held against it on the card): a warp's G pixels
+    fill its lanes with their S views (at most 8 pixels), a block takes 4
+    G, and its shared memory stays within Hopper's 227 KB at every S = 1 ..
+    32, for the main windows (SA and square) and another square."""
+    t, ta = (len(tcost.square_taps(r, i))
+             for r, i in (windows[:2], windows[2:]))
+    side = (t + 8 * ta) * (2 if sa else 1) + 64
+    for views in range(1, k6.MAX_VIEWS + 1):
+        g = k6.rescore_pixels(views)
+        assert g == min(32 // views, 8) and 1 <= g * views <= 32
+        smem = k6.rescore_smem_bytes(views, windows, sa)
+        assert smem == 4 * ((views + 1) * k6.CAM_STRIDE + 2 * (t + ta)
+                            + 4 * (g * side + 8 * 32) + 15 * 4 * g + 1)
+        assert smem <= k6.SMEM_LIMIT
+    # fewer views, more pixels a warp: the most shared memory at S <= 4
+    assert max(k6.rescore_smem_bytes(v, windows, sa) for v in range(1, 33)) \
+        == k6.rescore_smem_bytes(4, windows, sa)
+
+
 def test_rescore_plain_is_the_weak_sweeps_reference_side():
     """K6's re-score form and K7 build one reference side: the re-score's
     plain version is `weak.weak_ref_plain` (K7's, taken from weak.py)
@@ -528,6 +552,37 @@ CARD_CASES = ("u8", "sa-u8", "f32", "sa-f32", "sa-u8-s32", "u8-s1",
               "u8-taps25")
 
 
+def _crafted_list(c, state, views: int):
+    """The case's weak list with crafted anchors, cut to a length that is
+    a multiple neither of a warp's G pixels (but at G = 1) nor of a block's
+    4 G: rows with every anchor missing (-1), rows with an x or a y of -1,
+    anchors on the image's border whose warps leave it in some views and
+    whose prior selections hold every view (they count at COST_MAX where
+    they leave), anchors beyond the grid (no selections, clamped taps),
+    the rest the case's (under SA some in another segment: existing but
+    not valid). Returns (x, y, anchors, the prior selections)."""
+    an = c.anchors.clone()
+    an[0::11, 1:] = -1
+    an[1::11, 1:5, 0] = -1
+    an[2::11, 1:5, 1] = -1
+    rows = an[3::11]
+    k = torch.arange(rows.shape[0], device=an.device)
+    rows[:, 1, 0], rows[:, 1, 1] = W - 1, k % H
+    rows[:, 2, 0], rows[:, 2, 1] = 0, (3 * k) % H
+    rows[:, 3, 0], rows[:, 3, 1] = k % W, H - 1
+    an[3::11] = rows
+    an[4::11, 1] = torch.tensor([W + 2, 3], dtype=an.dtype)
+    an[4::11, 2] = torch.tensor([5, H + 1], dtype=an.dtype)
+    sel = state.selected.clone()
+    sel[:, 0] = True
+    sel[:, W - 1] = True
+    sel[H - 1] = True
+    g = k6.rescore_pixels(views)
+    m = c.x.numel()
+    m -= (m - (2 * g + 1)) % (4 * g)
+    return c.x[:m], c.y[:m], an[:m].contiguous(), sel
+
+
 def _card(name, device):
     parts = name.split("-")
     views = [int(p[1:]) for p in parts if p[0] == "s" and p[1:].isdigit()]
@@ -587,6 +642,23 @@ def test_stage_kernels_match_plain_on_card(cuda_device, name):
     want_map, want_sel = k11.select_plain(full, state.valid, 4)
     assert torch.equal(_bits(cost_map), _bits(want_map))
     assert torch.equal(sel, want_sel)
+    # the cost-out mode on the crafted weak list, scattered and compact
+    x, y, an, prior = _crafted_list(c, state, s)
+    m = x.numel()
+    wc = k6.rescore_plain(data, state.planes, prior, x, y, an, **kw)
+    assert (wc == tcost.COST_MAX).any() and (wc < tcost.COST_MAX).any()
+    out = torch.full((s, n), -1.0, device=cuda_device)
+    k6.rescore_fused(data, state.planes, prior, x, y, an, 0, m, out,
+                     view_major=True, **kw)
+    flat = y.long() * W + x.long()
+    assert torch.equal(_bits(out.T[flat]), _bits(wc))
+    rest = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    rest[flat] = False
+    assert (out.T[rest] == -1.0).all()
+    compact = torch.empty((m - 8, s), device=cuda_device)
+    k6.rescore_fused(data, state.planes, prior, x, y, an, 5, m - 3,
+                     compact, view_major=False, col0=5, **kw)
+    assert torch.equal(_bits(compact), _bits(wc[5:m - 3]))
 
 
 @pytest.mark.cuda
@@ -666,6 +738,43 @@ def test_selection_epilogues_match_plain_on_card(cuda_device, name, views):
         assert torch.equal(_bits(cost_map.view(-1)[flat]),
                            _bits(wcost[lo:hi]))
         assert torch.equal(sel.view(n, s)[flat], wsel[lo:hi])
+    # the crafted weak list: missing, invalid, border and off-grid anchors,
+    # a length no multiple of a warp's or a block's pixels
+    x, y, an, prior = _crafted_list(c, state, s)
+    m = x.numel()
+    wcost, wsel = k6.rescore_select_plain(data, state.planes, prior, x, y,
+                                          an, valid, top_k, **kw)
+    for lo, hi in ((0, m), (5, m - 3)):
+        cost_map = torch.full((H, W), -1.0, device=cuda_device)
+        sel = torch.zeros((H, W, s), dtype=torch.bool, device=cuda_device)
+        k6.rescore_select_fused(data, state.planes, prior, x, y, an, lo, hi,
+                                valid, top_k, cost_map, sel, **kw)
+        flat = y[lo:hi].long() * W + x[lo:hi].long()
+        assert torch.equal(_bits(cost_map.view(-1)[flat]),
+                           _bits(wcost[lo:hi]))
+        assert torch.equal(sel.view(n, s)[flat], wsel[lo:hi])
+        rest = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        rest[flat] = False
+        assert (cost_map.view(-1)[rest] == -1.0).all()
+        assert not sel.view(n, s)[rest].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa", [False, True])
+def test_rescore_plan_matches_the_library_on_card(cuda_device, sa):
+    """The re-score form's host-side plan (`weak.rescore_smem_bytes`, which
+    the wrapper refuses by) is the library's own layout at every view
+    count, for the main windows and another square, and each main-window
+    instantiation runs at least one block an SM."""
+    lib = k6.library().lib
+    for windows in ((5, 2, 5, 5), (4, 2, 4, 2)):
+        for views in range(1, k6.MAX_VIEWS + 1):
+            assert k6.rescore_smem_bytes(views, windows, sa) == \
+                lib.apde_weak_rescore_smem_bytes(views, *windows, int(sa))
+    for u8 in (True, False):
+        for views in (1, 5, 10, 32):
+            assert k6.rescore_kernel_info(u8, sa, views)["blocks_per_sm"] \
+                >= 1
 
 
 @pytest.mark.cuda
