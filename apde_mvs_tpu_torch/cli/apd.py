@@ -58,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "rank); fewer views than ranks row-shards each view")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the run (CPU and "
-                        "CUDA activities, Chrome/Perfetto JSON) into this "
+                        "CUDA activities, Chrome/Perfetto JSON, with the "
+                        "stage spans of core/spans.py) into this "
                         "directory")
     p.add_argument("--view_batch", type=int, default=None,
                    help="views per view-parallel batch (default: sized "

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple, Tuple
 
+from ...core import spans
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -56,22 +58,24 @@ def source_hash(sources: Tuple[str, ...]) -> str:
 def build(name: str, sources: Tuple[str, ...]) -> Built:
     """Compile ``sources`` (file names under csrc/) into lib<name>-<hash>.so
     unless that file exists, then load it."""
-    paths = [CSRC / s for s in sources]
-    out = BUILD_DIR / f"lib{name}-{source_hash(sources)}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{name}:\n{log}")
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
-    elif out.with_suffix(".log").exists():
-        log = out.with_suffix(".log").read_text()
-    return Built(ctypes.CDLL(str(out)), out, seconds, log)
+    with spans.span(spans.BUILD):
+        paths = [CSRC / s for s in sources]
+        out = BUILD_DIR / f"lib{name}-{source_hash(sources)}.so"
+        seconds, log = 0.0, ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, paths)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) "
+                                   f"building {name}:\n{log}")
+            os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
+        elif out.with_suffix(".log").exists():
+            log = out.with_suffix(".log").read_text()
+        return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -23,6 +23,7 @@ import torch
 from .. import config as cfg
 from ..config import PYRAMID_BASE_MAX_DIM, UNKNOWN, WEAK
 from ..core import geometry as geo
+from ..core import spans
 from ..io import MemoryCache, read_bin_mat, write_bin_mat
 from ..io.cameras import read_camera, read_pair
 from ..io.images import (SUPPORTED_EXTS, pil_available, read_image_gray,
@@ -145,81 +146,84 @@ def load_view(problem: Problem, spec: cfg.PassSpec, cache=None,
     ``src_depths`` ((S, ph, pw) on ``device``) replaces the sources' depth
     files on geometric / APD passes (the view-parallel engine's exchanged
     depths)."""
-    params = spec.params
-    use_apd = params.use_apd and params.state != "first_init"
-    geom_or_apd = params.geom_consistency or params.use_apd
+    with spans.span(spans.LOAD_VIEW):
+        params = spec.params
+        use_apd = params.use_apd and params.state != "first_init"
+        geom_or_apd = params.geom_consistency or params.use_apd
 
-    ref_img, ref_cam = _load_scaled_view(problem, problem.ref_image_id,
-                                         spec.scale_size, cache)
-    src = [_load_scaled_view(problem, sid, spec.scale_size, cache)
-           for sid in problem.src_image_ids]
-    h, w = ref_img.shape
-    depth_min = ref_cam.depth_min * cfg.DEPTH_MIN_FACTOR
-    depth_max = ref_cam.depth_max * cfg.DEPTH_MAX_FACTOR
+        ref_img, ref_cam = _load_scaled_view(problem, problem.ref_image_id,
+                                             spec.scale_size, cache)
+        src = [_load_scaled_view(problem, sid, spec.scale_size, cache)
+               for sid in problem.src_image_ids]
+        h, w = ref_img.shape
+        depth_min = ref_cam.depth_min * cfg.DEPTH_MIN_FACTOR
+        depth_max = ref_cam.depth_max * cfg.DEPTH_MAX_FACTOR
 
-    # ---- padded device layout --------------------------------------------
-    ref_p = pad_to_multiple(ref_img, PAD_H, PAD_W)
-    ph, pw = ref_p.shape
-    valid = np.zeros((ph, pw), bool)
-    valid[:h, :w] = True
-    src_imgs = np.stack([pad_to_multiple(s[0], PAD_H, PAD_W) for s in src]) \
-        if src else np.zeros((0, ph, pw), np.float32)
+        # ---- padded device layout ----------------------------------------
+        ref_p = pad_to_multiple(ref_img, PAD_H, PAD_W)
+        ph, pw = ref_p.shape
+        valid = np.zeros((ph, pw), bool)
+        valid[:h, :w] = True
+        src_imgs = np.stack([pad_to_multiple(s[0], PAD_H, PAD_W)
+                             for s in src]) \
+            if src else np.zeros((0, ph, pw), np.float32)
 
-    def _load_resized_bin(path):
-        mat = read_bin_mat(path, cache=cache)
-        if mat.shape[:2] != (h, w):
-            mat = resize_nearest(mat, (h, w))
-        return mat
+        def _load_resized_bin(path):
+            mat = read_bin_mat(path, cache=cache)
+            if mat.shape[:2] != (h, w):
+                mat = resize_nearest(mat, (h, w))
+            return mat
 
-    def dev(a):
-        return torch.as_tensor(a, device=device)
+        def dev(a):
+            return torch.as_tensor(a, device=device)
 
-    if not geom_or_apd:
-        src_depths = None
-    elif src_depths is None:
-        neigh = [_load_resized_bin(
-            problem.dense_folder / "APD" / format_index(sid) / "depths.bin")
-            for sid in problem.src_image_ids]
-        src_depths = dev(np.stack(
-            [pad_to_multiple(d.astype(np.float32), PAD_H, PAD_W,
-                             mode="constant") for d in neigh])
-            if neigh else np.zeros((0, ph, pw), np.float32))
+        if not geom_or_apd:
+            src_depths = None
+        elif src_depths is None:
+            neigh = [_load_resized_bin(problem.dense_folder / "APD"
+                                       / format_index(sid) / "depths.bin")
+                     for sid in problem.src_image_ids]
+            src_depths = dev(np.stack(
+                [pad_to_multiple(d.astype(np.float32), PAD_H, PAD_W,
+                                 mode="constant") for d in neigh])
+                if neigh else np.zeros((0, ph, pw), np.float32))
 
-    sa_mask = None
-    if use_apd and params.use_sa:
-        sa_path = problem.dense_folder / "sa_masks" / \
-            (format_index(problem.ref_image_id) + ".bin")
-        if sa_path.exists():
-            sa = _load_resized_bin(sa_path).astype(np.int32)
-            sa_mask = dev(pad_to_multiple(sa, PAD_H, PAD_W, mode="constant"))
+        sa_mask = None
+        if use_apd and params.use_sa:
+            sa_path = problem.dense_folder / "sa_masks" / \
+                (format_index(problem.ref_image_id) + ".bin")
+            if sa_path.exists():
+                sa = _load_resized_bin(sa_path).astype(np.int32)
+                sa_mask = dev(pad_to_multiple(sa, PAD_H, PAD_W,
+                                              mode="constant"))
 
-    priors = {}
-    if params.state != "first_init":
-        depth = _load_resized_bin(problem.result_folder / "depths.bin")
-        normal = _load_resized_bin(problem.result_folder / "normals.bin")
-        priors["prior_depth"] = pad_to_multiple(
-            depth.astype(np.float32), PAD_H, PAD_W, mode="constant")
-        priors["prior_normal"] = pad_to_multiple(
-            normal.astype(np.float32), PAD_H, PAD_W, mode="constant")
-    if use_apd:
-        weak = _load_resized_bin(problem.result_folder / "weak.bin")
-        conf = _load_resized_bin(problem.result_folder / "confidence.bin")
-        n_weak = int((weak == WEAK).sum())
-        print(f"Weak count: {n_weak} / {weak.size} = "
-              f"{n_weak / weak.size * 100:.1f}%", flush=True)
-        priors["prior_weak"] = pad_to_multiple(
-            weak.astype(np.int32), PAD_H, PAD_W, mode="constant")
-        priors["prior_confidence"] = pad_to_multiple(
-            conf.astype(np.float32), PAD_H, PAD_W, mode="constant")
+        priors = {}
+        if params.state != "first_init":
+            depth = _load_resized_bin(problem.result_folder / "depths.bin")
+            normal = _load_resized_bin(problem.result_folder / "normals.bin")
+            priors["prior_depth"] = pad_to_multiple(
+                depth.astype(np.float32), PAD_H, PAD_W, mode="constant")
+            priors["prior_normal"] = pad_to_multiple(
+                normal.astype(np.float32), PAD_H, PAD_W, mode="constant")
+        if use_apd:
+            weak = _load_resized_bin(problem.result_folder / "weak.bin")
+            conf = _load_resized_bin(problem.result_folder / "confidence.bin")
+            n_weak = int((weak == WEAK).sum())
+            print(f"Weak count: {n_weak} / {weak.size} = "
+                  f"{n_weak / weak.size * 100:.1f}%", flush=True)
+            priors["prior_weak"] = pad_to_multiple(
+                weak.astype(np.int32), PAD_H, PAD_W, mode="constant")
+            priors["prior_confidence"] = pad_to_multiple(
+                conf.astype(np.float32), PAD_H, PAD_W, mode="constant")
 
-    cams = geo.CameraArrays.from_cameras([ref_cam] + [c for _, c in src],
-                                         device=device)
-    data = CostData.build(
-        cams.view(0), cams.map(lambda a: a[1:]),
-        dev(ref_p.astype(np.float32)), dev(src_imgs.astype(np.float32)),
-        src_depths=src_depths, real_width=w, real_height=h,
-        sampler_u8=params.sampler_u8, sa_mask=sa_mask)
-    return ViewInputs(data, dev(valid), h, w, depth_min, depth_max, priors)
+        cams = geo.CameraArrays.from_cameras([ref_cam] + [c for _, c in src],
+                                             device=device)
+        data = CostData.build(
+            cams.view(0), cams.map(lambda a: a[1:]),
+            dev(ref_p.astype(np.float32)), dev(src_imgs.astype(np.float32)),
+            src_depths=src_depths, real_width=w, real_height=h,
+            sampler_u8=params.sampler_u8, sa_mask=sa_mask)
+        return ViewInputs(data, dev(valid), h, w, depth_min, depth_max, priors)
 
 
 def pass_seed(seed: int, ref_image_id: int, iteration: int) -> int:
@@ -291,36 +295,37 @@ def persist_view_results(problem: Problem, spec: cfg.PassSpec,
     holds the view's maps but does not own its files)."""
     if not write_files and cache is None:
         return
-    depth = depth.astype(np.float32)
-    normal = normal.astype(np.float32)
-    weak = weak.astype(np.uint8)
-    out_of_range = (depth < depth_min) | (depth > depth_max)
-    depth = np.where(out_of_range, 0.0, depth)
-    weak = np.where(out_of_range, np.uint8(UNKNOWN), weak)
+    with spans.span(spans.PERSIST):
+        depth = depth.astype(np.float32)
+        normal = normal.astype(np.float32)
+        weak = weak.astype(np.uint8)
+        out_of_range = (depth < depth_min) | (depth > depth_max)
+        depth = np.where(out_of_range, 0.0, depth)
+        weak = np.where(out_of_range, np.uint8(UNKNOWN), weak)
 
-    for name, mat in (("depths.bin", depth), ("normals.bin", normal),
-                      ("weak.bin", weak)) \
-            + ((("confidence.bin", confidence),) if geom else ()):
-        write_bin_mat(problem.result_folder / name, mat, cache=cache,
-                      flush=write_files)
+        for name, mat in (("depths.bin", depth), ("normals.bin", normal),
+                          ("weak.bin", weak)) \
+                + ((("confidence.bin", confidence),) if geom else ()):
+            write_bin_mat(problem.result_folder / name, mat, cache=cache,
+                          flush=write_files)
 
-    if show_medium_result and write_files:
-        it = spec.iteration
-        if pil_available():
-            visualize.show_depth_map(
-                problem.result_folder / f"depth_{it}.jpg", depth, depth_min,
-                depth_max)
-            visualize.show_normal_map(
-                problem.result_folder / f"normal_{it}.jpg", normal)
-        else:
-            print(f"PIL not available: no depth_{it}.jpg / normal_{it}.jpg "
-                  f"preview for view {format_index(problem.ref_image_id)}",
-                  flush=True)
-        visualize.show_weak_image(
-            problem.result_folder / f"weak_{it}.png", weak)
-        if geom:
-            visualize.show_confidence_map(
-                problem.result_folder / f"confidence_{it}.png", confidence)
+        if show_medium_result and write_files:
+            it = spec.iteration
+            if pil_available():
+                visualize.show_depth_map(
+                    problem.result_folder / f"depth_{it}.jpg", depth,
+                    depth_min, depth_max)
+                visualize.show_normal_map(
+                    problem.result_folder / f"normal_{it}.jpg", normal)
+            else:
+                print(f"PIL not available: no depth_{it}.jpg / "
+                      f"normal_{it}.jpg preview for view "
+                      f"{format_index(problem.ref_image_id)}", flush=True)
+            visualize.show_weak_image(
+                problem.result_folder / f"weak_{it}.png", weak)
+            if geom:
+                visualize.show_confidence_map(
+                    problem.result_folder / f"confidence_{it}.png", confidence)
 
 
 def _export_nearest_strong(path, nearest: np.ndarray) -> None:

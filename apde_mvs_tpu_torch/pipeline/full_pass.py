@@ -34,6 +34,7 @@ import torch
 
 from ..config import UNKNOWN, WEAK, PatchMatchParams
 from ..core import geometry as geo
+from ..core import spans
 from ..ops import anchors as anchor_ops
 from ..ops import filters, init as init_ops
 from ..ops.cost import CostData
@@ -45,6 +46,21 @@ from ..ops.state import PMState
 # pixels per classify / refine evaluation: bounds the plain version's
 # (S, chunk, 36) intermediates on the CPU; results do not depend on it
 CHUNK = 1 << 16
+
+# the pixels the passes in this process worked on, summed over passes
+# (`reset_counts`): the weak list, its reliable subset that the fit and the
+# weak sweep run over, and the pixels the classify and refine stages
+# evaluated. Each is the size of a tensor the pass has already sized on the
+# host, so counting reads nothing from the device.
+weak_pixels = 0
+reliable_pixels = 0
+classified_pixels = 0
+refined_pixels = 0
+
+
+def reset_counts() -> None:
+    global weak_pixels, reliable_pixels, classified_pixels, refined_pixels
+    weak_pixels = reliable_pixels = classified_pixels = refined_pixels = 0
 
 
 class PassStatic(NamedTuple):
@@ -161,6 +177,7 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
                 gen: torch.Generator, *, shard=None):
     """Stage 1. ``state`` is `prior_state`'s; returns (post-sweep state
     with planes = (world normal, depth), the pass's `WeakSet` or None)."""
+    global weak_pixels, reliable_pixels
     params = cfg.params
     # the colour update K3, the weak sweep's K7 and the APD setup's K8 take
     # their scalars as Python floats, K8 and K9 the reference camera's
@@ -171,37 +188,46 @@ def pass_sweeps(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     # ---- APD setup: weak list, anchors, demotion --------------------------
     weak = None
     if cfg.use_apd:
-        wy, wx = torch.nonzero(state.weak == WEAK, as_tuple=True)
-        if wx.numel() > 0:
-            wx = wx.to(torch.int32)
-            wy = wy.to(torch.int32)
-            cam = anchor_ops.host_camera(data.ref_cam)
-            ns = anchor_ops.nearest_strong_jfa(state.weak, state.confidence,
-                                               state.valid)
-            res = _anchors(data, state, wx, wy, params, dmin_f, dmax_f, ns,
-                           gen, shard, cam)
-            state = anchor_ops.neighbor_update(state, wx, wy, res.reliable)
-            # demoted pixels are no longer WEAK: the fit and the weak sweep
-            # (which write WEAK pixels only) run over the reliable ones
-            keep = torch.nonzero(res.reliable, as_tuple=True)[0]
-            weak = WeakSet(wx, wy, res.anchors,
-                           (wx[keep], wy[keep], res.anchors[keep]))
+        with spans.span(spans.APD_SETUP):
+            wy, wx = torch.nonzero(state.weak == WEAK, as_tuple=True)
+            weak_pixels += wx.numel()
+            if wx.numel() > 0:
+                wx = wx.to(torch.int32)
+                wy = wy.to(torch.int32)
+                cam = anchor_ops.host_camera(data.ref_cam)
+                ns = anchor_ops.nearest_strong_jfa(
+                    state.weak, state.confidence, state.valid)
+                res = _anchors(data, state, wx, wy, params, dmin_f,
+                               dmax_f, ns, gen, shard, cam)
+                state = anchor_ops.neighbor_update(state, wx, wy,
+                                                   res.reliable)
+                # demoted pixels are no longer WEAK: the fit and the
+                # weak sweep (which write WEAK pixels only) run over
+                # the reliable ones
+                keep = torch.nonzero(res.reliable, as_tuple=True)[0]
+                reliable_pixels += keep.numel()
+                weak = WeakSet(wx, wy, res.anchors,
+                               (wx[keep], wy[keep], res.anchors[keep]))
 
     # ---- init + iterations ------------------------------------------------
-    if cfg.first_init:
-        planes = init_ops.random_planes(data, dmin, dmax, generator=gen)
-    else:
-        planes = filters.depth_normal_to_planes(
-            data, state.planes[..., 3], state.planes[..., :3])
-    state = init_ops.initial_cost(
-        data, _stage_state(data, state.replace(planes=planes)), params,
-        *(weak[:3] if weak is not None else ()), shard=shard)
-    state = _iterations(data, state, cfg, weak, (dmin_f, dmax_f, gf), cam,
-                        gen, shard)
-    state = state.replace(planes=filters.planes_to_depth_normal(
-        data, state.planes))
-    for color in (0, 1):
-        state = filters.median_filter_color(state, color)
+    with spans.span(spans.INITIAL_COST):
+        if cfg.first_init:
+            planes = init_ops.random_planes(data, dmin, dmax,
+                                            generator=gen)
+        else:
+            planes = filters.depth_normal_to_planes(
+                data, state.planes[..., 3], state.planes[..., :3])
+        state = init_ops.initial_cost(
+            data, _stage_state(data, state.replace(planes=planes)),
+            params, *(weak[:3] if weak is not None else ()),
+            shard=shard)
+    state = _iterations(data, state, cfg, weak, (dmin_f, dmax_f, gf),
+                        cam, gen, shard)
+    with spans.span(spans.TO_DEPTH_NORMAL):
+        state = state.replace(planes=filters.planes_to_depth_normal(
+            data, state.planes))
+        for color in (0, 1):
+            state = filters.median_filter_color(state, color)
     return state, weak
 
 
@@ -215,14 +241,17 @@ def _iterations(data: CostData, state: PMState, cfg: PassStatic, weak,
     dmin_f, dmax_f, gf = consts
     for it in range(cfg.params.max_iterations):
         for color in (0, 1):
-            state = propagate_strong(data, state, cfg.prop, it, color,
-                                     dmin_f, dmax_f, gf, generator=gen,
-                                     shard=shard)
+            with spans.span(spans.STRONG_SWEEP):
+                state = propagate_strong(data, state, cfg.prop, it, color,
+                                         dmin_f, dmax_f, gf, generator=gen,
+                                         shard=shard)
         if weak is not None and weak.sweep[0].numel() > 0:
-            fit = _fit_planes(data, state, weak.sweep, gen, shard, cam)
-            state = propagate_weak(data, state, cfg.prop, it, *weak.sweep,
-                                   fit, dmin_f, dmax_f, gf, generator=gen,
-                                   shard=shard)
+            with spans.span(spans.FIT_PLANES):
+                fit = _fit_planes(data, state, weak.sweep, gen, shard, cam)
+            with spans.span(spans.WEAK_SWEEP):
+                state = propagate_weak(data, state, cfg.prop, it,
+                                       *weak.sweep, fit, dmin_f, dmax_f, gf,
+                                       generator=gen, shard=shard)
     return state
 
 
@@ -288,6 +317,7 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
     numbers (`full_pass` reads them once a pass)."""
     if export_curve and shard is not None:
         raise ValueError("curve export runs on the serial pass only")
+    global classified_pixels
     h, w = data.height, data.width
     dev = data.device
     params = cfg.params
@@ -309,6 +339,7 @@ def pass_classify(data: CostData, state: PMState, cfg: PassStatic, dmin,
     weak_map, (cy, cx), outs = _row_chunks(
         classify, mask, shard,
         torch.full((h, w), UNKNOWN, dtype=torch.int32, device=dev))
+    classified_pixels += cx.numel()
     curve = None
     if export_curve and outs:
         curve = torch.zeros((h, w, outs[0][1].shape[-1]), dtype=torch.float32,
@@ -321,6 +352,7 @@ def pass_finish(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
                 *, shard=None) -> PMState:
     """Stage 3: confidence + local refine. ``state.weak`` must already hold
     stage 2's reclassification; the depth bounds as in `pass_classify`."""
+    global refined_pixels
     params = cfg.params
     gf, dmin, dmax = _sweep_constants(params, dmin, dmax)
     refine_mask = sweepable(data, state)
@@ -334,8 +366,9 @@ def pass_finish(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
             cfg.prop.strong_radius, cfg.prop.strong_increment,
             use_sa=cfg.prop.use_sa)
 
-    depth, _, _ = _row_chunks(refine, refine_mask, shard,
-                              state.planes[..., 3])
+    depth, (ry, _), _ = _row_chunks(refine, refine_mask, shard,
+                                    state.planes[..., 3])
+    refined_pixels += ry.numel()
     return state.replace(planes=torch.cat([state.planes[..., :3],
                                            depth[..., None]], -1))
 
@@ -346,11 +379,16 @@ def full_pass(data: CostData, state: PMState, cfg: PassStatic, dmin, dmax,
     (world normal, refined depth), the reclassified weak map, confidence;
     the pass's `WeakSet` or None; the reliability curves of
     ``export_curve`` or None)."""
-    state, weak = pass_sweeps(data, state, cfg, dmin, dmax, gen, shard=shard)
+    with spans.span(spans.SWEEPS):
+        state, weak = pass_sweeps(data, state, cfg, dmin, dmax, gen,
+                                  shard=shard)
     # the classify and refine stages' depth bounds, read to the host once
     _, dmin, dmax = _sweep_constants(cfg.params, dmin, dmax)
-    weak_map, curve = pass_classify(data, state, cfg, dmin, dmax,
-                                    shard=shard, export_curve=export_curve)
-    state = pass_finish(data, state.replace(weak=weak_map), cfg, dmin, dmax,
-                        shard=shard)
+    with spans.span(spans.CLASSIFY):
+        weak_map, curve = pass_classify(data, state, cfg, dmin, dmax,
+                                        shard=shard,
+                                        export_curve=export_curve)
+    with spans.span(spans.FINISH):
+        state = pass_finish(data, state.replace(weak=weak_map), cfg, dmin,
+                            dmax, shard=shard)
     return state, weak, curve

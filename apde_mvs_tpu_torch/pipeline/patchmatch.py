@@ -22,6 +22,7 @@ import torch
 
 from ..config import PatchMatchParams
 from ..core import geometry as geo
+from ..core import spans
 from ..ops import anchors as anchor_ops
 from ..ops import filters
 from ..ops.cost import CostData
@@ -77,20 +78,32 @@ def run_patchmatch(
     ``shard`` (`parallel.tile_pass.RowShard`) runs the pass row-sharded
     over its process group; every rank returns the whole view's maps.
     """
+    with spans.span(spans.RUN):
+        with spans.span(spans.PRIORS):
+            dev = data.device
+            cfg = PassStatic.from_params(params)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            dmin = geo.f32_scalar(depth_min, dev)
+            dmax = geo.f32_scalar(depth_max, dev)
+            state = prior_state(data, cfg, prior_depth=prior_depth,
+                                prior_normal=prior_normal,
+                                prior_weak=prior_weak,
+                                prior_confidence=prior_confidence,
+                                valid=valid)
+        state, weak, curve = full_pass(data, state, cfg, dmin, dmax, gen,
+                                       shard=shard,
+                                       export_curve=export_curve)
+        with spans.span(spans.OUTPUTS):
+            return _outputs(data, state, weak, curve, seed, export_debug)
+
+
+def _outputs(data: CostData, state, weak, curve, seed: int,
+             export_debug: bool) -> PatchMatchOutputs:
+    """The pass's maps on the host, with the anchors map of the weak list
+    and, with ``export_debug``, the debug exports."""
     dev = data.device
     h, w = data.height, data.width
-    cfg = PassStatic.from_params(params)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    dmin = geo.f32_scalar(depth_min, dev)
-    dmax = geo.f32_scalar(depth_max, dev)
-
-    state = prior_state(data, cfg, prior_depth=prior_depth,
-                        prior_normal=prior_normal, prior_weak=prior_weak,
-                        prior_confidence=prior_confidence, valid=valid)
-    state, weak, curve = full_pass(data, state, cfg, dmin, dmax, gen,
-                                   shard=shard, export_curve=export_curve)
-
     anchors_map = nearest_strong = fit_normal = None
     if weak is not None:
         anchors_map = np.full((h, w), -1, np.int32)

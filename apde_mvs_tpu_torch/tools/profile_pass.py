@@ -25,9 +25,10 @@ with the selection in their epilogues (the serial route's) and of the
 selection K11 where it runs (the tile route), of the APD setup's
 K10 (the nearest-strong flooding), K8 (anchor generation) and K9 (the
 fit-plane RANSAC) and of K1 by call site, each kernel's profiler time,
-the device and host time of the pass's stages (anchors, fit planes, the
-initial cost, the weak sweep, the classify and refine sweeps, ...), and
-the torch ops that hold the most device time.
+the device and host time of the pass's stages (the program's own spans,
+`core/spans.py`: the priors, the APD setup, the initial cost, the strong
+and weak sweeps, the fit, classify, finish, the outputs, ...), and the
+torch ops that hold the most device time.
 
     python -m apde_mvs_tpu_torch.tools.profile_pass [--pass round0|apd]
         [--views 11] [--top 15]
@@ -51,13 +52,13 @@ import torch
 
 from .. import config as cfg
 from ..core import geometry as geo
+from ..core import spans
 from ..core.platform import card_line
-from ..ops import anchors, filters, init
 from ..ops.cost import CostData
 from ..ops.cuda import anchors as kanchors
 from ..ops.cuda import ncc, sampler, strong, sweep, weak, weak_sweep
 from ..ops.cuda import select as k11
-from ..pipeline import full_pass, patchmatch
+from ..pipeline import patchmatch
 from ..testing import synthetic
 
 HEIGHT, WIDTH = 600, 800
@@ -67,19 +68,6 @@ FULL_VIEWS = 11
 APD_BASE = 400
 WEAK_REGION = (-0.3, 0.3, -0.2, 0.2)
 
-# (module, attribute, label): the stages whose device time is reported,
-# each wrapped in a profiler range while this tool runs
-_STAGES = (
-    (anchors, "nearest_strong_jfa", "nearest_strong_jfa"),
-    (anchors, "gen_anchors", "gen_anchors"),
-    (anchors, "ransac_fit_planes", "ransac_fit_planes"),
-    (init, "initial_cost", "initial_cost"),
-    (full_pass, "propagate_strong", "propagate_strong"),
-    (full_pass, "propagate_weak", "propagate_weak"),
-    (filters, "depth_to_weak", "depth_to_weak"),
-    (filters, "local_refine", "local_refine"),
-)
-
 
 def _device_time_us(evt, inclusive: bool = False) -> float:
     names = ("device_time_total", "cuda_time_total") if inclusive else (
@@ -88,14 +76,6 @@ def _device_time_us(evt, inclusive: bool = False) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
-
-
-def _labelled(fn, label):
-    @functools.wraps(fn)
-    def run(*a, **kw):
-        with torch.profiler.record_function(label):
-            return fn(*a, **kw)
-    return run
 
 
 def _event_timed(fn, events: dict, name_of):
@@ -150,11 +130,10 @@ def _named(name):
 
 
 @contextlib.contextmanager
-def stage_ranges(kernel_events: dict):
-    """Wrap every stage of `_STAGES` in a named profiler range, and time
-    K2 and K1 (by call site; K2's stage form apart, with the selection
-    and without), K3, K5 (by mode), K6 (by use; its re-score form apart,
-    with the selection and without), K7, K11 and K8-K10 into
+def timed_kernels(kernel_events: dict):
+    """Time K2 and K1 (by call site; K2's stage form apart, with the
+    selection and without), K3, K5 (by mode), K6 (by use; its re-score
+    form apart, with the selection and without), K7, K11 and K8-K10 into
     ``kernel_events``; restore the plain functions afterwards."""
     kernels = ((sampler, "sample_packed", _k1_site),
                (ncc, "ncc_strong_fused", _k2_site),
@@ -173,10 +152,8 @@ def stage_ranges(kernel_events: dict):
                (kanchors, "nearest_strong", _anchor_kernel("K10 flooding")),
                (kanchors, "gen_anchors", _anchor_kernel("K8 anchors")),
                (kanchors, "fit_planes", _anchor_kernel("K9 fit planes")))
-    saved = [(m, a, getattr(m, a)) for m, a, _ in _STAGES + kernels]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in kernels]
     try:
-        for m, a, label in _STAGES:
-            setattr(m, a, _labelled(getattr(m, a), label))
         for m, a, name_of in kernels:
             setattr(m, a, _event_timed(getattr(m, a), kernel_events,
                                        name_of))
@@ -201,9 +178,8 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
         mod.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    labels = {label for _, _, label in _STAGES}
     kernel_events = {}
-    with stage_ranges(kernel_events):
+    with timed_kernels(kernel_events):
         t0 = time.perf_counter()
         with torch.profiler.profile(activities=acts) as prof:
             run()
@@ -213,7 +189,7 @@ def profile_pass(data, params, prior, dmin, dmax, top: int) -> dict:
     kernels, ops, stages, stages_host = {}, {}, {}, {}
     for evt in prof.key_averages():
         on_device = evt.device_type == torch.autograd.DeviceType.CUDA
-        if evt.key in labels:
+        if evt.key in spans.STEP:
             if not on_device:
                 stages[evt.key] = _device_time_us(evt, inclusive=True) / 1e6
                 stages_host[evt.key] = evt.cpu_time_total / 1e6

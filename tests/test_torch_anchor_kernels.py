@@ -560,7 +560,7 @@ def test_host_camera_is_none_on_cpu():
 def test_profile_pass_times_the_anchor_kernels_and_restores_them():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fns = (kern.nearest_strong, kern.gen_anchors, kern.fit_planes)
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert all(getattr(kern, f.__name__) is not f for f in fns)
     assert all(getattr(kern, f.__name__) is f for f in fns)
 

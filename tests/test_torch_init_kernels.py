@@ -512,7 +512,7 @@ def test_profile_pass_times_the_stage_forms_and_restores_them():
            (k11, "select_fused"), (k2, "init_stage_select_fused"),
            (k6, "rescore_select_fused"))
     before = [getattr(m, a) for m, a in fns]
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert all(getattr(m, a) is not f for (m, a), f in zip(fns, before))
     assert [getattr(m, a) for m, a in fns] == before
 

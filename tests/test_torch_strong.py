@@ -774,7 +774,7 @@ def test_propagate_strong_makes_one_update_call_a_colour(monkeypatch):
 def test_profile_pass_times_k3_and_restores_it():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fused = k3.strong_fused
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert k3.strong_fused is not fused
     assert k3.strong_fused is fused
 

@@ -601,7 +601,7 @@ def test_build_hashes_headers_but_compiles_sources_only(monkeypatch,
 def test_profile_pass_times_k5_and_restores_it():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fused = k5.sweep_fused
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert k5.sweep_fused is not fused
     assert k5.sweep_fused is fused
 

@@ -488,7 +488,7 @@ def test_initial_cost_rescore_makes_one_k6_call_a_chunk(monkeypatch):
 def test_profile_pass_times_k6_and_restores_it():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fused = k6.weak_fused
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert k6.weak_fused is not fused
     assert k6.weak_fused is fused
 

@@ -480,7 +480,7 @@ def test_wrapper_rejects_bad_arguments(what):
 def test_profile_pass_times_k7_and_restores_it():
     from apde_mvs_tpu_torch.tools import profile_pass as pp
     fused = k7.weak_update_fused
-    with pp.stage_ranges({}):
+    with pp.timed_kernels({}):
         assert k7.weak_update_fused is not fused
     assert k7.weak_update_fused is fused
 
