@@ -9,7 +9,8 @@
 // its own (ncc_common.cuh's mul / add / sub / dvd), in the order of the
 // plain versions' torch ops (`strong.select_views_plain`,
 // `strong.refinement_planes_plain`), lengths in float64 as `strong._norm`
-// takes them; a warp runs one pixel.
+// takes them; a warp runs one pixel at a time, or (`select_views_thread`,
+// the hypotheses called with lane 0) a thread runs one.
 
 #pragma once
 
@@ -139,6 +140,69 @@ __device__ __forceinline__ Selection select_views(
   sel.n_weighted = __popc(sel.weighted);
   const float wnorm = static_cast<float>(
       mass ? __popc(__ballot_sync(kFull, lane < kSamples && idx < S)) : 0);
+  sel.has = wnorm > 0.f;
+  sel.inv = sel.has ? dvd(1.f, clamp_min_keep_nan(wnorm, 1e-20f)) : 0.f;
+  return sel;
+}
+
+// The view selection of one pixel in one thread, `select_views`' arithmetic
+// in its order: ``costs`` the (8, S) candidate cost rows, ``prior(s)`` view
+// s's 0.9 / 0.1 votes, ``sel_u`` the pixel's 15 uniforms; ``vw`` (S) first
+// holds the running sum, then the CDF, then the integer view weights.
+// Returns the rest (its ``vw`` 0).
+template <typename Prior>
+__device__ __forceinline__ Selection select_views_thread(
+    const float* costs, int S, Prior prior, float threshold, float fallback,
+    const float* __restrict__ sel_u, float* vw) {
+  float run = 0.f;
+  for (int s = 0; s < S; ++s) {
+    int count = 0, count_false = 0;
+    float tmpw = 0.f;
+    for (int c = 0; c < kCandidates; ++c) {
+      const float v = costs[c * S + s];
+      const bool good = v < threshold;
+      count += good ? 1 : 0;
+      count_false += v > kCostFalse ? 1 : 0;
+      tmpw = add(tmpw, good ? expf(dvd(mul(v, v), kExpScale)) : 0.f);
+    }
+    const float prob = (count > 2 && count_false < 3)
+                           ? dvd(tmpw, static_cast<float>(count > 1 ? count
+                                                                    : 1))
+                           : (count_false < 3 ? fallback : 0.f);
+    run = add(run, mul(prob, prior(s)));
+    vw[s] = run;
+  }
+  const float total = run;
+  const float denom = clamp_min_keep_nan(total, 1e-30f);
+  for (int s = 0; s < S; ++s) vw[s] = dvd(vw[s], denom);
+  // the 15 samples: the count of views whose cdf <= u
+  int idx[kSamples];
+  int landed = 0;
+#pragma unroll
+  for (int k = 0; k < kSamples; ++k) {
+    const float u = __ldg(sel_u + k);
+    int i = 0;
+    for (int t = 0; t < S; ++t) i += vw[t] <= u ? 1 : 0;
+    idx[k] = i;
+    landed += i < S ? 1 : 0;
+  }
+  const bool mass = total > 0.f;
+  Selection sel;
+  sel.vw = 0.f;
+  sel.weighted = 0u;
+  sel.n_weighted = 0;
+  for (int t = 0; t < S; ++t) {
+    int votes = 0;
+#pragma unroll
+    for (int k = 0; k < kSamples; ++k) votes += idx[k] == t ? 1 : 0;
+    const float w = mass ? static_cast<float>(votes) : 0.f;
+    vw[t] = w;
+    if (w != 0.f) {
+      sel.weighted |= 1u << t;
+      ++sel.n_weighted;
+    }
+  }
+  const float wnorm = static_cast<float>(mass ? landed : 0);
   sel.has = wnorm > 0.f;
   sel.inv = sel.has ? dvd(1.f, clamp_min_keep_nan(wnorm, 1e-20f)) : 0.f;
   return sel;

@@ -18,13 +18,16 @@ outputs into fresh copies of the state's maps, in place of the JAX
 package's commit (``propagate_strong``, apde_mvs_tpu/ops/propagation.py
 :429-460) as torch ops; ``commit_maps_plain`` is its plain version.
 
-The kernel (``csrc/strong.cu``) runs the whole update in one launch: a warp
-a pixel, its (plane, view) pairs across the lanes; it builds each pixel's
-reference window from ``data.ref_image`` (and, under SA, ``data.sa_mask``)
-itself, so the inputs are the image, the state, the pixels and the draws,
-and only the four outputs are written. What bounds it on the H100:
-operations (30 f32 operations a tap and 138 a pair for every evaluated
-pair, K4's 115 a pair, the selection's and the hypotheses' per pixel).
+The kernel (``csrc/strong.cu``) runs the whole update in one launch: a
+block a run of 32 pixels of the batch, the (pixel, plane, view) pairs a
+lane each, so that the lanes of a warp read one view's table at
+neighbouring pixels; it builds each pixel's reference window from
+``data.ref_image`` (and, under SA, ``data.sa_mask``) itself, so the inputs
+are the image, the state, the pixels and the draws, and only the four
+outputs are written. What bounds it on the H100: operations (30 f32
+operations a tap and 138 a pair for every evaluated pair, K4's 115 a pair,
+the selection's and the hypotheses' per pixel). ``strong_timing`` runs its
+timing-only forms (``tools/kernel_split.py``).
 
 The plain version fixes every operation's order: the window of
 ``cost.precompute_ref_window`` with its sums in tap order
@@ -103,7 +106,7 @@ def library() -> _build.Built:
         [ptr, i32, ptr, ptr, i32, i32, f32, ptr, ptr, ptr, i32, i32, i32,
          i32, ptr, ptr, ptr, i32, ptr, i32, i32, f32, ptr, ptr, ptr, ptr,
          ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-         ctypes.c_int64, i32, i32, i32, i32, i32, ptr])
+         ctypes.c_int64, i32, i32, i32, i32, i32, i32, ptr])
     lib.apde_strong.restype = i32
     for fn in (lib.apde_strong_max_views, lib.apde_strong_cam_stride,
                lib.apde_strong_num_samples):
@@ -472,7 +475,7 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
                  use_sa: bool, iteration, depth_min, depth_max, geom_factor,
                  geom: bool, refine_init: bool,
                  row_bounds: Optional[Tuple[int, int]] = None,
-                 commit: bool = False) -> StrongOutputs:
+                 commit: bool = False, _part: int = 0) -> StrongOutputs:
     """The strong sweep's colour update of pixels (x, y) (B,) int32, all of
     one checkerboard colour, against every source view of ``data`` (a
     ``cost.CostData``): ``state`` (a ``PMState``) gives the costs, planes
@@ -488,7 +491,7 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
     committed maps (``commit_maps_plain``'s: copies of the state's planes,
     costs, selections and view weights, the outputs written at the active
     pixels), which K3 writes itself. Every tensor must be contiguous on
-    CUDA."""
+    CUDA. ``_part`` is for `strong_timing` only."""
     b, t, sa, tensors = _check_args(data, state, x, y, draws, radius,
                                     increment, use_sa, geom, commit)
     quads = data.src_quads
@@ -538,9 +541,10 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
         return out
     raws = draws.raws
     global launches, colours, sa_launches
-    launches += 1
-    colours += 1
-    sa_launches += int(sa)
+    if not _part:
+        launches += 1
+        colours += 1
+        sa_launches += int(sa)
     ncc._raise_on(lib.apde_strong(
         quads.data_ptr(), int(quads.dtype == torch.uint8), cams.data_ptr(),
         depths.data_ptr() if geom else None,
@@ -557,7 +561,34 @@ def strong_fused(data, state, x, y, draws, *, radius: int, increment: int,
         out.selected.data_ptr(), out.view_weights.data_ptr(),
         state.weak.data_ptr() if commit else None,
         state.valid.data_ptr() if commit else None, b, s,
-        data.width, data.quad_h, data.img_w, data.img_h,
+        data.width, data.quad_h, data.img_w, data.img_h, _part,
         torch.cuda.current_stream(quads.device).cuda_stream),
         "apde_strong")
     return out
+
+
+TIMING_PARTS = {1: "phase 0", 2: "phase 0, gathers only",
+                3: "phase 0 without gathers",
+                4: "through the selection, the adoption and the hypotheses"}
+
+
+def strong_timing(part: int, *args, **kw) -> StrongOutputs:
+    """For measuring where K3's time goes, never on the main path: the
+    kernel's timing-only forms (``TIMING_PARTS``), on CUDA tensors with the
+    main path's window (radius 5, increment 2) and u8 tables, in the output
+    form. Parts 1-3 end after the first phase's pairs (every valid
+    candidate and the current plane against every view): ``part`` 1 runs
+    their taps whole, 2 only the coordinates and the table reads (the
+    gathers), 3 all but the reads; the view weights hold the cost array's
+    rows summed. Part 4 ends after the selection, the adoption, the
+    refinement hypotheses and the second phase's list, before the second
+    phase's pairs; the costs hold the adopted costs. The other outputs are
+    not written. Counts no launch."""
+    if part not in TIMING_PARTS:
+        raise ValueError(f"part must be one of {sorted(TIMING_PARTS)}, got "
+                         f"{part}")
+    if args[0].src_quads.device.type != "cuda":
+        raise ValueError("strong_timing runs the kernel only")
+    if kw.get("commit"):
+        raise ValueError("strong_timing runs the output form only")
+    return strong_fused(*args, **kw, _part=part)

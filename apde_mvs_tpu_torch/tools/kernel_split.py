@@ -1,6 +1,17 @@
-"""Where K7's (the weak sweep's chunk update) and K8's (anchor generation)
-time goes on the card, stage by stage, at the chunks the main paths give
-them.
+"""Where K3's (the strong sweep's colour update), K7's (the weak sweep's
+chunk update) and K8's (anchor generation) time goes on the card, stage by
+stage, at the inputs the main paths give them.
+
+K3 is timed whole and in its timing-only forms (``strong.strong_timing``:
+the first phase's pairs, every valid candidate and the current plane
+against every view, run whole, with only their gathers (the coordinates
+and the table reads) and with all but the reads; and everything before the
+second phase's pairs), at the benchmark cell's
+shape (``tools.kernel_times.cell_scene``: 1600x1200, 10 sources, the
+960,000 black pixels, u8 tables, geometric, iteration 1) with the SA and
+the square window, with the work the kernel's inputs give it: the pairs a
+pixel in each phase and the views weighted. The gathers' share of the
+first phase is 1 - (its time without the reads) / (its time whole).
 
 Times are device times from torch.profiler (CUDA events around a launch
 also hold the host's time a call, which exceeds a short kernel's). K7 is
@@ -34,7 +45,7 @@ point lies in the image: their mean and maximum a lane, and a warp's
 longest) and the time of the jitter draw table (``anchors.anchor_raws``)
 of a chunk.
 
-    python -m apde_mvs_tpu_torch.tools.kernel_split
+    python -m apde_mvs_tpu_torch.tools.kernel_split [--only K3|K7|K8]
 
 Needs a CUDA device. The last line is one JSON object with the numbers.
 """
@@ -49,12 +60,64 @@ import torch
 from ..core.platform import card_line
 from ..ops import anchors as anc
 from ..ops.cuda import anchors as kern
-from ..ops.cuda import weak_sweep
-from .kernel_times import (APD_VIEWS, apd_scene, cuda_ms, device_ms,
-                           draw_table_ms, k7_kwargs, k8_chunk,
-                           real_pass_chunks, weak_chunk)
+from ..ops.cuda import strong, weak_sweep
+from .kernel_times import (APD_VIEWS, VIEWS, apd_scene, cell_scene, cuda_ms,
+                           device_ms, draw_table_ms, k7_kwargs, k8_chunk,
+                           real_pass_chunks, strong_inputs, weak_chunk)
 
 LANES = 32
+
+
+def k3_cases(si) -> dict:
+    """K3's inputs as {name: (args, kwargs)} of ``strong.strong_fused``
+    from ``kernel_times.strong_inputs``' result: the SA and the square
+    window, geometric, iteration 1, the output form."""
+    kw = dict(radius=5, increment=2, iteration=1, depth_min=si.depth_min,
+              depth_max=si.depth_max, geom_factor=si.geom_factor, geom=True,
+              refine_init=False)
+    return {name: ((d, si.state, si.x, si.y, si.draws), dict(kw, use_sa=sa))
+            for name, d, sa in (("SA", si.sa_data, True),
+                                ("square", si.data, False))}
+
+
+def k3_work(args, kw) -> dict:
+    """The work K3's pixels hold on these inputs: the (plane, view) pairs a
+    pixel in the first phase (the valid candidates and the current plane,
+    against every view) and the second (the 5 hypotheses against the
+    weighted views, from the update's view weights), the views weighted,
+    the pixels with none, and the share whose window is the SA star."""
+    from ..core.sampling import fetch
+    from ..ops.propagation import checkerboard_candidates
+    data, state, x, y, _ = args
+    s = data.num_src
+    _, _, flags = checkerboard_candidates(state.costs, x, y,
+                                          kw.get("row_bounds"))
+    n_w = (strong.strong_fused(*args, **kw).view_weights > 0).sum(-1)
+    star = fetch(data.sa_mask, x, y) > 0 if kw["use_sa"] \
+        and data.sa_mask is not None else torch.zeros_like(x, dtype=bool)
+    return dict(pixels=x.numel(), views=s,
+                phase0_pairs=float(((flags.sum(-1) + 1) * s).float().mean()),
+                phase1_pairs=float((5 * n_w).float().mean()),
+                weighted_views=float(n_w.float().mean()),
+                no_views=float((n_w == 0).float().mean()),
+                star_share=float(star.float().mean()))
+
+
+def k3_split(args, kw, iters: int = 10) -> dict:
+    """K3's device time a launch, whole and in each timing-only form
+    (profiler), the whole launch's by CUDA events, and the gathers' share
+    of the first phase."""
+    def whole():
+        return strong.strong_fused(*args, **kw)
+    out = dict(ms=device_ms(whole, iters, "strong_kernel"),
+               event_ms=cuda_ms(whole, iters))
+    for part, key in ((1, "phase0_ms"), (2, "gathers_ms"),
+                      (3, "no_gathers_ms"), (4, "through_select_ms")):
+        out[key] = device_ms(lambda: strong.strong_timing(
+            part, *args, **kw), iters, "strong_kernel")
+    out["gather_share"] = 1.0 - out["no_gathers_ms"] / out["phase0_ms"]
+    out["phase0_share"] = out["phase0_ms"] / out["ms"]
+    return out
 
 
 def k7_chunks(scene, dev, seed: int = 0, real=None) -> dict:
@@ -190,9 +253,32 @@ def k8_split(args, kw, iters: int = 20) -> dict:
     return out
 
 
+def k3_report(dev, card: str, seed: int = 0, log=print) -> dict:
+    """K3's split and work at the benchmark cell's shape, SA and square;
+    prints a line each."""
+    out = {}
+    for name, (args, kw) in k3_cases(strong_inputs(cell_scene(), dev,
+                                                   seed)).items():
+        r = k3_split(args, kw)
+        r.update(k3_work(args, kw))
+        out[name] = r
+        log(f"K3 split, {name}: {r['pixels']} pixels, whole {r['ms']:.4f} "
+            f"ms ({r['event_ms']:.4f} by events), phase 0 "
+            f"{r['phase0_ms']:.4f} ({r['phase0_share']:.3f} of the whole), "
+            f"its gathers only {r['gathers_ms']:.4f}, without them "
+            f"{r['no_gathers_ms']:.4f}: the gathers' share of phase 0 "
+            f"{r['gather_share']:.3f}; to the second phase "
+            f"{r['through_select_ms']:.4f}; pairs a pixel phase 0 "
+            f"{r['phase0_pairs']:.2f}, phase 1 {r['phase1_pairs']:.2f} "
+            f"({r['weighted_views']:.2f} views weighted, "
+            f"{r['no_views']:.4f} of the pixels none); star windows "
+            f"{r['star_share']:.3f} [{card}]")
+    return out
+
+
 def report(scene, dev, card: str, seed: int = 0, log=print,
            real=None) -> dict:
-    """Both kernels' splits and work at every chunk; prints a line each.
+    """K7's and K8's splits and work at every chunk; prints a line each.
     ``real`` is `real_pass_chunks`' result where the caller has it."""
     real = real or real_pass_chunks(dev)
     log(f"real APD pass: {real.prior_weak} WEAK pixels in the FIRST_INIT "
@@ -240,12 +326,33 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("K3", "K7", "K8"),
+                    help="split only this kernel (K7 and K8 run together)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split needs a CUDA device")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
+
+    def log(m):
+        print(m, flush=True)
+    out = {}
+    if args.only in (None, "K3"):
+        built = strong.library()
+        print(f"K3: {built.path.name}", flush=True)
+        for ln in built.log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  ptxas: {ln.strip()}", flush=True)
+        for sa in (True, False):
+            info = strong.kernel_info(True, sa, 5, 2, VIEWS - 1)
+            smem = built.lib.apde_strong_smem_bytes(VIEWS - 1, 5, 2, int(sa))
+            print(f"K3 u8 SA {sa}, {VIEWS - 1} views: {info}, {smem} B "
+                  "shared a block", flush=True)
+        out["K3"] = k3_report(dev, card, args.seed, log=log)
+        if args.only == "K3":
+            print(json.dumps(dict(card=card, **out)))
+            return 0
     for name, mod in (("K7", weak_sweep), ("K8", kern)):
         built = mod.library()
         print(f"{name}: {built.path.name}", flush=True)
@@ -256,10 +363,7 @@ def main(argv=None) -> int:
         info = weak_sweep.kernel_info(True, sa, geom, APD_VIEWS - 1)
         print(f"K7 u8 SA {sa} geometric {geom}: {info}", flush=True)
     print(f"K8: {kern.kernel_info('K8')}", flush=True)
-
-    def log(m):
-        print(m, flush=True)
-    out = report(apd_scene(), dev, card, args.seed, log=log)
+    out.update(report(apd_scene(), dev, card, args.seed, log=log))
     print(json.dumps(dict(card=card, **out)))
     return 0
 

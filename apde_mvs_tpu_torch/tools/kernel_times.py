@@ -30,7 +30,11 @@ scene (seed 0), u8 quad tables:
 - K3 alone at the same two windows (``strong.strong_fused``; in a
   checkout whose K3 still takes a prebuilt window, that window is built
   beforehand, untimed: this branch exists only to time such older
-  checkouts against this one);
+  checkouts against this one), and its other forms: the commit form
+  (square and SA; a fifth of the pixels WEAK and 3% invalid), REFINE_INIT
+  (SA) and a tile-route rank's halo row block; with ``--strong_only`` also
+  K3's SA commit form at the benchmark cell's shape (``cell_scene``:
+  1600x1200, 10 sources, 960,000 black pixels), and nothing else;
 - the weak sweep's body, ``propagation._weak_body``, on one chunk of the
   APD scan chip_smoke.py runs (``weak_chunk``: round 1 at 600x800, 6 views,
   the SA mask, REFINE_ITER's geometric cost): one K7 launch in a checkout
@@ -69,14 +73,14 @@ scene (seed 0), u8 quad tables:
   fit, beside its draw table (``anchors.ransac_draws``).
 
 Each time is the mean over back-to-back launches after a warm-up (CUDA
-events); the weak path's kernels also give their device time
+events); the weak path's kernels and K3 also give their device time
 (torch.profiler's, ``... device``), free of the host's time a call. The
 script imports the package by absolute name, so it times the checkout
 found first on ``sys.path``: run it from another checkout's root with
 that root on ``PYTHONPATH`` to time that checkout's kernels.
 
     python -m apde_mvs_tpu_torch.tools.kernel_times [--tag NAME] \
-        [--weak_only | --init_only | --rescore_only]
+        [--weak_only | --init_only | --rescore_only | --strong_only]
     cd OTHER && PYTHONPATH=$PWD python /path/to/kernel_times.py --tag other
 
 Needs a CUDA device. The last line is one JSON object: the tag, the card,
@@ -114,6 +118,8 @@ from apde_mvs_tpu_torch.pipeline.full_pass import CHUNK, MIN_MARGIN
 from apde_mvs_tpu_torch.testing import synthetic
 
 HEIGHT, WIDTH, VIEWS = 600, 800, 11
+# the benchmark cell's resolution (dtu.r1_geom_weak: round 1 of DTU)
+CELL_HEIGHT, CELL_WIDTH = 1200, 1600
 CYCLED = 32
 # chip_smoke.py's APD scan: its views, its pyramid base (round 1 at full
 # size) and the weak plane of benchmarks/fullres_stress.py's scene
@@ -257,7 +263,28 @@ def k5_times(scene, dev, out: dict, seed: int = 0) -> None:
               flush=True)
 
 
-def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
+class StrongInputs(NamedTuple):
+    """A colour update's inputs (``strong_inputs``)."""
+
+    data: CostData        # u8 tables, no SA mask
+    sa_data: CostData     # the same with the SA mask
+    state: PMState
+    x: torch.Tensor       # (B,) int32, the black pixels
+    y: torch.Tensor
+    draws: object         # propagation.SweepDraws
+    depth_min: float
+    depth_max: float
+    geom_factor: float
+
+
+def strong_inputs(scene, dev, seed: int = 0) -> StrongInputs:
+    """The colour update's inputs at the black pixels of view 0 of
+    ``scene``: u8 tables, the source depths the ground truth, the SA mask
+    segment 1 where the depth is below 0.95 of its mean (the star there);
+    the state's planes near the truth (0.2% depth noise, a fifth 3% off) as
+    camera-frame planes, their top-k mean costs and views of K2's costs (a
+    REFINE_ITER pass's), a fifth of the pixels WEAK and 3% invalid (the
+    commit form's inactive pixels); seeded draws."""
     from apde_mvs_tpu_torch.ops import propagation
     H, W = scene.images.shape[1:]
     S = scene.num_views - 1
@@ -280,9 +307,13 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
                        planes.reshape(-1, 4), precompute_ref_window(
                            data, xs.reshape(-1), ys.reshape(-1), 5, 2))
     mean_cost, sel = initial_cost_and_selection(costs, params.top_k)
+    del costs
+    weak = torch.as_tensor(np.where(rng.random((H, W)) < 0.2, cfg.WEAK,
+                                    cfg.STRONG).astype(np.int32), device=dev)
     state = PMState.create(H, W, S, device=dev).replace(
         planes=planes, costs=mean_cost.reshape(H, W).contiguous(),
-        selected=sel.reshape(H, W, S).contiguous())
+        selected=sel.reshape(H, W, S).contiguous(), weak=weak,
+        valid=torch.as_tensor(rng.random((H, W)) >= 0.03, device=dev))
     xs2, ys2 = cb.color_coords(H, W, 0, device=dev)
     x, y = xs2.reshape(-1).contiguous(), ys2.reshape(-1).contiguous()
     draws = propagation.sweep_draws(
@@ -294,6 +325,27 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
     sa_data = data.replace(sa_mask=torch.as_tensor(
         scene.depths[0] < 0.95 * scene.depths[0].mean(), device=dev).to(
             torch.int32))
+    return StrongInputs(data, sa_data, state, x, y, draws, dmin, dmax, gf)
+
+
+def cell_scene():
+    """The benchmark cell's shape on the synthetic scene: 1600x1200, 11
+    views (10 sources), the focal length 1.25 W."""
+    return synthetic.make_scene(num_views=VIEWS, height=CELL_HEIGHT,
+                                width=CELL_WIDTH, baseline=0.12,
+                                focal=1.25 * CELL_WIDTH)
+
+
+def colour_update_times(scene, dev, out: dict, seed: int = 0,
+                        cell=None) -> None:
+    """The colour update's body and K3's forms at ``scene``'s black pixels
+    (``strong_inputs``), and with ``cell`` (``cell_scene``) K3's SA commit
+    form there too."""
+    from apde_mvs_tpu_torch.ops import propagation
+    si = strong_inputs(scene, dev, seed)
+    data, sa_data, state, x, y, draws = si[:6]
+    dmin, dmax, gf = si[6:]
+    S = data.num_src
     from apde_mvs_tpu_torch.ops.cuda import strong
     # only an older checkout's K3 takes a prebuilt window
     takes_window = "win" in inspect.signature(strong.strong_fused).parameters
@@ -313,10 +365,57 @@ def colour_update_times(scene, dev, out: dict, seed: int = 0) -> None:
         else:
             args = (d, state, x, y, draws)
             kw.update(radius=5, increment=2, use_sa=sa)
-        name = "K3" + tag
-        out[name] = cuda_ms(lambda: strong.strong_fused(*args, **kw), 10)
-        print(f"{name}: {out[name]:.4f} ms ({S} views x {x.numel()} pixels, "
-              "geometric)", flush=True)
+        timed(out, "K3" + tag, lambda: strong.strong_fused(*args, **kw), 10,
+              "strong_kernel", f"({S} views x {x.numel()} pixels, geometric)")
+    if not takes_window:
+        k3_form_times(si, out, strong)
+    if cell is not None:
+        ci = strong_inputs(cell, dev, seed)
+        kw = dict(radius=5, increment=2, use_sa=True, iteration=1,
+                  depth_min=ci.depth_min, depth_max=ci.depth_max,
+                  geom_factor=ci.geom_factor, geom=True, refine_init=False,
+                  commit=True)
+        timed(out, "K3 cell SA commit", lambda: strong.strong_fused(
+            ci.sa_data, ci.state, ci.x, ci.y, ci.draws, **kw), 10,
+            "strong_kernel", f"({ci.data.num_src} views x {ci.x.numel()} "
+            f"pixels of {cell.images.shape[1]}x{cell.images.shape[2]}, SA, "
+            "geometric, the commit form)")
+
+
+def k3_form_times(si: StrongInputs, out: dict, strong) -> None:
+    """K3's other forms at ``strong_inputs``' pixels: the commit form
+    (square and SA, geometric), REFINE_INIT (SA, no geometric cost) and a
+    tile-route rank's halo row block (rows 0 .. H / 2 - 1 with their halo,
+    the square window, its row bounds)."""
+    from apde_mvs_tpu_torch.testing.kernel_cases import block_state
+    S, n = si.data.num_src, si.x.numel()
+    base = dict(radius=5, increment=2, iteration=2, depth_min=si.depth_min,
+                depth_max=si.depth_max, geom_factor=si.geom_factor,
+                geom=True, refine_init=False)
+    forms = [("K3 commit", si.data, si.state, si.x, si.y, si.draws,
+              dict(base, use_sa=False, commit=True), "geometric, commit"),
+             ("K3 SA commit", si.sa_data, si.state, si.x, si.y, si.draws,
+              dict(base, use_sa=True, commit=True), "SA, geometric, commit"),
+             ("K3 SA REFINE_INIT", si.sa_data, si.state, si.x, si.y,
+              si.draws, dict(base, use_sa=True, geom=False,
+                             refine_init=True), "SA, REFINE_INIT")]
+    H, W = si.state.costs.shape
+    block, row0, lo, hi = halo_block(si.data, 0, H // 2, HALO_ROWS)
+    bstate = block_state(si.state, row0, block.height)
+    bxs, bys = cb.color_coords(block.height, W, 0, device=si.x.device)
+    bx, by = bxs.reshape(-1).contiguous(), bys.reshape(-1).contiguous()
+    from apde_mvs_tpu_torch.ops import propagation
+    bdraws = propagation.sweep_draws(
+        torch.Generator(device=bx.device).manual_seed(1), bx.numel(),
+        bx.device)
+    forms.append(("K3 halo", block, bstate, bx, by, bdraws,
+                  dict(base, use_sa=False, row_bounds=(lo, hi)),
+                  f"geometric, a halo row block of {block.height} rows, "
+                  f"rows {lo}..{hi}"))
+    for name, d, st, x, y, dr, kw, what in forms:
+        timed(out, name, lambda: strong.strong_fused(d, st, x, y, dr, **kw),
+              10, "strong_kernel", f"({S} views x {x.numel()} pixels, "
+              f"{what}; {n} black pixels of the image)")
 
 
 def device_ms(fn, iters: int, kernel: str, tries: int = 3,
@@ -864,6 +963,9 @@ def main(argv=None) -> int:
                     help="time only the initial cost")
     ap.add_argument("--rescore_only", action="store_true",
                     help="time only K6's re-score form (both modes)")
+    ap.add_argument("--strong_only", action="store_true",
+                    help="time only the colour update and K3's forms, "
+                         "and K3 at the benchmark cell's shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -873,6 +975,7 @@ def main(argv=None) -> int:
     weak_path = (("weak", "K6"), ("weak_sweep", "K7"), ("anchors", "K8-K10"))
     kernels = (("ncc", "K2"), ("weak", "K6"), ("select", "K11")) \
         if args.init_only else (("weak", "K6"),) if args.rescore_only \
+        else (("strong", "K3"),) if args.strong_only \
         else weak_path if args.weak_only else (
         ("ncc", "K2"), ("sweep", "K5"), ("strong", "K3")) + weak_path
     for name, kernel in kernels:
@@ -886,6 +989,12 @@ def main(argv=None) -> int:
     out: dict = {}
     if args.init_only:
         init_times(real_pass_chunks(dev), out)
+        print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
+        return 0
+    if args.strong_only:
+        colour_update_times(synthetic.make_scene(
+            num_views=VIEWS, height=HEIGHT, width=WIDTH, baseline=0.12),
+            dev, out, cell=cell_scene())
         print(json.dumps(dict(tag=args.tag, card=card, libs=libs, ms=out)))
         return 0
     if not args.weak_only:

@@ -28,6 +28,7 @@ JAX package's imports it runs with ``--noconftest``:
 import dataclasses
 import functools
 import math
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -74,13 +75,20 @@ NEG_CASE = "sa-neg-u8-geom-it2"
 # a ragged or one-pixel batch, other windows than the main path's (the
 # generic tap loop): 25-tap squares of radius 4, step 2 and radius 6, step
 # 3, and SA with a 36-tap square of radius 8, step 3; then the square at
-# 32 views and negative segment ids
+# 32 views and negative segment ids; then the edges of K3's block of 32
+# pixels: batches of 31, 33, 63 and 65 pixels from the colour's sixth
+# (each wrapping a row), the 4 sources cycled into 5, 10 and 20 views, and
+# a band of NaN planes whose middle pixels weight no view among pixels that
+# do
 CARD_CASES = CASES + tuple(
     f"u8-geom-it2-sel-{p}" for p in SELECTION_PATTERNS[1:]) + (
     "u8-geom-it2-nan", "u8-geom-it2-s1", "sa-u8-geom-it2-s32",
     "u8-geom-it2-ragged", "u8-geom-it2-one-pixel", "u8-geom-it2-taps25",
     "f32-it2-taps25-pp", "sa-u8-geom-it2-r8i3", "u8-geom-it2-s32",
-    NEG_CASE)
+    NEG_CASE, "u8-geom-it2-b31", "sa-u8-geom-it1-b33", "f32-geom-it2-b63",
+    "sa-f32-init-it2-b65", "u8-geom-it2-s5", "sa-u8-geom-it2-s10",
+    "f32-geom-it2-s20", "sa-f32-init-it1-s20", "u8-geom-it2-nanband",
+    "sa-f32-geom-it2-nanband")
 # (radius, increment) of a case's window
 WINDOWS = {"taps25": (4, 2), "taps25-pp": (6, 3), "r8i3": (8, 3)}
 
@@ -116,10 +124,10 @@ class Case(NamedTuple):
     cfg: tprop.PropCfg
 
 
-def _state(data, rng, nan=False):
+def _state(data, rng, nan=False, nan_band=False):
     """Planes near the truth (1% depth noise) on half the pixels, random on
     the rest; random costs in [0, 1.5) and selections (40%); with ``nan``
-    every plane NaN."""
+    every plane NaN, with ``nan_band`` those of rows 6 .. 17."""
     scene = _scene()
     dev = data.device
     dmin, dmax = _bounds()
@@ -138,6 +146,9 @@ def _state(data, rng, nan=False):
     planes = torch.where(pick[..., None], near, rand)
     if nan:
         planes = torch.full_like(planes, float("nan"))
+    elif nan_band:
+        planes = planes.clone()
+        planes[6:18] = float("nan")
     return PMState.create(H, W, data.num_src, device=dev).replace(
         planes=planes.contiguous(),
         costs=torch.as_tensor(rng.uniform(0, 1.5, (H, W)).astype(np.float32),
@@ -188,9 +199,9 @@ def _cpu_case(name) -> Case:
     cams = tgeo.CameraArrays.from_cameras(scene.cameras, device=device)
     imgs = torch.as_tensor(scene.images, device=device)
     sa = name.startswith("sa") or "-sa" in name
-    src = [1] if name.endswith("-s1") else \
-        [1 + i % S for i in range(32)] if name.endswith("-s32") else \
-        list(range(1, V))
+    views = re.search(r"-s(\d+)$", name)
+    src = [1 + i % S for i in range(int(views.group(1)))] if views \
+        else list(range(1, V))
     geom = "geom" in name
     depths = torch.as_tensor(np.stack(scene.depths)[src], device=device)
     mask = torch.as_tensor(_sa_mask(scene.depths[0], 2), device=device) \
@@ -201,7 +212,8 @@ def _cpu_case(name) -> Case:
         cams.view(0), cams.map(lambda a: a[src]), imgs[0], imgs[src],
         src_depths=depths, sampler_u8="u8" in name, sa_mask=mask)
     rng = np.random.default_rng(CARD_CASES.index(name))
-    state = _state(data, rng, nan=name.endswith("-nan"))
+    state = _state(data, rng, nan=name.endswith("-nan"),
+                   nan_band=name.endswith("-nanband"))
     color = CARD_CASES.index(name) % 2
     row_bounds = None
     if name.startswith("halo"):
@@ -216,6 +228,9 @@ def _cpu_case(name) -> Case:
         x, y = x[:377].contiguous(), y[:377].contiguous()
     elif name.endswith("one-pixel"):
         x, y = x[200:201].contiguous(), y[200:201].contiguous()
+    elif re.search(r"-b\d+$", name):
+        n = int(name.rsplit("-b", 1)[1])
+        x, y = x[5:5 + n].contiguous(), y[5:5 + n].contiguous()
     xf, yf = x.float(), y.float()
     radius, increment = _window(name)
     win = k3.window_plain(data, xf, yf, radius, increment, sa)
@@ -279,6 +294,24 @@ def test_plain_matches_the_composition_it_replaces(name):
     assert 0.1 < moved.float().mean() < 1.0
     if c.kw["row_bounds"] is not None:
         assert c.kw["row_bounds"][0] > 0
+
+
+@pytest.mark.parametrize("name", [n for n in CARD_CASES
+                                  if re.search(r"-(b|s)\d+$|-nanband$", n)])
+def test_block_edge_cases_are_what_they_name(name):
+    """The card's cases at the edges of K3's block of 32 pixels: a batch of
+    n pixels from the colour's sixth spans more than one row, the sources
+    are cycled into the views named, and the plain update leaves some
+    pixels of every case without a weighted view and some with one (a NaN
+    band: its middle pixels weight none)."""
+    c = _case(name)
+    batch = re.search(r"-b(\d+)$", name)
+    views = re.search(r"-s(\d+)$", name)
+    assert c.x.numel() == (int(batch.group(1)) if batch else H * W // 2)
+    assert len(set(c.y.tolist())) > 1
+    assert c.data.num_src == (int(views.group(1)) if views else S)
+    n_w = (_plain(c).view_weights > 0).sum(-1)
+    assert 0 < int((n_w == 0).sum()) < c.x.numel()
 
 
 def test_row_bounds_keep_candidates_inside_the_image():
@@ -818,7 +851,9 @@ def test_k3_matches_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["u8-geom-it0", "sa-u8-geom-it1",
                                   "u8-geom-init-it2", "halo-u8-geom-it2",
-                                  "f32-geom-it2"])
+                                  "f32-geom-it2", "sa-u8-geom-it1-b33",
+                                  "sa-f32-init-it2-b65", "sa-u8-geom-it2-s10",
+                                  "u8-geom-it2-nanband"])
 def test_k3_commit_matches_plain_on_card(cuda_device, name):
     """K3's commit form on the card (the active pixels' outputs written into
     copies of the maps) bitwise equal to its plain version, one launch, the
